@@ -1,0 +1,117 @@
+"""RNN_MS vocoder conditioned on VQ-CPC codes and a speaker.
+
+Modules keep the reference ``Vocoder``'s ``state_dict`` names
+(reference network_vocoder.py:26-78 wrapping rnnms.RNNMSVocoder)::
+
+    code_embedding, speaker_embedding          nn.Embedding
+    rnnms.prenet                               2-layer bidirectional nn.GRU
+    rnnms.embedding                            nn.Embedding(2^bits, 256)
+    rnnms.rnn                                  nn.GRU(256 + 256 -> 896)
+    rnnms.fc1, rnnms.fc2                       nn.Linear(896, 256), (256, 2^bits)
+
+The GRU modules only hold parameters; the recurrences are the loops of
+``models/rnn.py`` and, for the sample-level decode, ``ops/ar_decode.py``.
+"""
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..configs import ConfVocoderNetwork
+from ..dsp.mulaw import mulaw_decode
+from .rnn import bigru_apply, gru_step
+
+
+class RNNMS(nn.Module):
+    def __init__(self, conf: ConfVocoderNetwork):
+        super().__init__()
+        rn = conf.rnnms
+        wa = rn.wave_ar
+        self.prenet = nn.GRU(
+            rn.dim_i_feature, rn.dim_voc_latent // 2,
+            num_layers=rn.prenet.num_layers, batch_first=True,
+            bidirectional=True,
+        )
+        self.embedding = nn.Embedding(2 ** rn.bits_mu_law, wa.size_i_embed_ar)
+        self.rnn = nn.GRU(
+            wa.size_i_embed_ar + rn.dim_voc_latent, wa.size_h_rnn,
+            batch_first=True,
+        )
+        self.fc1 = nn.Linear(wa.size_h_rnn, wa.size_h_fc)
+        self.fc2 = nn.Linear(wa.size_h_fc, 2 ** rn.bits_mu_law)
+
+
+class Vocoder(nn.Module):
+    def __init__(self, conf: ConfVocoderNetwork):
+        super().__init__()
+        self.conf = conf
+        self.code_embedding = nn.Embedding(conf.size_i_codebook, conf.dim_i_embedding)
+        self.speaker_embedding = nn.Embedding(conf.n_speakers, conf.dim_speaker_embedding)
+        self.rnnms = RNNMS(conf)
+
+
+@torch.no_grad()
+def build_conditioning_frames(
+    vocoder: Vocoder, z_indices: torch.Tensor, speaker: torch.Tensor
+) -> torch.Tensor:
+    """Codes (B, Tz) + speakers (B,) -> frame-rate conditioning (B, 2 Tz, V).
+
+    Embed the codes, repeat each twice (undoing the encoder's /2), append
+    the speaker embedding to every frame, run the biGRU PreNet.
+    """
+    z_up = vocoder.code_embedding(z_indices).repeat_interleave(2, dim=1)
+    spk = vocoder.speaker_embedding(speaker)
+    spk_up = spk[:, None, :].expand(-1, z_up.shape[1], -1)
+    cond = torch.cat([z_up, spk_up], dim=-1)
+    for layer in range(vocoder.rnnms.prenet.num_layers):
+        cond = bigru_apply(vocoder.rnnms.prenet, layer, cond)
+    return cond
+
+
+@torch.no_grad()
+def vocoder_generate(
+    vocoder: Vocoder,
+    z_indices: torch.Tensor,
+    speaker: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    greedy: bool = False,
+    return_aux: bool = False,
+):
+    """Plain float32 decode: codes + speakers -> waveform (B, T) in [-1, 1].
+
+    One GRU step per sample; argmax when ``greedy``, else a categorical
+    draw (Gumbel-max with noise from ``generator``). With ``return_aux``
+    also returns the classes (B, T) and logits (B, T, 2^bits).
+    """
+    rnnms = vocoder.rnnms
+    hop = vocoder.conf.rnnms.upsampling_t
+    n_classes = rnnms.fc2.out_features
+    embed_dim = rnnms.embedding.embedding_dim
+    cond = build_conditioning_frames(vocoder, z_indices, speaker)
+    b, tf, _ = cond.shape
+
+    w_ih = rnnms.rnn.weight_ih_l0  # (3H, E + V)
+    embed_proj = rnnms.embedding.weight @ w_ih[:, :embed_dim].t()  # (C, 3H)
+    cond_proj = cond @ w_ih[:, embed_dim:].t() + rnnms.rnn.bias_ih_l0
+
+    h = cond.new_zeros(b, rnnms.rnn.hidden_size)
+    prev = torch.full((b,), n_classes // 2, dtype=torch.long, device=cond.device)
+    samples, logits_all = [], []
+    for t in range(tf * hop):
+        xp = embed_proj[prev] + cond_proj[:, t // hop]
+        h = gru_step(h, xp, rnnms.rnn.weight_hh_l0, rnnms.rnn.bias_hh_l0)
+        logits = rnnms.fc2(torch.relu(rnnms.fc1(h)))
+        if greedy:
+            prev = logits.argmax(dim=-1)
+        else:
+            u = torch.rand(logits.shape, generator=generator, device=logits.device)
+            prev = (logits - torch.log(-torch.log(u + 1e-9))).argmax(dim=-1)
+        samples.append(prev)
+        if return_aux:
+            logits_all.append(logits)
+    samples = torch.stack(samples, dim=1)
+    wave = mulaw_decode(samples, n_classes)
+    if return_aux:
+        return wave, samples, torch.stack(logits_all, dim=1)
+    return wave

@@ -1,0 +1,113 @@
+"""Build the package's CUDA sources into one shared library and load it.
+
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
+started together) for ``sm_90a`` and linked into one library with a plain C
+interface, loaded with ``ctypes``. The build lands in ``build/torch_kernels/``
+beside the package, named by a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is not. Nothing here runs at import
+time: the first kernel call builds.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import List, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib: Optional[ctypes.CDLL] = None
+build_log = ""  # the compilers' output of the last build in this process
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libvqcpc_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless this exact build exists; returns its path."""
+    global build_log
+    lib_path = _library_path()
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(str(obj))
+            procs.append(
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                    stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT,
+                    text=True,
+                )
+            )
+        logs, failed = [], False
+        for src, proc in zip(_sources(), procs):
+            out, _ = proc.communicate()
+            logs.append(f"[{src.name}]\n{out}")
+            failed |= proc.returncode != 0
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run(
+            [nvcc, ARCH, "-shared", *objs, "-o", str(tmp_lib)],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
+            text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        os.replace(tmp_lib, lib_path)
+    build_log = "\n".join(logs)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        lib.vq_ar_decode_launch.argtypes = [p] * 13 + [i] * 7 + [u, p]
+        lib.vq_ar_decode_launch.restype = i
+        lib.vq_ar_decode_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        lib.vq_ar_decode_plan.restype = i
+        lib.vq_cuda_error_string.argtypes = [i]
+        lib.vq_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if err != 0:
+        msg = library().vq_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
