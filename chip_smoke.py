@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's voice conversion on one CUDA card and check it.
+"""Drive the PyTorch port's voice conversion and serving on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure ends the run with a non-zero exit):
 
 1. the card's name and power limit, the torch and CUDA versions;
-2. build every CUDA kernel of the path from the sources in the checkout;
+2. build every CUDA kernel of the paths from the sources in the checkout;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   full width of the default config, greedy and sampled, B in {1, 3, 8};
+   full width of the default config: the AR decode greedy and sampled at
+   B in {1, 3, 8}, and in 4 chained segments; the GRU scans (plain and
+   masked) at the serving PreNet's shape;
 4. convert 8 synthetic wavs end to end through the CLI entry point, on
    full-width random weights saved as reference-format checkpoints, and
    check the wavs and that the path went through the kernels;
-5. time each kernel and its plain version at the main path's shape
-   (B = 8, 1 s of audio) beside the least time the card could take.
+4b. serve 48 requests of mixed lengths through ``ContinuousBatcher`` in
+   sampled mode, check every wave, the launch counts and the seeding, then
+   hold a greedy drain against single-shot decodes;
+5. time each kernel, its plain version and, where one exists, the PyTorch
+   library call for the same function at the main paths' shapes, beside
+   the least time the card could take; time the serving drain beside the
+   request mix's slot-utilisation ceiling times the raw kernel rate.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -21,6 +28,7 @@ script exits with code 2 and prints no result. It imports nothing of JAX.
 """
 
 import argparse
+import heapq
 import json
 import subprocess
 import sys
@@ -42,6 +50,20 @@ MAX_GAP = 0.05
 # across a bf16 rounding boundary the next step's product moves by one bf16
 # ulp (2^-8 relative) of that element's term, which the gates damp.
 MAX_H_ERR = 1e-2
+# GRU scans, kernel against plain version: both sum the H-deep products in
+# f32 in different orders (~1e-6 relative). Where that puts an h value on
+# the other side of a bf16 rounding boundary, hs differs by one bf16 ulp,
+# at most 2^-8 = 3.9e-3 for |h| < 1, and the next step's product by one ulp
+# of that term, which the gates damp; h_T is f32 and sees only the damped
+# effect. Bound for both: 1e-2.
+MAX_GRU_ERR = 1e-2
+# The serving PreNet shape: 48 requests of up to 100 codes (200 frames),
+# H = 128 per direction (bench.py:523-541's mix).
+GRU_G, GRU_T, GRU_H = 48, 200, 128
+MIX_CODES = (25, 50, 100)
+DEVICE = "cuda"
+TIME_FRAMES = 100  # phase_time's decode: B = 8, 100 frames (1 s of audio)
+CUDNN_DTYPE = torch.float16  # the library yardstick's type: cuDNN's RNN takes fp16
 
 
 def check(ok: bool, msg: str) -> None:
@@ -153,7 +175,125 @@ def phase_compare(seed: int, card: str) -> dict:
         f"that never diverged; {n_div} rows diverged, worst gap {worst_gap:.3e} "
         f"(bound {MAX_GAP})  [{card}]"
     )
-    return {"max_abs_err": worst_h}
+    chain_h = _compare_chain(w, net, rng, seed, card)
+    return {"max_abs_err": max(worst_h, chain_h)}
+
+
+def _compare_chain(w, net, rng, seed: int, card: str) -> float:
+    """The segment entry: 4 chained launches against one, B = 8, 8 frames.
+
+    Greedy, the chain must equal one launch bit for bit (the state hand-off
+    is exact). Sampled, each segment has its own seed, so the chained
+    kernel is held against the chained plain version under the prefix rule.
+    """
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+
+    hop, hidden = net.rnnms.upsampling_t, net.rnnms.wave_ar.size_h_rnn
+    n_classes = 2 ** net.rnnms.bits_mu_law
+    batch, frames, n_seg = 8, 8, 4
+    sf = frames // n_seg
+    cond = torch.from_numpy(
+        rng.uniform(-1, 1, size=(batch, frames, net.rnnms.dim_voc_latent)).astype(np.float32)
+    ).to(DEVICE)
+    cond_proj = ar.project_cond_frames(w, cond)  # (B, Tf, 3H)
+    h0, prev0 = ar.init_decode_state(batch, hidden, n_classes, cond.device)
+
+    def chained(kernel: bool, greedy: bool):
+        state, outs, scores = ar.DecodeState(h0, prev0), [], []
+        for k in range(n_seg):
+            seg = cond_proj[:, k * sf : (k + 1) * sf]
+            seed_k = ar.segment_seed(seed, k)
+            if kernel:
+                classes, state = ar.fused_ar_decode_segment(w, seg, state, seed_k, hop, greedy)
+            else:
+                out, h, sc = ar.ar_decode_reference(
+                    seg.transpose(0, 1).contiguous(), state.h, state.prev, w, hop,
+                    seed_k, greedy, return_scores=True,
+                )
+                classes, state = out.t(), ar.DecodeState(h, out[-1].clone())
+                scores.append(sc)
+            outs.append(classes)
+        return torch.cat(outs, dim=1).t().cpu().numpy(), state.h, scores
+
+    one, h_one = ar.ar_decode(cond_proj.transpose(0, 1).contiguous(), h0, prev0, w, hop,
+                              seed=seed, greedy=True)
+    out_k, h_k, _ = chained(kernel=True, greedy=True)
+    torch.cuda.synchronize()
+    check(np.array_equal(out_k, one.cpu().numpy()), "greedy: 4 chained segments != one launch")
+    check(torch.equal(h_k, h_one), "greedy: chained final h != one launch's")
+    print(f"compare chain greedy B={batch} {n_seg} segments x {sf * hop} steps: "
+          f"bit-identical to one launch (classes and final h)  [{card}]")
+
+    out_k, h_k, _ = chained(kernel=True, greedy=False)
+    out_r, h_r, scores = chained(kernel=False, greedy=False)
+    scores = torch.cat(scores).cpu().numpy()
+    check(out_k.min() >= 0 and out_k.max() < n_classes, "chained kernel class out of range")
+    worst_h, worst_gap, same = 0.0, 0.0, 0
+    for r, t0 in enumerate(first_divergence(out_k, out_r)):
+        if t0 is None:
+            same += 1
+            worst_h = max(worst_h, float((h_k[r] - h_r[r]).abs().max()))
+        else:
+            gap = float(scores[t0, r].max() - scores[t0, r, out_k[t0, r]])
+            check(gap <= MAX_GAP, f"chain row {r} step {t0}: gap {gap} > {MAX_GAP}")
+            worst_gap = max(worst_gap, gap)
+    check(worst_h <= MAX_H_ERR, f"chain: final h differs by {worst_h}")
+    print(f"compare chain sampled B={batch} {n_seg} segments, per-segment seeds: "
+          f"{same} of {batch} rows bit-identical to the chained plain version, final-h "
+          f"max abs diff {worst_h:.3e} (bound {MAX_H_ERR}); worst gap where a row "
+          f"diverged {worst_gap:.3e} (bound {MAX_GAP})  [{card}]")
+    return worst_h
+
+
+def _gru_inputs(seed: int):
+    """GRU-scan operands at the serving PreNet's shape, from ``seed``: wh, bh
+    at nn.GRU's init scale, xproj of a bf16 input projection, h0, and a
+    reverse-time ragged mask (rows of length 1 and T among them)."""
+    rng = np.random.default_rng(seed + 3)
+    g, t, h = GRU_G, GRU_T, GRU_H
+    lengths = rng.integers(1, t + 1, size=g)
+    lengths[:2] = [1, t]
+    valid = np.arange(t)[:, None] >= t - lengths[None, :]
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(DEVICE)
+    return {
+        "wh": f32(rng.uniform(-1, 1, size=(h, 3 * h)) / np.sqrt(h)).bfloat16(),
+        "bh": f32(rng.uniform(-1, 1, size=(3 * h,)) / np.sqrt(h)),
+        "xproj": f32(rng.normal(0, 0.8, size=(t, g, 3 * h))).bfloat16(),
+        "h0": f32(rng.uniform(-0.5, 0.5, size=(g, h))),
+        "valid": torch.from_numpy(valid.astype(np.int32)).to(DEVICE),
+        "lengths": lengths,
+    }
+
+
+def phase_compare_gru(seed: int, card: str) -> dict:
+    """Both GRU scans against their plain versions at G = 48, T = 200, H = 128."""
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    x = _gru_inputs(seed)
+    args = (x["wh"], x["bh"], x["xproj"])
+    runs = {
+        "gru_scan": (g.gru_scan(*args, x["h0"]), g.gru_scan_reference(*args, x["h0"])),
+        "gru_scan_masked": (
+            g.gru_scan_masked(*args, x["valid"], x["h0"]),
+            g.gru_scan_masked_reference(*args, x["valid"], x["h0"]),
+        ),
+    }
+    torch.cuda.synchronize()
+    out = {}
+    for name, ((hs, h_t), (ref, ref_h)) in runs.items():
+        err_hs = float((hs.float() - ref.float()).abs().max())
+        err_h = float((h_t - ref_h).abs().max())
+        check(err_hs <= MAX_GRU_ERR, f"{name}: hs differs by {err_hs}")
+        check(err_h <= MAX_GRU_ERR, f"{name}: h_T differs by {err_h}")
+        print(f"compare {name} G={GRU_G} T={GRU_T} H={GRU_H}: hs max abs diff {err_hs:.3e}, "
+              f"h_T {err_h:.3e} (bound {MAX_GRU_ERR} each: one bf16 ulp of |h| < 1 is "
+              f"3.9e-3, f32 sums in another order, damped by the gates)  [{card}]")
+        out[name] = max(err_hs, err_h)
+    short = int(np.argmin(x["lengths"]))
+    (hs, h_t), _ = runs["gru_scan_masked"]
+    check(torch.equal(hs[: GRU_T - 1, short], x["h0"][short].bfloat16().expand(GRU_T - 1, -1)),
+          "masked: a row of length 1 moved before its only valid step")
+    return out
 
 
 def _write_inputs(d: Path, seed: int):
@@ -234,6 +374,116 @@ def phase_convert(seed: int, card: str) -> dict:
     return {"ar_decode": launches}
 
 
+def _classes_of(wave: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """Mu-law wave -> classes (the expansion is injective)."""
+    return np.abs(wave[:, None] - table[None, :]).argmin(-1)
+
+
+def phase_serve(seed: int, card: str) -> dict:
+    """ContinuousBatcher at full width: 48 requests, sampled, then greedy."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.dsp.mulaw import mulaw_decode
+    from vectorquantizedcpc_tpu_torch.infer.serving import ContinuousBatcher
+    from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder, build_conditioning_frames
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    net = load_conf([]).training_vocoder.model.network
+    vocoder = Vocoder(net)
+    randomize(vocoder, np.random.default_rng(seed + 4))
+    vocoder = vocoder.to(DEVICE).eval()
+    hop = net.rnnms.upsampling_t
+    n_classes = 2 ** net.rnnms.bits_mu_law
+    rng = np.random.default_rng(seed + 5)
+    requests = [
+        (rng.integers(0, net.size_i_codebook, size=int(rng.choice(MIX_CODES))),
+         int(rng.integers(0, net.n_speakers)))
+        for _ in range(48)
+    ]
+
+    def server(greedy: bool = False):
+        return ContinuousBatcher(vocoder, slots=8, segment_frames=4,
+                                 max_frames=2 * max(MIX_CODES) + 32, greedy=greedy,
+                                 seed=seed, device=DEVICE)
+
+    def drain(srv, reqs):
+        rids = [srv.submit(z, spk) for z, spk in reqs]
+        waves = srv.run()
+        return [waves[r] for r in rids]
+
+    # The main path, counts zeroed just before and read just after.
+    first = server()
+    torch.cuda.synchronize()
+    ar.AR_DECODE_LAUNCHES = g.GRU_SCAN_LAUNCHES = g.GRU_SCAN_MASKED_LAUNCHES = 0
+    start = time.perf_counter()
+    waves = drain(first, requests)
+    seconds = time.perf_counter() - start
+    launches = {
+        "ar_decode": ar.AR_DECODE_LAUNCHES,
+        "gru_scan": g.GRU_SCAN_LAUNCHES,
+        "gru_scan_masked": g.GRU_SCAN_MASKED_LAUNCHES,
+    }
+    steps = int(first.stats["steps"])
+    valid = sum(2 * len(z) * hop for z, _ in requests)
+    check(len(waves) == 48, f"{len(waves)} of 48 requests returned")
+    for (z, _spk), wave in zip(requests, waves):
+        check(wave.shape == (2 * len(z) * hop,), f"wave of {wave.shape} for {len(z)} codes")
+        check(bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) <= 1.0, "wave range")
+    check(first.stats["samples_out"] == valid, f"samples_out {first.stats['samples_out']} != {valid}")
+    check(launches["ar_decode"] == steps > 0, f"{launches['ar_decode']} AR launches, {steps} steps")
+    check(launches["gru_scan"] == 2 and launches["gru_scan_masked"] == 2,
+          f"GRU launches {launches}: expected 2 layers x 1 each")
+    print(f"serve: 48 of 48 requests returned, {valid} samples ({valid / 16000:.3f} s of "
+          f"audio) in {steps} segment steps, {seconds:.3f} s wall (first drain); launches "
+          f"{json.dumps(launches)}  [{card}]")
+
+    second = server()
+    again = drain(second, requests)
+    check(all(np.array_equal(a, b) for a, b in zip(waves, again)),
+          "two drains with one seed gave different waves")
+    print(f"serve: a second drain with seed {seed} gave identical waves  [{card}]")
+
+    # Greedy: the 8 shortest requests against single-shot decodes.
+    shortest = sorted(requests, key=lambda q: len(q[0]))[:8]
+    greedy_waves = drain(server(greedy=True), shortest)
+    w = ar.prep_decode_weights(vocoder)
+    table = mulaw_decode(torch.arange(n_classes, device=DEVICE), n_classes).cpu().numpy()
+    same, worst_gap = 0, 0.0
+    for (z, spk), wave in zip(shortest, greedy_waves):
+        zt = torch.from_numpy(z)[None].to(DEVICE)
+        st = torch.tensor([spk], device=DEVICE)
+        single = ar.fused_ar_decode(vocoder, zt, st, greedy=True, weights=w)[0].cpu().numpy()
+        got, ref = _classes_of(wave, table), _classes_of(single, table)
+        (t0,) = first_divergence(got[:, None], ref[:, None])
+        if t0 is None:
+            same += 1
+            continue
+        # The plain version's scores where the two first differ.
+        cond = ar.project_cond_frames(w, build_conditioning_frames(vocoder, zt, st))
+        cond = cond[:, : t0 // hop + 1].transpose(0, 1).contiguous()
+        h0, prev0 = ar.init_decode_state(1, w.wh.shape[0], n_classes, cond.device)
+        _, _, scores = ar.ar_decode_reference(cond, h0, prev0, w, hop, greedy=True,
+                                              return_scores=True)
+        sc = scores[t0, 0].cpu().numpy()
+        gap = float(sc.max() - sc[got[t0]])
+        check(gap <= MAX_GAP, f"greedy server vs single shot: gap {gap} at step {t0}")
+        worst_gap = max(worst_gap, gap)
+    print(f"serve greedy: 8 requests of {len(shortest[0][0])}-{len(shortest[-1][0])} codes, "
+          f"{same} of 8 bit-identical to single-shot fused_ar_decode; worst plain-version "
+          f"gap where one diverged {worst_gap:.3e} (bound {MAX_GAP})  [{card}]")
+    return {"launches": launches, "server": second, "requests": requests, "valid": valid,
+            "vocoder": vocoder}
+
+
+def mix_ceiling(requests, slots: int, sf: int) -> float:
+    """Slot-utilisation ceiling of a request mix (bench.py:554-562): valid
+    frames over (makespan x sf x slots), LPT over the slot pool."""
+    ends = [0] * slots
+    for seg in sorted((-(-2 * len(z) // sf) for z, _ in requests), reverse=True):
+        heapq.heappush(ends, heapq.heappop(ends) + seg)
+    return sum(2 * len(z) for z, _ in requests) / (max(ends) * sf * slots)
+
+
 def time_cuda(fn, reps: int) -> float:
     """Milliseconds per call, by CUDA events around ``reps`` calls after one warm-up."""
     fn()
@@ -258,7 +508,7 @@ def phase_time(seed: int, card: str) -> dict:
     rng = np.random.default_rng(seed + 2)
     randomize(vocoder, rng)
     w = ar.prep_decode_weights(vocoder.cuda().eval())
-    batch, frames, hop = 8, 100, net.rnnms.upsampling_t
+    batch, frames, hop = 8, TIME_FRAMES, net.rnnms.upsampling_t
     hidden, fc = w.fc1_w.shape
     n_classes = w.fc2_w.shape[1]
     cond = torch.from_numpy(
@@ -297,6 +547,105 @@ def phase_time(seed: int, card: str) -> dict:
     }
 
 
+def _gru_bound(x: dict, masked: bool):
+    """(bound ms, what bounds it): each input read once, each output
+    written once; the operations of the steps the data needs."""
+    g, t, h = GRU_G, GRU_T, GRU_H
+    n_bytes = sum(x[k].numel() * x[k].element_size() for k in ("wh", "bh", "xproj", "h0"))
+    n_bytes += t * g * h * 2 + g * h * 4  # hs bf16, h_T f32
+    steps = g * t
+    if masked:
+        n_bytes += x["valid"].numel() * 4
+        steps = int(x["valid"].sum())
+    flops = 2 * steps * h * 3 * h
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
+
+
+def phase_time_gru(seed: int, card: str) -> dict:
+    """Both GRU scans, their plain versions and cuDNN's GRU at the serving
+    PreNet's shape. cuDNN (one layer, one direction, fp16, on the (G, T,
+    2H) input; a PackedSequence of the same lengths for the masked scan)
+    is only timed here: the port never calls it."""
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    x = _gru_inputs(seed)
+    args = (x["wh"], x["bh"], x["xproj"])
+    gru_in = torch.randn(GRU_G, GRU_T, 2 * GRU_H, device=DEVICE, dtype=CUDNN_DTYPE)
+    cudnn = torch.nn.GRU(2 * GRU_H, GRU_H, batch_first=True).to(DEVICE, CUDNN_DTYPE)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        gru_in, torch.from_numpy(x["lengths"]), batch_first=True, enforce_sorted=False
+    )
+    out = {}
+    with torch.no_grad():
+        for name, kernel, plain, lib in [
+            ("gru_scan", lambda: g.gru_scan(*args, x["h0"]),
+             lambda: g.gru_scan_reference(*args, x["h0"]), lambda: cudnn(gru_in)),
+            ("gru_scan_masked", lambda: g.gru_scan_masked(*args, x["valid"], x["h0"]),
+             lambda: g.gru_scan_masked_reference(*args, x["valid"], x["h0"]),
+             lambda: cudnn(packed)),
+        ]:
+            bound, by, flops, n_bytes = _gru_bound(x, masked=name.endswith("masked"))
+            res = {
+                "ms": time_cuda(kernel, reps=20),
+                "plain_ms": time_cuda(plain, reps=2),
+                "bound_ms": bound,
+                "bound_by": by,
+                "library_ms": time_cuda(lib, reps=20),
+            }
+            print(f"timing {name} G={GRU_G} T={GRU_T} H={GRU_H}: kernel {res['ms']:.4f} ms "
+                  f"= {res['ms'] * 1e3 / GRU_T:.3f} us/step; plain {res['plain_ms']:.3f} ms; "
+                  f"cuDNN nn.GRU (fp16) {res['library_ms']:.4f} ms; bound "
+                  f"{bound * 1e3:.3f} us by {by} ({flops:.4g} FLOP, {n_bytes:.4g} B); "
+                  f"bound / kernel = {bound / res['ms'] * 100:.3f} %  [{card}]")
+            out[name] = res
+    return out
+
+
+def phase_time_serve(serve: dict, kernel_ms: float, card: str) -> None:
+    """The drain of phase 4b again (its server has drained once: warm), to
+    the device; beside the ceiling of the mix times the raw B = 8 rate."""
+    from vectorquantizedcpc_tpu_torch.models.vocoder import build_conditioning_frames_ragged
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+
+    server, requests, valid = serve["server"], serve["requests"], serve["valid"]
+    for z, spk in requests:
+        server.submit(z, spk)
+    steps_before = server.stats["steps"]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    server.run(materialize=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    steps = int(server.stats["steps"] - steps_before)
+    rate = valid / seconds
+    hop = serve["vocoder"].conf.rnnms.upsampling_t
+    kernel_rate = 8 * TIME_FRAMES * hop / (kernel_ms / 1e3)
+    ceiling = mix_ceiling(requests, slots=8, sf=4)
+
+    # The ragged conditioning of the same 48 requests alone (the PreNet kernels).
+    vocoder = serve["vocoder"]
+    mc = max(len(z) for z, _ in requests)
+    zs = np.zeros((len(requests), mc), np.int64)
+    for j, (z, _spk) in enumerate(requests):
+        zs[j, : len(z)] = z
+    zs = torch.from_numpy(zs).to(DEVICE)
+    spks = torch.tensor([spk for _, spk in requests], device=DEVICE)
+    n_frames = torch.tensor([2 * len(z) for z, _ in requests], device=DEVICE)
+    w = ar.prep_decode_weights(vocoder)
+    cond_ms = time_cuda(lambda: ar.project_cond_frames(w, build_conditioning_frames_ragged(
+        vocoder, zs, spks, n_frames, use_kernel=True).float()), reps=3)
+    segments_ms = steps * 4 * kernel_ms / TIME_FRAMES
+    print(f"serve timing: {valid} valid samples in {seconds * 1e3:.3f} ms to the device = "
+          f"{rate:.1f} samples/s; mix ceiling {ceiling:.4f} x B=8 kernel rate "
+          f"{kernel_rate:.1f} samples/s = {ceiling * kernel_rate:.1f} samples/s; served / "
+          f"(ceiling x kernel) = {rate / (ceiling * kernel_rate):.4f}  [{card}]")
+    print(f"serve timing: ragged conditioning {cond_ms:.3f} ms = "
+          f"{cond_ms / (seconds * 1e3) * 100:.3f} % of the drain; {steps} segments x {4 * hop} "
+          f"steps at phase_time's B = 8 step time = {segments_ms:.3f} ms = "
+          f"{segments_ms / (seconds * 1e3) * 100:.3f} % of the drain  [{card}]")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -322,22 +671,40 @@ def main() -> int:
 
     # Phase 3: each kernel against its plain version.
     compared = phase_compare(args.seed, card)
-    # Phase 4: the main path, counts zeroed just before and read just after.
-    launches = phase_convert(args.seed, card)
+    compared_gru = phase_compare_gru(args.seed, card)
+    # Phase 4: the main paths, counts zeroed just before and read just after each.
+    converted = phase_convert(args.seed, card)
+    serve = phase_serve(args.seed, card)
+    launches = serve["launches"]
     # Phase 5: times beside the bound.
     timing = phase_time(args.seed, card)
+    timing_gru = phase_time_gru(args.seed, card)
+    phase_time_serve(serve, timing["ms"], card)
 
+    source = "vectorquantizedcpc_tpu_torch/ops/csrc/"
     kernels = [
         {
             "name": "ar_decode",
             "route": "cuda",
-            "source": "vectorquantizedcpc_tpu_torch/ops/csrc/ar_decode.cu",
+            "source": source + "ar_decode.cu",
             "replaces": "vectorquantizedcpc_tpu/ops/ar_decode.py:218",
             "launches": launches["ar_decode"],
+            "launches_by_path": {"convert": converted["ar_decode"], "serve": launches["ar_decode"]},
             "max_abs_err": compared["max_abs_err"],
             **timing,
             "library_ms": None,
         }
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": source + "gru_scan.cu",
+            "replaces": f"vectorquantizedcpc_tpu/ops/gru_train.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": compared_gru[name],
+            **timing_gru[name],
+        }
+        for name, line in (("gru_scan", 59), ("gru_scan_masked", 245))
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card.
 
-Edge shapes that chip_smoke.py's full-width run does not reach: hidden
-sizes that do not split evenly over the SMs, FC1 widths below the grid
-size, few classes, hop 1, odd batches. Skipped without a card. This file
+Edge shapes that chip_smoke.py's full-width run does not reach. AR decode:
+hidden sizes that do not split evenly over the SMs, FC1 widths below the
+grid size, few classes, hop 1, odd batches. GRU scans: batches off the
+8-row tile, one row, one step, H = 96 and 128, rows masked at every step,
+the shared-memory limit. Skipped without a card. This file
 imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -94,3 +96,76 @@ def test_ar_decode_kernel_refuses_bad_input(cuda):
         ar.ar_decode(cond, h0, prev0, w, hop=4)
     with pytest.raises(ValueError, match="cond_proj"):
         ar.ar_decode(cond[:, :2].float(), h0[:2], prev0[:2], w, hop=4)
+
+
+def _scan_case(rng, t, b, hidden, device):
+    """GRU-scan operands at the kernel's types and a reverse-time mask whose
+    row lengths include 0 (masked at every step), 1 and t."""
+    h3 = 3 * hidden
+    wh = rng.uniform(-1, 1, size=(hidden, h3)) / np.sqrt(hidden)
+    bh = rng.uniform(-0.3, 0.3, size=(h3,))
+    xproj = rng.normal(0, 0.8, size=(t, b, h3))
+    h0 = rng.uniform(-0.5, 0.5, size=(b, hidden))
+    lengths = rng.integers(0, t + 1, size=b)
+    lengths[: min(b, 3)] = [0, 1, t][: min(b, 3)]
+    valid = np.arange(t)[:, None] >= t - lengths[None, :]
+    f32 = lambda x: torch.from_numpy(x.astype(np.float32)).to(device)
+    return (f32(wh).bfloat16(), f32(bh), f32(xproj).bfloat16(), f32(h0),
+            torch.from_numpy(valid.astype(np.int32)).to(device), lengths)
+
+
+@pytest.mark.parametrize(
+    "t, b, hidden",
+    [
+        (9, 13, 128),  # batch not a multiple of the 8-row tile
+        (5, 1, 96),  # one row, 3H = 288 threads
+        (1, 8, 128),  # one step
+        (17, 20, 96),
+    ],
+)
+@pytest.mark.parametrize("masked", [False, True])
+def test_gru_scan_kernel_matches_plain(cuda, t, b, hidden, masked):
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    rng = np.random.default_rng(t * 100 + b + hidden)
+    wh, bh, xproj, h0, valid, lengths = _scan_case(rng, t, b, hidden, cuda)
+    before = (g.GRU_SCAN_LAUNCHES, g.GRU_SCAN_MASKED_LAUNCHES)
+    if masked:
+        hs, h_t = g.gru_scan_masked(wh, bh, xproj, valid, h0)
+        ref, ref_h = g.gru_scan_masked_reference(wh, bh, xproj, valid, h0)
+    else:
+        hs, h_t = g.gru_scan(wh, bh, xproj, h0)
+        ref, ref_h = g.gru_scan_reference(wh, bh, xproj, h0)
+    torch.cuda.synchronize()
+    assert (g.GRU_SCAN_LAUNCHES, g.GRU_SCAN_MASKED_LAUNCHES) == (
+        before[0] + (not masked), before[1] + masked
+    )
+    assert hs.shape == (t, b, hidden) and h_t.shape == (b, hidden)
+    # Same bounds as chip_smoke.py: a bf16 ulp of |h| < 1, and f32 sums.
+    assert float((hs.float() - ref.float()).abs().max()) <= 1e-2
+    assert float((h_t - ref_h).abs().max()) <= 1e-2
+    if masked:
+        frozen = int(np.flatnonzero(lengths == 0)[0])
+        assert torch.equal(h_t[frozen], h0[frozen])
+        assert torch.equal(hs[:, frozen], h0[frozen].bfloat16().expand(t, -1))
+
+
+def test_gru_scan_all_valid_mask_is_the_plain_scan(cuda):
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    wh, bh, xproj, h0, valid, _ = _scan_case(np.random.default_rng(3), 12, 11, 128, cuda)
+    hs, h_t = g.gru_scan(wh, bh, xproj, h0)
+    hs_m, h_m = g.gru_scan_masked(wh, bh, xproj, torch.ones_like(valid), h0)
+    torch.cuda.synchronize()
+    assert torch.equal(hs, hs_m) and torch.equal(h_t, h_m)
+
+
+def test_gru_scan_shared_memory_layout_and_limit(cuda):
+    from vectorquantizedcpc_tpu_torch.ops import _build
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    for hidden in (1, 96, 128, 183, 184):
+        assert _build.library().vq_gru_scan_smem_bytes(hidden) == g.scan_smem_bytes(hidden)
+    wh, bh, xproj, h0, _, _ = _scan_case(np.random.default_rng(4), 2, 3, 184, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        g.gru_scan(wh, bh, xproj, h0)

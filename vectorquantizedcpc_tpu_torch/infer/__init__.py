@@ -1,1 +1,5 @@
 """Inference entry points."""
+
+from .serving import ContinuousBatcher
+
+__all__ = ["ContinuousBatcher"]

@@ -1,0 +1,413 @@
+"""Continuous batching of utterances over the AR decode kernel.
+
+The counterpart of the JAX package's ``infer/serving.py``. The AR decode is
+latency-bound: a step at B = 8 costs about what it costs at B = 1, so a
+server should always decode a full batch. A fixed pool of decode **slots**
+advances together through fixed **segments** of ``segment_frames``
+conditioning frames (``segment_frames * hop`` samples), one launch of the
+AR decode kernel per segment (``fused_ar_decode_segment``), which hands the
+state (h, prev) on to the next. A stream retires the moment its frames are
+consumed and a queued request takes the freed slot mid-flight. The AR
+recursion is causal and per row, so what other slots hold never changes a
+stream's samples: chaining segments reproduces a single-shot decode.
+
+- :meth:`ContinuousBatcher.run`, the planned drain: request lengths are
+  known at submission, so which request occupies which slot at which
+  segment is computed on the host up front (``compute_drain_schedule``,
+  longest request first into the slot that frees first). The conditioning
+  of every queued request is built in one pass into staging rows; each
+  schedule step then resets the fresh slots, gathers every slot's window
+  of conditioning and launches one segment. The decoded classes form a
+  (steps, slots, samples) timeline from which each request is reassembled.
+- :meth:`ContinuousBatcher.step`, the incremental mode: admission into
+  freed slots, one segment across all slots, retirement.
+
+Sampling noise differs from segment to segment: the launch of global
+segment k gets the seed ``segment_seed(seed, k)``.
+"""
+
+import functools
+import heapq
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Deque, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..dsp.mulaw import mulaw_decode
+from ..models.vocoder import (
+    Vocoder,
+    build_conditioning_frames,
+    build_conditioning_frames_ragged,
+)
+from ..ops.ar_decode import (
+    MAX_BATCH,
+    DecodeState,
+    fused_ar_decode_segment,
+    init_decode_state,
+    prep_decode_weights,
+    project_cond_frames,
+    resolve_precision,
+    segment_seed,
+)
+
+__all__ = ["ContinuousBatcher", "compute_drain_schedule"]
+
+
+def compute_drain_schedule(s_count, sf, hop, slots_live, queued, rid_row):
+    """Drain schedule tables (a copy of the JAX package's).
+
+    Each slot runs its requests back to back; the queue, in its order, goes
+    into the slot that frees first, ties to the lower slot index (an
+    (end_step, slot) min-heap).
+
+    Args:
+        s_count: number of slots; sf: segment frames; hop: samples per frame.
+        slots_live: per slot ``[rid, row, pos, total]`` or None (requests
+            already in a slot; they run from step 0).
+        queued: ``(rid, row, total)`` in admission order.
+        rid_row: rid -> conditioning row.
+    Returns:
+        (rows_t (n_steps, slots) int32 with -1 for idle, pos_t int32,
+         fresh_t bool, rid_sched {rid: (slot, first_step, nseg)},
+         rid_pos0 {rid: 0} for the queued rids, valid sample count)
+    """
+    assigns = []  # (rid, slot, start_step, pos0, total, is_new)
+    ends = [0] * s_count
+    for i in range(s_count):
+        a = slots_live[i]
+        if a is not None:
+            rid, _row, pos0, total = a
+            assigns.append((rid, i, 0, pos0, total, False))
+            ends[i] = -(-(total - pos0) // sf)
+    heap = [(ends[i], i) for i in range(s_count)]
+    heapq.heapify(heap)
+    for rid, _row, total in queued:
+        t0, i = heapq.heappop(heap)
+        assigns.append((rid, i, t0, 0, total, True))
+        heapq.heappush(heap, (t0 + -(-total // sf), i))
+    n_steps = max(
+        (t0 + -(-(total - pos0) // sf) for _rid, _i, t0, pos0, total, _n in assigns),
+        default=0,
+    )
+    rows_t = np.full((n_steps, s_count), -1, np.int32)
+    pos_t = np.zeros((n_steps, s_count), np.int32)
+    fresh_t = np.zeros((n_steps, s_count), np.bool_)
+    rid_sched = {}
+    rid_pos0 = {}
+    valid = 0
+    for rid, i, t0, pos0, total, is_new in assigns:
+        nseg = -(-(total - pos0) // sf)
+        rows_t[t0 : t0 + nseg, i] = rid_row[rid]
+        pos_t[t0 : t0 + nseg, i] = pos0 + sf * np.arange(nseg)
+        if is_new:
+            fresh_t[t0, i] = True
+            rid_pos0[rid] = 0
+        rid_sched[rid] = (i, t0, nseg)
+        valid += (total - pos0) * hop
+    return rows_t, pos_t, fresh_t, rid_sched, rid_pos0, valid
+
+
+@dataclass
+class _Slot:
+    rid: Optional[int] = None
+    pos_frames: int = 0
+    total_frames: int = 0
+
+
+def _to_host(classes: torch.Tensor) -> np.ndarray:
+    return classes.cpu().numpy()
+
+
+class _Timeline:
+    """One drain's classes (steps, slots, sf * hop), fetched to the host once."""
+
+    def __init__(self, classes: torch.Tensor):
+        self._dev = classes
+        self._host: Optional[np.ndarray] = None
+
+    def request(self, slot, s0, nseg, n, prefix: Optional[torch.Tensor]) -> np.ndarray:
+        if self._host is None:
+            self._host = _to_host(self._dev)
+        out = self._host[s0 : s0 + nseg, slot].reshape(-1)[:n]
+        return out if prefix is None else np.concatenate([_to_host(prefix), out])
+
+
+class ContinuousBatcher:
+    """Continuous-batching decode server over a fixed slot pool.
+
+    >>> server = ContinuousBatcher(vocoder, slots=8)
+    >>> rid = server.submit(z_indices, speaker)   # enqueue
+    >>> waves = server.run()                      # drain -> {rid: wave}
+
+    Runs on ``device``, else on the CUDA card; raises without a card unless
+    ``device="cpu"`` (the kernels' plain versions). The vocoder is moved
+    there. ``greedy=True`` decodes by argmax, deterministically.
+    """
+
+    def __init__(
+        self,
+        vocoder: Vocoder,
+        slots: int = 8,
+        segment_frames: int = 32,
+        max_frames: int = 2048,
+        precision: str = "bf16",
+        greedy: bool = False,
+        seed: int = 0,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        if not 1 <= slots <= MAX_BATCH:
+            raise ValueError(
+                f"slots={slots}: the AR decode kernel takes 1 to {MAX_BATCH} rows "
+                "(kMaxBatch in ops/csrc/ar_decode.cu)"
+            )
+        resolve_precision(precision)
+        self._device = resolve_device(device)
+        self._vocoder = vocoder.to(self._device).eval()
+        conf = vocoder.conf.rnnms
+        self._slots = slots
+        self._segment_frames = segment_frames
+        self._max_frames = max_frames + segment_frames  # slack for the last segment
+        self._hop = conf.upsampling_t
+        self._n_classes = 2 ** conf.bits_mu_law
+        self._greedy = greedy
+        self._seed = seed
+        self._weights = prep_decode_weights(self._vocoder)
+        hidden, proj3h = self._weights.wh.shape
+        self._pool = torch.zeros(
+            slots, self._max_frames, proj3h, dtype=torch.bfloat16, device=self._device
+        )
+        self._out_buf = torch.zeros(
+            slots, self._max_frames * self._hop, dtype=torch.int32, device=self._device
+        )
+        self._state = DecodeState(*init_decode_state(slots, hidden, self._n_classes, self._device))
+        self._slot_meta = [_Slot() for _ in range(slots)]
+        self._queue: Deque[tuple] = deque()
+        self._pending: Dict[int, functools.partial] = {}  # rid -> fetch of its classes
+        self._results: Dict[int, np.ndarray] = {}
+        self._next_rid = 0
+        self._step_count = 0
+        self._samples_out = 0
+        self._dispatch_wall = 0.0
+        # Expanded on the device, so that a host lookup gives the device's values.
+        self._mulaw_table = _to_host(
+            mulaw_decode(torch.arange(self._n_classes, device=self._device), self._n_classes)
+        )
+
+    # ------------------------------------------------------------------ API
+
+    def submit(self, z_indices, speaker: int) -> int:
+        """Enqueue an utterance (codes (Tz,) + target speaker); returns its rid.
+
+        Over-length requests are refused here, before anything is in flight.
+        """
+        z = np.asarray(z_indices, np.int64)
+        total_frames = 2 * z.shape[0]
+        capacity = self._max_frames - self._segment_frames
+        if total_frames > capacity:
+            raise ValueError(f"utterance of {total_frames} frames exceeds max_frames={capacity}")
+        rid = self._next_rid
+        self._next_rid += 1
+        self._queue.append((rid, z, int(speaker)))
+        return rid
+
+    @torch.no_grad()
+    def step(self) -> List[int]:
+        """Admit into free slots, decode one segment across all slots, retire.
+
+        Returns the rids that finished in this step. Does not wait for the
+        device; fetch finished waves with :meth:`result` or :meth:`run`.
+        """
+        self._admit()
+        live = [i for i, s in enumerate(self._slot_meta) if s.rid is not None]
+        if not live:
+            return []
+        start = time.perf_counter()
+        sf, hop = self._segment_frames, self._hop
+        seg = self._gather(
+            [(self._pool, i) for i in range(self._slots)],
+            [s.pos_frames for s in self._slot_meta],
+        )
+        classes, self._state = fused_ar_decode_segment(
+            self._weights, seg, self._state,
+            segment_seed(self._seed, self._step_count), hop, self._greedy,
+        )
+        self._step_count += 1
+        finished: List[int] = []
+        for i in live:
+            slot = self._slot_meta[i]
+            p = slot.pos_frames * hop
+            self._out_buf[i, p : p + sf * hop] = classes[i]
+            self._samples_out += min(slot.total_frames - slot.pos_frames, sf) * hop
+            slot.pos_frames += sf
+            if slot.pos_frames >= slot.total_frames:
+                n = slot.total_frames * hop
+                self._pending[slot.rid] = functools.partial(
+                    _to_host, self._out_buf[i, :n].clone()
+                )
+                finished.append(slot.rid)
+                self._slot_meta[i] = _Slot()
+        self._dispatch_wall += time.perf_counter() - start
+        return finished
+
+    def result(self, rid: int) -> np.ndarray:
+        """A finished stream's float32 waveform (waits for the device)."""
+        if rid in self._pending:
+            self._results[rid] = self._mulaw_table[self._pending.pop(rid)()]
+        return self._results[rid]
+
+    def run(self, materialize: bool = True, wait: bool = True) -> Dict[int, np.ndarray]:
+        """Drain the queue and every stream in flight (planned drain).
+
+        ``materialize=False`` leaves the classes on the device, fetched by
+        :meth:`result`; ``wait=False`` also skips the final synchronisation
+        with the card, so the call returns once every launch is queued.
+        """
+        if self._queue or any(s.rid is not None for s in self._slot_meta):
+            self._drain_planned(wait)
+        if materialize:
+            for rid in list(self._pending):
+                self.result(rid)
+        return dict(self._results)
+
+    @property
+    def stats(self) -> Dict[str, float]:
+        return {
+            "samples_out": float(self._samples_out),
+            "dispatch_wall_s": self._dispatch_wall,
+            "steps": float(self._step_count),
+        }
+
+    # ------------------------------------------------------------ internals
+
+    def _gather(self, rows, positions) -> torch.Tensor:
+        """Every slot's (sf, 3H) window: rows[i] = (buffer, row), at positions[i]."""
+        sf = self._segment_frames
+        return torch.stack([buf[r, p : p + sf] for (buf, r), p in zip(rows, positions)])
+
+    def _condition(self, zs: np.ndarray, speakers: np.ndarray, n_frames=None) -> torch.Tensor:
+        """Codes -> staging rows (G, 2 max_codes + pad, 3H) bf16; the width is
+        a multiple of the segment, so every window of a valid row fits."""
+        z = torch.from_numpy(zs).to(self._device)
+        spk = torch.from_numpy(speakers).to(self._device)
+        if n_frames is None:
+            cond = build_conditioning_frames(self._vocoder, z, spk)
+        else:
+            nf = torch.from_numpy(n_frames).to(self._device)
+            cond = build_conditioning_frames_ragged(
+                self._vocoder, z, spk, nf, use_kernel=True
+            ).float()
+        rows = project_cond_frames(self._weights, cond)
+        pad = -rows.shape[1] % self._segment_frames
+        return torch.nn.functional.pad(rows, (0, 0, 0, pad))
+
+    def _admit(self) -> None:
+        n_mid = self._n_classes // 2
+        for i, slot in enumerate(self._slot_meta):
+            if slot.rid is not None or not self._queue:
+                continue
+            rid, z, speaker = self._queue.popleft()
+            cond = self._condition(z[None], np.asarray([speaker]))[0, : 2 * z.shape[0]]
+            self._pool[i].zero_()
+            self._pool[i, : cond.shape[0]] = cond
+            self._state.h[i] = 0.0
+            self._state.prev[i] = n_mid
+            self._slot_meta[i] = _Slot(rid=rid, pos_frames=0, total_frames=2 * z.shape[0])
+
+    @torch.no_grad()
+    def _drain_planned(self, wait: bool) -> None:
+        start = time.perf_counter()
+        s_count, sf, hop = self._slots, self._segment_frames, self._hop
+        inflight = [
+            (i, m.rid, m.pos_frames, m.total_frames)
+            for i, m in enumerate(self._slot_meta)
+            if m.rid is not None
+        ]
+        new_reqs = list(self._queue)
+        self._queue.clear()
+
+        # Staging rows: the slots in flight (rows 0..slots-1), then the
+        # conditioning of every new request.
+        row_loc = []  # global row -> (buffer, row in buffer)
+        rid_row: Dict[int, int] = {}
+        rid_total: Dict[int, int] = {}
+        if inflight:
+            row_loc += [(self._pool, i) for i in range(s_count)]
+
+        def add_rows(items, buf):
+            for j, (rid, z, _spk) in enumerate(items):
+                rid_row[rid] = len(row_loc)
+                rid_total[rid] = 2 * z.shape[0]
+                row_loc.append((buf, j))
+
+        if new_reqs and not self._greedy:
+            # One ragged pass over every queued request: the PreNet kernels.
+            mc = max(z.shape[0] for _r, z, _s in new_reqs)
+            zs = np.zeros((len(new_reqs), mc), np.int64)
+            for j, (_rid, z, _spk) in enumerate(new_reqs):
+                zs[j, : z.shape[0]] = z
+            spks = np.asarray([s for _r, _z, s in new_reqs], np.int64)
+            n_frames = np.asarray([2 * z.shape[0] for _r, z, _s in new_reqs], np.int64)
+            add_rows(new_reqs, self._condition(zs, spks, n_frames))
+        elif new_reqs:
+            # Greedy: per-length groups through the f32 PreNet, the single
+            # shot's arithmetic.
+            groups: Dict[int, list] = {}
+            for item in new_reqs:
+                groups.setdefault(item[1].shape[0], []).append(item)
+            for n_codes in sorted(groups):
+                items = groups[n_codes]
+                zs = np.stack([z for _r, z, _s in items])
+                spks = np.asarray([s for _r, _z, s in items], np.int64)
+                add_rows(items, self._condition(zs, spks))
+
+        slots_live: List[Optional[list]] = [None] * s_count
+        rid_pos0: Dict[int, int] = {}
+        for i, rid, pos, total in inflight:
+            slots_live[i] = [rid, i, pos, total]
+            rid_row[rid] = i
+            rid_total[rid] = total
+            rid_pos0[rid] = pos
+        # Longest first: the drain ends when the last slot does.
+        queued = sorted(
+            ((rid, rid_row[rid], rid_total[rid]) for rid, _z, _s in new_reqs),
+            key=lambda q: -q[2],
+        )
+        rows_t, pos_t, fresh_t, rid_sched, pos0_map, valid = compute_drain_schedule(
+            s_count, sf, hop, slots_live, queued, rid_row
+        )
+        rid_pos0.update(pos0_map)
+
+        n_mid = self._n_classes // 2
+        h, prev = self._state
+        outs = []
+        for k in range(rows_t.shape[0]):
+            for i in np.flatnonzero(fresh_t[k]):
+                h[i] = 0.0
+                prev[i] = n_mid
+            # Idle slots (row -1) decode row 0; nothing reads their samples.
+            seg = self._gather([row_loc[max(r, 0)] for r in rows_t[k]], pos_t[k].tolist())
+            classes, (h, prev) = fused_ar_decode_segment(
+                self._weights, seg, DecodeState(h, prev),
+                segment_seed(self._seed, self._step_count + k), hop, self._greedy,
+            )
+            outs.append(classes)
+
+        if outs:
+            timeline = _Timeline(torch.stack(outs))
+            for rid, (slot, s0, nseg) in rid_sched.items():
+                pos0 = rid_pos0[rid]
+                prefix = self._out_buf[slot, : pos0 * hop].clone() if pos0 else None
+                self._pending[rid] = functools.partial(
+                    timeline.request, slot, s0, nseg, (rid_total[rid] - pos0) * hop, prefix
+                )
+        if wait and self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        self._step_count += rows_t.shape[0]
+        self._samples_out += valid
+        self._dispatch_wall += time.perf_counter() - start
+        self._slot_meta = [_Slot() for _ in range(s_count)]
+        self._state = DecodeState(h, prev)

@@ -47,6 +47,28 @@ def gru_apply(
     return torch.stack(out, dim=1), h
 
 
+def gru_apply_masked_reverse(
+    x: torch.Tensor,
+    weight_ih: torch.Tensor,
+    weight_hh: torch.Tensor,
+    bias_ih: torch.Tensor,
+    bias_hh: torch.Tensor,
+    valid: torch.Tensor,
+) -> torch.Tensor:
+    """Reverse GRU over ``x`` (B, T, D) that updates row b at step t only
+    where ``valid[t, b]``: a row's padded tail passes the zero state through
+    unchanged, so its valid prefix sees exactly the unpadded reverse scan.
+    Returns (B, T, H)."""
+    b, t, _ = x.shape
+    h = x.new_zeros(b, weight_hh.shape[1])
+    xproj = x @ weight_ih.t() + bias_ih
+    out = [None] * t
+    for i in reversed(range(t)):
+        h = torch.where(valid[i, :, None], gru_step(h, xproj[:, i], weight_hh, bias_hh), h)
+        out[i] = h
+    return torch.stack(out, dim=1)
+
+
 def bigru_apply(gru: nn.GRU, layer: int, x: torch.Tensor) -> torch.Tensor:
     """Layer ``layer`` of a bidirectional ``nn.GRU``: concat(fwd, bwd) (B, T, 2H)."""
     outs = []

@@ -20,7 +20,7 @@ from torch import nn
 
 from ..configs import ConfVocoderNetwork
 from ..dsp.mulaw import mulaw_decode
-from .rnn import bigru_apply, gru_step
+from .rnn import bigru_apply, gru_apply, gru_apply_masked_reverse, gru_step
 
 
 class RNNMS(nn.Module):
@@ -60,12 +60,76 @@ def build_conditioning_frames(
     Embed the codes, repeat each twice (undoing the encoder's /2), append
     the speaker embedding to every frame, run the biGRU PreNet.
     """
+    cond = _prenet_inputs(vocoder, z_indices, speaker)
+    for layer in range(vocoder.rnnms.prenet.num_layers):
+        cond = bigru_apply(vocoder.rnnms.prenet, layer, cond)
+    return cond
+
+
+def _prenet_inputs(vocoder: Vocoder, z_indices: torch.Tensor, speaker: torch.Tensor):
     z_up = vocoder.code_embedding(z_indices).repeat_interleave(2, dim=1)
     spk = vocoder.speaker_embedding(speaker)
     spk_up = spk[:, None, :].expand(-1, z_up.shape[1], -1)
-    cond = torch.cat([z_up, spk_up], dim=-1)
-    for layer in range(vocoder.rnnms.prenet.num_layers):
-        cond = bigru_apply(vocoder.rnnms.prenet, layer, cond)
+    return torch.cat([z_up, spk_up], dim=-1)
+
+
+@torch.no_grad()
+def build_conditioning_frames_ragged(
+    vocoder: Vocoder,
+    z_indices: torch.Tensor,
+    speaker: torch.Tensor,
+    n_frames: torch.Tensor,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """Conditioning of a padded batch of different lengths in one pass.
+
+    ``z_indices`` (G, max_codes) padded codes, ``speaker`` (G,),
+    ``n_frames`` (G,) valid frame counts (twice the code counts). Each row's
+    valid prefix equals ``build_conditioning_frames`` on that row alone:
+    the forward GRU is causal, and the reverse GRU updates its carry only
+    where ``t < n_frames[g]``, so it enters each row's valid region with
+    the zero state. Returns (G, 2 max_codes, V): float32, or bfloat16 with
+    ``use_kernel``.
+
+    ``use_kernel`` is the server's route: the PreNet in bf16 through
+    ``fused_gru_scan`` (forward) and ``fused_gru_scan_masked`` on the
+    time-flipped projection and mask (reverse). The input projection
+    ``cond @ wx + bx`` is a bf16 ``torch.matmul`` outside the kernels,
+    rounded where the JAX package rounds it.
+    """
+    cond = _prenet_inputs(vocoder, z_indices, speaker)
+    t = cond.shape[1]
+    valid = torch.arange(t, device=cond.device)[:, None] < n_frames.to(cond.device)[None, :]
+    prenet = vocoder.rnnms.prenet
+
+    def params(sfx):
+        return [getattr(prenet, f"{n}_{sfx}") for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+
+    if not use_kernel:
+        for layer in range(prenet.num_layers):
+            out_f, _ = gru_apply(cond, *params(f"l{layer}"))
+            out_b = gru_apply_masked_reverse(cond, *params(f"l{layer}_reverse"), valid)
+            cond = torch.cat([out_f, out_b], dim=-1)
+        return cond
+
+    from ..ops.gru_train import fused_gru_scan, fused_gru_scan_masked
+
+    cond = cond.bfloat16()
+    valid_rev = valid.flip(0).to(torch.int32).contiguous()
+    h0 = cond.new_zeros(cond.shape[0], prenet.hidden_size, dtype=torch.float32)
+
+    def kernel_args(sfx):
+        w_ih, w_hh, b_ih, b_hh = params(sfx)
+        xproj = (cond @ w_ih.t().bfloat16() + b_ih.bfloat16()).transpose(0, 1)
+        wh = w_hh.t().bfloat16().contiguous()
+        return wh, b_hh.bfloat16().float(), xproj
+
+    for layer in range(prenet.num_layers):
+        wh, bh, xproj = kernel_args(f"l{layer}")
+        out_f = fused_gru_scan(wh, bh, xproj.contiguous(), h0)
+        wh, bh, xproj = kernel_args(f"l{layer}_reverse")
+        hs_rev = fused_gru_scan_masked(wh, bh, xproj.flip(0).contiguous(), valid_rev, h0)
+        cond = torch.cat([out_f, hs_rev.flip(0)], dim=-1).transpose(0, 1)
     return cond
 
 

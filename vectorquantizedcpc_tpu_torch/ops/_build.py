@@ -100,6 +100,12 @@ def library() -> ctypes.CDLL:
         lib.vq_ar_decode_launch.restype = i
         lib.vq_ar_decode_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
         lib.vq_ar_decode_plan.restype = i
+        lib.vq_gru_scan_launch.argtypes = [p] * 6 + [i] * 3 + [p]
+        lib.vq_gru_scan_launch.restype = i
+        lib.vq_gru_scan_masked_launch.argtypes = [p] * 7 + [i] * 3 + [p]
+        lib.vq_gru_scan_masked_launch.restype = i
+        lib.vq_gru_scan_smem_bytes.argtypes = [i]
+        lib.vq_gru_scan_smem_bytes.restype = i
         lib.vq_cuda_error_string.argtypes = [i]
         lib.vq_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

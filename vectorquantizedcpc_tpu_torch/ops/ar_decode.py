@@ -257,6 +257,42 @@ def ar_decode(
     return out, h_out
 
 
+class DecodeState(NamedTuple):
+    """The AR state carried from one decode segment to the next."""
+
+    h: torch.Tensor  # (B, H) f32 GRU hidden state
+    prev: torch.Tensor  # (B,) int32 previous mu-law class
+
+
+def segment_seed(seed: int, segment: int) -> int:
+    """Sampling seed of the ``segment``-th launch of a stream of segments.
+
+    The kernel's step counter restarts at 0 in every launch, so each
+    segment gets its own seed, a hash of (seed, segment index).
+    """
+    return _mix32(_mix32(seed & _M32) ^ (segment & _M32))
+
+
+def fused_ar_decode_segment(
+    weights: DecodeWeights,
+    cond_proj_frames: torch.Tensor,
+    state: DecodeState,
+    seed: int,
+    hop: int,
+    greedy: bool = False,
+) -> Tuple[torch.Tensor, DecodeState]:
+    """Decode ``Sf`` frames continuing from ``state``, in one launch.
+
+    ``cond_proj_frames`` is (B, Sf, 3H) bf16 (``project_cond_frames``).
+    Returns (classes (B, Sf * hop) int32, the state after the last sample).
+    Chaining segments reproduces a single-shot decode exactly when greedy;
+    ``seed`` is this launch's own (``segment_seed``).
+    """
+    cond_proj = cond_proj_frames.transpose(0, 1).contiguous()
+    samples, h_t = ar_decode(cond_proj, state.h, state.prev, weights, hop, seed, greedy)
+    return samples.t(), DecodeState(h=h_t, prev=samples[-1].clone())
+
+
 def kernel_plan(batch: int, hidden: int, fc: int, n_classes: int) -> Tuple[int, int, int]:
     """(blocks, hidden units per block, shared memory bytes) of a launch."""
     from . import _build
