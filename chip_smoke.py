@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's voice conversion and serving on one CUDA card.
+"""Drive the PyTorch port's voice conversion, serving and latent export on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -9,18 +9,25 @@ Phases (any failure ends the run with a non-zero exit):
 2. build every CUDA kernel of the paths from the sources in the checkout;
 3. hold each kernel against its plain PyTorch version on the card, at the
    full width of the default config: the AR decode greedy and sampled at
-   B in {1, 3, 8}, and in 4 chained segments; the GRU scans (plain and
-   masked) at the serving PreNet's shape;
+   B in {1, 3, 8, 32, 64}, and in 4 chained segments; the GRU scans (plain
+   and masked) at the serving PreNet's shape; the LSTM scan at the
+   export's shape and the CPC training shape;
 4. convert 8 synthetic wavs end to end through the CLI entry point, on
    full-width random weights saved as reference-format checkpoints, and
    check the wavs and that the path went through the kernels;
 4b. serve 48 requests of mixed lengths through ``ContinuousBatcher`` in
-   sampled mode, check every wave, the launch counts and the seeding, then
-   hold a greedy drain against single-shot decodes;
+   sampled mode with 8 slots, check every wave, the launch counts and the
+   seeding, then hold a greedy drain against single-shot decodes; serve
+   the same requests with 32 and with 64 slots and check them again;
+4c. export 40 synthetic mels of 50 to 1,000 frames through the encode CLI
+   at the default bf16, check the dumps, that the context LSTM went
+   through its kernel once per batch, and that the codes agree with an f32
+   export; score the dumps with the ABX CLI;
 5. time each kernel, its plain version and, where one exists, the PyTorch
    library call for the same function at the main paths' shapes, beside
-   the least time the card could take; time the serving drain beside the
-   request mix's slot-utilisation ceiling times the raw kernel rate.
+   the least time the card could take; the AR step at B in {8, 32, 64};
+   each serving drain beside the request mix's slot-utilisation ceiling
+   times the raw kernel rate at that many rows; the export's wall time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -62,7 +69,23 @@ MAX_GRU_ERR = 1e-2
 GRU_G, GRU_T, GRU_H = 48, 200, 128
 MIX_CODES = (25, 50, 100)
 DEVICE = "cuda"
-TIME_FRAMES = 100  # phase_time's decode: B = 8, 100 frames (1 s of audio)
+TIME_FRAMES = 100  # phase_time's decode: 100 frames (1 s of audio)
+SERVE_SLOTS = (8, 32, 64)  # the JAX bench serves this mix at 32 and 64 (bench.py:530,716)
+# LSTM scans, kernel against plain version: the reasoning of MAX_GRU_ERR.
+MAX_LSTM_ERR = 1e-2
+LSTM_H = 256  # the context LSTM's width (dim_cpc_context)
+# (B, T): the export's batch of 16 at T' = 256 (a 512-frame bucket), and
+# the CPC training step's 64 clips of 70 latent frames.
+LSTM_SHAPES = {"export": (16, 256), "training": (64, 70)}
+EXPORT_MELS = 40  # phase 4c: mels of 50 to 1,000 frames
+MIN_CODE_AGREEMENT = 0.99  # bf16 export against f32 export, share of frames
+# Where the two exports pick different codes, the bf16 code's squared
+# distance to the f32 z_pre exceeds the f32 code's by at most this share (a
+# near-tie); z_pre moves by the bf16 roundings of the frontend's five
+# products. Both are tests/test_torch_encode.py's bounds against the JAX
+# package's bf16 encode.
+MAX_CODE_GAP = 1e-2
+MAX_PRE_VQ_ERR = 5e-2
 CUDNN_DTYPE = torch.float16  # the library yardstick's type: cuDNN's RNN takes fp16
 
 
@@ -139,7 +162,7 @@ def phase_compare(seed: int, card: str) -> dict:
     n_classes = 2 ** net.rnnms.bits_mu_law
     frames = 8
     worst_h, worst_gap, n_div = 0.0, 0.0, 0
-    for batch in (1, 3, 8):
+    for batch in (1, 3, 8, 32, 64):
         cond = torch.from_numpy(
             rng.uniform(-1, 1, size=(batch, frames, net.rnnms.dim_voc_latent)).astype(np.float32)
         ).cuda()
@@ -296,6 +319,39 @@ def phase_compare_gru(seed: int, card: str) -> dict:
     return out
 
 
+def _lstm_inputs(seed: int, batch: int, steps: int):
+    """LSTM-scan operands from ``seed``: wh at nn.LSTM's init scale and an
+    input projection, both bf16; h0 and c0 in f32."""
+    rng = np.random.default_rng(seed + 6)
+    h = LSTM_H
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(DEVICE)
+    return (
+        f32(rng.uniform(-1, 1, size=(h, 4 * h)) / np.sqrt(h)).bfloat16(),
+        f32(rng.normal(0, 1, size=(steps, batch, 4 * h))).bfloat16(),
+        f32(rng.uniform(-0.5, 0.5, size=(batch, h))),
+        f32(rng.uniform(-1, 1, size=(batch, h))),
+    )
+
+
+def phase_compare_lstm(seed: int, card: str) -> float:
+    """The LSTM scan against its plain version at the export and training shapes."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    worst = 0.0
+    for name, (batch, steps) in LSTM_SHAPES.items():
+        args = _lstm_inputs(seed, batch, steps)
+        got = ls.lstm_scan(*args)
+        torch.cuda.synchronize()
+        ref = ls.lstm_scan_reference(*args)
+        errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref)]
+        check(max(errs) <= MAX_LSTM_ERR, f"lstm_scan {name}: hs, h_T, c_T differ by {errs}")
+        print(f"compare lstm_scan {name} B={batch} T={steps} H={LSTM_H}: hs max abs diff "
+              f"{errs[0]:.3e}, h_T {errs[1]:.3e}, c_T {errs[2]:.3e} (bound {MAX_LSTM_ERR} "
+              f"each, as for the GRU scans)  [{card}]")
+        worst = max(worst, *errs)
+    return worst
+
+
 def _write_inputs(d: Path, seed: int):
     """Full-width random checkpoints, 8 wavs of 1-2 s, list and speakers."""
     from vectorquantizedcpc_tpu_torch.configs import load_conf
@@ -401,8 +457,8 @@ def phase_serve(seed: int, card: str) -> dict:
         for _ in range(48)
     ]
 
-    def server(greedy: bool = False):
-        return ContinuousBatcher(vocoder, slots=8, segment_frames=4,
+    def server(greedy: bool = False, slots: int = 8):
+        return ContinuousBatcher(vocoder, slots=slots, segment_frames=4,
                                  max_frames=2 * max(MIX_CODES) + 32, greedy=greedy,
                                  seed=seed, device=DEVICE)
 
@@ -411,32 +467,37 @@ def phase_serve(seed: int, card: str) -> dict:
         waves = srv.run()
         return [waves[r] for r in rids]
 
-    # The main path, counts zeroed just before and read just after.
-    first = server()
-    torch.cuda.synchronize()
-    ar.AR_DECODE_LAUNCHES = g.GRU_SCAN_LAUNCHES = g.GRU_SCAN_MASKED_LAUNCHES = 0
-    start = time.perf_counter()
-    waves = drain(first, requests)
-    seconds = time.perf_counter() - start
-    launches = {
-        "ar_decode": ar.AR_DECODE_LAUNCHES,
-        "gru_scan": g.GRU_SCAN_LAUNCHES,
-        "gru_scan_masked": g.GRU_SCAN_MASKED_LAUNCHES,
-    }
-    steps = int(first.stats["steps"])
     valid = sum(2 * len(z) * hop for z, _ in requests)
-    check(len(waves) == 48, f"{len(waves)} of 48 requests returned")
-    for (z, _spk), wave in zip(requests, waves):
-        check(wave.shape == (2 * len(z) * hop,), f"wave of {wave.shape} for {len(z)} codes")
-        check(bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) <= 1.0, "wave range")
-    check(first.stats["samples_out"] == valid, f"samples_out {first.stats['samples_out']} != {valid}")
-    check(launches["ar_decode"] == steps > 0, f"{launches['ar_decode']} AR launches, {steps} steps")
-    check(launches["gru_scan"] == 2 and launches["gru_scan_masked"] == 2,
-          f"GRU launches {launches}: expected 2 layers x 1 each")
-    print(f"serve: 48 of 48 requests returned, {valid} samples ({valid / 16000:.3f} s of "
-          f"audio) in {steps} segment steps, {seconds:.3f} s wall (first drain); launches "
-          f"{json.dumps(launches)}  [{card}]")
 
+    def served(slots: int):
+        """The main path at ``slots``, counts zeroed just before and read just
+        after; every wave and count checked."""
+        srv = server(slots=slots)
+        torch.cuda.synchronize()
+        ar.AR_DECODE_LAUNCHES = g.GRU_SCAN_LAUNCHES = g.GRU_SCAN_MASKED_LAUNCHES = 0
+        start = time.perf_counter()
+        waves = drain(srv, requests)
+        seconds = time.perf_counter() - start
+        launches = {
+            "ar_decode": ar.AR_DECODE_LAUNCHES,
+            "gru_scan": g.GRU_SCAN_LAUNCHES,
+            "gru_scan_masked": g.GRU_SCAN_MASKED_LAUNCHES,
+        }
+        steps = int(srv.stats["steps"])
+        check(len(waves) == 48, f"{slots} slots: {len(waves)} of 48 requests returned")
+        for (z, _spk), wave in zip(requests, waves):
+            check(wave.shape == (2 * len(z) * hop,), f"wave of {wave.shape} for {len(z)} codes")
+            check(bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) <= 1.0, "wave range")
+        check(srv.stats["samples_out"] == valid, f"samples_out {srv.stats['samples_out']} != {valid}")
+        check(launches["ar_decode"] == steps > 0, f"{launches['ar_decode']} AR launches, {steps} steps")
+        check(launches["gru_scan"] == 2 and launches["gru_scan_masked"] == 2,
+              f"GRU launches {launches}: expected 2 layers x 1 each")
+        print(f"serve {slots} slots: 48 of 48 requests returned, {valid} samples "
+              f"({valid / 16000:.3f} s of audio) in {steps} segment steps, {seconds:.3f} s wall "
+              f"(first drain); launches {json.dumps(launches)}  [{card}]")
+        return waves, launches, srv
+
+    waves, launches, _ = served(8)
     second = server()
     again = drain(second, requests)
     check(all(np.array_equal(a, b) for a, b in zip(waves, again)),
@@ -471,8 +532,136 @@ def phase_serve(seed: int, card: str) -> dict:
     print(f"serve greedy: 8 requests of {len(shortest[0][0])}-{len(shortest[-1][0])} codes, "
           f"{same} of 8 bit-identical to single-shot fused_ar_decode; worst plain-version "
           f"gap where one diverged {worst_gap:.3e} (bound {MAX_GAP})  [{card}]")
-    return {"launches": launches, "server": second, "requests": requests, "valid": valid,
-            "vocoder": vocoder}
+
+    launches_by_slots, servers = {8: launches}, {8: second}
+    for slots in SERVE_SLOTS[1:]:
+        _, launches_by_slots[slots], servers[slots] = served(slots)
+    return {"launches": launches_by_slots, "servers": servers, "requests": requests,
+            "valid": valid, "vocoder": vocoder}
+
+
+def _speechlike_wave(n_samples: int, cat: int, spk: int, sr: int, rng) -> np.ndarray:
+    """Segments of 40-150 ms, as syllables are: a fifth of them noise, the
+    rest harmonics of a pitch around the category's (110 + 45 cat Hz, a
+    sixth of an octave of jitter) under three random formant peaks and the
+    speaker's spectral tilt (-6 or -10 dB per octave)."""
+    wave = np.zeros(n_samples)
+    pos = 0
+    while pos < n_samples:
+        n = min(int(rng.integers(int(0.04 * sr), int(0.15 * sr))), n_samples - pos)
+        t = np.arange(n) / sr
+        if rng.random() < 0.2:
+            seg = 0.05 * rng.normal(size=n)
+        else:
+            f0 = (110 + 45 * cat) * 2 ** rng.normal(0, 0.15)
+            formants = rng.uniform(300, 3500, size=3)
+            seg = np.zeros(n)
+            for k in range(1, int(4000 // f0)):
+                peaks = sum(3 * np.exp(-(((k * f0) - f) / 150) ** 2) for f in formants)
+                amp = 10 ** ((-6 - 4 * spk) * np.log2(k) / 20) * (1 + peaks)
+                seg += amp * np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 2 * np.pi))
+            seg *= 0.1 * np.hanning(n) ** 0.3
+        wave[pos : pos + n] = seg
+        pos += n
+    return wave + 0.002 * rng.normal(size=n_samples)
+
+
+def _write_mels(d: Path, seed: int):
+    """A full-width random encoder as a reference checkpoint and 40 mels of
+    50 to 1,000 frames from speech-like synthetic wavs: 4 "categories" of
+    pitch, 2 "speakers" of spectral tilt. Returns {stem: (frames, category,
+    speaker)}."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.dsp.mel import wave_to_mel
+    from vectorquantizedcpc_tpu_torch.models.encoder import Encoder
+
+    conf = load_conf([])
+    rng = np.random.default_rng(seed + 7)
+    encoder = Encoder(conf.model.encoder)
+    randomize(encoder, rng)
+    torch.save({"encoder": encoder.state_dict(), "epoch": 0}, d / "cpc.pt")
+    pp = conf.data.dataset.preprocess
+    lengths = rng.integers(50, 1001, size=EXPORT_MELS)
+    lengths[:2] = [50, 1000]
+    (d / "mels").mkdir()
+    meta = {}
+    for i, n in enumerate(lengths):
+        cat, spk = i % 4, (i // 4) % 2
+        # (n - 1) hops of samples give n mel frames.
+        wave = _speechlike_wave(int(n - 1) * pp.hop_length, cat, spk, pp.sr, rng)
+        mel = wave_to_mel(wave.astype(np.float32), pp)
+        check(mel.shape == (pp.n_mels, n), f"mel of {mel.shape} for {n} frames")
+        stem = f"s{spk}_u{i:02d}"
+        np.save(d / "mels" / f"{stem}.mel.npy", mel)
+        meta[stem] = (int(n), f"c{cat}", f"s{spk}")
+    return meta
+
+
+def phase_export(seed: int, card: str) -> dict:
+    """The encode CLI end to end on the card at the default bf16, then at
+    f32 for the codes, then the ABX CLI on the bf16 dumps."""
+    from vectorquantizedcpc_tpu_torch.cli import encode as encode_cli
+    from vectorquantizedcpc_tpu_torch.cli import eval_abx
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        meta = _write_mels(d, seed)
+        buckets = {}
+        for n, _, _ in meta.values():
+            padded = max(64, -(-n // 64) * 64)
+            buckets[padded] = buckets.get(padded, 0) + 1
+        n_batches = sum(-(-k // 16) for k in buckets.values())
+        frames = sum(n // 2 for n, _, _ in meta.values())
+        argv = [f"cpc_checkpoint={d / 'cpc.pt'}", f"in_dir={d / 'mels'}", "save_auxiliary=true"]
+        torch.cuda.synchronize()
+        ls.LSTM_SCAN_LAUNCHES = 0
+        start = time.perf_counter()
+        n = encode_cli.main(argv + [f"out_dir={d / 'bf16' / 'codes'}"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = ls.LSTM_SCAN_LAUNCHES
+        check(n == EXPORT_MELS, f"exported {n} utterances, expected {EXPORT_MELS}")
+        check(launches == n_batches, f"{launches} LSTM scan launches for {n_batches} batches")
+        check(encode_cli.main(argv + [f"out_dir={d / 'f32' / 'codes'}",
+                                      "runtime.precision=float32"]) == EXPORT_MELS, "f32 export")
+        emb = torch.load(d / "cpc.pt")["encoder"]["codebook.embedding"].double().numpy()
+        same, worst_gap, worst_pre = 0, 0.0, 0.0
+        for stem, (n_frames, _, _) in meta.items():
+            dumps = {}
+            for prec in ("bf16", "f32"):
+                for sub in ("codes", "auxiliary_embedding1", "auxiliary_embedding2"):
+                    rows = dumps[prec, sub] = np.loadtxt(d / prec / sub / f"{stem}.txt", ndmin=2)
+                    check(rows.shape[0] == n_frames // 2 and bool(np.isfinite(rows).all()),
+                          f"{prec} {sub}/{stem}: {rows.shape} rows for {n_frames} frames")
+            # z rows are code vectors: their codes, and the f32 distances of z_pre.
+            code = {p: ((dumps[p, "codes"][:, None] - emb) ** 2).sum(-1).argmin(-1)
+                    for p in ("bf16", "f32")}
+            z_pre = dumps["f32", "auxiliary_embedding2"]
+            dist = ((z_pre[:, None] - emb) ** 2).sum(-1)
+            rows = np.arange(len(z_pre))
+            gap = (dist[rows, code["bf16"]] - dist[rows, code["f32"]]) / dist[rows, code["f32"]]
+            same += int((code["bf16"] == code["f32"]).sum())
+            worst_gap = max(worst_gap, float(gap.max()))
+            worst_pre = max(worst_pre, float(np.abs(dumps["bf16", "auxiliary_embedding2"] - z_pre).max()))
+        agree = same / frames
+        check(agree >= MIN_CODE_AGREEMENT, f"bf16 codes agree with f32 on {agree:.4f} of frames")
+        check(worst_gap <= MAX_CODE_GAP, f"a bf16 code is {worst_gap} farther than the f32 one")
+        check(worst_pre <= MAX_PRE_VQ_ERR, f"bf16 z_pre differs from f32 by {worst_pre}")
+        items = {stem: {"category": c, "speaker": s} for stem, (_, c, s) in meta.items()}
+        (d / "items.json").write_text(json.dumps(items))
+        abx = eval_abx.main(["--features", str(d / "bf16" / "codes"),
+                             "--items", str(d / "items.json")])
+        check(0.0 <= abx["abx_error_rate"] <= 1.0, f"ABX error rate {abx['abx_error_rate']}")
+    print(f"export: {EXPORT_MELS} mels of 50-1000 frames in {n_batches} batches "
+          f"({len(buckets)} buckets), {frames} latent frames, {launches} LSTM scan launches, "
+          f"{seconds:.3f} s wall incl. checkpoint and mel load = {frames / seconds:.1f} latent "
+          f"frames/s; codes agree with the f32 export on {agree:.6f} of frames "
+          f"(bound {MIN_CODE_AGREEMENT}), where not a near-tie: relative f32 distance gap "
+          f"{worst_gap:.3e} (bound {MAX_CODE_GAP}); z_pre max abs diff {worst_pre:.3e} "
+          f"(bound {MAX_PRE_VQ_ERR}); ABX across speakers on the dumps: "
+          f"{json.dumps(abx)}  [{card}]")
+    return {"launches": launches, "seconds": seconds, "frames": frames}
 
 
 def mix_ceiling(requests, slots: int, sf: int) -> float:
@@ -497,8 +686,10 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_time(seed: int, card: str) -> dict:
-    """Kernel and plain version at B = 8, 100 frames (1 s), with the bound."""
+def phase_time(seed: int, card: str):
+    """Kernel and plain version at B = 8, 100 frames (1 s), with the bound;
+    the kernel alone at B = 1 and at the serving points 32 and 64. Returns
+    (B = 8 numbers, {B: kernel ms})."""
     from vectorquantizedcpc_tpu_torch.configs import load_conf
     from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
@@ -508,19 +699,32 @@ def phase_time(seed: int, card: str) -> dict:
     rng = np.random.default_rng(seed + 2)
     randomize(vocoder, rng)
     w = ar.prep_decode_weights(vocoder.cuda().eval())
-    batch, frames, hop = 8, TIME_FRAMES, net.rnnms.upsampling_t
+    frames, hop = TIME_FRAMES, net.rnnms.upsampling_t
     hidden, fc = w.fc1_w.shape
     n_classes = w.fc2_w.shape[1]
     cond = torch.from_numpy(
-        rng.uniform(-1, 1, size=(batch, frames, net.rnnms.dim_voc_latent)).astype(np.float32)
+        rng.uniform(-1, 1, size=(max(SERVE_SLOTS), frames, net.rnnms.dim_voc_latent)).astype(np.float32)
     ).cuda()
-    cond_proj = ar.project_cond_frames(w, cond).transpose(0, 1).contiguous()
-    h0, prev0 = ar.init_decode_state(batch, hidden, n_classes, cond.device)
+    cond_all = ar.project_cond_frames(w, cond).transpose(0, 1).contiguous()
     steps = frames * hop
-    kernel_ms = time_cuda(lambda: ar.ar_decode(cond_proj, h0, prev0, w, hop, seed=1), reps=3)
-    # One row: how far the step time is from scaling with the batch.
-    one = (cond_proj[:, :1].contiguous(), h0[:1].contiguous(), prev0[:1].contiguous())
-    one_ms = time_cuda(lambda: ar.ar_decode(*one, w, hop, seed=1), reps=3)
+    audio_s = steps / 16000
+
+    def inputs(batch):
+        h0, prev0 = ar.init_decode_state(batch, hidden, n_classes, cond.device)
+        return cond_all[:, :batch].contiguous(), h0, prev0
+
+    ms_by_batch = {}
+    for batch in (1,) + SERVE_SLOTS:
+        args = inputs(batch)
+        ms_by_batch[batch] = time_cuda(lambda: ar.ar_decode(*args, w, hop, seed=1), reps=3)
+        grid, units, smem = ar.kernel_plan(batch, hidden, fc, n_classes)
+        print(f"timing ar_decode B={batch} steps={steps} ({audio_s:.3f} s audio): kernel "
+              f"{ms_by_batch[batch]:.3f} ms = {ms_by_batch[batch] * 1e3 / steps:.3f} us/step, "
+              f"{batch * steps / (ms_by_batch[batch] / 1e3):.1f} samples/s; grid {grid} blocks "
+              f"x {units} units, {smem} B shared memory  [{card}]")
+    batch = 8
+    cond_proj, h0, prev0 = inputs(batch)
+    kernel_ms = ms_by_batch[batch]
     plain_ms = time_cuda(lambda: ar.ar_decode_reference(cond_proj, h0, prev0, w, hop, seed=1), reps=1)
 
     flops = 2 * batch * steps * (hidden * 3 * hidden + hidden * fc + fc * n_classes)
@@ -528,23 +732,17 @@ def phase_time(seed: int, card: str) -> dict:
     n_bytes = sum(t.numel() * t.element_size() for t in weight_tensors)
     n_bytes += cond_proj.numel() * 2 + prev0.numel() * 4 + 2 * h0.numel() * 4 + steps * batch * 4
     bound_ops, bound_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
-    grid, units, smem = ar.kernel_plan(batch, hidden, fc, n_classes)
-    audio_s = steps / 16000
     print(
-        f"timing ar_decode B={batch} steps={steps} ({audio_s:.3f} s audio): kernel {kernel_ms:.3f} ms "
-        f"= {kernel_ms * 1e3 / steps:.3f} us/step, RTF {kernel_ms / 1e3 / audio_s:.5f}; plain "
-        f"{plain_ms:.3f} ms; bound {max(bound_ops, bound_bytes) * 1e3:.3f} us "
-        f"({flops:.4g} FLOP, {n_bytes:.4g} B); grid {grid} blocks x {units} units, "
-        f"{smem} B shared memory  [{card}]"
+        f"timing ar_decode B={batch} steps={steps}: kernel {kernel_ms:.3f} ms, RTF "
+        f"{kernel_ms / 1e3 / audio_s:.5f}; plain {plain_ms:.3f} ms; bound "
+        f"{max(bound_ops, bound_bytes) * 1e3:.3f} us ({flops:.4g} FLOP, {n_bytes:.4g} B)  [{card}]"
     )
-    print(f"timing ar_decode B=1 steps={steps}: kernel {one_ms:.3f} ms = "
-          f"{one_ms * 1e3 / steps:.3f} us/step  [{card}]")
     return {
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bound_ops, bound_bytes),
         "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-    }
+    }, ms_by_batch
 
 
 def _gru_bound(x: dict, masked: bool):
@@ -602,26 +800,73 @@ def phase_time_gru(seed: int, card: str) -> dict:
     return out
 
 
-def phase_time_serve(serve: dict, kernel_ms: float, card: str) -> None:
-    """The drain of phase 4b again (its server has drained once: warm), to
-    the device; beside the ceiling of the mix times the raw B = 8 rate."""
+def phase_time_lstm(seed: int, card: str) -> dict:
+    """The LSTM scan, its plain version and cuDNN's LSTM at the export and
+    training shapes. cuDNN (one layer, fp16, on a (B, T, 64) input, so it
+    also does the input projection that the kernel takes precomputed) is
+    only timed here: the port never calls it."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    out = {}
+    with torch.no_grad():
+        for name, (batch, steps) in LSTM_SHAPES.items():
+            args = _lstm_inputs(seed, batch, steps)
+            lstm_in = torch.randn(batch, steps, 64, device=DEVICE, dtype=CUDNN_DTYPE)
+            cudnn = torch.nn.LSTM(64, LSTM_H, batch_first=True).to(DEVICE, CUDNN_DTYPE)
+            # Each input read once, each output written once: hs bf16, h_T and c_T f32.
+            n_bytes = sum(x.numel() * x.element_size() for x in args)
+            n_bytes += steps * batch * LSTM_H * 2 + 2 * batch * LSTM_H * 4
+            flops = 2 * batch * steps * LSTM_H * 4 * LSTM_H
+            ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+            res = {
+                "ms": time_cuda(lambda: ls.lstm_scan(*args), reps=20),
+                "plain_ms": time_cuda(lambda: ls.lstm_scan_reference(*args), reps=2),
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": time_cuda(lambda: cudnn(lstm_in), reps=20),
+            }
+            print(f"timing lstm_scan {name} B={batch} T={steps} H={LSTM_H}: kernel "
+                  f"{res['ms']:.4f} ms = {res['ms'] * 1e3 / steps:.3f} us/step; plain "
+                  f"{res['plain_ms']:.3f} ms; cuDNN nn.LSTM (fp16) {res['library_ms']:.4f} ms; "
+                  f"bound {res['bound_ms'] * 1e3:.3f} us by {res['bound_by']} ({flops:.4g} FLOP, "
+                  f"{n_bytes:.4g} B); bound / kernel = {res['bound_ms'] / res['ms'] * 100:.3f} %  "
+                  f"[{card}]")
+            out[name] = res
+    return out
+
+
+def phase_time_serve(serve: dict, ms_by_batch: dict, card: str) -> None:
+    """Each drain of phase 4b again (every server has drained once: warm), to
+    the device, beside the mix's ceiling at that many slots times the raw
+    kernel rate at that many rows."""
     from vectorquantizedcpc_tpu_torch.models.vocoder import build_conditioning_frames_ragged
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
 
-    server, requests, valid = serve["server"], serve["requests"], serve["valid"]
-    for z, spk in requests:
-        server.submit(z, spk)
-    steps_before = server.stats["steps"]
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    server.run(materialize=False)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - start
-    steps = int(server.stats["steps"] - steps_before)
-    rate = valid / seconds
+    requests, valid = serve["requests"], serve["valid"]
     hop = serve["vocoder"].conf.rnnms.upsampling_t
-    kernel_rate = 8 * TIME_FRAMES * hop / (kernel_ms / 1e3)
-    ceiling = mix_ceiling(requests, slots=8, sf=4)
+    seconds_by_slots = {}
+    for slots in SERVE_SLOTS:
+        server = serve["servers"][slots]
+        for z, spk in requests:
+            server.submit(z, spk)
+        steps_before = server.stats["steps"]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        server.run(materialize=False)
+        torch.cuda.synchronize()
+        seconds = seconds_by_slots[slots] = time.perf_counter() - start
+        steps = int(server.stats["steps"] - steps_before)
+        rate = valid / seconds
+        kernel_ms = ms_by_batch[slots]
+        kernel_rate = slots * TIME_FRAMES * hop / (kernel_ms / 1e3)
+        ceiling = mix_ceiling(requests, slots=slots, sf=4)
+        segments_ms = steps * 4 * kernel_ms / TIME_FRAMES
+        print(f"serve timing {slots} slots: {valid} valid samples in {seconds * 1e3:.3f} ms to "
+              f"the device = {rate:.1f} samples/s; mix ceiling {ceiling:.4f} x B={slots} kernel "
+              f"rate {kernel_rate:.1f} samples/s = {ceiling * kernel_rate:.1f} samples/s; served "
+              f"/ (ceiling x kernel) = {rate / (ceiling * kernel_rate):.4f}; {steps} segments x "
+              f"{4 * hop} steps at phase_time's B = {slots} step time = {segments_ms:.3f} ms = "
+              f"{segments_ms / (seconds * 1e3) * 100:.3f} % of the drain  [{card}]")
 
     # The ragged conditioning of the same 48 requests alone (the PreNet kernels).
     vocoder = serve["vocoder"]
@@ -635,15 +880,8 @@ def phase_time_serve(serve: dict, kernel_ms: float, card: str) -> None:
     w = ar.prep_decode_weights(vocoder)
     cond_ms = time_cuda(lambda: ar.project_cond_frames(w, build_conditioning_frames_ragged(
         vocoder, zs, spks, n_frames, use_kernel=True).float()), reps=3)
-    segments_ms = steps * 4 * kernel_ms / TIME_FRAMES
-    print(f"serve timing: {valid} valid samples in {seconds * 1e3:.3f} ms to the device = "
-          f"{rate:.1f} samples/s; mix ceiling {ceiling:.4f} x B=8 kernel rate "
-          f"{kernel_rate:.1f} samples/s = {ceiling * kernel_rate:.1f} samples/s; served / "
-          f"(ceiling x kernel) = {rate / (ceiling * kernel_rate):.4f}  [{card}]")
     print(f"serve timing: ragged conditioning {cond_ms:.3f} ms = "
-          f"{cond_ms / (seconds * 1e3) * 100:.3f} % of the drain; {steps} segments x {4 * hop} "
-          f"steps at phase_time's B = 8 step time = {segments_ms:.3f} ms = "
-          f"{segments_ms / (seconds * 1e3) * 100:.3f} % of the drain  [{card}]")
+          f"{cond_ms / (seconds_by_slots[8] * 1e3) * 100:.3f} % of the 8-slot drain  [{card}]")
 
 
 def main() -> int:
@@ -672,14 +910,17 @@ def main() -> int:
     # Phase 3: each kernel against its plain version.
     compared = phase_compare(args.seed, card)
     compared_gru = phase_compare_gru(args.seed, card)
+    compared_lstm = phase_compare_lstm(args.seed, card)
     # Phase 4: the main paths, counts zeroed just before and read just after each.
     converted = phase_convert(args.seed, card)
     serve = phase_serve(args.seed, card)
     launches = serve["launches"]
+    exported = phase_export(args.seed, card)
     # Phase 5: times beside the bound.
-    timing = phase_time(args.seed, card)
+    timing, ar_ms_by_batch = phase_time(args.seed, card)
     timing_gru = phase_time_gru(args.seed, card)
-    phase_time_serve(serve, timing["ms"], card)
+    timing_lstm = phase_time_lstm(args.seed, card)
+    phase_time_serve(serve, ar_ms_by_batch, card)
 
     source = "vectorquantizedcpc_tpu_torch/ops/csrc/"
     kernels = [
@@ -688,10 +929,14 @@ def main() -> int:
             "route": "cuda",
             "source": source + "ar_decode.cu",
             "replaces": "vectorquantizedcpc_tpu/ops/ar_decode.py:218",
-            "launches": launches["ar_decode"],
-            "launches_by_path": {"convert": converted["ar_decode"], "serve": launches["ar_decode"]},
+            "launches": launches[8]["ar_decode"],
+            "launches_by_path": {
+                "convert": converted["ar_decode"],
+                **{f"serve_{k}_slots": v["ar_decode"] for k, v in launches.items()},
+            },
             "max_abs_err": compared["max_abs_err"],
             **timing,
+            "ms_by_batch": ar_ms_by_batch,
             "library_ms": None,
         }
     ] + [
@@ -700,11 +945,22 @@ def main() -> int:
             "route": "cuda",
             "source": source + "gru_scan.cu",
             "replaces": f"vectorquantizedcpc_tpu/ops/gru_train.py:{line}",
-            "launches": launches[name],
+            "launches": launches[8][name],
             "max_abs_err": compared_gru[name],
             **timing_gru[name],
         }
         for name, line in (("gru_scan", 59), ("gru_scan_masked", 245))
+    ] + [
+        {
+            "name": "lstm_scan",
+            "route": "cuda",
+            "source": source + "lstm_scan.cu",
+            "replaces": "vectorquantizedcpc_tpu/ops/lstm_scan.py:48",
+            "launches": exported["launches"],
+            "max_abs_err": compared_lstm,
+            **timing_lstm["export"],
+            "training_shape": timing_lstm["training"],
+        }
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

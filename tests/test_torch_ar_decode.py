@@ -57,6 +57,24 @@ def test_plain_bf16_greedy_matches_pallas_kernel(models, rng):
     np.testing.assert_array_equal(classes_of(wave.numpy(), 256), ours)
 
 
+def test_plain_bf16_greedy_at_32_rows_matches_pallas_kernel(models, rng):
+    """B = 32, past the old 8-row cap: prefix-exact against the Pallas kernel."""
+    net, voc, vocoder = models
+    z = rng.integers(0, 16, size=(32, 3))
+    spk = rng.integers(0, 4, size=32)
+    ref = jax_fused(voc, net, jnp.asarray(z), jnp.asarray(spk), jax.random.key(6),
+                    chunk=16, greedy=True, interpret=True)
+    w, cond_proj, h0, prev0 = _decode_inputs(vocoder, z, spk)
+    samples, _, scores = port.ar_decode_reference(
+        cond_proj, h0, prev0, w, hop=8, greedy=True, return_scores=True
+    )
+    ours = samples.t().numpy()
+    assert ours.shape == (32, 48)
+    ref_classes = classes_of(ref, 256)
+    assert_prefix_parity(ref_classes, ours, scores.transpose(0, 1).numpy(), 0.05)
+    assert np.mean(ours == ref_classes) > 0.95
+
+
 def test_sampled_plain_decode_in_range_and_seeded(models, rng):
     net, voc, vocoder = models
     z = torch.from_numpy(rng.integers(0, 16, size=(3, 4)))
@@ -125,6 +143,6 @@ def test_kernel_input_checks(models, rng, field, bad):
         bad_w = w._replace(**{field: bad(getattr(w, field))})
     with pytest.raises(ValueError):
         port._check_kernel_inputs(args["cond_proj"], args["h0"], args["prev0"], bad_w, 8)
-    with pytest.raises(ValueError, match="rows"):
-        big = cond_proj.repeat(1, 5, 1)
-        port._check_kernel_inputs(big, h0.repeat(5, 1), prev0.repeat(5), w, 8)
+    with pytest.raises(ValueError, match="rows"):  # 130 rows > MAX_BATCH = 128
+        big = cond_proj.repeat(1, 65, 1)
+        port._check_kernel_inputs(big, h0.repeat(65, 1), prev0.repeat(65), w, 8)

@@ -2,9 +2,11 @@
 
 Edge shapes that chip_smoke.py's full-width run does not reach. AR decode:
 hidden sizes that do not split evenly over the SMs, FC1 widths below the
-grid size, few classes, hop 1, odd batches. GRU scans: batches off the
-8-row tile, one row, one step, H = 96 and 128, rows masked at every step,
-the shared-memory limit. Skipped without a card. This file
+grid size, few classes, hop 1, odd batches, batches of several 8-row tiles
+up to the 128-row cap. GRU scans: batches off the 8-row tile, one row, one
+step, H = 96 and 128, rows masked at every step, the shared-memory limit.
+LSTM scan: batches off the 8-row cluster tile, one step, odd step counts,
+the width limits. Skipped without a card. This file
 imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -54,6 +56,11 @@ def _weights(rng, hidden, fc, n_classes, device):
         (5, 37, 11, 64, 1, 9),  # hidden < SMs: one unit per block, FC1 < grid
         (8, 301, 33, 100, 7, 5),  # last block holds 1 unit, 100 classes
         (3, 1001, 256, 256, 3, 4),  # 8 units per block, last block 1
+        (9, 896, 256, 256, 160, 1),  # two row tiles, the second of one row
+        (32, 896, 256, 256, 160, 1),
+        (64, 896, 256, 256, 160, 1),
+        (128, 896, 256, 256, 160, 1),  # the cap: one row per sampling block
+        (70, 37, 11, 64, 1, 9),  # more rows than blocks: blocks sample 2 rows
     ],
 )
 @pytest.mark.parametrize("greedy", [True, False])
@@ -90,10 +97,12 @@ def test_ar_decode_kernel_refuses_bad_input(cuda):
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
 
     w = _weights(np.random.default_rng(0), 64, 16, 32, cuda)
-    cond = torch.zeros(2, 9, 192, dtype=torch.bfloat16, device=cuda)
-    h0, prev0 = ar.init_decode_state(9, 64, 32, cuda)
+    cond = torch.zeros(2, 129, 192, dtype=torch.bfloat16, device=cuda)
+    h0, prev0 = ar.init_decode_state(129, 64, 32, cuda)
     with pytest.raises(ValueError, match="rows"):
         ar.ar_decode(cond, h0, prev0, w, hop=4)
+    with pytest.raises(ValueError, match="rows"):
+        ar.kernel_plan(129, 64, 16, 32)
     with pytest.raises(ValueError, match="cond_proj"):
         ar.ar_decode(cond[:, :2].float(), h0[:2], prev0[:2], w, hop=4)
 
@@ -169,3 +178,64 @@ def test_gru_scan_shared_memory_layout_and_limit(cuda):
     wh, bh, xproj, h0, _, _ = _scan_case(np.random.default_rng(4), 2, 3, 184, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         g.gru_scan(wh, bh, xproj, h0)
+
+
+def test_server_refuses_more_slots_than_the_kernel_takes(cuda):
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.infer.serving import ContinuousBatcher
+    from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
+
+    conf = load_conf(["training_vocoder.model.network.rnnms.wave_ar.size_h_rnn=64"])
+    vocoder = Vocoder(conf.training_vocoder.model.network)
+    with pytest.raises(ValueError, match="at most 128 rows"):
+        ContinuousBatcher(vocoder, slots=129, device=cuda)
+
+
+def _lstm_case(rng, t, b, hidden, device):
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    wh = f32(rng.uniform(-1, 1, size=(hidden, 4 * hidden)) / np.sqrt(hidden)).bfloat16()
+    xproj = f32(rng.normal(0, 1, size=(t, b, 4 * hidden))).bfloat16()
+    h0 = f32(rng.uniform(-0.5, 0.5, size=(b, hidden)))
+    c0 = f32(rng.uniform(-1, 1, size=(b, hidden)))
+    return wh, xproj, h0, c0
+
+
+@pytest.mark.parametrize("t", [1, 70, 257])
+@pytest.mark.parametrize("b", [1, 15, 16, 17, 64])
+def test_lstm_scan_kernel_matches_plain(cuda, t, b):
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    args = _lstm_case(np.random.default_rng(t * 1000 + b), t, b, 256, cuda)
+    before = ls.LSTM_SCAN_LAUNCHES
+    hs, h_t, c_t = ls.lstm_scan(*args)
+    torch.cuda.synchronize()
+    assert ls.LSTM_SCAN_LAUNCHES == before + 1
+    ref, ref_h, ref_c = ls.lstm_scan_reference(*args)
+    assert hs.shape == (t, b, 256) and h_t.shape == c_t.shape == (b, 256)
+    # Same bounds as chip_smoke.py: a bf16 ulp of |h| < 1, and f32 sums.
+    assert float((hs.float() - ref.float()).abs().max()) <= 1e-2
+    assert float((h_t - ref_h).abs().max()) <= 1e-2
+    assert float((c_t - ref_c).abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("hidden", [64, 128, 432])
+def test_lstm_scan_kernel_other_widths(cuda, hidden):
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    args = _lstm_case(np.random.default_rng(hidden), 9, 11, hidden, cuda)
+    hs, h_t, c_t = ls.lstm_scan(*args)
+    ref, ref_h, ref_c = ls.lstm_scan_reference(*args)
+    torch.cuda.synchronize()
+    assert float((hs.float() - ref.float()).abs().max()) <= 1e-2
+    assert float((c_t - ref_c).abs().max()) <= 1e-2
+
+
+def test_lstm_scan_shared_memory_layout_and_limits(cuda):
+    from vectorquantizedcpc_tpu_torch.ops import _build
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    for hidden in (8, 64, 256, 432, 440):
+        assert _build.library().vq_lstm_scan_smem_bytes(hidden) == ls.scan_smem_bytes(hidden)
+    for hidden, match in ((440, "shared memory"), (36, "multiple of 8")):
+        with pytest.raises(ValueError, match=match):
+            ls.lstm_scan(*_lstm_case(np.random.default_rng(0), 2, 3, hidden, cuda))

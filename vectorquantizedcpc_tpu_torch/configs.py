@@ -1,7 +1,7 @@
-"""Typed configuration for voice conversion: defaults, ``${}`` links, overrides.
+"""Typed configuration for the port's CLIs: defaults, ``${}`` links, overrides.
 
-The conversion subset of the JAX package's config tree, under the same key
-paths, so a ``key=value`` override written for one CLI works for the other
+The conversion and export subset of the JAX package's config tree, under the
+same key paths, so a ``key=value`` override written for one CLI works for the other
 (``training_vocoder.model.network.rnnms.wave_ar.size_h_rnn=32``). The
 defaults are a Python literal and overrides are parsed without yaml. An
 unknown key raises ``ValueError``, as in the JAX CLI.
@@ -11,6 +11,7 @@ import dataclasses
 import re
 import sys
 import typing
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -32,6 +33,7 @@ def conf_default_tree() -> Dict[str, Any]:
         "vocoder_checkpoint": (
             "checkpoints/vocoder/english2019/version1/model.ckpt-xxxxxx.pt"
         ),
+        "save_auxiliary": False,
         "synthesis_list": "./target_vc.json",
         "in_dir": "./in",
         "out_dir": "./out",
@@ -155,7 +157,8 @@ class ConfData:
 @dataclass
 class ConfRuntime:
     # "bfloat16" / "bf16" / "float32" decode through the bf16 kernel, as in
-    # the JAX package; "int8" and "auto" are not ported yet.
+    # the JAX package; "int8" and "auto" are not ported yet. The export's
+    # compute dtype: resolve_compute_dtype.
     precision: str = "bfloat16"
     # "cpu" runs on the CPU; null or "cuda" needs a CUDA card.
     platform: Optional[str] = None
@@ -171,6 +174,7 @@ class ConfGlobal:
     dim_cpc_context: int = MISSING
     cpc_checkpoint: str = MISSING
     vocoder_checkpoint: str = MISSING
+    save_auxiliary: bool = MISSING
     synthesis_list: str = MISSING
     in_dir: str = MISSING
     out_dir: str = MISSING
@@ -178,6 +182,27 @@ class ConfGlobal:
     training_vocoder: ConfTrainVocoder = field(default_factory=ConfTrainVocoder)
     data: ConfData = field(default_factory=ConfData)
     runtime: ConfRuntime = field(default_factory=ConfRuntime)
+
+
+def resolve_compute_dtype(precision: str):
+    """``runtime.precision`` -> the encoder's compute dtype, in the JAX
+    package's spellings. The decode-only modes compute in bfloat16."""
+    import torch
+
+    if precision in ("auto", "int8"):
+        warnings.warn(
+            f"runtime.precision={precision!r} is a decode-only mode; "
+            "the encoder computes in bfloat16"
+        )
+        return torch.bfloat16
+    if precision in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if precision in ("float32", "f32", "fp32"):
+        return torch.float32
+    raise ValueError(
+        f"runtime.precision={precision!r} is not a compute dtype "
+        "(float32/bfloat16) or a decode mode (bf16/int8/auto)"
+    )
 
 
 _INTERP_RE = re.compile(r"^\$\{([A-Za-z0-9_.]+)\}$")

@@ -125,7 +125,7 @@ def convert(
             for j, i in enumerate(chunk):
                 mels[j, :, : jobs[i]["mel"].shape[1]] = jobs[i]["mel"]
             spk = torch.tensor([jobs[i]["speaker"] for i in chunk], device=device)
-            _, codes = encoder.encode(torch.from_numpy(mels).to(device))
+            _, codes = encoder.encode(torch.from_numpy(mels).to(device), return_context=False)
             # The seed depends only on how many utterances went before.
             wave = fused_ar_decode(
                 vocoder, codes, spk, seed=n_dispatched, precision=precision,

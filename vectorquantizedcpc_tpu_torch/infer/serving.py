@@ -159,13 +159,15 @@ class ContinuousBatcher:
         seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if not 1 <= slots <= MAX_BATCH:
-            raise ValueError(
-                f"slots={slots}: the AR decode kernel takes 1 to {MAX_BATCH} rows "
-                "(kMaxBatch in ops/csrc/ar_decode.cu)"
-            )
         resolve_precision(precision)
         self._device = resolve_device(device)
+        # The plain version (CPU) takes any slot count, as the JAX server does.
+        if slots < 1 or (self._device.type == "cuda" and slots > MAX_BATCH):
+            raise ValueError(
+                f"slots={slots}: a server needs at least one slot, and on the card "
+                f"the AR decode kernel takes at most {MAX_BATCH} rows "
+                "(kMaxBatch in ops/csrc/ar_decode.cu)"
+            )
         self._vocoder = vocoder.to(self._device).eval()
         conf = vocoder.conf.rnnms
         self._slots = slots

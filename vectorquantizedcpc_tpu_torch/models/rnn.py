@@ -1,15 +1,19 @@
-"""GRU recurrences as plain torch loops over time.
+"""GRU and LSTM recurrences: plain torch loops over time, and the LSTM kernel.
 
-Weights keep torch's ``nn.GRU`` layouts (``weight_ih`` (3H, D),
-``weight_hh`` (3H, H)), gate order r, z, n, and the recurrent bias inside
-the reset product: ``n = tanh(xn + r * (h @ Whn + bhn))``. The input
-projection is hoisted out of the loop into one matmul over all steps.
+Weights keep torch's ``nn.GRU`` / ``nn.LSTM`` layouts (``weight_ih``
+(gates*H, D), ``weight_hh`` (gates*H, H)). GRU gate order r, z, n, with the
+recurrent bias inside the reset product: ``n = tanh(xn + r * (h @ Whn +
+bhn))``; LSTM gate order i, f, g, o. The input projection is hoisted out of
+the loop into one matmul over all steps.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from ..ops.lstm_scan import lstm_scan
+from .matmul import rows_matmul
 
 
 def gru_step(
@@ -83,3 +87,50 @@ def bigru_apply(gru: nn.GRU, layer: int, x: torch.Tensor) -> torch.Tensor:
         )
         outs.append(out)
     return torch.cat(outs, dim=-1)
+
+
+def lstm_apply(
+    x: torch.Tensor,
+    weight_ih: torch.Tensor,
+    weight_hh: torch.Tensor,
+    bias_ih: torch.Tensor,
+    bias_hh: torch.Tensor,
+    state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Run an LSTM over ``x`` (B, T, D) from ``state`` (zeros by default).
+
+    Returns (outputs (B, T, H), final (h, c)) at ``compute_dtype``, the JAX
+    package's ``models/rnn.py:lstm_apply``. The biases are summed in f32
+    before any cast, and the input projection ``x @ wx + b`` is one matmul at
+    the compute dtype. bfloat16 runs the recurrence through
+    ``ops/lstm_scan.lstm_scan`` (the CUDA kernel on a card, its plain version
+    on the CPU), as the JAX package runs its Pallas kernel on a TPU; float32
+    runs a plain f32 loop whose rows sum alike at any batch size.
+    """
+    b, t, _ = x.shape
+    hidden = weight_hh.shape[1]
+    bias = bias_ih.float() + bias_hh.float()
+    if state is None:
+        zeros = torch.zeros(b, hidden, dtype=torch.float32, device=x.device)
+        state = (zeros, zeros)
+    h, c = (s.float() for s in state)
+    if compute_dtype == torch.bfloat16:
+        bf = torch.bfloat16
+        xproj = x.to(bf) @ weight_ih.t().to(bf) + bias.to(bf)
+        hs, h, c = lstm_scan(
+            weight_hh.t().to(bf).contiguous(), xproj.transpose(0, 1).contiguous(),
+            h.contiguous(), c.contiguous(),
+        )
+        return hs.transpose(0, 1), (h.to(bf), c.to(bf))
+    if compute_dtype != torch.float32:
+        raise ValueError(f"lstm_apply computes in float32 or bfloat16, not {compute_dtype}")
+    xproj = rows_matmul(x.float(), weight_ih.t().float()) + bias
+    wh = weight_hh.t().float()
+    out = []
+    for i in range(t):
+        gi, gf, gg, go = (xproj[:, i] + rows_matmul(h, wh)).chunk(4, dim=-1)
+        c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
+        h = torch.sigmoid(go) * torch.tanh(c)
+        out.append(h)
+    return torch.stack(out, dim=1), (h, c)

@@ -12,6 +12,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from .matmul import rows_matmul
+
 
 def nearest_code_indices(embedding: torch.Tensor, x_flat: torch.Tensor) -> torch.Tensor:
     """argmin_m |x - e_m|^2 for each row of ``x_flat`` (N, D) -> (N,) int64."""
@@ -20,7 +22,7 @@ def nearest_code_indices(embedding: torch.Tensor, x_flat: torch.Tensor) -> torch
     distances = (
         (e32 * e32).sum(dim=1)[None, :]
         + (x32 * x32).sum(dim=1, keepdim=True)
-        - 2.0 * (x32 @ e32.t())
+        - 2.0 * rows_matmul(x32, e32.t())
     )
     return distances.argmin(dim=-1)
 

@@ -106,6 +106,10 @@ def library() -> ctypes.CDLL:
         lib.vq_gru_scan_masked_launch.restype = i
         lib.vq_gru_scan_smem_bytes.argtypes = [i]
         lib.vq_gru_scan_smem_bytes.restype = i
+        lib.vq_lstm_scan_launch.argtypes = [p] * 7 + [i] * 3 + [p]
+        lib.vq_lstm_scan_launch.restype = i
+        lib.vq_lstm_scan_smem_bytes.argtypes = [i]
+        lib.vq_lstm_scan_smem_bytes.restype = i
         lib.vq_cuda_error_string.argtypes = [i]
         lib.vq_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

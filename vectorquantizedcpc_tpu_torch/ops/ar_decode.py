@@ -26,7 +26,7 @@ from ..dsp.mulaw import mulaw_decode
 from ..models.vocoder import Vocoder, build_conditioning_frames
 
 AR_DECODE_LAUNCHES = 0
-MAX_BATCH = 8  # kMaxBatch in csrc/ar_decode.cu
+MAX_BATCH = 128  # kMaxBatch in csrc/ar_decode.cu: rows of one launch
 
 _M32 = 0xFFFFFFFF
 
@@ -296,6 +296,9 @@ def fused_ar_decode_segment(
 def kernel_plan(batch: int, hidden: int, fc: int, n_classes: int) -> Tuple[int, int, int]:
     """(blocks, hidden units per block, shared memory bytes) of a launch."""
     from . import _build
+
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"batch {batch}: the kernel takes 1 to {MAX_BATCH} rows")
 
     out3 = (ctypes.c_int * 3)()
     _build.check(

@@ -18,10 +18,15 @@
 //   - a persistent cooperative grid, one block per SM, loops over all steps;
 //   - block j owns hidden units [j*U, (j+1)*U) and keeps their r/z/n columns
 //     of wh and of embed_proj in shared memory for the whole decode;
-//   - block j also keeps FC1 columns j, j+G, ... ; blocks 0..B-1 keep all of
-//     FC2 and each samples one batch row;
+//   - block j also keeps FC1 columns j, j+G, ... ; blocks 0..min(B, G)-1
+//     keep all of FC2 and block g samples batch rows g, g+G, ...;
 //   - three grid barriers per step: after the gate phase (new h), after FC1
 //     (hidden activations), after FC2 + sample (the next step's prev).
+// Batches of up to kMaxBatch rows: the gate and FC1 phases walk the rows in
+// tiles of kTile, staging one tile's bf16(h) and prev at a time, so shared
+// memory holds one tile's h, prev and hproj whatever the batch. At
+// B <= kTile there is one tile, and the arithmetic is that of an 8-row
+// kernel.
 // Buffers exchanged between blocks are read with __ldcg and written with
 // __stcg: L1 is not coherent across SMs. Plain FMA loops; no wgmma or TMA.
 //
@@ -40,7 +45,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBatch = 8;
+constexpr int kTile = 8;         // batch rows staged at once
+constexpr int kMaxBatch = 128;   // rows of one launch (the JAX kernel's largest)
 constexpr unsigned kFull = 0xffffffffu;
 
 struct DecodeArgs {
@@ -79,16 +85,16 @@ __host__ __device__ __forceinline__ Layout make_layout(int H, int F, int C,
                                                       int units, int fc_cols) {
   Layout L;
   size_t off = 0;
-  L.hproj = take(&off, sizeof(float) * kMaxBatch * 3 * units);
+  L.hproj = take(&off, sizeof(float) * kTile * 3 * units);
   L.hid = take(&off, sizeof(float) * F);
   L.red_v = take(&off, sizeof(float) * kWarps);
   L.red_i = take(&off, sizeof(int) * kWarps);
-  L.prev = take(&off, sizeof(int) * kMaxBatch);
+  L.prev = take(&off, sizeof(int) * kTile);
   L.wh = take(&off, sizeof(__nv_bfloat16) * 3 * units * H);
   L.emb = take(&off, sizeof(__nv_bfloat16) * C * 3 * units);
   L.fc1 = take(&off, sizeof(__nv_bfloat16) * fc_cols * H);
   L.fc2 = take(&off, sizeof(__nv_bfloat16) * F * C);
-  L.h = take(&off, sizeof(__nv_bfloat16) * kMaxBatch * H);
+  L.h = take(&off, sizeof(__nv_bfloat16) * kTile * H);
   L.total = off;
   return L;
 }
@@ -106,20 +112,21 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-// acc[b] = sum_k bf16(x[b, k]) * w[k] over one warp, lanes striding k.
+// acc[b] = sum_k bf16(x[b, k]) * w[k] for the B <= kTile rows of a tile,
+// over one warp, lanes striding k.
 __device__ __forceinline__ void warp_dot_rows(
     const __nv_bfloat16* x, const __nv_bfloat16* w, int H, int B, int lane,
-    float acc[kMaxBatch]) {
+    float acc[kTile]) {
 #pragma unroll
-  for (int b = 0; b < kMaxBatch; ++b) acc[b] = 0.f;
+  for (int b = 0; b < kTile; ++b) acc[b] = 0.f;
   for (int k = lane; k < H; k += 32) {
     const float wv = __bfloat162float(w[k]);
 #pragma unroll
-    for (int b = 0; b < kMaxBatch; ++b)
+    for (int b = 0; b < kTile; ++b)
       if (b < B) acc[b] = fmaf(__bfloat162float(x[b * H + k]), wv, acc[b]);
   }
 #pragma unroll
-  for (int b = 0; b < kMaxBatch; ++b)
+  for (int b = 0; b < kTile; ++b)
     for (int o = 16; o > 0; o >>= 1)
       acc[b] += __shfl_xor_sync(kFull, acc[b], o);
 }
@@ -167,7 +174,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
     const int k = i / n_fc, j = i % n_fc;
     fc1_s[j * H + k] = a.fc1[(size_t)k * F + blk + j * G];
   }
-  if (blk < B)
+  if (blk < B)  // this block samples rows blk, blk + G, ...
     for (int i = tid; i < F * C; i += kThreads) fc2_s[i] = a.fc2[i];
   __syncthreads();
 
@@ -179,69 +186,78 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
 
     // ---- Gate phase: this block's slice of the new hidden state. ----
     if (n_units > 0) {
-      for (int i = tid; i < B * H; i += kThreads)
-        h_s[i] = __float2bfloat16(__ldcg(h_cur + i));
-      if (tid < B) {
-        const int p = t == 0 ? a.prev0[tid] : __ldcg(a.out + (size_t)(t - 1) * B + tid);
-        prev_s[tid] = min(max(p, 0), C - 1);
-      }
-      __syncthreads();
-      for (int lc = warp; lc < n_cols; lc += kWarps) {
-        float acc[kMaxBatch];
-        warp_dot_rows(h_s, wh_s + (size_t)lc * H, H, B, lane, acc);
-        if (lane == 0)
+      for (int r0 = 0; r0 < B; r0 += kTile) {
+        const int rows = min(kTile, B - r0);
+        if (r0 > 0) __syncthreads();  // the last tile's prev_s is read
+        for (int i = tid; i < rows * H; i += kThreads)
+          h_s[i] = __float2bfloat16(__ldcg(h_cur + (size_t)r0 * H + i));
+        if (tid < rows) {
+          const int b = r0 + tid;
+          const int p = t == 0 ? a.prev0[b] : __ldcg(a.out + (size_t)(t - 1) * B + b);
+          prev_s[tid] = min(max(p, 0), C - 1);
+        }
+        __syncthreads();
+        for (int lc = warp; lc < n_cols; lc += kWarps) {
+          float acc[kTile];
+          warp_dot_rows(h_s, wh_s + (size_t)lc * H, H, rows, lane, acc);
+          if (lane == 0)
 #pragma unroll
-          for (int b = 0; b < kMaxBatch; ++b)
-            if (b < B) hproj_s[b * hp_stride + lc] = acc[b];
-      }
-      __syncthreads();
-      for (int i = tid; i < B * n_units; i += kThreads) {
-        const int b = i / n_units, u = i % n_units, j = u0 + u;
-        const __nv_bfloat16* crow = a.cond + ((size_t)f * B + b) * H3;
-        const __nv_bfloat16* erow = emb_s + (size_t)prev_s[b] * n_cols;
-        const float* hp = hproj_s + b * hp_stride;
-        const float xr = __bfloat162float(erow[u]) + __bfloat162float(crow[j]);
-        const float xz = __bfloat162float(erow[n_units + u]) +
-                         __bfloat162float(crow[H + j]);
-        const float xn = __bfloat162float(erow[2 * n_units + u]) +
-                         __bfloat162float(crow[2 * H + j]);
-        const float hr = hp[u] + a.bh[j];
-        const float hz = hp[n_units + u] + a.bh[H + j];
-        const float hn = hp[2 * n_units + u] + a.bh[2 * H + j];
-        const float r = 1.f / (1.f + expf(-(xr + hr)));
-        const float z = 1.f / (1.f + expf(-(xz + hz)));
-        const float n = tanhf(xn + r * hn);
-        const float h_new = (1.f - z) * n + z * __ldcg(h_cur + b * H + j);
-        __stcg(h_nxt + b * H + j, h_new);
-        if (t == a.n_steps - 1) a.h_out[b * H + j] = h_new;
+            for (int b = 0; b < kTile; ++b)
+              if (b < rows) hproj_s[b * hp_stride + lc] = acc[b];
+        }
+        __syncthreads();
+        for (int i = tid; i < rows * n_units; i += kThreads) {
+          const int rb = i / n_units, b = r0 + rb, u = i % n_units, j = u0 + u;
+          const __nv_bfloat16* crow = a.cond + ((size_t)f * B + b) * H3;
+          const __nv_bfloat16* erow = emb_s + (size_t)prev_s[rb] * n_cols;
+          const float* hp = hproj_s + rb * hp_stride;
+          const float xr = __bfloat162float(erow[u]) + __bfloat162float(crow[j]);
+          const float xz = __bfloat162float(erow[n_units + u]) +
+                           __bfloat162float(crow[H + j]);
+          const float xn = __bfloat162float(erow[2 * n_units + u]) +
+                           __bfloat162float(crow[2 * H + j]);
+          const float hr = hp[u] + a.bh[j];
+          const float hz = hp[n_units + u] + a.bh[H + j];
+          const float hn = hp[2 * n_units + u] + a.bh[2 * H + j];
+          const float r = 1.f / (1.f + expf(-(xr + hr)));
+          const float z = 1.f / (1.f + expf(-(xz + hz)));
+          const float n = tanhf(xn + r * hn);
+          const float h_new = (1.f - z) * n + z * __ldcg(h_cur + b * H + j);
+          __stcg(h_nxt + b * H + j, h_new);
+          if (t == a.n_steps - 1) a.h_out[b * H + j] = h_new;
+        }
       }
     }
     grid.sync();
 
     // ---- FC1 phase: this block's FC1 columns for every row. ----
     if (n_fc > 0) {
-      for (int i = tid; i < B * H; i += kThreads)
-        h_s[i] = __float2bfloat16(__ldcg(h_nxt + i));
-      __syncthreads();
-      for (int j = warp; j < n_fc; j += kWarps) {
-        const int col = blk + j * G;
-        float acc[kMaxBatch];
-        warp_dot_rows(h_s, fc1_s + (size_t)j * H, H, B, lane, acc);
-        if (lane == 0)
+      for (int r0 = 0; r0 < B; r0 += kTile) {
+        const int rows = min(kTile, B - r0);
+        if (r0 > 0) __syncthreads();  // the last tile's h_s is read
+        for (int i = tid; i < rows * H; i += kThreads)
+          h_s[i] = __float2bfloat16(__ldcg(h_nxt + (size_t)r0 * H + i));
+        __syncthreads();
+        for (int j = warp; j < n_fc; j += kWarps) {
+          const int col = blk + j * G;
+          float acc[kTile];
+          warp_dot_rows(h_s, fc1_s + (size_t)j * H, H, rows, lane, acc);
+          if (lane == 0)
 #pragma unroll
-          for (int b = 0; b < kMaxBatch; ++b)
-            if (b < B) {
-              const float v = fmaxf(acc[b] + a.fc1_b[col], 0.f);
-              __stcg(a.hid_buf + b * F + col,
-                     __bfloat162float(__float2bfloat16(v)));
-            }
+            for (int b = 0; b < kTile; ++b)
+              if (b < rows) {
+                const float v = fmaxf(acc[b] + a.fc1_b[col], 0.f);
+                __stcg(a.hid_buf + (r0 + b) * F + col,
+                       __bfloat162float(__float2bfloat16(v)));
+              }
+        }
       }
     }
     grid.sync();
 
-    // ---- FC2 + sample phase: block b takes batch row b. ----
-    if (blk < B) {
-      const int b = blk;
+    // ---- FC2 + sample phase: block g takes batch rows g, g + G, .... ----
+    for (int b = blk; b < B; b += G) {
+      if (b > blk) __syncthreads();  // the last row's hid_s and red_* are read
       for (int i = tid; i < F; i += kThreads) hid_s[i] = __ldcg(a.hid_buf + b * F + i);
       __syncthreads();
       const uint32_t step_key = mix32(seed_key ^ (uint32_t)t);
@@ -314,7 +330,6 @@ cudaError_t plan_launch(int batch, int hidden, int fc, int classes, Plan* p) {
   if (!coop) return cudaErrorNotSupported;
   p->units = (hidden + sms - 1) / sms;
   p->grid = (hidden + p->units - 1) / p->units;
-  if (p->grid < batch) p->grid = batch;  // one block per row samples
   p->fc_cols = (fc + p->grid - 1) / p->grid;
   p->layout = make_layout(hidden, fc, classes, p->units, p->fc_cols);
   if (p->layout.total > (size_t)max_smem) return cudaErrorInvalidValue;
