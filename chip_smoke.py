@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's voice conversion, serving and latent export on one CUDA card.
+"""Drive the PyTorch port's voice conversion, serving, latent export and CPC training on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -11,7 +11,10 @@ Phases (any failure ends the run with a non-zero exit):
    full width of the default config: the AR decode greedy and sampled at
    B in {1, 3, 8, 32, 64}, and in 4 chained segments; the GRU scans (plain
    and masked) at the serving PreNet's shape; the LSTM scan at the
-   export's shape and the CPC training shape;
+   export's shape and the CPC training shape; the LSTM scan's training
+   forward and backward (and autograd through them) at B 64 / 3, T 70 / 1,
+   and the CPC selection forward and backward at the training shape and at
+   an L that is not a multiple of 8, with every collision tied bit for bit;
 4. convert 8 synthetic wavs end to end through the CLI entry point, on
    full-width random weights saved as reference-format checkpoints, and
    check the wavs and that the path went through the kernels;
@@ -23,11 +26,19 @@ Phases (any failure ends the run with a non-zero exit):
    at the default bf16, check the dumps, that the context LSTM went
    through its kernel once per batch, and that the codes agree with an f32
    export; score the dumps with the ABX CLI;
+4d. train the CPC encoder through the preprocess and train_cpc CLIs at
+   full width in bf16 on a 16-speaker synthetic corpus, 20 steps, check the
+   losses, one launch per step of each training kernel and none of the
+   inference scan, load the checkpoint into ``Encoder`` and export through
+   the encode CLI; hold one train step against the plain route on the card;
+   30 steps on one batch must lower the loss;
 5. time each kernel, its plain version and, where one exists, the PyTorch
    library call for the same function at the main paths' shapes, beside
    the least time the card could take; the AR step at B in {8, 32, 64};
    each serving drain beside the request mix's slot-utilisation ceiling
-   times the raw kernel rate at that many rows; the export's wall time.
+   times the raw kernel rate at that many rows; the export's wall time;
+   cuDNN's LSTM forward and backward beside the training pair; the CPC
+   train step in steps/s to the device with the kernels' share.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -35,6 +46,7 @@ script exits with code 2 and prints no result. It imports nothing of JAX.
 """
 
 import argparse
+import contextlib
 import heapq
 import json
 import subprocess
@@ -87,6 +99,28 @@ MIN_CODE_AGREEMENT = 0.99  # bf16 export against f32 export, share of frames
 MAX_CODE_GAP = 1e-2
 MAX_PRE_VQ_ERR = 5e-2
 CUDNN_DTYPE = torch.float16  # the library yardstick's type: cuDNN's RNN takes fp16
+# CPC training at the default config: S 8 x U 8 clips of 140 mel frames give
+# T' = 70 latent frames; K = 6 steps, N = 17 negatives, L = 64 anchors, Z 64.
+TRAIN_LSTM_SHAPES = {"training": (64, 70), "partial cluster": (3, 70), "one step": (64, 1)}
+SELECT_SHAPES = {"training": (6, 8, 8, 17, 64, 64), "odd L": (6, 8, 8, 17, 61, 64)}
+# LSTM backward, kernel against plain version: bf16(da) one ulp apart where
+# the f32 da sits on a rounding boundary (2^-8 relative), carried on by the
+# gates: 1e-2 of the largest value plus 1e-3. Autograd's dwh and dxproj
+# against the plain route: 2e-2 of the largest (dwh sums T B such terms).
+MAX_LSTM_BWD_REL = 1e-2
+MAX_LSTM_GRAD_REL = 2e-2
+# Selection, kernel against plain version: f32 dots of Z terms (forward),
+# sums of at most 1 + N U terms (backward), in other orders: 1e-5 of the
+# largest value.
+MAX_SELECT_REL = 1e-5
+TRAIN_SPEAKERS, TRAIN_UTTS, TRAIN_EPOCHS = 16, 8, 10  # 2 steps per epoch at S = 8
+# One bf16 train step, kernels against the plain route on the card: they
+# differ only where the kernels sum in another order (an h or da one bf16
+# ulp apart): loss within 1e-3 relative, every gradient within 5e-2 of its
+# largest element.
+MAX_STEP_LOSS_REL = 1e-3
+MAX_STEP_GRAD_REL = 5e-2
+PEAK_F32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 
 
 def check(ok: bool, msg: str) -> None:
@@ -884,6 +918,406 @@ def phase_time_serve(serve: dict, ms_by_batch: dict, card: str) -> None:
           f"{cond_ms / (seconds_by_slots[8] * 1e3) * 100:.3f} % of the 8-slot drain  [{card}]")
 
 
+def _rel_err(a: torch.Tensor, r: torch.Tensor) -> tuple:
+    """(max abs difference, largest |reference|), both as floats."""
+    return float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+
+
+def _lstm_grads(args, device) -> list:
+    """Autograd through ``LstmScan`` on ``device`` (the kernels on the card,
+    the plain versions on the CPU): [dwh, dxproj, dh0, dc0] as f32 on the CPU."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    leaves = [a.detach().to(device).requires_grad_() for a in args]
+    hs, h_t, c_t = ls.LstmScan.apply(*leaves)
+    w = torch.linspace(-1, 1, hs.shape[-1], device=device)
+    loss = (hs.float() * w).sum() + (h_t * w).sum() + c_t.square().sum()
+    return [g.float().cpu() for g in torch.autograd.grad(loss, leaves)]
+
+
+def phase_compare_train(seed: int, card: str) -> dict:
+    """The LSTM scan's training pair and the CPC selection pair against their
+    plain versions on the card; returns each kernel's worst max abs error."""
+    from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    worst = {"lstm_scan_train": 0.0, "lstm_scan_bwd": 0.0, "cpc_select": 0.0, "cpc_select_bwd": 0.0}
+    for name, (batch, steps) in TRAIN_LSTM_SHAPES.items():
+        args = _lstm_inputs(seed, batch, steps)
+        got = ls.lstm_scan_train(*args)
+        torch.cuda.synchronize()
+        ref = ls.lstm_scan_train_reference(*args)
+        errs = [_rel_err(a, r)[0] for a, r in zip(got, ref)]
+        check(max(errs) <= MAX_LSTM_ERR, f"lstm_scan_train {name}: hs, acts, c_prev, h_T, c_T "
+              f"differ by {errs}")
+        rng = np.random.default_rng(seed + 8)
+        f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(DEVICE)
+        dhs = f32(rng.normal(0, 1, size=(steps, batch, LSTM_H))).bfloat16()
+        dh_t, dc_t = (f32(rng.normal(0, 1, size=(batch, LSTM_H))) for _ in range(2))
+        kb = ls.lstm_scan_bwd(ref[1], ref[2], dhs, args[0], dh_t, dc_t)
+        torch.cuda.synchronize()
+        rb = ls.lstm_scan_bwd_reference(ref[1], ref[2], dhs, args[0], dh_t, dc_t)
+        errs_b = [_rel_err(a, r) for a, r in zip(kb, rb)]
+        for what, (e, m) in zip(("dgates", "dh0", "dc0"), errs_b):
+            check(e <= MAX_LSTM_BWD_REL * m + 1e-3, f"lstm_scan_bwd {name}: {what} differs by {e} "
+                  f"(largest {m})")
+        grads = _lstm_grads(args, DEVICE)
+        plain = _lstm_grads([a.cpu() for a in args], "cpu")
+        errs_g = [_rel_err(a, r) for a, r in zip(grads, plain)]
+        for what, (e, m) in zip(("dwh", "dxproj", "dh0", "dc0"), errs_g):
+            check(e <= MAX_LSTM_GRAD_REL * m, f"LstmScan {name}: {what} differs by {e} (largest {m})")
+        print(f"compare lstm_scan_train {name} B={batch} T={steps} H={LSTM_H}: hs, acts, c_prev, "
+              f"h_T, c_T max abs diff {', '.join(f'{e:.3e}' for e in errs)} (bound {MAX_LSTM_ERR}); "
+              f"lstm_scan_bwd dgates, dh0, dc0 {', '.join(f'{e:.3e} of {m:.3f}' for e, m in errs_b)} "
+              f"(bound {MAX_LSTM_BWD_REL} x largest + 1e-3); autograd vs the plain route dwh, "
+              f"dxproj, dh0, dc0 {', '.join(f'{e:.3e} of {m:.3f}' for e, m in errs_g)} (bound "
+              f"{MAX_LSTM_GRAD_REL} x largest)  [{card}]")
+        worst["lstm_scan_train"] = max(worst["lstm_scan_train"], *errs)
+        worst["lstm_scan_bwd"] = max(worst["lstm_scan_bwd"], *(e for e, _ in errs_b))
+
+    for name, (k, s, u, n, l, z) in SELECT_SHAPES.items():
+        wc, zs, utt, seq = _select_inputs(seed, k, s, u, n, l, z)
+        f_neg, f_pos = cs.cpc_select(wc, zs, utt, seq)
+        rng = np.random.default_rng(seed + 10)
+        d_neg = torch.from_numpy(rng.normal(size=(k, s, u, n, l)).astype(np.float32)).to(DEVICE)
+        d_pos = torch.from_numpy(rng.normal(size=(k, s, u, l)).astype(np.float32)).to(DEVICE)
+        d_wc, d_zs = cs.cpc_select_bwd(d_neg, d_pos, wc, zs, utt, seq)
+        torch.cuda.synchronize()
+        ref = cs.cpc_select_reference(wc, zs, utt, seq) + cs.cpc_select_bwd_reference(
+            d_neg, d_pos, wc, zs, utt, seq)
+        errs = [_rel_err(a, r) for a, r in zip((f_neg, f_pos, d_wc, d_zs), ref)]
+        for what, (e, m) in zip(("f_neg", "f_pos", "d_wc", "d_zs"), errs):
+            check(e <= MAX_SELECT_REL * m, f"cpc_select {name}: {what} differs by {e} (largest {m})")
+        # Collisions: (v, m) = (u, l), forced on negative 0 of every other
+        # anchor, and candidates equal to the positive's vector (z is drawn
+        # from a codebook). Each must tie with its positive bit for bit.
+        own = (utt.long()[:, None, :, :, None] == torch.arange(u, device=DEVICE)[:, None, None]) & (
+            seq.long() == torch.arange(l, device=DEVICE))
+        cand = zs.reshape(k, s, u * l, z)[
+            torch.arange(k, device=DEVICE)[:, None, None, None, None],
+            torch.arange(s, device=DEVICE)[None, :, None, None, None],
+            utt.long()[:, None, :, :, None] * l + seq.long()]
+        equal = (cand == zs[:, :, :, None]).all(-1)
+        pos = f_pos[:, :, :, None].expand_as(f_neg)
+        check(int(own.sum()) > 0 and torch.equal(f_neg[own], pos[own]),
+              f"cpc_select {name}: an own-frame negative differs from its positive")
+        check(torch.equal(f_neg[equal], pos[equal]),
+              f"cpc_select {name}: an equal-vector negative differs from its positive")
+        print(f"compare cpc_select {name} K={k} S={s} U={u} N={n} L={l} Z={z}: f_neg, f_pos, "
+              f"d_wc, d_zs max abs diff {', '.join(f'{e:.3e} of {m:.3f}' for e, m in errs)} "
+              f"(bound {MAX_SELECT_REL} x largest); {int(own.sum())} own-frame and "
+              f"{int(equal.sum())} equal-vector negatives, all bit-equal to their positives  "
+              f"[{card}]")
+        worst["cpc_select"] = max(worst["cpc_select"], errs[0][0], errs[1][0])
+        worst["cpc_select_bwd"] = max(worst["cpc_select_bwd"], errs[2][0], errs[3][0])
+    return worst
+
+
+def _select_inputs(seed: int, k, s, u, n, l, z):
+    """Selection operands from ``seed``: wc ~ N(0, 1); z_shift drawn from a
+    512-word codebook as quantized latents are; the reference sampling of
+    the indices, with negative 0 of every other anchor forced onto the
+    anchor's own frame."""
+    rng = np.random.default_rng(seed + 9)
+    codes = rng.normal(0, 0.5, size=(512, z))
+    zs = codes[rng.integers(0, 512, size=(k, s, u, l))]
+    utt = rng.integers(0, u, size=(k, u, n))
+    seq = (rng.integers(1, l, size=(k, s, u, n, l)) + np.arange(l)) % l
+    utt[:, :, 0] = np.arange(u)
+    seq[:, :, :, 0, ::2] = np.arange(l)[::2]
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(DEVICE)
+    i32 = lambda x: torch.from_numpy(np.asarray(x, np.int32)).to(DEVICE)
+    return f32(rng.normal(size=(k, s, u, l, z))), f32(zs), i32(utt), i32(seq)
+
+
+def _train_counts(reset: bool = False) -> dict:
+    from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    if reset:
+        ls.LSTM_SCAN_LAUNCHES = ls.LSTM_SCAN_TRAIN_LAUNCHES = ls.LSTM_SCAN_BWD_LAUNCHES = 0
+        cs.CPC_SELECT_LAUNCHES = cs.CPC_SELECT_BWD_LAUNCHES = 0
+    return {
+        "lstm_scan": ls.LSTM_SCAN_LAUNCHES,
+        "lstm_scan_train": ls.LSTM_SCAN_TRAIN_LAUNCHES,
+        "lstm_scan_bwd": ls.LSTM_SCAN_BWD_LAUNCHES,
+        "cpc_select": cs.CPC_SELECT_LAUNCHES,
+        "cpc_select_bwd": cs.CPC_SELECT_BWD_LAUNCHES,
+    }
+
+
+def phase_train(seed: int, card: str) -> dict:
+    """CPC training through the preprocess and train_cpc CLIs on the card,
+    at full width and bf16; the checkpoint through Encoder and the encode CLI."""
+    from vectorquantizedcpc_tpu_torch.cli import encode as encode_cli
+    from vectorquantizedcpc_tpu_torch.cli import preprocess as preprocess_cli
+    from vectorquantizedcpc_tpu_torch.cli import train_cpc
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.data.corpus import SyntheticCorpus
+    from vectorquantizedcpc_tpu_torch.models.encoder import Encoder
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        # The default synthetic corpus has 4 speakers, fewer than S = 8, and
+        # an existing corpus on disk is read as it is: materialize this one.
+        SyntheticCorpus(d / "corpus", n_speakers=TRAIN_SPEAKERS, n_utterances=TRAIN_UTTS,
+                        duration_s=2.0).utterances()
+        data = ["data.dataset.name=synthetic", f"data.corpus.root={d / 'corpus'}",
+                f"data.dataset.adress_data_root={d / 'features'}", "data.loader.num_workers=4"]
+        start = time.perf_counter()
+        manifest = preprocess_cli.main(data + [f"out_dir={d / 'features'}"])
+        pre_s = time.perf_counter() - start
+        check(len(manifest["speakers"]) == TRAIN_SPEAKERS
+              and len(manifest["utterances"]) == TRAIN_SPEAKERS * TRAIN_UTTS, "preprocess manifest")
+        argv = data + [f"checkpoint_dir={d / 'ckpt'}", f"training.cpc.n_epochs={TRAIN_EPOCHS}",
+                       "training.cpc.checkpoint_interval=5", "training.cpc.log_interval=5",
+                       f"seed={seed}"]
+        torch.cuda.synchronize()
+        _train_counts(reset=True)
+        start = time.perf_counter()
+        trainer = train_cpc.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = _train_counts()
+        steps = trainer.global_step
+        check(steps == TRAIN_EPOCHS * TRAIN_SPEAKERS // 8 >= 20, f"{steps} train steps")
+        for name in ("lstm_scan_train", "lstm_scan_bwd", "cpc_select", "cpc_select_bwd"):
+            check(launches[name] == steps, f"{launches[name]} {name} launches for {steps} steps")
+        check(launches["lstm_scan"] == 0, "the inference scan ran during training")
+        losses = [float(m["loss"]) for m in trainer.history]
+        check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
+        ckpts = sorted(p.name for p in (d / "ckpt").glob("*.pt"))
+        check(ckpts == ["model.ckpt-10.pt", "model.ckpt-5.pt"], f"checkpoints {ckpts}")
+        ckpt = d / "ckpt" / "model.ckpt-10.pt"
+        encoder = Encoder(load_conf([]).model.encoder)
+        encoder.load_state_dict(torch.load(ckpt, weights_only=True)["encoder"], strict=True)
+        n = encode_cli.main([f"cpc_checkpoint={ckpt}", f"in_dir={d / 'features' / 'V000'}",
+                             f"out_dir={d / 'codes'}"])
+        check(n == TRAIN_UTTS, f"exported {n} of {TRAIN_UTTS} mels")
+        for rec in manifest["utterances"][:TRAIN_UTTS]:
+            rows = np.loadtxt(d / "codes" / f"{rec['name']}.txt", ndmin=2)
+            check(rows.shape == (rec["n_frames"] // 2, 64) and bool(np.isfinite(rows).all()),
+                  f"export of {rec['name']}: {rows.shape}")
+    print(f"train: preprocess of {len(manifest['utterances'])} utterances {pre_s:.3f} s; "
+          f"train_cpc CLI {steps} steps ({TRAIN_EPOCHS} epochs x {steps // TRAIN_EPOCHS}) in "
+          f"{seconds:.3f} s wall = {steps / seconds:.3f} steps/s incl. set-up and first-step "
+          f"warm-up; losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite; launches "
+          f"{json.dumps(launches)}; checkpoints {ckpts} load strict into Encoder; the encode CLI "
+          f"exported {n} mels from model.ckpt-10.pt  [{card}]")
+    return {"launches": launches, "seconds": seconds, "steps": steps}
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Inside, the slice's autograd Functions call the plain versions of
+    their four kernels, on card tensors."""
+    from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    saved = ls.lstm_scan_train, ls.lstm_scan_bwd, cs.cpc_select, cs.cpc_select_bwd
+    ls.lstm_scan_train, ls.lstm_scan_bwd = ls.lstm_scan_train_reference, ls.lstm_scan_bwd_reference
+    cs.cpc_select, cs.cpc_select_bwd = cs.cpc_select_reference, cs.cpc_select_bwd_reference
+    try:
+        yield
+    finally:
+        ls.lstm_scan_train, ls.lstm_scan_bwd, cs.cpc_select, cs.cpc_select_bwd = saved
+
+
+def _train_batch(seed: int, conf):
+    """A batch of S x U random mels and one step's negatives, from ``seed``."""
+    from vectorquantizedcpc_tpu_torch.models.cpc import sample_negative_indices
+
+    cc = conf.model.cpc
+    rng = np.random.default_rng(seed + 11)
+    t = conf.data.dataset.cpc.clip_length_mel
+    mels = torch.from_numpy(rng.normal(size=(cc.n_speakers_per_batch, cc.n_utterances_per_speaker,
+                                             80, t)).astype(np.float32)).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return (mels,) + sample_negative_indices(cc, t // 2 - cc.n_prediction_steps // 2, gen)
+
+
+def _loss_and_grads(trainer, mels, utt, seq):
+    from vectorquantizedcpc_tpu_torch.models.cpc import cpc_apply_with_indices
+
+    cc = trainer.conf.model.cpc
+    z, c, vq_loss, _ = trainer.encoder(mels.reshape(-1, *mels.shape[2:]), trainer.compute_dtype)
+    cpc_loss, _ = cpc_apply_with_indices(trainer.cpc, cc, z, c, utt, seq)
+    loss = cpc_loss + vq_loss
+    named = [(f"encoder.{n}", p) for n, p in trainer.encoder.named_parameters() if p.requires_grad]
+    named += [(f"cpc.{n}", p) for n, p in trainer.cpc.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
+
+
+def phase_train_step(seed: int, card: str) -> None:
+    """One bf16 train step's loss and gradients, kernels against the plain
+    route on the card (same weights, batch and indices); then 30 steps on
+    one batch with fixed indices must lower the loss."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
+
+    conf = load_conf([f"seed={seed}"])
+    a, b = CPCTrainer(conf, DEVICE), CPCTrainer(conf, DEVICE)
+    mels, utt, seq = _train_batch(seed, conf)
+    before = _train_counts()
+    loss_k, grads_k = _loss_and_grads(a, mels, utt, seq)
+    with plain_route():
+        loss_p, grads_p = _loss_and_grads(b, mels, utt, seq)
+    torch.cuda.synchronize()
+    after = _train_counts()
+    check(all(after[k] == before[k] + 1 for k in after if k != "lstm_scan"),
+          f"kernel launches {before} -> {after}")
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(loss_err <= MAX_STEP_LOSS_REL, f"train step loss {loss_k} vs plain {loss_p}")
+    worst_name, worst = "", 0.0
+    for name, g in grads_k.items():
+        e, m = _rel_err(g, grads_p[name])
+        check(e <= MAX_STEP_GRAD_REL * m, f"train step gradient {name}: {e} of {m}")
+        if m > 0 and e / m >= worst:
+            worst_name, worst = name, e / m
+    print(f"train step vs plain route: loss {loss_k:.6f} vs {loss_p:.6f} (relative {loss_err:.3e}, "
+          f"bound {MAX_STEP_LOSS_REL}); {len(grads_k)} gradients, worst {worst:.3e} of the "
+          f"largest element ({worst_name}; bound {MAX_STEP_GRAD_REL})  [{card}]")
+
+    trainer = CPCTrainer(conf, DEVICE)
+    losses = [float(trainer.train_step(mels, utt, seq, 1e-3)["loss"]) for _ in range(30)]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"fixed-batch losses {losses}")
+    print(f"train fixed batch: 30 steps at lr 1e-3, loss {losses[0]:.4f} -> {losses[-1]:.4f}  "
+          f"[{card}]")
+
+
+def _bound(n_bytes: float, flops: float, peak_flops: float):
+    ops_ms, bytes_ms = flops / peak_flops * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_time_train(seed: int, card: str) -> dict:
+    """The training kernels, their plain versions and bounds at the training
+    shape; cuDNN's LSTM (fp16, with the input projection) forward and
+    backward beside the LSTM pair; the train step to the device."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.models.cpc import sample_negative_indices
+    from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+    from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
+
+    out = {}
+    batch, steps = TRAIN_LSTM_SHAPES["training"]
+    args = _lstm_inputs(seed, batch, steps)
+    hs, acts, c_prev, h_t, c_t = ls.lstm_scan_train(*args)
+    rng = np.random.default_rng(seed + 12)
+    dhs = torch.from_numpy(rng.normal(size=(steps, batch, LSTM_H)).astype(np.float32)).to(
+        DEVICE).bfloat16()
+    dh_t, dc_t = torch.zeros_like(h_t), torch.zeros_like(c_t)
+    bwd_args = (acts, c_prev, dhs, args[0], dh_t, dc_t)
+    dgates = torch.empty_like(acts)
+    flops = 2 * batch * steps * LSTM_H * 4 * LSTM_H
+    lstm_in = torch.randn(batch, steps, 64, device=DEVICE, dtype=CUDNN_DTYPE, requires_grad=True)
+    cudnn = torch.nn.LSTM(64, LSTM_H, batch_first=True).to(DEVICE, CUDNN_DTYPE)
+    lib_out, _ = cudnn(lstm_in)
+    lib_grad = torch.randn_like(lib_out)
+    inputs = [lstm_in] + list(cudnn.parameters())
+    rows = {
+        "lstm_scan_train": (lambda: ls.lstm_scan_train(*args),
+                            lambda: ls.lstm_scan_train_reference(*args),
+                            _nbytes(*args, hs, acts, c_prev, h_t, c_t), lambda: cudnn(lstm_in)),
+        "lstm_scan_bwd": (lambda: ls.lstm_scan_bwd(*bwd_args),
+                          lambda: ls.lstm_scan_bwd_reference(*bwd_args),
+                          _nbytes(*bwd_args, dgates, h_t, c_t),
+                          lambda: torch.autograd.grad(lib_out, inputs, lib_grad, retain_graph=True)),
+    }
+    for name, (kernel, plain, n_bytes, lib) in rows.items():
+        bound, by = _bound(n_bytes, flops, PEAK_BF16_FLOPS)
+        out[name] = {"ms": time_cuda(kernel, reps=20), "plain_ms": time_cuda(plain, reps=2),
+                     "bound_ms": bound, "bound_by": by, "library_ms": time_cuda(lib, reps=20)}
+
+    k, s, u, n, l, z = SELECT_SHAPES["training"]
+    wc, zs, utt, seq = _select_inputs(seed, k, s, u, n, l, z)
+    f_neg, f_pos = cs.cpc_select(wc, zs, utt, seq)
+    d_neg, d_pos = torch.randn_like(f_neg), torch.randn_like(f_pos)
+    dots = 2 * k * s * u * (n + 1) * l * z
+    rows = {
+        "cpc_select": (lambda: cs.cpc_select(wc, zs, utt, seq),
+                       lambda: cs.cpc_select_reference(wc, zs, utt, seq),
+                       _nbytes(wc, zs, utt, seq, f_neg, f_pos), dots),
+        "cpc_select_bwd": (lambda: cs.cpc_select_bwd(d_neg, d_pos, wc, zs, utt, seq),
+                           lambda: cs.cpc_select_bwd_reference(d_neg, d_pos, wc, zs, utt, seq),
+                           _nbytes(d_neg, d_pos, wc, zs, utt, seq, wc, zs), 2 * dots),
+    }
+    for name, (kernel, plain, n_bytes, ops) in rows.items():
+        bound, by = _bound(n_bytes, ops, PEAK_F32_FLOPS)
+        out[name] = {"ms": time_cuda(kernel, reps=50), "plain_ms": time_cuda(plain, reps=5),
+                     "bound_ms": bound, "bound_by": by, "library_ms": None}
+    for name, res in out.items():
+        lib = "none" if res["library_ms"] is None else f"{res['library_ms']:.4f} ms"
+        print(f"timing {name}: kernel {res['ms']:.4f} ms; plain {res['plain_ms']:.3f} ms; "
+              f"library {lib}; bound {res['bound_ms'] * 1e3:.3f} us by {res['bound_by']}; "
+              f"bound / kernel = {res['bound_ms'] / res['ms'] * 100:.3f} %  [{card}]")
+
+    # The train step to the device: negatives drawn and one optimizer step,
+    # as train_model runs them, after 5 steps of warm-up.
+    conf = load_conf([f"seed={seed}"])
+    trainer = CPCTrainer(conf, DEVICE)
+    mels, _, _ = _train_batch(seed, conf)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    length = conf.data.dataset.cpc.clip_length_mel // 2 - conf.model.cpc.n_prediction_steps // 2
+
+    def step():
+        trainer.train_step(mels, *sample_negative_indices(conf.model.cpc, length, gen), 1e-4)
+
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(50):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) / 50 * 1e3
+    kernels_ms = sum(res["ms"] for res in out.values())
+    print(f"timing train step (S 8 x U 8 x 140 frames, bf16): {step_ms:.3f} ms = "
+          f"{1e3 / step_ms:.2f} steps/s to the device over 50 steps; the four training kernels "
+          f"{kernels_ms:.4f} ms = {kernels_ms / step_ms * 100:.2f} % of the step (their times "
+          f"alone, above)  [{card}]")
+    out["step"] = {"ms": step_ms, "steps_per_s": 1e3 / step_ms, "kernels_share": kernels_ms / step_ms,
+                   **_profile_steps(step, 10, step_ms, card)}
+    return out
+
+
+def _profile_steps(step, n: int, step_ms: float, card: str) -> dict:
+    """The device's own time per step from a profiler trace of ``n`` steps,
+    read against the untraced ``step_ms``: busy ms, idle share, device
+    operations per step and the largest of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    # Device operations only: a user annotation (Adam's step range) spans
+    # kernels that are counted on their own.
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3 / n
+    if busy_ms <= 0:
+        print(f"timing train step on the device: not measured (the profiler recorded no device "
+              f"time)  [{card}]")
+        return {"device_busy_ms": None}
+    count = sum(e.count for e in ops) / n
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
+    largest = "; ".join(f"{e.key[:48]} x{e.count / n:g} {e.self_device_time_total / 1e3 / n:.4f} ms"
+                        for e in top)
+    print(f"timing train step on the device (profiler, {n} steps): {busy_ms:.3f} ms of device work "
+          f"per step = {busy_ms / step_ms * 100:.2f} % of the {step_ms:.3f} ms step (idle "
+          f"{(1 - busy_ms / step_ms) * 100:.2f} %); {count:.0f} device operations per step; "
+          f"largest per step: {largest}  [{card}]")
+    return {"device_busy_ms": busy_ms, "device_ops_per_step": count}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -911,16 +1345,20 @@ def main() -> int:
     compared = phase_compare(args.seed, card)
     compared_gru = phase_compare_gru(args.seed, card)
     compared_lstm = phase_compare_lstm(args.seed, card)
+    compared_train = phase_compare_train(args.seed, card)
     # Phase 4: the main paths, counts zeroed just before and read just after each.
     converted = phase_convert(args.seed, card)
     serve = phase_serve(args.seed, card)
     launches = serve["launches"]
     exported = phase_export(args.seed, card)
+    trained = phase_train(args.seed, card)
+    phase_train_step(args.seed, card)
     # Phase 5: times beside the bound.
     timing, ar_ms_by_batch = phase_time(args.seed, card)
     timing_gru = phase_time_gru(args.seed, card)
     timing_lstm = phase_time_lstm(args.seed, card)
     phase_time_serve(serve, ar_ms_by_batch, card)
+    timing_train = phase_time_train(args.seed, card)
 
     source = "vectorquantizedcpc_tpu_torch/ops/csrc/"
     kernels = [
@@ -961,6 +1399,22 @@ def main() -> int:
             **timing_lstm["export"],
             "training_shape": timing_lstm["training"],
         }
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": source + src,
+            "replaces": f"vectorquantizedcpc_tpu/ops/{line}",
+            "launches": trained["launches"][name],
+            "max_abs_err": compared_train[name],
+            **timing_train[name],
+        }
+        for name, src, line in (
+            ("lstm_scan_train", "lstm_scan.cu", "lstm_scan.py:48"),
+            ("lstm_scan_bwd", "lstm_scan.cu", "lstm_scan.py:105"),
+            ("cpc_select", "cpc_select.cu", "cpc_select.py:65"),
+            ("cpc_select_bwd", "cpc_select.cu", "cpc_select.py:106"),
+        )
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,10 @@ grid size, few classes, hop 1, odd batches, batches of several 8-row tiles
 up to the 128-row cap. GRU scans: batches off the 8-row tile, one row, one
 step, H = 96 and 128, rows masked at every step, the shared-memory limit.
 LSTM scan: batches off the 8-row cluster tile, one step, odd step counts,
-the width limits. Skipped without a card. This file
+the width limits; its training forward and backward at B 1 and 9, T 1,
+H 32, 64 and 256, and through autograd. CPC selection forward and
+backward: odd L, tiles that do not fit shared memory, Z not a multiple of
+32, collision ties, out-of-range indices. Skipped without a card. This file
 imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -239,3 +242,131 @@ def test_lstm_scan_shared_memory_layout_and_limits(cuda):
     for hidden, match in ((440, "shared memory"), (36, "multiple of 8")):
         with pytest.raises(ValueError, match=match):
             ls.lstm_scan(*_lstm_case(np.random.default_rng(0), 2, 3, hidden, cuda))
+
+
+@pytest.mark.parametrize(
+    "t, b, hidden",
+    [(1, 1, 256), (70, 9, 256), (5, 64, 32), (13, 17, 64), (70, 64, 256), (4, 3, 352)],
+)
+def test_lstm_scan_train_and_bwd_kernels_match_plain(cuda, t, b, hidden):
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    rng = np.random.default_rng(t * 7 + b + hidden)
+    args = _lstm_case(rng, t, b, hidden, cuda)
+    before = (ls.LSTM_SCAN_TRAIN_LAUNCHES, ls.LSTM_SCAN_BWD_LAUNCHES)
+    got = ls.lstm_scan_train(*args)
+    inf = ls.lstm_scan(*args)
+    torch.cuda.synchronize()
+    ref = ls.lstm_scan_train_reference(*args)
+    # chip_smoke.py's bounds: a bf16 ulp of |h| < 1 and f32 sums.
+    for name, a, r in zip(("hs", "acts", "c_prev", "h_T", "c_T"), got, ref):
+        assert float((a.float() - r.float()).abs().max()) <= 1e-2, name
+    for a, r in zip(inf, (got[0], got[3], got[4])):  # the inference variant's bits
+        assert torch.equal(a, r)
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+    dhs = f32(rng.normal(0, 1, size=(t, b, hidden))).bfloat16()
+    dh_t, dc_t = f32(rng.normal(0, 1, size=(b, hidden))), f32(rng.normal(0, 1, size=(b, hidden)))
+    kb = ls.lstm_scan_bwd(ref[1], ref[2], dhs, args[0], dh_t, dc_t)
+    torch.cuda.synchronize()
+    rb = ls.lstm_scan_bwd_reference(ref[1], ref[2], dhs, args[0], dh_t, dc_t)
+    assert (ls.LSTM_SCAN_TRAIN_LAUNCHES, ls.LSTM_SCAN_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert kb[0].dtype == torch.bfloat16 and kb[0].shape == (t, b, 4 * hidden)
+    # chip_smoke.py's bounds: one bf16 ulp of da, carried by the gates.
+    for name, a, r in zip(("dgates", "dh0", "dc0"), kb, rb):
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= 1e-2 * float(r.float().abs().max()) + 1e-3, (name, err)
+
+
+def test_lstm_scan_autograd_on_card(cuda):
+    """``LstmScan`` on the card against the same Function on the CPU (plain
+    versions): dwh and dxproj within 2e-2 relative to their largest."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    args = _lstm_case(np.random.default_rng(9), 21, 12, 256, cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [a.detach().to(dev).requires_grad_(i < 2) for i, a in enumerate(args)]
+        hs, h_t, c_t = ls.LstmScan.apply(*leaves)
+        (hs.float().square().sum() + h_t.sum() + c_t.sum()).backward()
+        grads.append([leaves[0].grad.float().cpu(), leaves[1].grad.float().cpu()])
+    for a, r in zip(*grads):
+        assert float((a - r).abs().max()) <= 2e-2 * float(r.abs().max())
+
+
+def test_lstm_scan_bwd_shared_memory_layout_and_limit(cuda):
+    from vectorquantizedcpc_tpu_torch.ops import _build
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    for hidden in (8, 64, 256, 352, 360):
+        assert _build.library().vq_lstm_scan_bwd_smem_bytes(hidden) == ls.bwd_smem_bytes(hidden)
+    wh, xproj, h0, c0 = _lstm_case(np.random.default_rng(1), 2, 3, 360, cuda)
+    acts = torch.zeros(2, 3, 4 * 360, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ls.lstm_scan_bwd(acts, torch.zeros_like(h0).expand(2, 3, 360).contiguous(),
+                         torch.zeros(2, 3, 360, dtype=torch.bfloat16, device=cuda), wh, h0, c0)
+
+
+def _select_case(rng, k, s, u, n, l, z, device):
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    codes = rng.normal(size=(5, z))  # a small codebook: many equal candidate vectors
+    zs = codes[rng.integers(0, 5, size=(k, s, u, l))]
+    i32 = lambda x: torch.from_numpy(np.asarray(x, np.int32)).to(device)
+    return (f32(rng.normal(size=(k, s, u, l, z))), f32(zs),
+            i32(rng.integers(0, u, size=(k, u, n))),
+            i32((rng.integers(1, max(l, 2), size=(k, s, u, n, l)) + np.arange(l)) % l))
+
+
+@pytest.mark.parametrize(
+    "k, s, u, n, l, z",
+    [
+        (6, 8, 8, 17, 64, 64),  # the training shape
+        (6, 8, 8, 17, 61, 64),  # L not a multiple of 8
+        (2, 3, 4, 5, 10, 8),
+        (1, 1, 1, 1, 1, 1),
+        (1, 2, 8, 17, 200, 64),  # the (k, s) tile does not fit shared memory
+        (3, 2, 5, 7, 9, 33),  # Z not a multiple of 32
+        (2, 2, 3, 4, 6, 256),
+    ],
+)
+def test_cpc_select_kernels_match_plain(cuda, k, s, u, n, l, z):
+    from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
+
+    rng = np.random.default_rng(k * 100 + l + z)
+    wc, zs, utt, seq = _select_case(rng, k, s, u, n, l, z, cuda)
+    before = (cs.CPC_SELECT_LAUNCHES, cs.CPC_SELECT_BWD_LAUNCHES)
+    f_neg, f_pos = cs.cpc_select(wc, zs, utt, seq)
+    d_neg = torch.randn(k, s, u, n, l, device=cuda)
+    d_pos = torch.randn(k, s, u, l, device=cuda)
+    d_wc, d_zs = cs.cpc_select_bwd(d_neg, d_pos, wc, zs, utt, seq)
+    torch.cuda.synchronize()
+    assert (cs.CPC_SELECT_LAUNCHES, cs.CPC_SELECT_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref = cs.cpc_select_reference(wc, zs, utt, seq) + cs.cpc_select_bwd_reference(
+        d_neg, d_pos, wc, zs, utt, seq)
+    # chip_smoke.py's bound: f32 sums of at most Z (forward) or 1 + N U
+    # (backward) terms in other orders.
+    for name, a, r in zip(("f_neg", "f_pos", "d_wc", "d_zs"), (f_neg, f_pos, d_wc, d_zs), ref):
+        assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max()) + 1e-6, name
+    # Equal candidate vectors tie with the positive bit for bit.
+    cand = zs.reshape(k, s, u * l, z)[
+        torch.arange(k, device=cuda)[:, None, None, None, None],
+        torch.arange(s, device=cuda)[None, :, None, None, None],
+        utt.long()[:, None, :, :, None] * l + seq.long()]
+    same = (cand == zs[:, :, :, None]).all(-1)
+    assert same.any()
+    assert torch.equal(f_neg[same], f_pos[:, :, :, None].expand_as(f_neg)[same])
+
+
+def test_cpc_select_refuses_bad_input(cuda):
+    from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
+
+    wc, zs, utt, seq = _select_case(np.random.default_rng(0), 2, 2, 3, 4, 6, 264, cuda)
+    with pytest.raises(ValueError, match="Z=264"):
+        cs.cpc_select(wc, zs, utt, seq)
+    wc, zs, utt, seq = _select_case(np.random.default_rng(0), 2, 2, 3, 4, 6, 8, cuda)
+    with pytest.raises(ValueError, match="utt_index"):
+        cs.cpc_select(wc, zs, utt.long(), seq)
+    # An index out of range scores NaN instead of reading outside the tile.
+    seq[0, 0, 0, 0, 0] = 6
+    f_neg, _ = cs.cpc_select(wc, zs, utt, seq)
+    torch.cuda.synchronize()
+    assert torch.isnan(f_neg[0, 0, 0, 0, 0]) and not torch.isnan(f_neg[0, 0, 0, 0, 1:]).any()

@@ -1,9 +1,10 @@
 """Typed configuration for the port's CLIs: defaults, ``${}`` links, overrides.
 
-The conversion and export subset of the JAX package's config tree, under the
-same key paths, so a ``key=value`` override written for one CLI works for the other
-(``training_vocoder.model.network.rnnms.wave_ar.size_h_rnn=32``). The
-defaults are a Python literal and overrides are parsed without yaml. An
+The conversion, export and CPC-training subset of the JAX package's config
+tree, under the same key paths, so a ``key=value`` override written for one
+CLI works for the other (``training_vocoder.model.network.rnnms.wave_ar.size_h_rnn=32``,
+``training.cpc.scheduler.milestones=[4]``). The defaults are a Python
+literal and overrides are parsed without yaml (scalars and flat lists). An
 unknown key raises ``ValueError``, as in the JAX CLI.
 """
 
@@ -23,6 +24,7 @@ MISSING = "???"
 def conf_default_tree() -> Dict[str, Any]:
     """The defaults; ``${a.b}`` strings link to another key."""
     return {
+        "seed": 13,
         "sampling_rate": 16000,
         "bit_mulaw": 8,
         "dim_mel_freq": 80,
@@ -35,6 +37,8 @@ def conf_default_tree() -> Dict[str, Any]:
         ),
         "save_auxiliary": False,
         "synthesis_list": "./target_vc.json",
+        "checkpoint_dir": "./ckpt",
+        "resume": "scratch",
         "in_dir": "./in",
         "out_dir": "./out",
         "model": {
@@ -44,6 +48,35 @@ def conf_default_tree() -> Dict[str, Any]:
                 "n_embeddings": "${size_latent_codebook}",
                 "z_dim": "${dim_latent}",
                 "c_dim": "${dim_cpc_context}",
+            },
+            "cpc": {
+                "n_prediction_steps": "${training.cpc.n_prediction_steps}",
+                "n_speakers_per_batch": "${training.cpc.n_speakers_per_batch}",
+                "n_utterances_per_speaker": "${training.cpc.n_utterances_per_speaker}",
+                "n_negatives": "${training.cpc.n_negatives}",
+                "z_dim": "${dim_latent}",
+                "c_dim": "${dim_cpc_context}",
+            },
+        },
+        "training": {
+            "cpc": {
+                "sample_frames": 128,
+                "n_speakers_per_batch": 8,
+                "n_utterances_per_speaker": 8,
+                "n_prediction_steps": 12,
+                "n_negatives": 17,
+                "exclude_self_negatives": False,
+                "n_epochs": 22000,
+                "scheduler": {
+                    "warmup_epochs": 150,
+                    "initial_lr": 1.0e-5,
+                    "max_lr": 4.0e-4,
+                    "gamma": 0.25,
+                    "milestones": [20000],
+                },
+                "checkpoint_interval": 2000,
+                "log_interval": 10,
+                "epochs_per_dispatch": 1,
             },
         },
         "training_vocoder": {
@@ -68,7 +101,11 @@ def conf_default_tree() -> Dict[str, Any]:
             },
         },
         "data": {
+            "adress_data_root": None,
+            "corpus": {"download": False, "root": None},
             "dataset": {
+                "name": "ZR19",
+                "adress_data_root": None,
                 "mel_stft_stride": 160,
                 "preprocess": {
                     "sr": "${sampling_rate}",
@@ -81,7 +118,12 @@ def conf_default_tree() -> Dict[str, Any]:
                     "win_length": 400,
                     "bits": "${bit_mulaw}",
                 },
+                "cpc": {
+                    "clip_length_mel": -1,
+                    "n_utterances_per_speaker": "${training.cpc.n_utterances_per_speaker}",
+                },
             },
+            "loader": {"num_workers": 1},
         },
         "runtime": {"precision": "bfloat16", "platform": None},
     }
@@ -97,8 +139,50 @@ class ConfEncoder:
 
 
 @dataclass
+class ConfCPC:
+    n_prediction_steps: int = MISSING
+    n_speakers_per_batch: int = MISSING
+    n_utterances_per_speaker: int = MISSING
+    n_negatives: int = MISSING
+    z_dim: int = MISSING
+    c_dim: int = MISSING
+
+
+@dataclass
 class ConfModel:
     encoder: ConfEncoder = field(default_factory=ConfEncoder)
+    cpc: ConfCPC = field(default_factory=ConfCPC)
+
+
+@dataclass
+class ConfTrainCPCSched:
+    warmup_epochs: int = MISSING
+    initial_lr: float = MISSING
+    max_lr: float = MISSING
+    gamma: float = MISSING
+    milestones: List[int] = MISSING
+
+
+@dataclass
+class ConfTrainCPC:
+    sample_frames: int = MISSING
+    n_speakers_per_batch: int = MISSING
+    n_utterances_per_speaker: int = MISSING
+    n_prediction_steps: int = MISSING
+    n_negatives: int = MISSING
+    exclude_self_negatives: bool = False
+    n_epochs: int = MISSING
+    scheduler: ConfTrainCPCSched = field(default_factory=ConfTrainCPCSched)
+    checkpoint_interval: int = MISSING
+    log_interval: int = MISSING
+    # Epochs per group: logs and checkpoints quantize to it, as in the JAX
+    # trainer's dispatch groups (the port runs every step eagerly).
+    epochs_per_dispatch: int = 1
+
+
+@dataclass
+class ConfTraining:
+    cpc: ConfTrainCPC = field(default_factory=ConfTrainCPC)
 
 
 @dataclass
@@ -144,14 +228,37 @@ class ConfTrainVocoder:
 
 
 @dataclass
+class ConfCorpus:
+    download: bool = False
+    root: Optional[str] = None
+
+
+@dataclass
+class ConfDatasetCPC:
+    clip_length_mel: int = -1  # derived: sample_frames + n_prediction_steps
+    n_utterances_per_speaker: int = MISSING
+
+
+@dataclass
 class ConfDataset:
+    name: str = MISSING
+    adress_data_root: Optional[str] = None
     mel_stft_stride: int = MISSING
     preprocess: ConfPreprocessing = field(default_factory=ConfPreprocessing)
+    cpc: ConfDatasetCPC = field(default_factory=ConfDatasetCPC)
+
+
+@dataclass
+class ConfLoader:
+    num_workers: Optional[int] = None
 
 
 @dataclass
 class ConfData:
+    adress_data_root: Optional[str] = None
+    corpus: ConfCorpus = field(default_factory=ConfCorpus)
     dataset: ConfDataset = field(default_factory=ConfDataset)
+    loader: ConfLoader = field(default_factory=ConfLoader)
 
 
 @dataclass
@@ -166,6 +273,7 @@ class ConfRuntime:
 
 @dataclass
 class ConfGlobal:
+    seed: int = MISSING
     sampling_rate: int = MISSING
     bit_mulaw: int = MISSING
     dim_mel_freq: int = MISSING
@@ -176,9 +284,12 @@ class ConfGlobal:
     vocoder_checkpoint: str = MISSING
     save_auxiliary: bool = MISSING
     synthesis_list: str = MISSING
+    checkpoint_dir: str = MISSING
+    resume: str = MISSING
     in_dir: str = MISSING
     out_dir: str = MISSING
     model: ConfModel = field(default_factory=ConfModel)
+    training: ConfTraining = field(default_factory=ConfTraining)
     training_vocoder: ConfTrainVocoder = field(default_factory=ConfTrainVocoder)
     data: ConfData = field(default_factory=ConfData)
     runtime: ConfRuntime = field(default_factory=ConfRuntime)
@@ -209,7 +320,12 @@ _INTERP_RE = re.compile(r"^\$\{([A-Za-z0-9_.]+)\}$")
 
 
 def _parse_value(raw: str) -> Any:
-    """A scalar as yaml reads it: null, bool, int, float, else the string."""
+    """A value as yaml reads it: null, bool, int, float, a flat ``[a, b]``
+    list of those, else the string."""
+    raw = raw.strip()
+    if raw.startswith("[") and raw.endswith("]"):
+        inner = raw[1:-1].strip()
+        return [_parse_value(x) for x in inner.split(",")] if inner else []
     if raw == "" or raw in ("null", "~"):
         return None
     if raw in ("true", "false"):
@@ -259,6 +375,8 @@ def _resolve_interpolations(tree: Dict[str, Any]) -> Dict[str, Any]:
     def resolve(v: Any, seen: tuple) -> Any:
         if isinstance(v, dict):
             return {k: resolve(x, seen) for k, x in v.items()}
+        if isinstance(v, list):
+            return [resolve(x, seen) for x in v]
         if isinstance(v, str):
             m = _INTERP_RE.match(v)
             if m:
@@ -276,6 +394,11 @@ def _coerce(hint: Any, value: Any, path: str) -> Any:
         if value is None:
             return None
         (hint,) = [a for a in typing.get_args(hint) if a is not type(None)]
+    if typing.get_origin(hint) is list:
+        if not isinstance(value, list):
+            raise ValueError(f"Expected list at '{path}', got {value!r}")
+        (item,) = typing.get_args(hint)
+        return [_coerce(item, v, path) for v in value]
     if hint is float and isinstance(value, int) and not isinstance(value, bool):
         return float(value)
     if isinstance(value, bool) != (hint is bool) or not isinstance(value, hint):
@@ -311,11 +434,13 @@ def _instantiate(cls: type, tree: Dict[str, Any], path: str = "") -> Any:
 
 
 def conf_programatic(conf: ConfGlobal) -> ConfGlobal:
-    """Derived fields, as in the JAX package's config."""
+    """Derived fields, as in the JAX package's config (its ``configs.py:596-607``)."""
     model = conf.training_vocoder.model
     net = model.network
     net.rnnms.dim_i_feature = net.dim_i_embedding + net.dim_speaker_embedding
     net.n_speakers = model.n_speakers
+    tc = conf.training.cpc
+    conf.data.dataset.cpc.clip_length_mel = tc.sample_frames + tc.n_prediction_steps
     return conf
 
 

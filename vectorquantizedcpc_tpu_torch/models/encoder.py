@@ -11,6 +11,9 @@ The reference Encoder's layers under its ``state_dict`` names
 ``encode`` returns the quantized latents, the LSTM's context series and
 the codes, as the JAX package's ``encoder_encode`` does. Conversion asks
 for the codes alone and skips the context; the code export dumps all three.
+``forward`` is the training path (``encoder_forward``): it steps the VQ-EMA
+buffers and returns the straight-through latents, the context, the
+commitment loss and the perplexity.
 The modules hold the parameters; the arithmetic is written out, so that it
 rounds where the JAX package's ``_frontend`` rounds at each compute dtype.
 """
@@ -24,7 +27,7 @@ from torch import nn
 from ..configs import ConfEncoder
 from .matmul import rows_matmul
 from .rnn import lstm_apply
-from .vq import VQEmbeddingEMA
+from .vq import VQEmbeddingEMA, vq_apply_train
 
 
 class Encoder(nn.Module):
@@ -84,6 +87,16 @@ class Encoder(nn.Module):
             z.to(compute_dtype), self.rnn.weight_ih_l0, self.rnn.weight_hh_l0,
             self.rnn.bias_ih_l0, self.rnn.bias_hh_l0, state, compute_dtype,
         )
+
+    def forward(
+        self, mels: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Training path: (B, Freq, T) -> (z_st (B, T', z_dim) f32, c (B, T',
+        c_dim) f32, vq_loss, perplexity), one EMA step of the codebook."""
+        z_pre = self.frontend(mels, compute_dtype)
+        z, vq_loss, perplexity = vq_apply_train(self.codebook, z_pre.float())
+        c, _ = self.context(z, compute_dtype)
+        return z, c.float(), vq_loss, perplexity
 
     @torch.no_grad()
     def encode(

@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.lstm_scan import lstm_scan
+from ..ops.lstm_scan import LstmScan, lstm_scan
 from .matmul import rows_matmul
 
 
@@ -103,10 +103,12 @@ def lstm_apply(
     Returns (outputs (B, T, H), final (h, c)) at ``compute_dtype``, the JAX
     package's ``models/rnn.py:lstm_apply``. The biases are summed in f32
     before any cast, and the input projection ``x @ wx + b`` is one matmul at
-    the compute dtype. bfloat16 runs the recurrence through
-    ``ops/lstm_scan.lstm_scan`` (the CUDA kernel on a card, its plain version
-    on the CPU), as the JAX package runs its Pallas kernel on a TPU; float32
-    runs a plain f32 loop whose rows sum alike at any batch size.
+    the compute dtype. bfloat16 runs the recurrence through the CUDA
+    kernels on a card (their plain versions on the CPU), as the JAX package
+    runs its Pallas kernels on a TPU: without gradients the inference kernel
+    ``ops/lstm_scan.lstm_scan``; with gradients ``LstmScan``, the training
+    forward and the backward kernel. float32 runs a plain f32 loop whose
+    rows sum alike at any batch size, differentiable by autograd.
     """
     b, t, _ = x.shape
     hidden = weight_hh.shape[1]
@@ -118,10 +120,12 @@ def lstm_apply(
     if compute_dtype == torch.bfloat16:
         bf = torch.bfloat16
         xproj = x.to(bf) @ weight_ih.t().to(bf) + bias.to(bf)
-        hs, h, c = lstm_scan(
-            weight_hh.t().to(bf).contiguous(), xproj.transpose(0, 1).contiguous(),
-            h.contiguous(), c.contiguous(),
-        )
+        args = (weight_hh.t().to(bf).contiguous(), xproj.transpose(0, 1).contiguous(),
+                h.contiguous(), c.contiguous())
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+            hs, h, c = LstmScan.apply(*args)
+        else:
+            hs, h, c = lstm_scan(*args)
         return hs.transpose(0, 1), (h.to(bf), c.to(bf))
     if compute_dtype != torch.float32:
         raise ValueError(f"lstm_apply computes in float32 or bfloat16, not {compute_dtype}")

@@ -110,10 +110,32 @@ def library() -> ctypes.CDLL:
         lib.vq_lstm_scan_launch.restype = i
         lib.vq_lstm_scan_smem_bytes.argtypes = [i]
         lib.vq_lstm_scan_smem_bytes.restype = i
+        lib.vq_lstm_scan_train_launch.argtypes = [p] * 9 + [i] * 3 + [p]
+        lib.vq_lstm_scan_train_launch.restype = i
+        lib.vq_lstm_scan_bwd_launch.argtypes = [p] * 9 + [i] * 3 + [p]
+        lib.vq_lstm_scan_bwd_launch.restype = i
+        lib.vq_lstm_scan_bwd_smem_bytes.argtypes = [i]
+        lib.vq_lstm_scan_bwd_smem_bytes.restype = i
+        lib.vq_cpc_select_launch.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.vq_cpc_select_launch.restype = i
+        lib.vq_cpc_select_bwd_launch.argtypes = [p] * 8 + [i] * 6 + [p]
+        lib.vq_cpc_select_bwd_launch.restype = i
+        lib.vq_cpc_select_uses_tile.argtypes = [i] * 3
+        lib.vq_cpc_select_uses_tile.restype = i
         lib.vq_cuda_error_string.argtypes = [i]
         lib.vq_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def on_card(x, what: str) -> bool:
+    """False for a CPU tensor (the plain version runs), True for a CUDA one;
+    raises for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+    return True
 
 
 def check(err: int, what: str) -> None:

@@ -12,9 +12,9 @@ does (bidirectional GRU = PreNet, unidirectional GRU = AR GRU, the weight
 without a bias = AR embedding, the Linear fed by the GRU = fc1), and renamed
 to the port's module names so they load with ``strict=True``.
 
-``from_jax_params`` maps JAX parameters, given as numpy arrays keyed by the
-JAX dataclass field paths, to the reference layouts, the inverse of the
-JAX importer.
+``from_jax_params`` and ``cpc_from_jax_params`` map JAX parameters, given
+as numpy arrays keyed by the JAX dataclass field paths, to the reference
+layouts, the inverse of the JAX importer.
 """
 
 from pathlib import Path
@@ -122,17 +122,13 @@ def _gru(params: Dict[str, np.ndarray], prefix: str, sfx: str) -> StateDict:
     }
 
 
-def from_jax_params(
-    encoder: Dict[str, np.ndarray],
-    vq: Dict[str, np.ndarray],
-    vocoder: Dict[str, np.ndarray],
-) -> Tuple[StateDict, StateDict]:
-    """JAX params (numpy, keyed by field path) -> (encoder, vocoder) state_dicts.
-
-    Conv WIO -> OIW, Linear and GRU kernels transposed, GRU biases kept
-    apart (bx -> bias_ih, bh -> bias_hh). The JAX LSTM's one fused bias
-    becomes ``bias_ih`` with a zero ``bias_hh``.
-    """
+def encoder_from_jax_params(
+    encoder: Dict[str, np.ndarray], vq: Dict[str, np.ndarray]
+) -> StateDict:
+    """JAX encoder params and VQ state (numpy, keyed by field path) -> the
+    reference Encoder state_dict. Conv WIO -> OIW, Linear and LSTM kernels
+    transposed; the JAX LSTM's one fused bias becomes ``bias_ih`` with a
+    zero ``bias_hh``."""
     n_blocks = encoder["fc_w"].shape[0]
     enc = {
         "conv.weight": _t(np.transpose(encoder["conv_w"], (2, 1, 0))),
@@ -152,7 +148,20 @@ def from_jax_params(
     enc["rnn.weight_hh_l0"] = _t(encoder["rnn.wh"].T)
     enc["rnn.bias_ih_l0"] = _t(encoder["rnn.b"])
     enc["rnn.bias_hh_l0"] = torch.zeros_like(enc["rnn.bias_ih_l0"])
+    return enc
 
+
+def from_jax_params(
+    encoder: Dict[str, np.ndarray],
+    vq: Dict[str, np.ndarray],
+    vocoder: Dict[str, np.ndarray],
+) -> Tuple[StateDict, StateDict]:
+    """JAX params (numpy, keyed by field path) -> (encoder, vocoder) state_dicts.
+
+    The encoder as ``encoder_from_jax_params``; vocoder Linear and GRU
+    kernels transposed, GRU biases kept apart (bx -> bias_ih, bh -> bias_hh).
+    """
+    enc = encoder_from_jax_params(encoder, vq)
     voc = {
         "code_embedding.weight": _t(vocoder["code_embedding"]),
         "speaker_embedding.weight": _t(vocoder["speaker_embedding"]),
@@ -173,3 +182,13 @@ def from_jax_params(
     for k, v in _gru(vocoder, "ar_gru", "l0").items():
         voc[f"rnnms.rnn.{k}"] = v
     return enc, voc
+
+
+def cpc_from_jax_params(cpc: Dict[str, np.ndarray]) -> StateDict:
+    """JAX CPC params {"w": (n, C, Z), "b": (n, Z)} -> the reference CPCLoss
+    state_dict: ``predictors.{k}.weight`` (Z, C) and ``.bias``."""
+    out = {}
+    for k in range(cpc["w"].shape[0]):
+        out[f"predictors.{k}.weight"] = _t(cpc["w"][k].T)
+        out[f"predictors.{k}.bias"] = _t(cpc["b"][k])
+    return out
