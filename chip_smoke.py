@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's voice conversion, serving, latent export and CPC training on one CUDA card.
+"""Drive the PyTorch port's voice conversion, serving, latent export, CPC and vocoder training on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -15,6 +15,9 @@ Phases (any failure ends the run with a non-zero exit):
    forward and backward (and autograd through them) at B 64 / 3, T 70 / 1,
    and the CPC selection forward and backward at the training shape and at
    an L that is not a multiple of 8, with every collision tied bit for bit;
+   the GRU scan's grid kernels (training forward, backward, and autograd
+   through them) at the vocoder's T 5,120, B 32, H 896, and at B 3, T 1
+   and H 200, the no-grad forward's bits equal to the training forward's;
 4. convert 8 synthetic wavs end to end through the CLI entry point, on
    full-width random weights saved as reference-format checkpoints, and
    check the wavs and that the path went through the kernels;
@@ -32,13 +35,22 @@ Phases (any failure ends the run with a non-zero exit):
    inference scan, load the checkpoint into ``Encoder`` and export through
    the encode CLI; hold one train step against the plain route on the card;
    30 steps on one batch must lower the loss;
+4e. train the vocoder on 4d's corpus and CPC checkpoint through the
+   train_vocoder CLI at full width in bf16, B 32, 4 epochs x 3 steps with
+   validation every 2, check the losses, one launch per step of each GRU
+   training kernel, the validation wavs and their AR decode launches; load
+   the checkpoint into ``Vocoder`` and convert through the convert CLI;
+   hold one train step against the plain route; 10 steps on one batch must
+   lower the loss;
 5. time each kernel, its plain version and, where one exists, the PyTorch
    library call for the same function at the main paths' shapes, beside
    the least time the card could take; the AR step at B in {8, 32, 64};
    each serving drain beside the request mix's slot-utilisation ceiling
    times the raw kernel rate at that many rows; the export's wall time;
    cuDNN's LSTM forward and backward beside the training pair; the CPC
-   train step in steps/s to the device with the kernels' share.
+   train step in steps/s to the device with the kernels' share; the GRU
+   training pair beside cuDNN's GRU, and the vocoder train step in samples/s
+   to the device, its kernels' and the device's busy share, its peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -109,6 +121,12 @@ SELECT_SHAPES = {"training": (6, 8, 8, 17, 64, 64), "odd L": (6, 8, 8, 17, 61, 6
 # against the plain route: 2e-2 of the largest (dwh sums T B such terms).
 MAX_LSTM_BWD_REL = 1e-2
 MAX_LSTM_GRAD_REL = 2e-2
+# The GRU grid kernels against their plain versions: the forward as
+# MAX_GRU_ERR, relative to max(1, largest) since |hn| reaches ~3 (one bf16
+# ulp there is 1.6e-2); the backward and autograd through it as the LSTM
+# pair's MAX_LSTM_BWD_REL and MAX_LSTM_GRAD_REL: a gate gradient one bf16
+# ulp apart where its f32 value sits on a rounding boundary, carried on by
+# the recurrence, and summed T B deep into dwh and dbh.
 # Selection, kernel against plain version: f32 dots of Z terms (forward),
 # sums of at most 1 + N U terms (backward), in other orders: 1e-5 of the
 # largest value.
@@ -121,6 +139,11 @@ TRAIN_SPEAKERS, TRAIN_UTTS, TRAIN_EPOCHS = 16, 8, 10  # 2 steps per epoch at S =
 MAX_STEP_LOSS_REL = 1e-3
 MAX_STEP_GRAD_REL = 5e-2
 PEAK_F32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
+# The vocoder's AR GRU in training: B 32 clips of 32 mel frames x hop 160.
+VOC_T, VOC_B, VOC_H = 5120, 32, 896
+GRU_TRAIN_SHAPES = {"training": (VOC_T, VOC_B, VOC_H), "partial tile": (9, 3, VOC_H),
+                    "one step": (1, VOC_B, VOC_H), "H 200": (640, VOC_B, 200)}
+VOC_EPOCHS, VOC_VAL_EVERY = 4, 2  # 125 training utterances at B 32: 3 steps an epoch
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1013,6 +1036,81 @@ def phase_compare_train(seed: int, card: str) -> dict:
     return worst
 
 
+def _gru_train_inputs(seed: int, steps: int, batch: int, hidden: int):
+    """GRU-scan operands from ``seed``: wh at nn.GRU's init scale and bh
+    (bf16 values) as the vocoder passes them, an input projection, h0."""
+    rng = np.random.default_rng(seed + 13)
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(DEVICE)
+    return (
+        f32(rng.uniform(-1, 1, size=(hidden, 3 * hidden)) / np.sqrt(hidden)).bfloat16(),
+        f32(rng.uniform(-1, 1, size=(3 * hidden,)) / np.sqrt(hidden)).bfloat16().float(),
+        f32(rng.normal(0, 0.8, size=(steps, batch, 3 * hidden))).bfloat16(),
+        f32(rng.uniform(-0.5, 0.5, size=(batch, hidden))),
+    )
+
+
+def _gru_grads(args) -> list:
+    """Autograd through ``GruScan`` on the card: [dwh, dbh, dxproj, dh0]."""
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    hs, h_t = g.GruScan.apply(*leaves)
+    w = torch.linspace(-1, 1, hs.shape[-1], device=DEVICE)
+    loss = (hs.float() * w).sum() + (h_t * w).sum()
+    return list(torch.autograd.grad(loss, leaves))
+
+
+def phase_compare_gru_train(seed: int, card: str) -> dict:
+    """The GRU grid kernels (training forward, backward) against their plain
+    versions on the card, autograd through ``GruScan`` against the plain
+    route; returns each kernel's worst max abs error."""
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    start = time.perf_counter()
+    worst = {"gru_scan_train": 0.0, "gru_scan_bwd": 0.0}
+    for name, (steps, batch, hidden) in GRU_TRAIN_SHAPES.items():
+        args = _gru_train_inputs(seed, steps, batch, hidden)
+        got = g.gru_scan_train(*args)
+        hs, h_t = g.gru_scan(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(hs, got[0]) and torch.equal(h_t, got[3]),
+              f"gru_scan_train {name}: the no-grad forward's hs, h_T are not its bits")
+        ref = g.gru_scan_train_reference(*args)
+        errs = [_rel_err(a, r) for a, r in zip(got, ref)]
+        for what, (e, m) in zip(("hs", "acts", "hns", "h_T"), errs):
+            check(e <= MAX_GRU_ERR * max(1.0, m), f"gru_scan_train {name}: {what} differs by {e} "
+                  f"(largest {m})")
+        rng = np.random.default_rng(seed + 14)
+        f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(DEVICE)
+        dhs = f32(rng.normal(0, 1, size=(steps, batch, hidden))).bfloat16()
+        dh_t = f32(rng.normal(0, 1, size=(batch, hidden)))
+        h_prevs = torch.cat([args[3].bfloat16()[None], ref[0][:-1]]).contiguous()
+        kb = g.gru_scan_bwd(ref[1], ref[2], h_prevs, dhs, args[0], dh_t)
+        torch.cuda.synchronize()
+        rb = g.gru_scan_bwd_reference(ref[1], ref[2], h_prevs, dhs, args[0], dh_t)
+        errs_b = [_rel_err(a, r) for a, r in zip(kb, rb)]
+        for what, (e, m) in zip(("dgx", "dgh", "dh0"), errs_b):
+            check(e <= MAX_LSTM_BWD_REL * m + 1e-3, f"gru_scan_bwd {name}: {what} differs by {e} "
+                  f"(largest {m})")
+        grads = _gru_grads(args)
+        with plain_route():
+            plain = _gru_grads(args)
+        errs_g = [_rel_err(a, r) for a, r in zip(grads, plain)]
+        for what, (e, m) in zip(("dwh", "dbh", "dxproj", "dh0"), errs_g):
+            check(e <= MAX_LSTM_GRAD_REL * m, f"GruScan {name}: {what} differs by {e} (largest {m})")
+        print(f"compare gru_scan_train {name} T={steps} B={batch} H={hidden}: hs, acts, hns, h_T "
+              f"max abs diff {', '.join(f'{e:.3e} of {m:.3f}' for e, m in errs)} (bound "
+              f"{MAX_GRU_ERR} x max(1, largest)); no-grad forward bit-identical; gru_scan_bwd "
+              f"dgx, dgh, dh0 {', '.join(f'{e:.3e} of {m:.3f}' for e, m in errs_b)} (bound "
+              f"{MAX_LSTM_BWD_REL} x largest + 1e-3); autograd vs the plain route dwh, dbh, "
+              f"dxproj, dh0 {', '.join(f'{e:.3e} of {m:.3f}' for e, m in errs_g)} (bound "
+              f"{MAX_LSTM_GRAD_REL} x largest)  [{card}]")
+        worst["gru_scan_train"] = max(worst["gru_scan_train"], *(e for e, _ in errs))
+        worst["gru_scan_bwd"] = max(worst["gru_scan_bwd"], *(e for e, _ in errs_b))
+    print(f"phase 3 GRU grid kernels: {time.perf_counter() - start:.3f} s wall")
+    return worst
+
+
 def _select_inputs(seed: int, k, s, u, n, l, z):
     """Selection operands from ``seed``: wc ~ N(0, 1); z_shift drawn from a
     512-word codebook as quantized latents are; the reference sampling of
@@ -1046,9 +1144,15 @@ def _train_counts(reset: bool = False) -> dict:
     }
 
 
-def phase_train(seed: int, card: str) -> dict:
+def _corpus_args(d: Path) -> list:
+    return ["data.dataset.name=synthetic", f"data.corpus.root={d / 'corpus'}",
+            f"data.dataset.adress_data_root={d / 'features'}", "data.loader.num_workers=4"]
+
+
+def phase_train(seed: int, card: str, d: Path) -> dict:
     """CPC training through the preprocess and train_cpc CLIs on the card,
-    at full width and bf16; the checkpoint through Encoder and the encode CLI."""
+    at full width and bf16; the checkpoint through Encoder and the encode
+    CLI. The corpus, features and checkpoints stay in ``d`` for phase 4e."""
     from vectorquantizedcpc_tpu_torch.cli import encode as encode_cli
     from vectorquantizedcpc_tpu_torch.cli import preprocess as preprocess_cli
     from vectorquantizedcpc_tpu_torch.cli import train_cpc
@@ -1056,48 +1160,45 @@ def phase_train(seed: int, card: str) -> dict:
     from vectorquantizedcpc_tpu_torch.data.corpus import SyntheticCorpus
     from vectorquantizedcpc_tpu_torch.models.encoder import Encoder
 
-    with tempfile.TemporaryDirectory() as tmp:
-        d = Path(tmp)
-        # The default synthetic corpus has 4 speakers, fewer than S = 8, and
-        # an existing corpus on disk is read as it is: materialize this one.
-        SyntheticCorpus(d / "corpus", n_speakers=TRAIN_SPEAKERS, n_utterances=TRAIN_UTTS,
-                        duration_s=2.0).utterances()
-        data = ["data.dataset.name=synthetic", f"data.corpus.root={d / 'corpus'}",
-                f"data.dataset.adress_data_root={d / 'features'}", "data.loader.num_workers=4"]
-        start = time.perf_counter()
-        manifest = preprocess_cli.main(data + [f"out_dir={d / 'features'}"])
-        pre_s = time.perf_counter() - start
-        check(len(manifest["speakers"]) == TRAIN_SPEAKERS
-              and len(manifest["utterances"]) == TRAIN_SPEAKERS * TRAIN_UTTS, "preprocess manifest")
-        argv = data + [f"checkpoint_dir={d / 'ckpt'}", f"training.cpc.n_epochs={TRAIN_EPOCHS}",
-                       "training.cpc.checkpoint_interval=5", "training.cpc.log_interval=5",
-                       f"seed={seed}"]
-        torch.cuda.synchronize()
-        _train_counts(reset=True)
-        start = time.perf_counter()
-        trainer = train_cpc.main(argv)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
-        launches = _train_counts()
-        steps = trainer.global_step
-        check(steps == TRAIN_EPOCHS * TRAIN_SPEAKERS // 8 >= 20, f"{steps} train steps")
-        for name in ("lstm_scan_train", "lstm_scan_bwd", "cpc_select", "cpc_select_bwd"):
-            check(launches[name] == steps, f"{launches[name]} {name} launches for {steps} steps")
-        check(launches["lstm_scan"] == 0, "the inference scan ran during training")
-        losses = [float(m["loss"]) for m in trainer.history]
-        check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
-        ckpts = sorted(p.name for p in (d / "ckpt").glob("*.pt"))
-        check(ckpts == ["model.ckpt-10.pt", "model.ckpt-5.pt"], f"checkpoints {ckpts}")
-        ckpt = d / "ckpt" / "model.ckpt-10.pt"
-        encoder = Encoder(load_conf([]).model.encoder)
-        encoder.load_state_dict(torch.load(ckpt, weights_only=True)["encoder"], strict=True)
-        n = encode_cli.main([f"cpc_checkpoint={ckpt}", f"in_dir={d / 'features' / 'V000'}",
-                             f"out_dir={d / 'codes'}"])
-        check(n == TRAIN_UTTS, f"exported {n} of {TRAIN_UTTS} mels")
-        for rec in manifest["utterances"][:TRAIN_UTTS]:
-            rows = np.loadtxt(d / "codes" / f"{rec['name']}.txt", ndmin=2)
-            check(rows.shape == (rec["n_frames"] // 2, 64) and bool(np.isfinite(rows).all()),
-                  f"export of {rec['name']}: {rows.shape}")
+    # The default synthetic corpus has 4 speakers, fewer than S = 8, and
+    # an existing corpus on disk is read as it is: materialize this one.
+    SyntheticCorpus(d / "corpus", n_speakers=TRAIN_SPEAKERS, n_utterances=TRAIN_UTTS,
+                    duration_s=2.0).utterances()
+    data = _corpus_args(d)
+    start = time.perf_counter()
+    manifest = preprocess_cli.main(data + [f"out_dir={d / 'features'}"])
+    pre_s = time.perf_counter() - start
+    check(len(manifest["speakers"]) == TRAIN_SPEAKERS
+          and len(manifest["utterances"]) == TRAIN_SPEAKERS * TRAIN_UTTS, "preprocess manifest")
+    argv = data + [f"checkpoint_dir={d / 'ckpt'}", f"training.cpc.n_epochs={TRAIN_EPOCHS}",
+                   "training.cpc.checkpoint_interval=5", "training.cpc.log_interval=5",
+                   f"seed={seed}"]
+    torch.cuda.synchronize()
+    _train_counts(reset=True)
+    start = time.perf_counter()
+    trainer = train_cpc.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = _train_counts()
+    steps = trainer.global_step
+    check(steps == TRAIN_EPOCHS * TRAIN_SPEAKERS // 8 >= 20, f"{steps} train steps")
+    for name in ("lstm_scan_train", "lstm_scan_bwd", "cpc_select", "cpc_select_bwd"):
+        check(launches[name] == steps, f"{launches[name]} {name} launches for {steps} steps")
+    check(launches["lstm_scan"] == 0, "the inference scan ran during training")
+    losses = [float(m["loss"]) for m in trainer.history]
+    check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
+    ckpts = sorted(p.name for p in (d / "ckpt").glob("*.pt"))
+    check(ckpts == ["model.ckpt-10.pt", "model.ckpt-5.pt"], f"checkpoints {ckpts}")
+    ckpt = d / "ckpt" / "model.ckpt-10.pt"
+    encoder = Encoder(load_conf([]).model.encoder)
+    encoder.load_state_dict(torch.load(ckpt, weights_only=True)["encoder"], strict=True)
+    n = encode_cli.main([f"cpc_checkpoint={ckpt}", f"in_dir={d / 'features' / 'V000'}",
+                         f"out_dir={d / 'codes'}"])
+    check(n == TRAIN_UTTS, f"exported {n} of {TRAIN_UTTS} mels")
+    for rec in manifest["utterances"][:TRAIN_UTTS]:
+        rows = np.loadtxt(d / "codes" / f"{rec['name']}.txt", ndmin=2)
+        check(rows.shape == (rec["n_frames"] // 2, 64) and bool(np.isfinite(rows).all()),
+              f"export of {rec['name']}: {rows.shape}")
     print(f"train: preprocess of {len(manifest['utterances'])} utterances {pre_s:.3f} s; "
           f"train_cpc CLI {steps} steps ({TRAIN_EPOCHS} epochs x {steps // TRAIN_EPOCHS}) in "
           f"{seconds:.3f} s wall = {steps / seconds:.3f} steps/s incl. set-up and first-step "
@@ -1109,18 +1210,22 @@ def phase_train(seed: int, card: str) -> dict:
 
 @contextlib.contextmanager
 def plain_route():
-    """Inside, the slice's autograd Functions call the plain versions of
-    their four kernels, on card tensors."""
+    """Inside, the training slices' autograd Functions call the plain
+    versions of their six kernels, on card tensors."""
     from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
     from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
 
-    saved = ls.lstm_scan_train, ls.lstm_scan_bwd, cs.cpc_select, cs.cpc_select_bwd
+    saved = (ls.lstm_scan_train, ls.lstm_scan_bwd, cs.cpc_select, cs.cpc_select_bwd,
+             g.gru_scan_train, g.gru_scan_bwd)
     ls.lstm_scan_train, ls.lstm_scan_bwd = ls.lstm_scan_train_reference, ls.lstm_scan_bwd_reference
     cs.cpc_select, cs.cpc_select_bwd = cs.cpc_select_reference, cs.cpc_select_bwd_reference
+    g.gru_scan_train, g.gru_scan_bwd = g.gru_scan_train_reference, g.gru_scan_bwd_reference
     try:
         yield
     finally:
-        ls.lstm_scan_train, ls.lstm_scan_bwd, cs.cpc_select, cs.cpc_select_bwd = saved
+        (ls.lstm_scan_train, ls.lstm_scan_bwd, cs.cpc_select, cs.cpc_select_bwd,
+         g.gru_scan_train, g.gru_scan_bwd) = saved
 
 
 def _train_batch(seed: int, conf):
@@ -1184,6 +1289,156 @@ def phase_train_step(seed: int, card: str) -> None:
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"fixed-batch losses {losses}")
     print(f"train fixed batch: 30 steps at lr 1e-3, loss {losses[0]:.4f} -> {losses[-1]:.4f}  "
           f"[{card}]")
+
+
+def _voc_counts(reset: bool = False) -> dict:
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    if reset:
+        g.GRU_SCAN_LAUNCHES = g.GRU_SCAN_TRAIN_LAUNCHES = g.GRU_SCAN_BWD_LAUNCHES = 0
+        ar.AR_DECODE_LAUNCHES = 0
+    return {
+        "gru_scan_train": g.GRU_SCAN_TRAIN_LAUNCHES,
+        "gru_scan_bwd": g.GRU_SCAN_BWD_LAUNCHES,
+        "gru_scan": g.GRU_SCAN_LAUNCHES,
+        "ar_decode": ar.AR_DECODE_LAUNCHES,
+    }
+
+
+def phase_train_vocoder(seed: int, card: str, d: Path) -> dict:
+    """Vocoder training through the train_vocoder CLI on the card at full
+    width and bf16, on phase 4d's corpus, features and CPC checkpoint; the
+    checkpoint through Vocoder and the convert CLI."""
+    from vectorquantizedcpc_tpu_torch.cli import convert as convert_cli
+    from vectorquantizedcpc_tpu_torch.cli import train_vocoder
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.dsp.audio_io import read_wav
+    from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
+
+    cpc = d / "ckpt" / "model.ckpt-10.pt"
+    argv = _corpus_args(d) + [
+        f"cpc_checkpoint={cpc}", f"training_vocoder.ckpt_log.dir_root={d / 'voc'}",
+        f"training_vocoder.trainer.max_epochs={VOC_EPOCHS}",
+        f"training_vocoder.trainer.val_interval_epoch={VOC_VAL_EVERY}",
+        "training_vocoder.trainer.profiler=simple", f"seed={seed}",
+    ]
+    torch.cuda.synchronize()
+    _voc_counts(reset=True)
+    start = time.perf_counter()
+    trainer = train_vocoder.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = _voc_counts()
+    steps = trainer.step
+    per_epoch = (TRAIN_SPEAKERS * TRAIN_UTTS - 3) // VOC_B
+    check(steps == VOC_EPOCHS * per_epoch == 12, f"{steps} vocoder train steps")
+    for name in ("gru_scan_train", "gru_scan_bwd"):
+        check(launches[name] == steps, f"{launches[name]} {name} launches for {steps} steps")
+    check(launches["gru_scan"] == 0, "the no-grad GRU scan ran during training")
+    n_decodes = VOC_EPOCHS // VOC_VAL_EVERY * 3 * 2  # 3 utterances, reconstructed and converted
+    check(launches["ar_decode"] == n_decodes, f"{launches['ar_decode']} AR decode launches in "
+          f"validation, expected {n_decodes}")
+    losses = list(trainer.history)
+    check(len(losses) == steps and all(np.isfinite(losses)), f"vocoder losses {losses}")
+    ckpt_dir = d / "voc" / "default" / "version_-1" / "checkpoints"
+    final = ckpt_dir / f"model.ckpt-{steps}.pt"
+    check(final.exists(), f"no {final.name} in {sorted(p.name for p in ckpt_dir.iterdir())}")
+    wavs = sorted((ckpt_dir.parent / "samples").glob("*.wav"))
+    for step in range(VOC_VAL_EVERY, VOC_EPOCHS + 1, VOC_VAL_EVERY):
+        got = [w for w in wavs if w.name.endswith(f"_step{step * per_epoch}.wav")]
+        check(len(got) >= 2, f"validation wavs at step {step * per_epoch}: {got}")
+    for w in wavs:
+        wave, _ = read_wav(w)
+        check(wave.size > 0 and bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) <= 1.0,
+              f"validation wav {w.name}")
+    vocoder = Vocoder(load_conf([]).training_vocoder.model.network)
+    vocoder.load_state_dict(torch.load(final, weights_only=True)["vocoder"], strict=True)
+
+    speakers = sorted(p.name for p in (d / "corpus").iterdir() if p.is_dir())
+    (d / "vc_in").mkdir()
+    (d / "vc_in" / "speakers.json").write_text(json.dumps(speakers))
+    entries = [[f"../corpus/{speakers[i]}/{speakers[i]}_0001", speakers[(i + 5) % len(speakers)],
+                f"vc{i}"] for i in range(2)]
+    (d / "vc_list.json").write_text(json.dumps(entries))
+    n = convert_cli.main([f"cpc_checkpoint={cpc}", f"vocoder_checkpoint={final}",
+                          f"in_dir={d / 'vc_in'}", f"out_dir={d / 'vc_out'}",
+                          f"synthesis_list={d / 'vc_list.json'}"])
+    check(n == 2, f"converted {n} of 2 utterances")
+    for i in range(2):
+        wave, _ = read_wav(d / "vc_out" / f"vc{i}.wav")
+        check(wave.size > 0 and bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) <= 1.0,
+              f"converted vc{i}")
+    print(f"train vocoder: train_vocoder CLI {steps} steps ({VOC_EPOCHS} epochs x {per_epoch}, "
+          f"B {VOC_B} x {VOC_T} samples, bf16) with validation every {VOC_VAL_EVERY} epochs in "
+          f"{seconds:.3f} s wall incl. set-up, validation and the final save; losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite; launches {json.dumps(launches)}; "
+          f"{len(wavs)} validation wavs in [-1, 1]; {final.name} loads strict into Vocoder and "
+          f"the convert CLI converted {n} utterances with it  [{card}]")
+    return {"launches": launches, "seconds": seconds, "steps": steps}
+
+
+def _voc_trainer(seed: int, conf):
+    """A vocoder trainer at ``conf``'s widths beside a random encoder from ``seed``."""
+    from vectorquantizedcpc_tpu_torch.models.encoder import Encoder
+    from vectorquantizedcpc_tpu_torch.training.vocoder import VocoderTrainer
+
+    encoder = Encoder(conf.model.encoder)
+    randomize(encoder, np.random.default_rng(seed + 15))
+    return VocoderTrainer(conf, encoder, DEVICE)
+
+
+def _voc_batch(seed: int, conf):
+    """B 32 random clips of 32 mel frames: audio classes, mels, speakers."""
+    rng = np.random.default_rng(seed + 16)
+    frames, hop = conf.data.dataset.clip_length_mel, conf.data.dataset.mel_stft_stride
+    to = lambda x: torch.from_numpy(x).to(DEVICE)
+    return (to(rng.integers(0, 256, size=(VOC_B, frames * hop + 1)).astype(np.int32)),
+            to(rng.normal(size=(VOC_B, 80, frames)).astype(np.float32)),
+            to(rng.integers(0, TRAIN_SPEAKERS, size=VOC_B).astype(np.int32)))
+
+
+def phase_train_vocoder_step(seed: int, card: str) -> None:
+    """One bf16 vocoder train step's loss and gradients, kernels against the
+    plain route on the card (same weights and batch); then 10 steps on one
+    batch must lower the loss."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+
+    start = time.perf_counter()
+    conf = load_conf([f"seed={seed}"])
+    batch = _voc_batch(seed, conf)
+    results = []
+    before = _voc_counts()
+    for plain in (False, True):
+        trainer = _voc_trainer(seed, conf)
+        with plain_route() if plain else contextlib.nullcontext():
+            loss = trainer.loss(*batch)
+            named = list(trainer.vocoder.named_parameters())
+            grads = torch.autograd.grad(loss, [p for _, p in named])
+        results.append((float(loss.detach()), {n: gr for (n, _), gr in zip(named, grads)}))
+    torch.cuda.synchronize()
+    after = _voc_counts()
+    check(all(after[k] == before[k] + 1 for k in ("gru_scan_train", "gru_scan_bwd")),
+          f"kernel launches {before} -> {after}")
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(loss_err <= MAX_STEP_LOSS_REL, f"vocoder step loss {loss_k} vs plain {loss_p}")
+    worst_name, worst = "", 0.0
+    for name, gr in grads_k.items():
+        e, m = _rel_err(gr, grads_p[name])
+        check(e <= MAX_STEP_GRAD_REL * m, f"vocoder step gradient {name}: {e} of {m}")
+        if m > 0 and e / m >= worst:
+            worst_name, worst = name, e / m
+    print(f"train vocoder step vs plain route: loss {loss_k:.6f} vs {loss_p:.6f} (relative "
+          f"{loss_err:.3e}, bound {MAX_STEP_LOSS_REL}); {len(grads_k)} gradients, worst "
+          f"{worst:.3e} of the largest element ({worst_name}; bound {MAX_STEP_GRAD_REL})  [{card}]")
+
+    trainer = _voc_trainer(seed, conf)
+    lr = conf.training_vocoder.model.optim.learning_rate
+    losses = [float(trainer.train_step(*batch, lr)["loss"]) for _ in range(10)]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"fixed-batch losses {losses}")
+    print(f"train vocoder fixed batch: 10 steps at lr {lr:g}, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; phase wall {time.perf_counter() - start:.3f} s  [{card}]")
 
 
 def _bound(n_bytes: float, flops: float, peak_flops: float):
@@ -1287,6 +1542,85 @@ def phase_time_train(seed: int, card: str) -> dict:
     return out
 
 
+def phase_time_vocoder(seed: int, card: str) -> dict:
+    """The GRU training pair, their plain versions and bounds at the
+    vocoder's T 5,120, B 32, H 896; cuDNN's GRU (fp16, on the (B, T, 512)
+    input, so it also does the input projection) forward and backward
+    beside them; the dwh product; the vocoder train step to the device."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    start = time.perf_counter()
+    out = {}
+    steps, batch, hidden = GRU_TRAIN_SHAPES["training"]
+    args = _gru_train_inputs(seed, steps, batch, hidden)
+    hs, acts, hns, h_t = g.gru_scan_train(*args)
+    rng = np.random.default_rng(seed + 17)
+    dhs = torch.from_numpy(rng.normal(size=(steps, batch, hidden)).astype(np.float32)).to(
+        DEVICE).bfloat16()
+    h_prevs = torch.cat([args[3].bfloat16()[None], hs[:-1]]).contiguous()
+    bwd_args = (acts, hns, h_prevs, dhs, args[0], torch.zeros_like(h_t))
+    dgx, dgh, dh0 = g.gru_scan_bwd(*bwd_args)
+    flops = 2 * steps * batch * hidden * 3 * hidden
+    gru_in = torch.randn(batch, steps, 512, device=DEVICE, dtype=CUDNN_DTYPE, requires_grad=True)
+    cudnn = torch.nn.GRU(512, hidden, batch_first=True).to(DEVICE, CUDNN_DTYPE)
+    lib_out, _ = cudnn(gru_in)
+    lib_grad = torch.randn_like(lib_out)
+    inputs = [gru_in] + list(cudnn.parameters())
+    rows = {
+        "gru_scan_train": (lambda: g.gru_scan_train(*args),
+                           lambda: g.gru_scan_train_reference(*args),
+                           _nbytes(*args, hs, acts, hns, h_t), lambda: cudnn(gru_in)),
+        "gru_scan_bwd": (lambda: g.gru_scan_bwd(*bwd_args),
+                         lambda: g.gru_scan_bwd_reference(*bwd_args),
+                         _nbytes(*bwd_args, dgx, dgh, dh0),
+                         lambda: torch.autograd.grad(lib_out, inputs, lib_grad, retain_graph=True)),
+    }
+    for name, (kernel, plain, n_bytes, lib) in rows.items():
+        bound, by = _bound(n_bytes, flops, PEAK_BF16_FLOPS)
+        res = out[name] = {"ms": time_cuda(kernel, reps=3), "plain_ms": time_cuda(plain, reps=1),
+                           "bound_ms": bound, "bound_by": by, "library_ms": time_cuda(lib, reps=3)}
+        print(f"timing {name} T={steps} B={batch} H={hidden}: kernel {res['ms']:.3f} ms = "
+              f"{res['ms'] * 1e3 / steps:.3f} us/step; plain {res['plain_ms']:.3f} ms; cuDNN "
+              f"nn.GRU (fp16, with the input projection) {res['library_ms']:.3f} ms; bound "
+              f"{bound:.4f} ms by {by} ({flops:.4g} FLOP, {n_bytes:.4g} B); bound / kernel = "
+              f"{bound / res['ms'] * 100:.3f} %  [{card}]")
+    del lib_out, inputs, gru_in, cudnn
+    dwh_ms = time_cuda(lambda: h_prevs.reshape(-1, hidden).t().float()
+                       @ dgh.reshape(-1, 3 * hidden).float(), reps=3)
+    print(f"timing dwh = h_prevs^T dgh ({steps * batch}-deep, f32): {dwh_ms:.3f} ms = "
+          f"{flops / dwh_ms / 1e9:.1f} TFLOP/s  [{card}]")
+
+    conf = load_conf([f"seed={seed}"])
+    trainer = _voc_trainer(seed, conf)
+    batch_t = _voc_batch(seed, conf)
+
+    def step():
+        trainer.train_step(*batch_t, 1e-4)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    kernels_ms = out["gru_scan_train"]["ms"] + out["gru_scan_bwd"]["ms"]
+    samples_s = VOC_B * VOC_T / (step_ms / 1e3)
+    print(f"timing vocoder train step (B {VOC_B} x {VOC_T} samples, bf16): {step_ms:.3f} ms = "
+          f"{1e3 / step_ms:.3f} steps/s = {samples_s:.1f} samples/s to the device over 5 steps; "
+          f"the two GRU kernels {kernels_ms:.3f} ms = {kernels_ms / step_ms * 100:.2f} % of the "
+          f"step (their times alone, above); peak memory {peak / 2**30:.3f} GiB  [{card}]")
+    out["step"] = {"ms": step_ms, "steps_per_s": 1e3 / step_ms, "samples_per_s": samples_s,
+                   "kernels_share": kernels_ms / step_ms, "peak_bytes": peak, "dwh_ms": dwh_ms,
+                   **_profile_steps(step, 3, step_ms, card)}
+    print(f"phase 5 vocoder timing: {time.perf_counter() - start:.3f} s wall")
+    return out
+
+
 def _profile_steps(step, n: int, step_ms: float, card: str) -> dict:
     """The device's own time per step from a profiler trace of ``n`` steps,
     read against the untraced ``step_ms``: busy ms, idle share, device
@@ -1346,19 +1680,26 @@ def main() -> int:
     compared_gru = phase_compare_gru(args.seed, card)
     compared_lstm = phase_compare_lstm(args.seed, card)
     compared_train = phase_compare_train(args.seed, card)
+    compared_gru_train = phase_compare_gru_train(args.seed, card)
     # Phase 4: the main paths, counts zeroed just before and read just after each.
     converted = phase_convert(args.seed, card)
     serve = phase_serve(args.seed, card)
     launches = serve["launches"]
     exported = phase_export(args.seed, card)
-    trained = phase_train(args.seed, card)
-    phase_train_step(args.seed, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = phase_train(args.seed, card, Path(tmp))
+        phase_train_step(args.seed, card)
+        start = time.perf_counter()
+        trained_voc = phase_train_vocoder(args.seed, card, Path(tmp))
+        print(f"phase 4e vocoder training: {time.perf_counter() - start:.3f} s wall")
+    phase_train_vocoder_step(args.seed, card)
     # Phase 5: times beside the bound.
     timing, ar_ms_by_batch = phase_time(args.seed, card)
     timing_gru = phase_time_gru(args.seed, card)
     timing_lstm = phase_time_lstm(args.seed, card)
     phase_time_serve(serve, ar_ms_by_batch, card)
     timing_train = phase_time_train(args.seed, card)
+    timing_voc = phase_time_vocoder(args.seed, card)
 
     source = "vectorquantizedcpc_tpu_torch/ops/csrc/"
     kernels = [
@@ -1415,6 +1756,17 @@ def main() -> int:
             ("cpc_select", "cpc_select.cu", "cpc_select.py:65"),
             ("cpc_select_bwd", "cpc_select.cu", "cpc_select.py:106"),
         )
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": source + "gru_train.cu",
+            "replaces": f"vectorquantizedcpc_tpu/ops/gru_train.py:{line}",
+            "launches": trained_voc["launches"][name],
+            "max_abs_err": compared_gru_train[name],
+            **timing_voc[name],
+        }
+        for name, line in (("gru_scan_train", 59), ("gru_scan_bwd", 114))
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

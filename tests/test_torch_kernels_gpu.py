@@ -4,7 +4,10 @@ Edge shapes that chip_smoke.py's full-width run does not reach. AR decode:
 hidden sizes that do not split evenly over the SMs, FC1 widths below the
 grid size, few classes, hop 1, odd batches, batches of several 8-row tiles
 up to the 128-row cap. GRU scans: batches off the 8-row tile, one row, one
-step, H = 96 and 128, rows masked at every step, the shared-memory limit.
+step, H = 96 and 128, rows masked at every step, the one-block kernel's
+shared-memory limit; the grid kernels (training forward, no-grad forward
+past H 183, backward) at H 896, 200, 37 and 1001, B 1 to 40, and through
+autograd, their plan and its refusals.
 LSTM scan: batches off the 8-row cluster tile, one step, odd step counts,
 the width limits; its training forward and backward at B 1 and 9, T 1,
 H 32, 64 and 256, and through autograd. CPC selection forward and
@@ -178,9 +181,90 @@ def test_gru_scan_shared_memory_layout_and_limit(cuda):
 
     for hidden in (1, 96, 128, 183, 184):
         assert _build.library().vq_gru_scan_smem_bytes(hidden) == g.scan_smem_bytes(hidden)
-    wh, bh, xproj, h0, _, _ = _scan_case(np.random.default_rng(4), 2, 3, 184, cuda)
+    # Past H 183 the masked scan refuses, and the plain one takes the grid kernel.
+    wh, bh, xproj, h0, valid, _ = _scan_case(np.random.default_rng(4), 2, 3, 184, cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        g.gru_scan(wh, bh, xproj, h0)
+        g.gru_scan_masked(wh, bh, xproj, valid, h0)
+    hs, _ = g.gru_scan(wh, bh, xproj, h0)
+    ref, _ = g.gru_scan_reference(wh, bh, xproj, h0)
+    torch.cuda.synchronize()
+    assert float((hs.float() - ref.float()).abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize(
+    "t, b, hidden",
+    [
+        (640, 32, 896),  # the vocoder's widths
+        (9, 3, 896),  # a partial row tile
+        (1, 32, 896),  # one step
+        (33, 32, 200),  # 2 units per block
+        (7, 5, 37),  # one unit per block, 3H not a multiple of 8 or 16
+        (3, 40, 1001),  # 8 units per block; two forward and three backward row tiles
+    ],
+)
+def test_gru_scan_train_and_bwd_kernels_match_plain(cuda, t, b, hidden):
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    rng = np.random.default_rng(t * 7 + b + hidden)
+    wh, bh, xproj, h0, _, _ = _scan_case(rng, t, b, hidden, cuda)
+    before = (g.GRU_SCAN_TRAIN_LAUNCHES, g.GRU_SCAN_BWD_LAUNCHES)
+    got = g.gru_scan_train(wh, bh, xproj, h0)
+    torch.cuda.synchronize()
+    ref = g.gru_scan_train_reference(wh, bh, xproj, h0)
+    # chip_smoke.py's bounds: one bf16 ulp of the value (|hn| reaches ~3),
+    # f32 sums in other orders.
+    for name, a, r in zip(("hs", "acts", "hns", "h_T"), got, ref):
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= 1e-2 * max(1.0, float(r.float().abs().max())), (name, err)
+    if hidden > g.BLOCK_MAX_HIDDEN:  # the no-grad grid forward gives the same bits
+        hs, h_t = g.gru_scan(wh, bh, xproj, h0)
+        assert torch.equal(hs, got[0]) and torch.equal(h_t, got[3])
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+    dhs = f32(rng.normal(0, 1, size=(t, b, hidden))).bfloat16()
+    dh_t = f32(rng.normal(0, 1, size=(b, hidden)))
+    h_prevs = torch.cat([h0.bfloat16()[None], ref[0][:-1]]).contiguous()
+    kb = g.gru_scan_bwd(ref[1], ref[2], h_prevs, dhs, wh, dh_t)
+    torch.cuda.synchronize()
+    rb = g.gru_scan_bwd_reference(ref[1], ref[2], h_prevs, dhs, wh, dh_t)
+    assert (g.GRU_SCAN_TRAIN_LAUNCHES, g.GRU_SCAN_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    # One bf16 ulp of a gate gradient, carried on by the recurrence.
+    for name, a, r in zip(("dgx", "dgh", "dh0"), kb, rb):
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= 1e-2 * float(r.float().abs().max()) + 1e-3, (name, err)
+
+
+def test_gru_scan_autograd_on_card(cuda):
+    """``GruScan`` on the card against the same Function on the CPU (plain
+    versions): every gradient within 2e-2 of its largest element."""
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    args = _scan_case(np.random.default_rng(9), 21, 12, 896, cuda)[:4]
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [a.detach().to(dev).requires_grad_() for a in args]
+        hs, h_t = g.GruScan.apply(*leaves)
+        (hs.float().square().sum() + h_t.sum()).backward()
+        grads.append([x.grad.float().cpu() for x in leaves])
+    for a, r in zip(*grads):
+        assert float((a - r).abs().max()) <= 2e-2 * float(r.abs().max())
+
+
+def test_gru_grid_plan_and_refusals(cuda):
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    for b, hidden in ((32, 896), (3, 200), (40, 1001), (1, 37)):
+        blocks, units, fwd, bwd = g.grid_plan(b, hidden)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert units == -(-hidden // sms) and blocks == -(-hidden // units) <= sms
+        assert (fwd, bwd) == g.grid_smem_bytes(b, hidden, units)
+    # One unit per block: 896 blocks cannot all be resident; 4096 units do
+    # not fit one block's shared memory. Both refuse, neither shrinks.
+    for b, hidden, units in ((32, 896, 1), (32, 4096, 0)):
+        with pytest.raises(RuntimeError, match="GRU grid plan"):
+            g.grid_plan(b, hidden, units)
+    wh, bh, xproj, h0, _, _ = _scan_case(np.random.default_rng(5), 2, 3, 4096, cuda)
+    with pytest.raises(RuntimeError, match="GRU grid forward"):
+        g.gru_scan_train(wh, bh, xproj, h0)
 
 
 def test_server_refuses_more_slots_than_the_kernel_takes(cuda):

@@ -98,7 +98,7 @@ def test_config_matches_the_jax_config(argv):
 @pytest.mark.parametrize(
     "argv, match",
     [
-        (["training_vocoder.trainer.max_epochs=5"], "Unknown config key"),
+        (["training_vocoder.trainer.max_epoch=5"], "Unknown config key"),
         (["model.encoder.chanels=5"], "Unknown config key"),
         (["dim_latent=abc"], "Expected int"),
         (["runtime.platform"], "key=value"),

@@ -1,8 +1,9 @@
 """Typed configuration for the port's CLIs: defaults, ``${}`` links, overrides.
 
-The conversion, export and CPC-training subset of the JAX package's config
-tree, under the same key paths, so a ``key=value`` override written for one
-CLI works for the other (``training_vocoder.model.network.rnnms.wave_ar.size_h_rnn=32``,
+The conversion, export, CPC-training and vocoder-training subset of the
+JAX package's config tree, under the same key paths, so a ``key=value``
+override written for one CLI works for the other
+(``training_vocoder.model.network.rnnms.wave_ar.size_h_rnn=32``,
 ``training.cpc.scheduler.milestones=[4]``). The defaults are a Python
 literal and overrides are parsed without yaml (scalars and flat lists). An
 unknown key raises ``ValueError``, as in the JAX CLI.
@@ -81,6 +82,7 @@ def conf_default_tree() -> Dict[str, Any]:
         },
         "training_vocoder": {
             "model": {
+                "sampling_rate": "${sampling_rate}",
                 "n_speakers": 102,
                 "network": {
                     "size_i_codebook": "${size_latent_codebook}",
@@ -98,6 +100,23 @@ def conf_default_tree() -> Dict[str, Any]:
                         },
                     },
                 },
+                "optim": {
+                    "learning_rate": 4.0e-4,
+                    "sched_milestones": [50000, 75000, 100000, 125000],
+                    "sched_gamma": 0.5,
+                },
+            },
+            "trainer": {
+                "max_epochs": 540,
+                "val_interval_epoch": 10,
+                "gradient_clip_val": 1.0,
+                "steps_per_dispatch": 1,
+                "profiler": None,
+            },
+            "ckpt_log": {
+                "dir_root": "vqcpc_vocoder",
+                "name_exp": "default",
+                "name_version": "version_-1",
             },
         },
         "data": {
@@ -106,6 +125,7 @@ def conf_default_tree() -> Dict[str, Any]:
             "dataset": {
                 "name": "ZR19",
                 "adress_data_root": None,
+                "clip_length_mel": 32,
                 "mel_stft_stride": 160,
                 "preprocess": {
                     "sr": "${sampling_rate}",
@@ -123,7 +143,7 @@ def conf_default_tree() -> Dict[str, Any]:
                     "n_utterances_per_speaker": "${training.cpc.n_utterances_per_speaker}",
                 },
             },
-            "loader": {"num_workers": 1},
+            "loader": {"batch_size": 32, "num_workers": 1, "pin_memory": None},
         },
         "runtime": {"precision": "bfloat16", "platform": None},
     }
@@ -217,14 +237,45 @@ class ConfVocoderNetwork:
 
 
 @dataclass
+class ConfVocoderOptim:
+    learning_rate: float = MISSING
+    sched_milestones: List[int] = MISSING
+    sched_gamma: float = MISSING
+
+
+@dataclass
 class ConfVocoderModel:
+    sampling_rate: int = MISSING
     n_speakers: int = MISSING
     network: ConfVocoderNetwork = field(default_factory=ConfVocoderNetwork)
+    optim: ConfVocoderOptim = field(default_factory=ConfVocoderOptim)
+
+
+@dataclass
+class ConfTrainer:
+    max_epochs: int = MISSING
+    val_interval_epoch: int = MISSING
+    gradient_clip_val: float = 1.0
+    # Steps per group: checkpoint and preemption checks quantize to it, as in
+    # the JAX trainer's dispatch groups (the port runs every step eagerly).
+    steps_per_dispatch: int = 1
+    # Any value ("simple", "advanced") prints the data-wait / train-dispatch
+    # report at the end of training.
+    profiler: Optional[str] = None
+
+
+@dataclass
+class ConfCkptLog:
+    dir_root: str = MISSING
+    name_exp: str = MISSING
+    name_version: str = MISSING
 
 
 @dataclass
 class ConfTrainVocoder:
     model: ConfVocoderModel = field(default_factory=ConfVocoderModel)
+    trainer: ConfTrainer = field(default_factory=ConfTrainer)
+    ckpt_log: ConfCkptLog = field(default_factory=ConfCkptLog)
 
 
 @dataclass
@@ -243,6 +294,7 @@ class ConfDatasetCPC:
 class ConfDataset:
     name: str = MISSING
     adress_data_root: Optional[str] = None
+    clip_length_mel: int = MISSING  # vocoder training clips, mel frames
     mel_stft_stride: int = MISSING
     preprocess: ConfPreprocessing = field(default_factory=ConfPreprocessing)
     cpc: ConfDatasetCPC = field(default_factory=ConfDatasetCPC)
@@ -250,7 +302,9 @@ class ConfDataset:
 
 @dataclass
 class ConfLoader:
+    batch_size: int = MISSING
     num_workers: Optional[int] = None
+    pin_memory: Optional[bool] = None  # read by neither package; kept for the key path
 
 
 @dataclass

@@ -5,6 +5,11 @@ Weights keep torch's ``nn.GRU`` / ``nn.LSTM`` layouts (``weight_ih``
 recurrent bias inside the reset product: ``n = tanh(xn + r * (h @ Whn +
 bhn))``; LSTM gate order i, f, g, o. The input projection is hoisted out of
 the loop into one matmul over all steps.
+
+A GRU computes in its input's dtype, as the JAX package's ``gru_apply``:
+bfloat16 rounds every product and element-wise op to bf16 (the vocoder
+PreNet in training). The vocoder's sample-level f32 recurrence is
+``gru_scan_loop``; its bf16 one runs the CUDA kernels (``ops/gru_train.py``).
 """
 
 from typing import Optional, Tuple
@@ -40,15 +45,40 @@ def gru_apply(
     bias_hh: torch.Tensor,
     reverse: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run a GRU from a zero state over ``x`` (B, T, D); returns ((B, T, H), h_T)."""
+    """Run a GRU from a zero state over ``x`` (B, T, D) in ``x``'s dtype;
+    returns ((B, T, H), h_T). Differentiable by autograd."""
     b, t, _ = x.shape
+    dt = x.dtype
     h = x.new_zeros(b, weight_hh.shape[1])
-    xproj = x @ weight_ih.t() + bias_ih  # (B, T, 3H)
+    xproj = x @ weight_ih.t().to(dt) + bias_ih.to(dt)  # (B, T, 3H)
+    weight_hh, bias_hh = weight_hh.to(dt), bias_hh.to(dt)
     out = [None] * t
     for i in (reversed(range(t)) if reverse else range(t)):
         h = gru_step(h, xproj[:, i], weight_hh, bias_hh)
         out[i] = h
     return torch.stack(out, dim=1), h
+
+
+def gru_scan_loop(
+    wh: torch.Tensor, bh: torch.Tensor, xproj: torch.Tensor, h0: torch.Tensor
+) -> torch.Tensor:
+    """The GRU recurrence over ``xproj`` (T, B, 3H) from ``h0`` (B, H) in
+    float32: hs (T, B, H), the JAX package's ``models/rnn.py:gru_scan``.
+    ``wh`` is (H, 3H). A plain loop differentiable by autograd, whose rows
+    sum alike at any batch size."""
+    hidden = wh.shape[0]
+    h = h0
+    out = []
+    for t in range(xproj.shape[0]):
+        hproj = rows_matmul(h, wh) + bh
+        xr, xz, xn = xproj[t].split(hidden, dim=-1)
+        hr, hz, hn = hproj.split(hidden, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1.0 - z) * n + z * h
+        out.append(h)
+    return torch.stack(out)
 
 
 def gru_apply_masked_reverse(
@@ -74,7 +104,8 @@ def gru_apply_masked_reverse(
 
 
 def bigru_apply(gru: nn.GRU, layer: int, x: torch.Tensor) -> torch.Tensor:
-    """Layer ``layer`` of a bidirectional ``nn.GRU``: concat(fwd, bwd) (B, T, 2H)."""
+    """Layer ``layer`` of a bidirectional ``nn.GRU``: concat(fwd, bwd) (B, T,
+    2H), in ``x``'s dtype."""
     outs = []
     for sfx, reverse in ((f"l{layer}", False), (f"l{layer}_reverse", True)):
         out, _ = gru_apply(

@@ -10,7 +10,8 @@ Modules keep the reference ``Vocoder``'s ``state_dict`` names
     rnnms.fc1, rnnms.fc2                       nn.Linear(896, 256), (256, 2^bits)
 
 The GRU modules only hold parameters; the recurrences are the loops of
-``models/rnn.py`` and, for the sample-level decode, ``ops/ar_decode.py``.
+``models/rnn.py`` and the CUDA kernels of ``ops/gru_train.py`` (teacher-forced
+training) and ``ops/ar_decode.py`` (the sample-level decode).
 """
 
 from typing import Optional
@@ -20,7 +21,8 @@ from torch import nn
 
 from ..configs import ConfVocoderNetwork
 from ..dsp.mulaw import mulaw_decode
-from .rnn import bigru_apply, gru_apply, gru_apply_masked_reverse, gru_step
+from ..ops.gru_train import GruScan, gru_scan
+from .rnn import bigru_apply, gru_apply, gru_apply_masked_reverse, gru_scan_loop, gru_step
 
 
 class RNNMS(nn.Module):
@@ -51,19 +53,114 @@ class Vocoder(nn.Module):
         self.rnnms = RNNMS(conf)
 
 
+class _TableGather(torch.autograd.Function):
+    """``table[index]`` whose backward sums each row's gradient in f32 and
+    rounds it once to the table's dtype, as the product of a one-hot matrix
+    with the table does (the JAX package's route). Summing 163,840 sample
+    gradients into 256 bf16 rows one add at a time would round each add."""
+
+    @staticmethod
+    def forward(ctx, table, index):
+        ctx.save_for_backward(index)
+        ctx.table_shape = table.shape
+        return table[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        d_table = torch.zeros(ctx.table_shape, dtype=torch.float32, device=grad.device)
+        d_table.index_add_(0, index.reshape(-1), grad.reshape(-1, grad.shape[-1]).float())
+        return d_table.to(grad.dtype), None
+
+
 @torch.no_grad()
 def build_conditioning_frames(
     vocoder: Vocoder, z_indices: torch.Tensor, speaker: torch.Tensor
 ) -> torch.Tensor:
-    """Codes (B, Tz) + speakers (B,) -> frame-rate conditioning (B, 2 Tz, V).
+    """Codes (B, Tz) + speakers (B,) -> frame-rate conditioning (B, 2 Tz, V),
+    float32, without gradients (``conditioning_frames``)."""
+    return conditioning_frames(vocoder, z_indices, speaker)
+
+
+def conditioning_frames(
+    vocoder: Vocoder,
+    z_indices: torch.Tensor,
+    speaker: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Codes (B, Tz) + speakers (B,) -> frame-rate conditioning (B, 2 Tz, V)
+    at ``compute_dtype``, differentiable.
 
     Embed the codes, repeat each twice (undoing the encoder's /2), append
-    the speaker embedding to every frame, run the biGRU PreNet.
+    the speaker embedding to every frame, run the biGRU PreNet: the JAX
+    package's ``build_conditioning_frames``.
     """
-    cond = _prenet_inputs(vocoder, z_indices, speaker)
+    cond = _prenet_inputs(vocoder, z_indices, speaker).to(compute_dtype)
     for layer in range(vocoder.rnnms.prenet.num_layers):
         cond = bigru_apply(vocoder.rnnms.prenet, layer, cond)
     return cond
+
+
+def vocoder_forward(
+    vocoder: Vocoder,
+    x_mulaw: torch.Tensor,
+    z_indices: torch.Tensor,
+    speaker: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Teacher-forced forward: logits (B, T, 2^bits) float32 of the class
+    after each of ``x_mulaw`` (B, T), the JAX package's ``vocoder_forward``
+    with its kernel route for bfloat16.
+
+    bfloat16 with T a multiple of hop: the AR GRU's input projection at
+    frame rate, a (C, 3H) table of the embedding's projection gathered per
+    sample (the bits of JAX's one-hot product: one non-zero term per
+    output; its gradient summed in f32 as that product's) plus the
+    conditioning's projection, broadcast over each frame's samples.
+    Otherwise the projection of [embed(x), conditioning repeated hop
+    times]. The recurrence: bfloat16 through ``GruScan`` (with gradients)
+    or ``gru_scan`` (without), the CUDA kernels on a card; float32 through
+    ``gru_scan_loop``. The head rounds where JAX rounds: relu(bf16(hs @
+    bf16(fc1)) + fc1_b) is float32, so the second product is a float32 one
+    against bf16-rounded weights.
+    """
+    rnnms = vocoder.rnnms
+    hop = vocoder.conf.rnnms.upsampling_t
+    cd = compute_dtype
+    b, t = x_mulaw.shape
+    embed_dim = rnnms.embedding.embedding_dim
+    wx = rnnms.rnn.weight_ih_l0.t()  # (E + V, 3H)
+    bx = rnnms.rnn.bias_ih_l0.to(cd)
+    if cd == torch.bfloat16 and t % hop == 0:
+        cond_f = conditioning_frames(vocoder, z_indices, speaker, cd)  # (B, F, V)
+        table = rnnms.embedding.weight.to(cd) @ wx[:embed_dim].to(cd)  # (C, 3H)
+        cond_proj = cond_f @ wx[embed_dim:].to(cd) + bx
+        f = t // hop
+        xp_embed = _TableGather.apply(table, x_mulaw)  # (B, T, 3H)
+        xproj = (xp_embed.reshape(b, f, hop, -1) + cond_proj[:, :f, None, :]).reshape(b, t, -1)
+    else:
+        cond = conditioning_frames(vocoder, z_indices, speaker, cd)
+        cond = cond.repeat_interleave(hop, dim=1)[:, :t]  # val utterances can be a frame short
+        inputs = torch.cat([rnnms.embedding(x_mulaw).to(cd), cond], dim=-1)
+        xproj = inputs @ wx.to(cd) + bx
+    xproj = xproj.transpose(0, 1)  # (T, B, 3H)
+
+    rnn = rnnms.rnn
+    h0 = torch.zeros(b, rnn.hidden_size, dtype=torch.float32, device=xproj.device)
+    if cd == torch.bfloat16:
+        args = (rnn.weight_hh_l0.t().to(cd).contiguous(), rnn.bias_hh_l0.to(cd).float(),
+                xproj.contiguous(), h0)
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+            hs, _ = GruScan.apply(*args)
+        else:
+            hs, _ = gru_scan(*args)
+    elif cd == torch.float32:
+        hs = gru_scan_loop(rnn.weight_hh_l0.t(), rnn.bias_hh_l0, xproj, h0)
+    else:
+        raise ValueError(f"vocoder_forward computes in float32 or bfloat16, not {cd}")
+    hs = hs.transpose(0, 1)  # (B, T, H)
+    hidden = torch.relu((hs @ rnnms.fc1.weight.t().to(cd)).float() + rnnms.fc1.bias)
+    return hidden @ rnnms.fc2.weight.t().to(cd).float() + rnnms.fc2.bias
 
 
 def _prenet_inputs(vocoder: Vocoder, z_indices: torch.Tensor, speaker: torch.Tensor):

@@ -106,6 +106,12 @@ def library() -> ctypes.CDLL:
         lib.vq_gru_scan_masked_launch.restype = i
         lib.vq_gru_scan_smem_bytes.argtypes = [i]
         lib.vq_gru_scan_smem_bytes.restype = i
+        lib.vq_gru_grid_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.vq_gru_grid_plan.restype = i
+        lib.vq_gru_scan_grid_launch.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.vq_gru_scan_grid_launch.restype = i
+        lib.vq_gru_scan_bwd_launch.argtypes = [p] * 9 + [i] * 3 + [p]
+        lib.vq_gru_scan_bwd_launch.restype = i
         lib.vq_lstm_scan_launch.argtypes = [p] * 7 + [i] * 3 + [p]
         lib.vq_lstm_scan_launch.restype = i
         lib.vq_lstm_scan_smem_bytes.argtypes = [i]
@@ -136,6 +142,19 @@ def on_card(x, what: str) -> bool:
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
     return True
+
+
+def launch(entry: str, what: str, device, *args) -> None:
+    """Call the C entry ``entry`` on ``device``'s current stream with
+    ``args`` (tensors as their data pointers) and raise on its error."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = getattr(library(), entry)(
+            *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    check(err, what)
 
 
 def check(err: int, what: str) -> None:

@@ -1,32 +1,51 @@
 """GRU recurrence over a precomputed input projection: CUDA kernels and plain versions.
 
-``gru_scan`` and ``gru_scan_masked`` run a whole sequence in one launch of
-the kernels in ``csrc/gru_scan.cu``, the port of the JAX package's
-``ops/gru_train.py:_fwd_kernel`` (the no-residual, no-grad variant) and
-``ops/gru_train.py:_fwd_kernel_masked``. Torch gate order r, z, n, with
-``bh`` inside the reset product::
+The port of the JAX package's ``ops/gru_train.py``, in kernels of two sources:
+
+- ``csrc/gru_scan.cu``: a block per 8 batch rows holding all of ``wh`` in
+  its shared memory, so H <= 183 (``BLOCK_MAX_HIDDEN``): the no-grad forward
+  ``gru_scan`` (``_fwd_kernel``, ``save_residuals=False``) and
+  ``gru_scan_masked`` (``_fwd_kernel_masked``), the serving PreNet's;
+- ``csrc/gru_train.cu``: a cooperative grid with ``wh`` spread over the
+  SMs, at the vocoder's H 896 and any other width whose plan fits:
+  ``gru_scan_train``, the training forward (``save_residuals=True``), which
+  also returns ``acts`` (T, B, 3H) bf16 = sigmoid r | sigmoid z | tanh n and
+  ``hns`` (T, B, H) bf16, the recurrent n term; the same forward without
+  residuals, which ``gru_scan`` launches for H > 183; and ``gru_scan_bwd``,
+  the reverse-time backward (``_bwd_kernel``).
+
+Torch gate order r, z, n, with ``bh`` inside the reset product::
 
     hproj = bf16(h) @ wh + bh                 (f32 accumulation)
     r = sigmoid(xr + hr); z = sigmoid(xz + hz); n = tanh(xn + r * hn)
     h = (1 - z) * n + z * h                   (f32 carry)
     masked: rows whose valid[t, b] is 0 keep their carry at step t
 
-``hs`` is stored in bf16. ``gru_scan_reference`` and
-``gru_scan_masked_reference`` round at the same places; the wrappers use
-them for CPU tensors only: a CUDA tensor launches the kernel or raises.
-``GRU_SCAN_LAUNCHES`` and ``GRU_SCAN_MASKED_LAUNCHES`` count launches.
-Serving is no-grad: there is no autograd here (the backward is the
-vocoder-training slice's).
+``hs`` is stored in bf16. ``GruScan`` is the autograd Function around the
+training pair, the counterpart of ``fused_gru_scan``'s custom VJP. Each
+``*_reference`` rounds at the kernel's places; a wrapper uses it for CPU
+tensors only: a CUDA tensor launches the kernel or raises. The
+``GRU_SCAN*_LAUNCHES`` counters count launches.
 """
 
+import ctypes
 from typing import Tuple
 
 import torch
 
+from ._build import launch as _launch
+from ._build import on_card as _on_card
+
 GRU_SCAN_LAUNCHES = 0
 GRU_SCAN_MASKED_LAUNCHES = 0
+GRU_SCAN_TRAIN_LAUNCHES = 0
+GRU_SCAN_BWD_LAUNCHES = 0
 ROWS = 8  # kRows in csrc/gru_scan.cu: batch rows per block
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can opt into (227 KB)
+BLOCK_MAX_HIDDEN = 183  # the widest H whose wh fits one gru_scan.cu block
+FWD_ROWS, BWD_ROWS, SLOTS = 32, 16, 16  # kFwdRows, kBwdRows, kWarps in csrc/gru_train.cu
+
+Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _align16(n: int) -> int:
@@ -44,25 +63,68 @@ def scan_smem_bytes(hidden: int) -> int:
     )
 
 
+def grid_smem_bytes(batch: int, hidden: int, units: int) -> Tuple[int, int]:
+    """Dynamic shared memory of one forward and one backward block of the grid
+    kernels (csrc/gru_train.cu fwd_layout and bwd_layout)."""
+    sizes = []
+    for width, cols, rows, slots, carries in (
+        (hidden, 3 * units, FWD_ROWS, max(SLOTS, 2 * _cdiv(3 * units, 8)), 1),
+        (3 * hidden, units, BWD_ROWS, max(SLOTS, _cdiv(units, 8)), 2),
+    ):
+        stride = _cdiv(width, 16) * 16 + 8
+        sizes.append(
+            _align16(2 * _cdiv(cols, 8) * 8 * stride)  # this block's part of wh, bf16
+            + _align16(2 * rows * stride)  # the h (forward) or dgh (backward) tile
+            + _align16(4 * 128 * slots)  # 16 x 8 partial products
+            + carries * _align16(4 * batch * units)  # the f32 carry (and dh z)
+        )
+    return sizes[0], sizes[1]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def grid_plan(batch: int, hidden: int, units: int = 0) -> Tuple[int, int, int, int]:
+    """(blocks, hidden units per block, forward and backward shared memory
+    bytes) of a grid launch; ``units`` 0 takes ceil(H / SMs). Raises when the
+    grid cannot be resident on the card at once."""
+    from . import _build
+
+    out4 = (ctypes.c_int * 4)()
+    _build.check(
+        _build.library().vq_gru_grid_plan(batch, hidden, units, out4),
+        f"GRU grid plan (B={batch}, H={hidden}, units={units or 'auto'})",
+    )
+    return tuple(out4)
+
+
 @torch.no_grad()
-def _scan_reference(wh, bh, xproj, h0, valid):
+def _scan_reference(wh, bh, xproj, h0, valid, save: bool = False):
     hidden = wh.shape[0]
     whf = wh.float()
     h = h0.float().clone()
-    hs = torch.empty(xproj.shape[:2] + (hidden,), dtype=torch.bfloat16, device=xproj.device)
-    for t in range(xproj.shape[0]):
+    t, b = xproj.shape[:2]
+    hs = torch.empty(t, b, hidden, dtype=torch.bfloat16, device=xproj.device)
+    if save:
+        acts = torch.empty(t, b, 3 * hidden, dtype=torch.bfloat16, device=xproj.device)
+        hns = torch.empty_like(hs)
+    for i in range(t):
         hproj = h.bfloat16().float() @ whf + bh.float()
-        xr, xz, xn = xproj[t].float().split(hidden, dim=1)
+        xr, xz, xn = xproj[i].float().split(hidden, dim=1)
         hr, hz, hn = hproj.split(hidden, dim=1)
         r = torch.sigmoid(xr + hr)
         z = torch.sigmoid(xz + hz)
         n = torch.tanh(xn + r * hn)
         h_new = (1.0 - z) * n + z * h
         if valid is not None:
-            h_new = torch.where(valid[t, :, None] != 0, h_new, h)
-        hs[t] = h_new.bfloat16()
+            h_new = torch.where(valid[i, :, None] != 0, h_new, h)
+        hs[i] = h_new.bfloat16()
+        if save:
+            acts[i] = torch.cat([r, z, n], dim=1).bfloat16()
+            hns[i] = hn.bfloat16()
         h = h_new
-    return hs, h
+    return (hs, acts, hns, h) if save else (hs, h)
 
 
 def gru_scan_reference(
@@ -83,12 +145,53 @@ def gru_scan_masked_reference(
     return _scan_reference(wh, bh, xproj, h0, valid)
 
 
+def gru_scan_train_reference(wh, bh, xproj, h0):
+    """Plain version of the training forward: (hs (T, B, H), acts (T, B, 3H),
+    hns (T, B, H), all bf16; h_T (B, H) f32)."""
+    return _scan_reference(wh, bh, xproj, h0, None, save=True)
+
+
+@torch.no_grad()
+def gru_scan_bwd_reference(acts, hns, h_prevs, dhs, wh, dh_t) -> Tensors3:
+    """Plain version of the backward kernel: (dgx (T, B, 3H) bf16 = dxproj,
+    dgh (T, B, 3H) bf16, dh0 (B, H) f32)."""
+    hidden = wh.shape[0]
+    wht = wh.float().t()
+    dh_carry = dh_t.float().clone()
+    dgx, dgh = torch.empty_like(acts), torch.empty_like(acts)
+    for t in reversed(range(acts.shape[0])):
+        r, z, n = acts[t].float().split(hidden, dim=1)
+        hn, h_prev = hns[t].float(), h_prevs[t].float()
+        dh = dh_carry + dhs[t].float()
+        dn = dh * (1.0 - z)
+        dz = dh * (h_prev - n)
+        da_n = dn * (1.0 - n * n)
+        dr = da_n * hn
+        dhn = da_n * r
+        da_r = dr * r * (1.0 - r)
+        da_z = dz * z * (1.0 - z)
+        dgx[t] = torch.cat([da_r, da_z, da_n], dim=1).bfloat16()
+        dgh[t] = torch.cat([da_r, da_z, dhn], dim=1).bfloat16()
+        dh_carry = dh * z + dgh[t].float() @ wht
+    return dgx, dgh, dh_carry
+
+
+def _check(tensors: dict, device: torch.device) -> None:
+    for name, (x, dtype, shape) in tensors.items():
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, not {device}")
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def check_scan_inputs(wh, bh, xproj, h0, valid=None, kernel: bool = False) -> None:
-    """Raise ``ValueError`` on what the kernels do not take.
+    """Raise ``ValueError`` on what the forward kernels do not take.
 
     wh (H, 3H) bf16, bh (3H,) f32, xproj (T, B, 3H) bf16, h0 (B, H) f32,
     valid (T, B) int32, all contiguous on one device. With ``kernel`` also
-    the shared-memory limit of one block.
+    the shared-memory limit of one ``gru_scan.cu`` block.
     """
     if wh.dim() != 2 or xproj.dim() != 3:
         raise ValueError(f"wh must be (H, 3H) and xproj (T, B, 3H); got {tuple(wh.shape)}, "
@@ -103,13 +206,7 @@ def check_scan_inputs(wh, bh, xproj, h0, valid=None, kernel: bool = False) -> No
     }
     if valid is not None:
         expect["valid"] = (valid, torch.int32, (t, b))
-    for name, (x, dtype, shape) in expect.items():
-        if x.device != xproj.device:
-            raise ValueError(f"{name} is on {x.device}, xproj on {xproj.device}")
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check(expect, xproj.device)
     if t < 1 or b < 1 or hidden < 1:
         raise ValueError(f"empty GRU scan: xproj {tuple(xproj.shape)}")
     if kernel and scan_smem_bytes(hidden) > SMEM_LIMIT:
@@ -119,21 +216,49 @@ def check_scan_inputs(wh, bh, xproj, h0, valid=None, kernel: bool = False) -> No
         )
 
 
-def _launch(entry: str, xproj, valid, wh, bh, h0):
-    from . import _build
+def check_bwd_inputs(acts, hns, h_prevs, dhs, wh, dh_t) -> None:
+    """Raise ``ValueError`` on what the backward kernel does not take: acts
+    (T, B, 3H), hns, h_prevs and dhs (T, B, H), wh (H, 3H), all bf16; dh_t
+    (B, H) f32; contiguous, on one device."""
+    if acts.dim() != 3 or wh.dim() != 2:
+        raise ValueError(f"acts must be (T, B, 3H) and wh (H, 3H); got {tuple(acts.shape)}, "
+                         f"{tuple(wh.shape)}")
+    t, b = acts.shape[:2]
+    hidden = wh.shape[0]
+    bf = torch.bfloat16
+    _check({
+        "acts": (acts, bf, (t, b, 3 * hidden)),
+        "hns": (hns, bf, (t, b, hidden)),
+        "h_prevs": (h_prevs, bf, (t, b, hidden)),
+        "dhs": (dhs, bf, (t, b, hidden)),
+        "wh": (wh, bf, (hidden, 3 * hidden)),
+        "dh_t": (dh_t, torch.float32, (b, hidden)),
+    }, acts.device)
+    if t < 1 or b < 1 or hidden < 1:
+        raise ValueError(f"empty GRU scan backward: acts {tuple(acts.shape)}")
 
+
+def _launch_block(entry: str, xproj, valid, wh, bh, h0):
     t, b, _ = xproj.shape
     hidden = wh.shape[0]
     hs = torch.empty(t, b, hidden, dtype=torch.bfloat16, device=xproj.device)
     h_out = torch.empty(b, hidden, dtype=torch.float32, device=xproj.device)
     ptrs = [xproj] + ([valid] if valid is not None else []) + [wh, bh, h0, hs, h_out]
-    with torch.cuda.device(xproj.device):
-        err = getattr(_build.library(), entry)(
-            *[x.data_ptr() for x in ptrs], t, b, hidden,
-            torch.cuda.current_stream(xproj.device).cuda_stream,
-        )
-    _build.check(err, f"{entry} kernel launch")
+    _launch(entry, f"{entry} kernel launch", xproj.device, *ptrs, t, b, hidden)
     return hs, h_out
+
+
+def _grid_forward(wh, bh, xproj, h0, save: bool):
+    t, b, g3 = xproj.shape
+    hidden = wh.shape[0]
+    dev = xproj.device
+    hs = torch.empty(t, b, hidden, dtype=torch.bfloat16, device=dev)
+    acts = torch.empty(t, b, g3, dtype=torch.bfloat16, device=dev) if save else None
+    hns = torch.empty_like(hs) if save else None
+    h_out = torch.empty(b, hidden, dtype=torch.float32, device=dev)
+    _launch("vq_gru_scan_grid_launch", "GRU grid forward kernel launch", dev,
+          xproj, wh, bh, h0, hs, acts, hns, h_out, t, b, hidden, int(save))
+    return hs, acts, hns, h_out
 
 
 def gru_scan(
@@ -141,17 +266,22 @@ def gru_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GRU over ``xproj`` from ``h0``: (hs (T, B, H) bf16, h_T (B, H) f32).
 
-    On a CUDA tensor this launches the kernel on the current stream and
-    returns without waiting for it; on a CPU tensor it runs the plain
+    On a CUDA tensor this launches a kernel on the current stream and
+    returns without waiting for it: ``gru_scan.cu``'s up to H 183, the grid
+    forward without residuals above. On a CPU tensor it runs the plain
     version.
     """
     global GRU_SCAN_LAUNCHES
-    check_scan_inputs(wh, bh, xproj, h0, kernel=xproj.device.type != "cpu")
-    if xproj.device.type == "cpu":
+    on_card = _on_card(xproj, "gru_scan")
+    wide = wh.dim() == 2 and wh.shape[0] > BLOCK_MAX_HIDDEN
+    check_scan_inputs(wh, bh, xproj, h0, kernel=on_card and not wide)
+    if not on_card:
         return gru_scan_reference(wh, bh, xproj, h0)
-    if xproj.device.type != "cuda":
-        raise ValueError(f"gru_scan runs on cuda or cpu, not {xproj.device}")
-    out = _launch("vq_gru_scan_launch", xproj, None, wh, bh, h0)
+    if wide:
+        hs, _, _, h_out = _grid_forward(wh, bh, xproj, h0, save=False)
+        out = hs, h_out
+    else:
+        out = _launch_block("vq_gru_scan_launch", xproj, None, wh, bh, h0)
     GRU_SCAN_LAUNCHES += 1
     return out
 
@@ -166,19 +296,79 @@ def gru_scan_masked(
     """As ``gru_scan``, but rows keep their carry where ``valid[t, b]`` is 0."""
     global GRU_SCAN_MASKED_LAUNCHES
     check_scan_inputs(wh, bh, xproj, h0, valid, kernel=xproj.device.type != "cpu")
-    if xproj.device.type == "cpu":
+    if not _on_card(xproj, "gru_scan_masked"):
         return gru_scan_masked_reference(wh, bh, xproj, valid, h0)
-    if xproj.device.type != "cuda":
-        raise ValueError(f"gru_scan_masked runs on cuda or cpu, not {xproj.device}")
-    out = _launch("vq_gru_scan_masked_launch", xproj, valid, wh, bh, h0)
+    out = _launch_block("vq_gru_scan_masked_launch", xproj, valid, wh, bh, h0)
     GRU_SCAN_MASKED_LAUNCHES += 1
     return out
+
+
+def gru_scan_train(wh, bh, xproj, h0):
+    """The training forward: (hs, acts (T, B, 3H), hns (T, B, H), all bf16;
+    h_T (B, H) f32). hs and h_T are the no-grad forward's bits."""
+    global GRU_SCAN_TRAIN_LAUNCHES
+    on_card = _on_card(xproj, "gru_scan_train")
+    check_scan_inputs(wh, bh, xproj, h0)
+    if not on_card:
+        return gru_scan_train_reference(wh, bh, xproj, h0)
+    out = _grid_forward(wh, bh, xproj, h0, save=True)
+    GRU_SCAN_TRAIN_LAUNCHES += 1
+    return out
+
+
+def gru_scan_bwd(acts, hns, h_prevs, dhs, wh, dh_t) -> Tensors3:
+    """The reverse-time backward: (dgx (T, B, 3H) bf16 = dxproj, dgh (T, B,
+    3H) bf16, dh0 (B, H) f32)."""
+    global GRU_SCAN_BWD_LAUNCHES
+    on_card = _on_card(acts, "gru_scan_bwd")
+    check_bwd_inputs(acts, hns, h_prevs, dhs, wh, dh_t)
+    if not on_card:
+        return gru_scan_bwd_reference(acts, hns, h_prevs, dhs, wh, dh_t)
+    t, b, _ = acts.shape
+    hidden = wh.shape[0]
+    dgx, dgh = torch.empty_like(acts), torch.empty_like(acts)
+    dh0 = torch.empty(b, hidden, dtype=torch.float32, device=acts.device)
+    _launch("vq_gru_scan_bwd_launch", "gru_scan_bwd kernel launch", acts.device,
+          acts, hns, h_prevs, dhs, wh, dh_t, dgx, dgh, dh0, t, b, hidden)
+    GRU_SCAN_BWD_LAUNCHES += 1
+    return dgx, dgh, dh0
+
+
+class GruScan(torch.autograd.Function):
+    """Differentiable scan: ``gru_scan_train`` forward, ``gru_scan_bwd``
+    backward, as ``fused_gru_scan``'s ``_fused_fwd`` / ``_fused_bwd``.
+
+    Outside the backward kernel: h_prevs = [bf16(h0), hs[:-1]]; dwh =
+    h_prevs^T dgh, a T B deep sum in f32 rounded once to wh's dtype; dbh =
+    the f32 sum of dgh; dxproj = dgx in xproj's dtype; dh0 in h0's dtype.
+    Missing cotangents of hs and h_T count as zeros.
+    """
+
+    @staticmethod
+    def forward(ctx, wh, bh, xproj, h0):
+        hs, acts, hns, h_t = gru_scan_train(wh, bh, xproj, h0)
+        ctx.save_for_backward(wh, h0, acts, hns, hs)
+        ctx.dtypes = bh.dtype, xproj.dtype
+        return hs, h_t
+
+    @staticmethod
+    def backward(ctx, dhs, dh_t):
+        wh, h0, acts, hns, hs = ctx.saved_tensors
+        bh_dtype, xproj_dtype = ctx.dtypes
+        dhs = torch.zeros_like(hs) if dhs is None else dhs.bfloat16().contiguous()
+        dh_t = torch.zeros_like(h0, dtype=torch.float32) if dh_t is None else dh_t.float()
+        h_prevs = torch.cat([h0.bfloat16()[None], hs[:-1]], dim=0)  # (T, B, H)
+        dgx, dgh, dh0 = gru_scan_bwd(acts, hns, h_prevs, dhs, wh, dh_t.contiguous())
+        hidden = wh.shape[0]
+        dwh = h_prevs.reshape(-1, hidden).t().float() @ dgh.reshape(-1, 3 * hidden).float()
+        dbh = dgh.sum(dim=(0, 1), dtype=torch.float32)
+        return dwh.to(wh.dtype), dbh.to(bh_dtype), dgx.to(xproj_dtype), dh0.to(h0.dtype)
 
 
 def fused_gru_scan(
     wh: torch.Tensor, bh: torch.Tensor, xproj: torch.Tensor, h0: torch.Tensor
 ) -> torch.Tensor:
-    """The JAX package's ``fused_gru_scan`` (forward, no grad): hs (T, B, H) bf16."""
+    """The JAX package's ``fused_gru_scan`` forward, no grad, any H: hs (T, B, H) bf16."""
     return gru_scan(wh, bh, xproj, h0)[0]
 
 

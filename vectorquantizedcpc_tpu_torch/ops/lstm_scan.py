@@ -29,6 +29,7 @@ from typing import Tuple
 
 import torch
 
+from ._build import launch as _launch
 from ._build import on_card as _on_card
 
 LSTM_SCAN_LAUNCHES = 0
@@ -199,17 +200,6 @@ def check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t, kernel: bool = False) ->
         raise ValueError(f"empty LSTM scan backward: acts {tuple(acts.shape)}")
     if kernel:
         _check_widths(hidden, bwd_smem_bytes(hidden), "backward", 352)
-
-
-def _launch(entry: str, what: str, device: torch.device, *args) -> None:
-    from . import _build
-
-    with torch.cuda.device(device):
-        err = getattr(_build.library(), entry)(
-            *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _build.check(err, what)
 
 
 def lstm_scan(

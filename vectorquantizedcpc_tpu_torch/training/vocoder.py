@@ -1,0 +1,292 @@
+"""Vocoder training: teacher-forced next-sample cross-entropy with a frozen encoder.
+
+The JAX package's ``training/vocoder.py`` on PyTorch, one eager step at a
+time:
+
+- the frozen encoder gives the code indices of each batch's mels (no
+  gradient, at the compute dtype); the vocoder's teacher-forced forward on
+  ``audio[:, :-1]`` gives logits, scored against ``audio[:, 1:]`` by the
+  mean cross-entropy of an f32 log-softmax. At bfloat16 on a card the AR
+  GRU runs the CUDA kernels of ``ops/gru_train.py`` (``GruScan``: the
+  training forward and the backward);
+- the gradient is clipped to a global norm of ``gradient_clip_val`` in
+  optax's form (scaled by max / norm only when norm >= max, no epsilon),
+  then ``torch.optim.Adam`` with betas (0.9, 0.999) and eps 1e-8, its
+  learning rate set per step from ``MultiStepSchedule``. Both GRU biases
+  are trained, as JAX's ``GRUParams`` has both;
+- validation every ``val_interval_epoch`` epochs on the three whole held-out
+  utterances: reconstruction and conversion to speaker (spk + 5) %
+  n_speakers, decoded with a seed of the global step through the AR decode
+  kernel on a card (``vocoder_generate`` on the CPU), written as wavs;
+- checkpoints every ``checkpoint_minutes`` of wall time and at the end,
+  auto-resume from the latest, a final save on preemption.
+
+``steps_per_dispatch`` keeps the JAX trainer's cadence only: checkpoint and
+preemption checks after each group of that many steps; ``max_steps`` stops
+at exactly that step.
+"""
+
+import collections
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from ..configs import ConfGlobal, resolve_compute_dtype
+from ..data.datamodule import VocoderDataModule
+from ..device import resolve_device
+from ..dsp.audio_io import write_wav
+from ..models.encoder import Encoder
+from ..models.vocoder import Vocoder, vocoder_forward, vocoder_generate
+from ..ops.ar_decode import fused_ar_decode, prep_decode_weights, resolve_precision
+from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from .preemption import install_preemption_handler, preemption_requested
+from .schedule import MultiStepSchedule
+
+HISTORY_STEPS = 10_000  # per-step losses kept on the trainer
+SPEAKER_INCREMENT = 5  # validation converts speaker s to (s + 5) % n_speakers
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm`` in place: where the global norm is at
+    least ``max_norm``, every gradient becomes g / norm * max_norm. Returns
+    the norm, a scalar on the gradients' device (nothing waits for it)."""
+    norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+class VocoderTrainer:
+    """The vocoder and Adam on one device beside a frozen encoder.
+
+    Weights are torch's default inits drawn on the CPU from ``conf.seed``,
+    then moved. ``step`` counts optimizer steps, ``epoch`` finished epochs.
+    """
+
+    def __init__(self, conf: ConfGlobal, encoder: Encoder, device: Union[str, torch.device]):
+        self.conf = conf
+        self.device = torch.device(device)
+        self.compute_dtype = resolve_compute_dtype(conf.runtime.precision)
+        tv = conf.training_vocoder
+        torch.manual_seed(conf.seed)
+        self.vocoder = Vocoder(tv.model.network).to(self.device).train()
+        self.encoder = encoder.to(self.device).eval().requires_grad_(False)
+        self.optimizer = torch.optim.Adam(
+            self.vocoder.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8
+        )
+        self.clip = tv.trainer.gradient_clip_val
+        self.step = 0
+        self.epoch = 0
+        self.history = collections.deque(maxlen=HISTORY_STEPS)
+
+    @torch.no_grad()
+    def codes(self, mels: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The frozen encoder's code indices (B, F // 2) of mels (B, n_mels, F)."""
+        return self.encoder.encode(mels, compute_dtype or self.compute_dtype,
+                                   return_context=False)[1]
+
+    def loss(self, audio: torch.Tensor, mels: torch.Tensor, speakers: torch.Tensor) -> torch.Tensor:
+        """Mean next-sample cross-entropy of a batch: audio (B, L + 1) classes."""
+        audio = audio.long()
+        logits = vocoder_forward(self.vocoder, audio[:, :-1], self.codes(mels),
+                                 speakers.long(), self.compute_dtype)
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), audio[:, 1:].reshape(-1))
+
+    def train_step(
+        self, audio: torch.Tensor, mels: torch.Tensor, speakers: torch.Tensor, lr: float
+    ) -> Dict[str, torch.Tensor]:
+        """One optimizer step; returns the loss as a tensor on the device,
+        without waiting for it."""
+        loss = self.loss(audio, mels, speakers)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        clip_by_global_norm_([p.grad for p in self.vocoder.parameters()], self.clip)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.step += 1
+        return {"loss": loss.detach()}
+
+    def checkpoint(self) -> dict:
+        return {
+            "vocoder": self.vocoder.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+            "epoch": self.epoch,
+        }
+
+    def load(self, path: Union[str, Path]) -> None:
+        ckpt = load_checkpoint(path)
+        self.vocoder.load_state_dict(ckpt["vocoder"], strict=True)
+        self.optimizer.load_state_dict(ckpt["optimizer"])
+        self.step, self.epoch = int(ckpt["step"]), int(ckpt["epoch"])
+
+
+@torch.no_grad()
+def validate(conf: ConfGlobal, trainer: VocoderTrainer, val_items, out_dir: Path,
+             global_step: int, writer=None) -> None:
+    """Reconstruction and conversion of each validation utterance, written as
+    ``spk_{s}_step{n}.wav`` and ``spk_{s}_to_{t}_step{n}.wav``. The codes come
+    from an f32 encode, as in the JAX package."""
+    n_speakers = conf.training_vocoder.model.n_speakers
+    sr = conf.training_vocoder.model.sampling_rate
+    vocoder = trainer.vocoder.eval()
+    on_card = trainer.device.type == "cuda"
+    weights = prep_decode_weights(vocoder) if on_card else None
+
+    def generate(codes, spk):
+        spk = torch.tensor([spk], device=trainer.device)
+        if on_card:
+            return fused_ar_decode(vocoder, codes, spk, seed=global_step, weights=weights)
+        gen = torch.Generator(device=trainer.device).manual_seed(global_step)
+        return vocoder_generate(vocoder, codes, spk, generator=gen)
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for _audio, mel, speaker in val_items:
+        codes = trainer.codes(torch.tensor(mel)[None].to(trainer.device), torch.float32)
+        src = int(speaker)
+        tgt = (src + SPEAKER_INCREMENT) % n_speakers
+        for name, spk in ((f"spk_{src}", src), (f"spk_{src}_to_{tgt}", tgt)):
+            wave = generate(codes, spk)[0].cpu().numpy()
+            write_wav(out_dir / f"{name}_step{global_step}.wav", wave, sr)
+            if writer is not None:
+                try:
+                    writer.add_audio(name, wave[None], global_step=global_step, sample_rate=sr)
+                except Exception:
+                    pass  # tensorboardX audio needs extra packages; the wavs are on disk
+    vocoder.train()
+
+
+def _grouped(items: Iterable, k: int):
+    buf = []
+    for item in items:
+        buf.append(item)
+        if len(buf) == k:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
+
+
+def _fetch(trainer: VocoderTrainer, pending: List[torch.Tensor]) -> List[float]:
+    losses = torch.stack(pending).cpu().tolist() if pending else []
+    trainer.history.extend(losses)
+    return losses
+
+
+def train_vocoder(
+    conf: ConfGlobal,
+    encoder: Encoder,
+    data_dir: Union[str, Path],
+    max_steps: Optional[int] = None,
+    checkpoint_minutes: float = 15.0,
+    device: Optional[Union[str, torch.device]] = None,
+) -> VocoderTrainer:
+    """The vocoder training loop over preprocessed features in ``data_dir``.
+
+    Runs on ``device``, else on ``runtime.platform``, else on the CUDA card;
+    raises when no card is there and the CPU was not asked for.
+    """
+    device = resolve_device(device if device is not None else conf.runtime.platform)
+    resolve_precision(conf.runtime.precision)  # the validation decode's mode
+    tv = conf.training_vocoder
+    ckpt_dir = (Path(tv.ckpt_log.dir_root) / tv.ckpt_log.name_exp / tv.ckpt_log.name_version
+                / "checkpoints")
+    sample_dir = ckpt_dir.parent / "samples"
+    writer = None
+    try:  # TensorBoard when tensorboardX is there (optional, as in JAX)
+        from tensorboardX import SummaryWriter
+
+        writer = SummaryWriter(str(ckpt_dir.parent))
+    except Exception:
+        pass
+
+    trainer = VocoderTrainer(conf, encoder, device)
+    last = latest_checkpoint(ckpt_dir)
+    if last is not None:
+        print(f"Auto-resume from: {last}")
+        trainer.load(last)
+    schedule = MultiStepSchedule(base_lr=tv.model.optim.learning_rate,
+                                 milestones=tv.model.optim.sched_milestones,
+                                 gamma=tv.model.optim.sched_gamma)
+    dm = VocoderDataModule(conf.data, data_dir=Path(data_dir), seed=conf.seed)
+    dm.setup()
+    loader = dm.train_dataloader()
+    if len(loader) == 0:
+        raise ValueError(f"Not enough utterances for batch size {conf.data.loader.batch_size}.")
+    val_items = dm.val_items()
+
+    spd = max(1, int(tv.trainer.steps_per_dispatch))
+    last_ckpt_time = t_log = time.time()
+    pending: List[torch.Tensor] = []  # device losses since the last log
+    install_preemption_handler()
+    preempted = False
+    prof = {"data_wait_s": 0.0, "train_dispatch_s": 0.0, "n_steps": 0}
+
+    def done() -> bool:
+        return max_steps is not None and trainer.step >= max_steps
+
+    for epoch in range(trainer.epoch + 1, tv.trainer.max_epochs + 1):
+        if done():
+            break
+        loader.set_epoch(epoch)
+        t_iter = time.time()
+        for group in _grouped(loader, spd):
+            prof["data_wait_s"] += time.time() - t_iter
+            t_step = time.time()
+            for audio, mel, spk in group:
+                if done():
+                    break
+                audio, mel, spk = (torch.from_numpy(x).to(device) for x in (audio, mel, spk))
+                m = trainer.train_step(audio, mel, spk, schedule(trainer.step))
+                pending.append(m["loss"])
+                prof["n_steps"] += 1
+            prof["train_dispatch_s"] += time.time() - t_step
+            if len(pending) >= 100:
+                losses = _fetch(trainer, pending)
+                pending = []
+                rate = len(losses) / (time.time() - t_log)
+                t_log = time.time()
+                loss_mean = sum(losses) / len(losses)
+                print(f"step:{trainer.step} epoch:{epoch} loss:{loss_mean:.4f} "
+                      f"{rate:.2f} steps/s")
+                if writer is not None:
+                    writer.add_scalar("loss", loss_mean, trainer.step)
+            if (time.time() - last_ckpt_time) / 60.0 >= checkpoint_minutes:
+                save_checkpoint(ckpt_dir, trainer.step, trainer.checkpoint())
+                last_ckpt_time = time.time()
+            if preemption_requested():
+                preempted = True
+                break
+            if done():
+                break
+            t_iter = time.time()
+        trainer.epoch = epoch
+        if preempted:
+            print(f"Preempted: saving model.ckpt-{trainer.step}.pt; rerun the same command "
+                  "to auto-resume.")
+            break
+        if epoch % tv.trainer.val_interval_epoch == 0:
+            validate(conf, trainer, val_items, sample_dir, trainer.step, writer)
+
+    _fetch(trainer, pending)
+    if tv.trainer.profiler is not None and prof["n_steps"]:
+        n = prof["n_steps"]
+        print(
+            "Profiler report ({}):\n"
+            "  action           total_s    mean_ms    steps\n"
+            "  data_wait      {:9.3f}  {:9.3f}  {:7d}\n"
+            "  train_dispatch {:9.3f}  {:9.3f}  {:7d}".format(
+                tv.trainer.profiler,
+                prof["data_wait_s"], 1e3 * prof["data_wait_s"] / n, n,
+                prof["train_dispatch_s"], 1e3 * prof["train_dispatch_s"] / n, n,
+            )
+        )
+    save_checkpoint(ckpt_dir, trainer.step, trainer.checkpoint())
+    if writer is not None:
+        writer.close()
+    return trainer
