@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's voice conversion, serving, latent export, CPC and vocoder training on one CUDA card.
+"""Drive the PyTorch port's voice conversion (bf16, int8, auto), serving, latent export, CPC and vocoder training on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -8,23 +8,29 @@ Phases (any failure ends the run with a non-zero exit):
 1. the card's name and power limit, the torch and CUDA versions;
 2. build every CUDA kernel of the paths from the sources in the checkout;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   full width of the default config: the AR decode greedy and sampled at
-   B in {1, 3, 8, 32, 64}, and in 4 chained segments; the GRU scans (plain
-   and masked) at the serving PreNet's shape; the LSTM scan at the
-   export's shape and the CPC training shape; the LSTM scan's training
-   forward and backward (and autograd through them) at B 64 / 3, T 70 / 1,
-   and the CPC selection forward and backward at the training shape and at
-   an L that is not a multiple of 8, with every collision tied bit for bit;
-   the GRU scan's grid kernels (training forward, backward, and autograd
-   through them) at the vocoder's T 5,120, B 32, H 896, and at B 3, T 1
-   and H 200, the no-grad forward's bits equal to the training forward's;
+   full width of the default config: the AR decode greedy and sampled, in
+   bf16 at B in {1, 3, 8, 32, 64} and in int8 at B in {1, 3, 8, 32, 64,
+   128}, and in 4 chained segments in each mode; the GRU scans (plain and
+   masked) at the serving PreNet's shape, and the masked grid forward at a
+   PreNet of 256 and of 2,500 (wh staged in K chunks); the LSTM scan at
+   the export's shape and the CPC training shape; the LSTM scan's training forward and backward (and autograd
+   through them) at B 64 / 3, T 70 / 1, and the CPC selection forward and
+   backward at the training shape, at an L that is not a multiple of 8 and
+   at Z 300, with every collision tied bit for bit; the grid LSTM kernels
+   at H 512 and 37, export and training shapes, and at H 1,600 (K chunks),
+   with autograd; the GRU scan's grid kernels (training forward, backward,
+   and autograd through them) at the vocoder's T 5,120, B 32, H 896, and at
+   B 3, T 1, H 200 and H 2,500 (K chunks), the no-grad forward's bits equal
+   to the training forward's;
 4. convert 8 synthetic wavs end to end through the CLI entry point, on
-   full-width random weights saved as reference-format checkpoints, and
-   check the wavs and that the path went through the kernels;
+   full-width random weights saved as reference-format checkpoints, at
+   ``runtime.precision`` bfloat16, int8 and auto, and check the wavs and
+   that each batch went through the kernel of the mode it resolved to;
 4b. serve 48 requests of mixed lengths through ``ContinuousBatcher`` in
    sampled mode with 8 slots, check every wave, the launch counts and the
    seeding, then hold a greedy drain against single-shot decodes; serve
-   the same requests with 32 and with 64 slots and check them again;
+   the same requests with 32 and with 64 slots and check them again; serve
+   them at int8 with 8, 32 and 64 slots (the int8 kernel only);
 4c. export 40 synthetic mels of 50 to 1,000 frames through the encode CLI
    at the default bf16, check the dumps, that the context LSTM went
    through its kernel once per batch, and that the codes agree with an f32
@@ -41,10 +47,16 @@ Phases (any failure ends the run with a non-zero exit):
    training kernel, the validation wavs and their AR decode launches; load
    the checkpoint into ``Vocoder`` and convert through the convert CLI;
    hold one train step against the plain route; 10 steps on one batch must
-   lower the loss;
+   lower the loss; resume the CLI at ``runtime.precision=int8`` for one
+   more validation, which decodes through the int8 kernel;
+4f. the grid kernels on the main paths: train_cpc and the encode CLI at
+   ``dim_cpc_context=512`` (the grid LSTM forward and backward), a server
+   whose PreNet is 256 wide per direction (the masked grid forward);
 5. time each kernel, its plain version and, where one exists, the PyTorch
    library call for the same function at the main paths' shapes, beside
-   the least time the card could take; the AR step at B in {8, 32, 64};
+   the least time the card could take; the AR step in both modes at B in
+   {1, 8, 32, 64, 128} and the mode "auto" picks at each (the table of
+   ``ops/ar_decode.py:_STEP_US``); the grid LSTM pair at H 512 beside cuDNN's LSTM; the masked grid forward;
    each serving drain beside the request mix's slot-utilisation ceiling
    times the raw kernel rate at that many rows; the export's wall time;
    cuDNN's LSTM forward and backward beside the training pair; the CPC
@@ -72,6 +84,7 @@ import torch
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # Prefix rule: where kernel and plain version first pick different classes,
 # the plain version's score gap to the kernel's class is at most this.
@@ -95,12 +108,24 @@ MIX_CODES = (25, 50, 100)
 DEVICE = "cuda"
 TIME_FRAMES = 100  # phase_time's decode: 100 frames (1 s of audio)
 SERVE_SLOTS = (8, 32, 64)  # the JAX bench serves this mix at 32 and 64 (bench.py:530,716)
+# The AR decode's comparisons by mode, and the batches its step is timed at
+# (both modes; the table that "auto" interpolates, ops/ar_decode.py:_STEP_US).
+COMPARE_BATCHES = {"bf16": (1, 3, 8, 32, 64), "int8": (1, 3, 8, 32, 64, 128)}
+TIME_BATCHES = (1, 8, 32, 64, 128)
 # LSTM scans, kernel against plain version: the reasoning of MAX_GRU_ERR.
 MAX_LSTM_ERR = 1e-2
 LSTM_H = 256  # the context LSTM's width (dim_cpc_context)
 # (B, T): the export's batch of 16 at T' = 256 (a 512-frame bucket), and
 # the CPC training step's 64 clips of 70 latent frames.
 LSTM_SHAPES = {"export": (16, 256), "training": (64, 70)}
+# The grid LSTM kernels (ops/csrc/lstm_grid.cu): a 512-wide context
+# (dim_cpc_context=512, phase 4f) and a width that is not a multiple of 8,
+# at LSTM_SHAPES; and a width whose blocks stage wh in K chunks (both
+# directions) at a short shape of its own.
+LSTM_GRID_H = (512, 37)
+LSTM_STREAM_H, LSTM_STREAM_SHAPE = 1600, (16, 24)
+GRU_WIDE_H = 256  # a PreNet of 256 per direction (dim_voc_latent=512): the masked grid
+GRU_STREAM_H = 2500  # a masked grid forward whose blocks stage wh in K chunks
 EXPORT_MELS = 40  # phase 4c: mels of 50 to 1,000 frames
 MIN_CODE_AGREEMENT = 0.99  # bf16 export against f32 export, share of frames
 # Where the two exports pick different codes, the bf16 code's squared
@@ -114,7 +139,8 @@ CUDNN_DTYPE = torch.float16  # the library yardstick's type: cuDNN's RNN takes f
 # CPC training at the default config: S 8 x U 8 clips of 140 mel frames give
 # T' = 70 latent frames; K = 6 steps, N = 17 negatives, L = 64 anchors, Z 64.
 TRAIN_LSTM_SHAPES = {"training": (64, 70), "partial cluster": (3, 70), "one step": (64, 1)}
-SELECT_SHAPES = {"training": (6, 8, 8, 17, 64, 64), "odd L": (6, 8, 8, 17, 61, 64)}
+SELECT_SHAPES = {"training": (6, 8, 8, 17, 64, 64), "odd L": (6, 8, 8, 17, 61, 64),
+                 "Z 300": (6, 8, 8, 17, 64, 300)}
 # LSTM backward, kernel against plain version: bf16(da) one ulp apart where
 # the f32 da sits on a rounding boundary (2^-8 relative), carried on by the
 # gates: 1e-2 of the largest value plus 1e-3. Autograd's dwh and dxproj
@@ -142,7 +168,8 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 # The vocoder's AR GRU in training: B 32 clips of 32 mel frames x hop 160.
 VOC_T, VOC_B, VOC_H = 5120, 32, 896
 GRU_TRAIN_SHAPES = {"training": (VOC_T, VOC_B, VOC_H), "partial tile": (9, 3, VOC_H),
-                    "one step": (1, VOC_B, VOC_H), "H 200": (640, VOC_B, 200)}
+                    "one step": (1, VOC_B, VOC_H), "H 200": (640, VOC_B, 200),
+                    "K chunks": (48, 8, 2500)}
 VOC_EPOCHS, VOC_VAL_EVERY = 4, 2  # 125 training utterances at B 32: 3 steps an epoch
 
 
@@ -200,8 +227,9 @@ def first_divergence(a: np.ndarray, b: np.ndarray):
     return out
 
 
-def phase_compare(seed: int, card: str) -> dict:
-    """Kernel against plain version at full width; returns the worst numbers."""
+def phase_compare(seed: int, card: str, precision: str = "bf16") -> dict:
+    """Kernel against plain version at full width in one mode; returns the
+    worst numbers."""
     from vectorquantizedcpc_tpu_torch.configs import load_conf
     from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
@@ -214,12 +242,12 @@ def phase_compare(seed: int, card: str) -> dict:
     rng = np.random.default_rng(seed)
     randomize(vocoder, rng)
     vocoder = vocoder.cuda().eval()
-    w = ar.prep_decode_weights(vocoder)
+    w = ar.prep_decode_weights(vocoder, precision)
     hop, hidden = net.rnnms.upsampling_t, net.rnnms.wave_ar.size_h_rnn
     n_classes = 2 ** net.rnnms.bits_mu_law
     frames = 8
     worst_h, worst_gap, n_div = 0.0, 0.0, 0
-    for batch in (1, 3, 8, 32, 64):
+    for batch in COMPARE_BATCHES[precision]:
         cond = torch.from_numpy(
             rng.uniform(-1, 1, size=(batch, frames, net.rnnms.dim_voc_latent)).astype(np.float32)
         ).cuda()
@@ -246,12 +274,12 @@ def phase_compare(seed: int, card: str) -> dict:
                     check(gap <= MAX_GAP, f"B={batch} row {r} step {t0}: gap {gap} > {MAX_GAP}")
                     worst_gap = max(worst_gap, gap)
             print(
-                f"compare B={batch} {'greedy ' if greedy else 'sampled'} steps={frames * hop}: "
+                f"compare {precision} B={batch} {'greedy ' if greedy else 'sampled'} steps={frames * hop}: "
                 f"first divergence per row {div}, same samples "
                 f"{float(np.mean(out_k == out_r)):.6f}  [{card}]"
             )
     print(
-        f"compare: final-h max abs diff {worst_h:.3e} (bound {MAX_H_ERR}) over rows "
+        f"compare {precision}: final-h max abs diff {worst_h:.3e} (bound {MAX_H_ERR}) over rows "
         f"that never diverged; {n_div} rows diverged, worst gap {worst_gap:.3e} "
         f"(bound {MAX_GAP})  [{card}]"
     )
@@ -301,7 +329,7 @@ def _compare_chain(w, net, rng, seed: int, card: str) -> float:
     torch.cuda.synchronize()
     check(np.array_equal(out_k, one.cpu().numpy()), "greedy: 4 chained segments != one launch")
     check(torch.equal(h_k, h_one), "greedy: chained final h != one launch's")
-    print(f"compare chain greedy B={batch} {n_seg} segments x {sf * hop} steps: "
+    print(f"compare chain {w.mode} greedy B={batch} {n_seg} segments x {sf * hop} steps: "
           f"bit-identical to one launch (classes and final h)  [{card}]")
 
     out_k, h_k, _ = chained(kernel=True, greedy=False)
@@ -318,19 +346,20 @@ def _compare_chain(w, net, rng, seed: int, card: str) -> float:
             check(gap <= MAX_GAP, f"chain row {r} step {t0}: gap {gap} > {MAX_GAP}")
             worst_gap = max(worst_gap, gap)
     check(worst_h <= MAX_H_ERR, f"chain: final h differs by {worst_h}")
-    print(f"compare chain sampled B={batch} {n_seg} segments, per-segment seeds: "
+    print(f"compare chain {w.mode} sampled B={batch} {n_seg} segments, per-segment seeds: "
           f"{same} of {batch} rows bit-identical to the chained plain version, final-h "
           f"max abs diff {worst_h:.3e} (bound {MAX_H_ERR}); worst gap where a row "
           f"diverged {worst_gap:.3e} (bound {MAX_GAP})  [{card}]")
     return worst_h
 
 
-def _gru_inputs(seed: int):
-    """GRU-scan operands at the serving PreNet's shape, from ``seed``: wh, bh
-    at nn.GRU's init scale, xproj of a bf16 input projection, h0, and a
-    reverse-time ragged mask (rows of length 1 and T among them)."""
+def _gru_inputs(seed: int, h: int = GRU_H):
+    """GRU-scan operands at the serving PreNet's shape (H ``h`` per
+    direction), from ``seed``: wh, bh at nn.GRU's init scale, xproj of a bf16
+    input projection, h0, and a reverse-time ragged mask (rows of length 1
+    and T among them)."""
     rng = np.random.default_rng(seed + 3)
-    g, t, h = GRU_G, GRU_T, GRU_H
+    g, t = GRU_G, GRU_T
     lengths = rng.integers(1, t + 1, size=g)
     lengths[:2] = [1, t]
     valid = np.arange(t)[:, None] >= t - lengths[None, :]
@@ -376,11 +405,47 @@ def phase_compare_gru(seed: int, card: str) -> dict:
     return out
 
 
-def _lstm_inputs(seed: int, batch: int, steps: int):
+def phase_compare_gru_masked_grid(seed: int, card: str) -> float:
+    """The masked grid forward (a PreNet of 256 per direction, and one of
+    2,500 whose blocks stage wh in K chunks) against its plain version at G
+    48, T 200, ragged; an all-valid mask gives the unmasked grid forward's
+    bits."""
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    worst = 0.0
+    for hidden in (GRU_WIDE_H, GRU_STREAM_H):
+        x = _gru_inputs(seed, hidden)
+        args = (x["wh"], x["bh"], x["xproj"])
+        check(g.scan_route(hidden) == "grid", f"H {hidden} should take the grid kernels")
+        hs, h_t = g.gru_scan_masked(*args, x["valid"], x["h0"])
+        hs_all, h_all = g.gru_scan_masked(*args, torch.ones_like(x["valid"]), x["h0"])
+        plain = g.gru_scan(*args, x["h0"])
+        torch.cuda.synchronize()
+        check(torch.equal(hs_all, plain[0]) and torch.equal(h_all, plain[1]),
+              f"masked grid H={hidden} with an all-valid mask != the grid forward's bits")
+        ref, ref_h = g.gru_scan_masked_reference(*args, x["valid"], x["h0"])
+        err_hs = float((hs.float() - ref.float()).abs().max())
+        err_h = float((h_t - ref_h).abs().max())
+        check(max(err_hs, err_h) <= MAX_GRU_ERR, f"masked grid H={hidden}: hs {err_hs}, h_T {err_h}")
+        short = int(np.argmin(x["lengths"]))
+        check(torch.equal(hs[: GRU_T - 1, short], x["h0"][short].bfloat16().expand(GRU_T - 1, -1)),
+              f"masked grid H={hidden}: a row of length 1 moved before its only valid step")
+        chunk = g.grid_chunks(GRU_G, hidden, -(-hidden // _sms()))[0]
+        print(f"compare gru_scan_masked_grid G={GRU_G} T={GRU_T} H={hidden} (K chunk {chunk}): "
+              f"hs max abs diff {err_hs:.3e}, h_T {err_h:.3e} (bound {MAX_GRU_ERR}); all-valid "
+              f"mask bit-identical to the grid forward; masked rows keep their carry  [{card}]")
+        worst = max(worst, err_hs, err_h)
+    return worst
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _lstm_inputs(seed: int, batch: int, steps: int, h: int = LSTM_H):
     """LSTM-scan operands from ``seed``: wh at nn.LSTM's init scale and an
     input projection, both bf16; h0 and c0 in f32."""
     rng = np.random.default_rng(seed + 6)
-    h = LSTM_H
     f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(DEVICE)
     return (
         f32(rng.uniform(-1, 1, size=(h, 4 * h)) / np.sqrt(h)).bfloat16(),
@@ -440,8 +505,10 @@ def _write_inputs(d: Path, seed: int):
     return conf, lengths
 
 
-def phase_convert(seed: int, card: str) -> dict:
-    """The CLI end to end on the card; returns the kernel launch counts."""
+def phase_convert(seed: int, card: str, precision: str = "bfloat16") -> dict:
+    """The CLI end to end on the card at ``runtime.precision``; returns the
+    kernel launch counts. Each batch decodes in the mode that the precision
+    resolves to at its size ("auto": the faster mode of ``_STEP_US``)."""
     from vectorquantizedcpc_tpu_torch.cli import convert as cli
     from vectorquantizedcpc_tpu_torch.dsp.audio_io import read_wav
     from vectorquantizedcpc_tpu_torch.dsp.loudness import integrated_loudness
@@ -457,19 +524,25 @@ def phase_convert(seed: int, card: str) -> dict:
             padded = max(32, -(-m // 32) * 32)
             buckets[padded] = buckets.get(padded, 0) + 1
         n_batches = sum(-(-n // 8) for n in buckets.values())
+        sizes = [min(8, n - b0) for n in buckets.values() for b0 in range(0, n, 8)]
+        modes = [ar.resolve_precision(precision, s) for s in sizes]
         argv = [
             f"cpc_checkpoint={d / 'cpc.pt'}", f"vocoder_checkpoint={d / 'vocoder.pt'}",
             f"in_dir={d / 'wavs'}", f"out_dir={d / 'out'}", f"synthesis_list={d / 'list.json'}",
+            f"runtime.precision={precision}",
         ]
         torch.cuda.synchronize()
-        ar.AR_DECODE_LAUNCHES = 0
+        ar.AR_DECODE_LAUNCHES = ar.AR_DECODE_INT8_LAUNCHES = 0
         start = time.perf_counter()
         n = cli.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
-        launches = ar.AR_DECODE_LAUNCHES
+        by_mode = {"bf16": ar.AR_DECODE_LAUNCHES, "int8": ar.AR_DECODE_INT8_LAUNCHES}
+        launches = sum(by_mode.values())
         check(n == 8, f"converted {n} utterances, expected 8")
         check(launches >= n_batches > 0, f"{launches} AR decode launches for {n_batches} batches")
+        check(by_mode == {m: modes.count(m) for m in ("bf16", "int8")},
+              f"launches by mode {by_mode} for batches of {sizes} resolved to {modes}")
         for i, m in enumerate(n_mels):
             out, sr = read_wav(d / "out" / f"conv{i}.wav")
             src, _ = read_wav(d / "wavs" / f"utt{i}.wav")
@@ -481,10 +554,11 @@ def phase_convert(seed: int, card: str) -> dict:
             print(f"convert conv{i}: {out.shape[0]} samples, {l_out:.3f} LUFS vs source {l_src:.3f}")
     audio = sum((m // 2) * 2 * hop for m in n_mels) / 16000
     print(
-        f"convert: 8 utterances ({audio:.3f} s of audio) in {n_batches} batches, "
-        f"{launches} AR decode launches, {seconds:.3f} s wall incl. checkpoint load  [{card}]"
+        f"convert runtime.precision={precision}: 8 utterances ({audio:.3f} s of audio) in "
+        f"{n_batches} batches of {sizes} resolved to {modes}, AR decode launches by mode "
+        f"{json.dumps(by_mode)}, {seconds:.3f} s wall incl. checkpoint load  [{card}]"
     )
-    return {"ar_decode": launches}
+    return {"ar_decode": by_mode["bf16"], "ar_decode_int8": by_mode["int8"]}
 
 
 def _classes_of(wave: np.ndarray, table: np.ndarray) -> np.ndarray:
@@ -514,10 +588,10 @@ def phase_serve(seed: int, card: str) -> dict:
         for _ in range(48)
     ]
 
-    def server(greedy: bool = False, slots: int = 8):
+    def server(greedy: bool = False, slots: int = 8, precision: str = "bf16"):
         return ContinuousBatcher(vocoder, slots=slots, segment_frames=4,
                                  max_frames=2 * max(MIX_CODES) + 32, greedy=greedy,
-                                 seed=seed, device=DEVICE)
+                                 precision=precision, seed=seed, device=DEVICE)
 
     def drain(srv, reqs):
         rids = [srv.submit(z, spk) for z, spk in reqs]
@@ -526,30 +600,35 @@ def phase_serve(seed: int, card: str) -> dict:
 
     valid = sum(2 * len(z) * hop for z, _ in requests)
 
-    def served(slots: int):
-        """The main path at ``slots``, counts zeroed just before and read just
-        after; every wave and count checked."""
-        srv = server(slots=slots)
+    def served(slots: int, precision: str = "bf16"):
+        """The main path at ``slots`` in one mode, counts zeroed just before
+        and read just after; every wave and count checked."""
+        srv = server(slots=slots, precision=precision)
         torch.cuda.synchronize()
-        ar.AR_DECODE_LAUNCHES = g.GRU_SCAN_LAUNCHES = g.GRU_SCAN_MASKED_LAUNCHES = 0
+        ar.AR_DECODE_LAUNCHES = ar.AR_DECODE_INT8_LAUNCHES = 0
+        g.GRU_SCAN_LAUNCHES = g.GRU_SCAN_MASKED_LAUNCHES = 0
         start = time.perf_counter()
         waves = drain(srv, requests)
         seconds = time.perf_counter() - start
         launches = {
             "ar_decode": ar.AR_DECODE_LAUNCHES,
+            "ar_decode_int8": ar.AR_DECODE_INT8_LAUNCHES,
             "gru_scan": g.GRU_SCAN_LAUNCHES,
             "gru_scan_masked": g.GRU_SCAN_MASKED_LAUNCHES,
         }
+        key, other = ("ar_decode_int8", "ar_decode") if precision == "int8" else (
+            "ar_decode", "ar_decode_int8")
         steps = int(srv.stats["steps"])
         check(len(waves) == 48, f"{slots} slots: {len(waves)} of 48 requests returned")
         for (z, _spk), wave in zip(requests, waves):
             check(wave.shape == (2 * len(z) * hop,), f"wave of {wave.shape} for {len(z)} codes")
             check(bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) <= 1.0, "wave range")
         check(srv.stats["samples_out"] == valid, f"samples_out {srv.stats['samples_out']} != {valid}")
-        check(launches["ar_decode"] == steps > 0, f"{launches['ar_decode']} AR launches, {steps} steps")
+        check(launches[key] == steps > 0 and launches[other] == 0,
+              f"{precision}: AR launches {launches}, {steps} steps")
         check(launches["gru_scan"] == 2 and launches["gru_scan_masked"] == 2,
               f"GRU launches {launches}: expected 2 layers x 1 each")
-        print(f"serve {slots} slots: 48 of 48 requests returned, {valid} samples "
+        print(f"serve {precision} {slots} slots: 48 of 48 requests returned, {valid} samples "
               f"({valid / 16000:.3f} s of audio) in {steps} segment steps, {seconds:.3f} s wall "
               f"(first drain); launches {json.dumps(launches)}  [{card}]")
         return waves, launches, srv
@@ -570,7 +649,7 @@ def phase_serve(seed: int, card: str) -> dict:
     for (z, spk), wave in zip(shortest, greedy_waves):
         zt = torch.from_numpy(z)[None].to(DEVICE)
         st = torch.tensor([spk], device=DEVICE)
-        single = ar.fused_ar_decode(vocoder, zt, st, greedy=True, weights=w)[0].cpu().numpy()
+        single = ar.fused_ar_decode(vocoder, zt, st, greedy=True, weights={"bf16": w})[0].cpu().numpy()
         got, ref = _classes_of(wave, table), _classes_of(single, table)
         (t0,) = first_divergence(got[:, None], ref[:, None])
         if t0 is None:
@@ -593,8 +672,10 @@ def phase_serve(seed: int, card: str) -> dict:
     launches_by_slots, servers = {8: launches}, {8: second}
     for slots in SERVE_SLOTS[1:]:
         _, launches_by_slots[slots], servers[slots] = served(slots)
-    return {"launches": launches_by_slots, "servers": servers, "requests": requests,
-            "valid": valid, "vocoder": vocoder}
+    # The same mix at int8: the int8 kernel, and not the bf16 one, at every slot count.
+    launches_int8 = {slots: served(slots, "int8")[1] for slots in SERVE_SLOTS}
+    return {"launches": launches_by_slots, "launches_int8": launches_int8, "servers": servers,
+            "requests": requests, "valid": valid, "vocoder": vocoder}
 
 
 def _speechlike_wave(n_samples: int, cat: int, spk: int, sr: int, rng) -> np.ndarray:
@@ -743,10 +824,31 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _decode_bound(w, batch: int, steps: int, cond_proj, h0, prev0):
+    """(bound ms, what bounds it, operations, bytes) of one decode: each
+    input read once and each output written once; the products at the
+    tensor-core peak of their type (int8 mode: wh and FC1 int8, FC2 bf16)."""
+    hidden, fc = w.fc1_w.shape
+    n_classes = w.fc2_w.shape[1]
+    ops_gate_fc1 = 2 * batch * steps * (hidden * 3 * hidden + hidden * fc)
+    ops_fc2 = 2 * batch * steps * fc * n_classes
+    peak = PEAK_INT8_OPS if w.mode == "int8" else PEAK_BF16_FLOPS
+    ops_ms = (ops_gate_fc1 / peak + ops_fc2 / PEAK_BF16_FLOPS) * 1e3
+    weight_tensors = [w.embed_proj, w.wh, w.bh, w.fc1_w, w.fc1_b, w.fc2_w, w.fc2_b]
+    weight_tensors += [x for x in (w.embed_scale, w.wh_scale, w.fc1_scale) if x is not None]
+    n_bytes = sum(t.numel() * t.element_size() for t in weight_tensors)
+    n_bytes += cond_proj.numel() * 2 + prev0.numel() * 4 + 2 * h0.numel() * 4 + steps * batch * 4
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
+            ops_gate_fc1 + ops_fc2, n_bytes)
+
+
 def phase_time(seed: int, card: str):
-    """Kernel and plain version at B = 8, 100 frames (1 s), with the bound;
-    the kernel alone at B = 1 and at the serving points 32 and 64. Returns
-    (B = 8 numbers, {B: kernel ms})."""
+    """The AR step in both modes at B = 1, 8, 32, 64 and 128, 100 frames
+    (1 s), and the pick that "auto" makes at each; int8 also staging q(h)
+    from the f32 h (the design option) at 8, 32 and 64; kernel and plain
+    version at B = 8 with the bound. Returns ({mode: B = 8 numbers},
+    {mode: {B: kernel ms}})."""
     from vectorquantizedcpc_tpu_torch.configs import load_conf
     from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
@@ -755,14 +857,15 @@ def phase_time(seed: int, card: str):
     vocoder = Vocoder(net)
     rng = np.random.default_rng(seed + 2)
     randomize(vocoder, rng)
-    w = ar.prep_decode_weights(vocoder.cuda().eval())
+    vocoder = vocoder.cuda().eval()
+    weights = {mode: ar.prep_decode_weights(vocoder, mode) for mode in ("bf16", "int8")}
     frames, hop = TIME_FRAMES, net.rnnms.upsampling_t
-    hidden, fc = w.fc1_w.shape
-    n_classes = w.fc2_w.shape[1]
+    hidden, fc = weights["bf16"].fc1_w.shape
+    n_classes = weights["bf16"].fc2_w.shape[1]
     cond = torch.from_numpy(
-        rng.uniform(-1, 1, size=(max(SERVE_SLOTS), frames, net.rnnms.dim_voc_latent)).astype(np.float32)
+        rng.uniform(-1, 1, size=(max(TIME_BATCHES), frames, net.rnnms.dim_voc_latent)).astype(np.float32)
     ).cuda()
-    cond_all = ar.project_cond_frames(w, cond).transpose(0, 1).contiguous()
+    cond_all = ar.project_cond_frames(weights["bf16"], cond).transpose(0, 1).contiguous()
     steps = frames * hop
     audio_s = steps / 16000
 
@@ -770,42 +873,43 @@ def phase_time(seed: int, card: str):
         h0, prev0 = ar.init_decode_state(batch, hidden, n_classes, cond.device)
         return cond_all[:, :batch].contiguous(), h0, prev0
 
-    ms_by_batch = {}
-    for batch in (1,) + SERVE_SLOTS:
-        args = inputs(batch)
-        ms_by_batch[batch] = time_cuda(lambda: ar.ar_decode(*args, w, hop, seed=1), reps=3)
-        grid, units, smem = ar.kernel_plan(batch, hidden, fc, n_classes)
-        print(f"timing ar_decode B={batch} steps={steps} ({audio_s:.3f} s audio): kernel "
-              f"{ms_by_batch[batch]:.3f} ms = {ms_by_batch[batch] * 1e3 / steps:.3f} us/step, "
-              f"{batch * steps / (ms_by_batch[batch] / 1e3):.1f} samples/s; grid {grid} blocks "
-              f"x {units} units, {smem} B shared memory  [{card}]")
-    batch = 8
-    cond_proj, h0, prev0 = inputs(batch)
-    kernel_ms = ms_by_batch[batch]
-    plain_ms = time_cuda(lambda: ar.ar_decode_reference(cond_proj, h0, prev0, w, hop, seed=1), reps=1)
-
-    flops = 2 * batch * steps * (hidden * 3 * hidden + hidden * fc + fc * n_classes)
-    weight_tensors = [w.embed_proj, w.wh, w.bh, w.fc1_w, w.fc1_b, w.fc2_w, w.fc2_b]
-    n_bytes = sum(t.numel() * t.element_size() for t in weight_tensors)
-    n_bytes += cond_proj.numel() * 2 + prev0.numel() * 4 + 2 * h0.numel() * 4 + steps * batch * 4
-    bound_ops, bound_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
-    print(
-        f"timing ar_decode B={batch} steps={steps}: kernel {kernel_ms:.3f} ms, RTF "
-        f"{kernel_ms / 1e3 / audio_s:.5f}; plain {plain_ms:.3f} ms; bound "
-        f"{max(bound_ops, bound_bytes) * 1e3:.3f} us ({flops:.4g} FLOP, {n_bytes:.4g} B)  [{card}]"
-    )
-    return {
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bound_ops, bound_bytes),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-    }, ms_by_batch
+    ms_by_batch, timing = {}, {}
+    for mode, w in weights.items():
+        ms_by_batch[mode] = {}
+        for batch in TIME_BATCHES:
+            args = inputs(batch)
+            ms = ms_by_batch[mode][batch] = time_cuda(lambda: ar.ar_decode(*args, w, hop, seed=1),
+                                                      reps=3)
+            grid, units, smem = ar.kernel_plan(batch, hidden, fc, n_classes, mode)
+            print(f"timing ar_decode {mode} B={batch} steps={steps} ({audio_s:.3f} s audio): kernel "
+                  f"{ms:.3f} ms = {ms * 1e3 / steps:.3f} us/step, {batch * steps / (ms / 1e3):.1f} "
+                  f"samples/s; grid {grid} blocks x {units} units, {smem} B shared memory  [{card}]")
+        batch = 8
+        cond_proj, h0, prev0 = inputs(batch)
+        plain_ms = time_cuda(lambda: ar.ar_decode_reference(cond_proj, h0, prev0, w, hop, seed=1),
+                             reps=1)
+        bound, by, ops, n_bytes = _decode_bound(w, batch, steps, cond_proj, h0, prev0)
+        kernel_ms = ms_by_batch[mode][batch]
+        print(f"timing ar_decode {mode} B={batch} steps={steps}: kernel {kernel_ms:.3f} ms, RTF "
+              f"{kernel_ms / 1e3 / audio_s:.5f}; plain {plain_ms:.3f} ms; bound "
+              f"{bound * 1e3:.3f} us by {by} ({ops:.4g} operations, {n_bytes:.4g} B); bound / "
+              f"kernel = {bound / kernel_ms * 100:.4f} %  [{card}]")
+        timing[mode] = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+    step_us = {mode: [[b, round(ms * 1e3 / steps, 3)] for b, ms in by.items()]
+               for mode, by in ms_by_batch.items()}
+    picks = {b: ar.resolve_precision("auto", b) for b in TIME_BATCHES}
+    measured_picks = {b: ar.resolve_precision("auto", b, step_us) for b in TIME_BATCHES}
+    print(f"timing auto: built-in table picks {json.dumps(picks)}; this run's times pick "
+          f"{json.dumps(measured_picks)}; this run's us/step "
+          f"{json.dumps({'device': torch.cuda.get_device_name(0), **step_us})}  [{card}]")
+    timing["int8"].update(auto_pick_by_batch=picks, measured_auto_pick_by_batch=measured_picks)
+    return timing, ms_by_batch
 
 
 def _gru_bound(x: dict, masked: bool):
     """(bound ms, what bounds it): each input read once, each output
     written once; the operations of the steps the data needs."""
-    g, t, h = GRU_G, GRU_T, GRU_H
+    g, t, h = GRU_G, GRU_T, x["wh"].shape[0]
     n_bytes = sum(x[k].numel() * x[k].element_size() for k in ("wh", "bh", "xproj", "h0"))
     n_bytes += t * g * h * 2 + g * h * 4  # hs bf16, h_T f32
     steps = g * t
@@ -854,6 +958,106 @@ def phase_time_gru(seed: int, card: str) -> dict:
                   f"{bound * 1e3:.3f} us by {by} ({flops:.4g} FLOP, {n_bytes:.4g} B); "
                   f"bound / kernel = {bound / res['ms'] * 100:.3f} %  [{card}]")
             out[name] = res
+    return out
+
+
+def phase_time_gru_masked_grid(seed: int, card: str) -> dict:
+    """The masked grid forward, its plain version and cuDNN's GRU on a
+    PackedSequence of the same lengths, at G 48, T 200, H 256 (only timed
+    here: the port never calls cuDNN)."""
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    x = _gru_inputs(seed, GRU_WIDE_H)
+    args = (x["wh"], x["bh"], x["xproj"], x["valid"], x["h0"])
+    gru_in = torch.randn(GRU_G, GRU_T, 2 * GRU_WIDE_H, device=DEVICE, dtype=CUDNN_DTYPE)
+    cudnn = torch.nn.GRU(2 * GRU_WIDE_H, GRU_WIDE_H, batch_first=True).to(DEVICE, CUDNN_DTYPE)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        gru_in, torch.from_numpy(x["lengths"]), batch_first=True, enforce_sorted=False)
+    bound, by, flops, n_bytes = _gru_bound(x, masked=True)
+    with torch.no_grad():
+        res = {"ms": time_cuda(lambda: g.gru_scan_masked(*args), reps=20),
+               "plain_ms": time_cuda(lambda: g.gru_scan_masked_reference(*args), reps=2),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": time_cuda(lambda: cudnn(packed), reps=20)}
+    print(f"timing gru_scan_masked_grid G={GRU_G} T={GRU_T} H={GRU_WIDE_H}: kernel "
+          f"{res['ms']:.4f} ms = {res['ms'] * 1e3 / GRU_T:.3f} us/step; plain "
+          f"{res['plain_ms']:.3f} ms; cuDNN nn.GRU (fp16, packed) {res['library_ms']:.4f} ms; "
+          f"bound {bound * 1e3:.3f} us by {by} ({flops:.4g} FLOP, {n_bytes:.4g} B); bound / "
+          f"kernel = {bound / res['ms'] * 100:.3f} %  [{card}]")
+    return res
+
+
+def phase_time_lstm_grid(seed: int, card: str) -> dict:
+    """The grid LSTM pair at H 512 and the training shape (B 64, T 70), and
+    the inference grid forward at the export shape (B 16, T 256), beside
+    their plain versions, bounds and cuDNN's LSTM (fp16, H 512, with the
+    input projection; only timed here)."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    hidden = LSTM_GRID_H[0]
+    out = {}
+    batch, steps = LSTM_SHAPES["training"]
+    args = _lstm_inputs(seed, batch, steps, hidden)
+    hs, acts, c_prev, h_t, c_t = ls.lstm_scan_train(*args)
+    rng = np.random.default_rng(seed + 12)
+    dhs = torch.from_numpy(rng.normal(size=(steps, batch, hidden)).astype(np.float32)).to(
+        DEVICE).bfloat16()
+    bwd_args = (acts, c_prev, dhs, args[0], torch.zeros_like(h_t), torch.zeros_like(c_t))
+    flops = 2 * batch * steps * hidden * 4 * hidden
+    lstm_in = torch.randn(batch, steps, 64, device=DEVICE, dtype=CUDNN_DTYPE, requires_grad=True)
+    cudnn = torch.nn.LSTM(64, hidden, batch_first=True).to(DEVICE, CUDNN_DTYPE)
+    lib_out, _ = cudnn(lstm_in)
+    lib_grad = torch.randn_like(lib_out)
+    inputs = [lstm_in] + list(cudnn.parameters())
+    rows = {
+        "lstm_scan_grid": (lambda: ls.lstm_scan_train(*args),
+                           lambda: ls.lstm_scan_train_reference(*args),
+                           _nbytes(*args, hs, acts, c_prev, h_t, c_t), lambda: cudnn(lstm_in)),
+        "lstm_scan_grid_bwd": (lambda: ls.lstm_scan_bwd(*bwd_args),
+                               lambda: ls.lstm_scan_bwd_reference(*bwd_args),
+                               _nbytes(*bwd_args, acts, h_t, c_t),
+                               lambda: torch.autograd.grad(lib_out, inputs, lib_grad,
+                                                           retain_graph=True)),
+    }
+    for name, (kernel, plain, n_bytes, lib) in rows.items():
+        bound, by = _bound(n_bytes, flops, PEAK_BF16_FLOPS)
+        res = out[name] = {"ms": time_cuda(kernel, reps=20), "plain_ms": time_cuda(plain, reps=2),
+                           "bound_ms": bound, "bound_by": by, "library_ms": time_cuda(lib, reps=20)}
+        print(f"timing {name} B={batch} T={steps} H={hidden}: kernel {res['ms']:.4f} ms = "
+              f"{res['ms'] * 1e3 / steps:.3f} us/step; plain {res['plain_ms']:.3f} ms; cuDNN "
+              f"nn.LSTM (fp16, with the input projection) {res['library_ms']:.4f} ms; bound "
+              f"{bound * 1e3:.3f} us by {by}; bound / kernel = {bound / res['ms'] * 100:.3f} %  "
+              f"[{card}]")
+    del lib_out, inputs
+    batch, steps = LSTM_SHAPES["export"]
+    args = _lstm_inputs(seed, batch, steps, hidden)
+    lstm_in = torch.randn(batch, steps, 64, device=DEVICE, dtype=CUDNN_DTYPE)
+    n_bytes = _nbytes(*args) + steps * batch * hidden * 2 + 2 * batch * hidden * 4
+    bound, by = _bound(n_bytes, 2 * batch * steps * hidden * 4 * hidden, PEAK_BF16_FLOPS)
+    with torch.no_grad():
+        res = {"ms": time_cuda(lambda: ls.lstm_scan(*args), reps=20),
+               "plain_ms": time_cuda(lambda: ls.lstm_scan_reference(*args), reps=2),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": time_cuda(lambda: cudnn(lstm_in), reps=20)}
+    print(f"timing lstm_scan_grid (inference) B={batch} T={steps} H={hidden}: kernel "
+          f"{res['ms']:.4f} ms = {res['ms'] * 1e3 / steps:.3f} us/step; plain {res['plain_ms']:.3f} "
+          f"ms; cuDNN nn.LSTM (fp16) {res['library_ms']:.4f} ms; bound {bound * 1e3:.3f} us by "
+          f"{by}  [{card}]")
+    out["lstm_scan_grid"]["inference_export_shape"] = res
+    # A width whose blocks stage wh in K chunks, at the training shape.
+    hidden = LSTM_STREAM_H
+    batch, steps = LSTM_SHAPES["training"]
+    args = _lstm_inputs(seed, batch, steps, hidden)
+    _, acts, c_prev, h_t, c_t = ls.lstm_scan_train(*args)
+    dhs = torch.zeros(steps, batch, hidden, device=DEVICE, dtype=torch.bfloat16)
+    bwd_args = (acts, c_prev, dhs, args[0], h_t, c_t)
+    chunks = ls.grid_chunks(batch, hidden, -(-hidden // _sms()))
+    fwd_ms = time_cuda(lambda: ls.lstm_scan_train(*args), reps=5)
+    bwd_ms = time_cuda(lambda: ls.lstm_scan_bwd(*bwd_args), reps=5)
+    print(f"timing lstm_scan_grid K chunks B={batch} T={steps} H={hidden} (chunks {chunks[0]} of "
+          f"{hidden}, {chunks[1]} of {4 * hidden}): training forward {fwd_ms:.4f} ms = "
+          f"{fwd_ms * 1e3 / steps:.3f} us/step, backward {bwd_ms:.4f} ms = "
+          f"{bwd_ms * 1e3 / steps:.3f} us/step  [{card}]")
     return out
 
 
@@ -1033,6 +1237,60 @@ def phase_compare_train(seed: int, card: str) -> dict:
               f"[{card}]")
         worst["cpc_select"] = max(worst["cpc_select"], errs[0][0], errs[1][0])
         worst["cpc_select_bwd"] = max(worst["cpc_select_bwd"], errs[2][0], errs[3][0])
+    return worst
+
+
+def phase_compare_lstm_grid(seed: int, card: str) -> dict:
+    """The grid LSTM kernels (ops/csrc/lstm_grid.cu) against their plain
+    versions at H 512 and 37, at the export and training shapes, and at H
+    1,600 (wh staged in K chunks) at a short shape: both
+    forward variants (the inference one gives the training one's bits), the
+    backward, and autograd through ``LstmScan`` against the plain route on
+    the CPU; returns each kernel's worst max abs error."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    worst = {"lstm_scan_grid": 0.0, "lstm_scan_grid_bwd": 0.0}
+    cases = [(h, LSTM_SHAPES) for h in LSTM_GRID_H]
+    cases.append((LSTM_STREAM_H, {"K chunks": LSTM_STREAM_SHAPE}))
+    for hidden, shapes in cases:
+        check(ls.scan_route(hidden) == ls.scan_route(hidden, backward=True) == "grid",
+              f"H {hidden} should take the grid kernels")
+        for name, (batch, steps) in shapes.items():
+            args = _lstm_inputs(seed, batch, steps, hidden)
+            inf = ls.lstm_scan(*args)
+            got = ls.lstm_scan_train(*args)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, r) for a, r in zip(inf, (got[0], got[3], got[4]))),
+                  f"lstm grid H={hidden} {name}: inference and training hs, h_T, c_T differ")
+            ref = ls.lstm_scan_train_reference(*args)
+            errs = [_rel_err(a, r)[0] for a, r in zip(got, ref)]
+            check(max(errs) <= MAX_LSTM_ERR, f"lstm grid H={hidden} {name}: {errs}")
+            rng = np.random.default_rng(seed + 8)
+            f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(DEVICE)
+            dhs = f32(rng.normal(0, 1, size=(steps, batch, hidden))).bfloat16()
+            dh_t, dc_t = (f32(rng.normal(0, 1, size=(batch, hidden))) for _ in range(2))
+            kb = ls.lstm_scan_bwd(ref[1], ref[2], dhs, args[0], dh_t, dc_t)
+            torch.cuda.synchronize()
+            rb = ls.lstm_scan_bwd_reference(ref[1], ref[2], dhs, args[0], dh_t, dc_t)
+            errs_b = [_rel_err(a, r) for a, r in zip(kb, rb)]
+            for what, (e, m) in zip(("dgates", "dh0", "dc0"), errs_b):
+                check(e <= MAX_LSTM_BWD_REL * m + 1e-3,
+                      f"lstm grid bwd H={hidden} {name}: {what} differs by {e} (largest {m})")
+            grads = _lstm_grads(args, DEVICE)
+            plain = _lstm_grads([a.cpu() for a in args], "cpu")
+            errs_g = [_rel_err(a, r) for a, r in zip(grads, plain)]
+            for what, (e, m) in zip(("dwh", "dxproj", "dh0", "dc0"), errs_g):
+                check(e <= MAX_LSTM_GRAD_REL * m,
+                      f"LstmScan grid H={hidden} {name}: {what} differs by {e} (largest {m})")
+            print(f"compare lstm_scan_grid {name} B={batch} T={steps} H={hidden}: hs, acts, c_prev, "
+                  f"h_T, c_T max abs diff {', '.join(f'{e:.3e}' for e in errs)} (bound "
+                  f"{MAX_LSTM_ERR}), inference = training bits; lstm_scan_grid_bwd dgates, dh0, dc0 "
+                  f"{', '.join(f'{e:.3e} of {m:.3f}' for e, m in errs_b)} (bound {MAX_LSTM_BWD_REL} "
+                  f"x largest + 1e-3); autograd vs the plain route dwh, dxproj, dh0, dc0 "
+                  f"{', '.join(f'{e:.3e} of {m:.3f}' for e, m in errs_g)} (bound "
+                  f"{MAX_LSTM_GRAD_REL} x largest)  [{card}]")
+            worst["lstm_scan_grid"] = max(worst["lstm_scan_grid"], *errs)
+            worst["lstm_scan_grid_bwd"] = max(worst["lstm_scan_grid_bwd"], *(e for e, _ in errs_b))
     return worst
 
 
@@ -1297,12 +1555,13 @@ def _voc_counts(reset: bool = False) -> dict:
 
     if reset:
         g.GRU_SCAN_LAUNCHES = g.GRU_SCAN_TRAIN_LAUNCHES = g.GRU_SCAN_BWD_LAUNCHES = 0
-        ar.AR_DECODE_LAUNCHES = 0
+        ar.AR_DECODE_LAUNCHES = ar.AR_DECODE_INT8_LAUNCHES = 0
     return {
         "gru_scan_train": g.GRU_SCAN_TRAIN_LAUNCHES,
         "gru_scan_bwd": g.GRU_SCAN_BWD_LAUNCHES,
         "gru_scan": g.GRU_SCAN_LAUNCHES,
         "ar_decode": ar.AR_DECODE_LAUNCHES,
+        "ar_decode_int8": ar.AR_DECODE_INT8_LAUNCHES,
     }
 
 
@@ -1317,12 +1576,17 @@ def phase_train_vocoder(seed: int, card: str, d: Path) -> dict:
     from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
 
     cpc = d / "ckpt" / "model.ckpt-10.pt"
-    argv = _corpus_args(d) + [
-        f"cpc_checkpoint={cpc}", f"training_vocoder.ckpt_log.dir_root={d / 'voc'}",
-        f"training_vocoder.trainer.max_epochs={VOC_EPOCHS}",
-        f"training_vocoder.trainer.val_interval_epoch={VOC_VAL_EVERY}",
-        "training_vocoder.trainer.profiler=simple", f"seed={seed}",
-    ]
+
+    def argv_for(epochs: int, precision: str = "bfloat16"):
+        return _corpus_args(d) + [
+            f"cpc_checkpoint={cpc}", f"training_vocoder.ckpt_log.dir_root={d / 'voc'}",
+            f"training_vocoder.trainer.max_epochs={epochs}",
+            f"training_vocoder.trainer.val_interval_epoch={VOC_VAL_EVERY}",
+            "training_vocoder.trainer.profiler=simple", f"seed={seed}",
+            f"runtime.precision={precision}",
+        ]
+
+    argv = argv_for(VOC_EPOCHS)
     torch.cuda.synchronize()
     _voc_counts(reset=True)
     start = time.perf_counter()
@@ -1337,8 +1601,8 @@ def phase_train_vocoder(seed: int, card: str, d: Path) -> dict:
         check(launches[name] == steps, f"{launches[name]} {name} launches for {steps} steps")
     check(launches["gru_scan"] == 0, "the no-grad GRU scan ran during training")
     n_decodes = VOC_EPOCHS // VOC_VAL_EVERY * 3 * 2  # 3 utterances, reconstructed and converted
-    check(launches["ar_decode"] == n_decodes, f"{launches['ar_decode']} AR decode launches in "
-          f"validation, expected {n_decodes}")
+    check(launches["ar_decode"] == n_decodes and launches["ar_decode_int8"] == 0,
+          f"{launches} AR decode launches in validation, expected {n_decodes} bf16")
     losses = list(trainer.history)
     check(len(losses) == steps and all(np.isfinite(losses)), f"vocoder losses {losses}")
     ckpt_dir = d / "voc" / "default" / "version_-1" / "checkpoints"
@@ -1375,7 +1639,138 @@ def phase_train_vocoder(seed: int, card: str, d: Path) -> dict:
           f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite; launches {json.dumps(launches)}; "
           f"{len(wavs)} validation wavs in [-1, 1]; {final.name} loads strict into Vocoder and "
           f"the convert CLI converted {n} utterances with it  [{card}]")
-    return {"launches": launches, "seconds": seconds, "steps": steps}
+
+    # runtime.precision=int8: the CLI resumes from the checkpoint, trains
+    # VOC_VAL_EVERY more epochs (in bf16) and validates through the int8 kernel.
+    torch.cuda.synchronize()
+    _voc_counts(reset=True)
+    again = train_vocoder.main(argv_for(VOC_EPOCHS + VOC_VAL_EVERY, "int8"))
+    torch.cuda.synchronize()
+    launches_int8 = _voc_counts()
+    last = (VOC_EPOCHS + VOC_VAL_EVERY) * per_epoch
+    check(again.step == last, f"{again.step} steps after the int8 resume, expected {last}")
+    check(launches_int8["ar_decode_int8"] == 6 and launches_int8["ar_decode"] == 0,
+          f"{launches_int8}: int8 validation should launch the int8 kernel 6 times, bf16 none")
+    got = [w for w in (ckpt_dir.parent / "samples").glob(f"*_step{last}.wav")]
+    # Names are per speaker: utterances of one speaker write one file.
+    check(len(got) >= 2, f"int8 validation wavs at step {last}: {got}")
+    for w in got:
+        wave, _ = read_wav(w)
+        check(wave.size > 0 and bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) <= 1.0,
+              f"int8 validation wav {w.name}")
+    print(f"train vocoder runtime.precision=int8: resumed to step {last}, validation wrote "
+          f"{len(got)} wavs in [-1, 1]; launches {json.dumps(launches_int8)}  [{card}]")
+    return {"launches": launches, "launches_int8": launches_int8, "seconds": seconds,
+            "steps": steps}
+
+
+def _grid_counts(reset: bool = False) -> dict:
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    if reset:
+        ls.LSTM_SCAN_GRID_LAUNCHES = ls.LSTM_SCAN_GRID_TRAIN_LAUNCHES = 0
+        ls.LSTM_SCAN_GRID_BWD_LAUNCHES = 0
+        g.GRU_SCAN_MASKED_GRID_LAUNCHES = 0
+        _train_counts(reset=True)
+        _voc_counts(reset=True)
+        g.GRU_SCAN_MASKED_LAUNCHES = 0
+    return {
+        "lstm_scan_grid": ls.LSTM_SCAN_GRID_LAUNCHES,
+        "lstm_scan_grid_train": ls.LSTM_SCAN_GRID_TRAIN_LAUNCHES,
+        "lstm_scan_grid_bwd": ls.LSTM_SCAN_GRID_BWD_LAUNCHES,
+        "gru_scan_masked_grid": g.GRU_SCAN_MASKED_GRID_LAUNCHES,
+        "gru_scan_masked": g.GRU_SCAN_MASKED_LAUNCHES,
+        "ar_decode": ar.AR_DECODE_LAUNCHES,
+        **{k: v for k, v in _train_counts().items()},
+        "gru_scan": g.GRU_SCAN_LAUNCHES,
+    }
+
+
+def phase_wide(seed: int, card: str, d: Path) -> dict:
+    """The grid kernels on the main paths, at widths the cluster and
+    one-block kernels cannot hold: train_cpc and the encode CLI at
+    dim_cpc_context=512 on phase 4d's corpus (the grid LSTM forward, both
+    variants, and backward), and a server whose PreNet is 256 wide per
+    direction (dim_voc_latent=512: the masked grid forward). Counts zeroed
+    just before each path and read just after."""
+    from vectorquantizedcpc_tpu_torch.cli import encode as encode_cli
+    from vectorquantizedcpc_tpu_torch.cli import train_cpc
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.infer.serving import ContinuousBatcher
+    from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
+
+    wide = ["dim_cpc_context=512"]
+    argv = _corpus_args(d) + wide + [
+        f"checkpoint_dir={d / 'ckpt512'}", "training.cpc.n_epochs=2",
+        "training.cpc.checkpoint_interval=2", "training.cpc.log_interval=2", f"seed={seed}"]
+    torch.cuda.synchronize()
+    _grid_counts(reset=True)
+    start = time.perf_counter()
+    trainer = train_cpc.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - start
+    counts = _grid_counts()
+    steps = trainer.global_step
+    check(steps == 2 * TRAIN_SPEAKERS // 8, f"{steps} train steps at dim_cpc_context=512")
+    check(counts["lstm_scan_grid_train"] == counts["lstm_scan_grid_bwd"] == steps
+          and counts["cpc_select"] == counts["cpc_select_bwd"] == steps, f"launches {counts}")
+    check(counts["lstm_scan_train"] == counts["lstm_scan_bwd"] == counts["lstm_scan"] == 0
+          and counts["lstm_scan_grid"] == 0, f"the cluster or inference kernels ran: {counts}")
+    losses = [float(m["loss"]) for m in trainer.history]
+    check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
+    train_counts = counts
+
+    mels = sorted((d / "features" / "V000").glob("*.mel.npy"))
+    frames = [np.load(m).shape[1] for m in mels]
+    buckets = {}
+    for n in frames:
+        padded = max(64, -(-n // 64) * 64)
+        buckets[padded] = buckets.get(padded, 0) + 1
+    n_batches = sum(-(-k // 16) for k in buckets.values())
+    _grid_counts(reset=True)
+    n = encode_cli.main(wide + [f"cpc_checkpoint={d / 'ckpt512' / 'model.ckpt-2.pt'}",
+                                f"in_dir={d / 'features' / 'V000'}", f"out_dir={d / 'codes512'}"])
+    torch.cuda.synchronize()
+    counts = _grid_counts()
+    check(n == len(mels) and counts["lstm_scan_grid"] == n_batches and counts["lstm_scan"] == 0,
+          f"export at 512: {n} mels, launches {counts} for {n_batches} batches")
+    for m, n_frames in zip(mels, frames):
+        rows = np.loadtxt(d / "codes512" / f"{m.name[:-len('.mel.npy')]}.txt", ndmin=2)
+        check(rows.shape == (n_frames // 2, 64) and bool(np.isfinite(rows).all()),
+              f"export at 512 of {m.name}: {rows.shape}")
+    export_counts = counts
+    print(f"wide: train_cpc CLI at dim_cpc_context=512 {steps} steps in {train_s:.3f} s wall, "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, launches {json.dumps(train_counts)}; the "
+          f"encode CLI exported {n} mels in {n_batches} batches, launches "
+          f"{json.dumps(export_counts)}  [{card}]")
+
+    net = load_conf(["training_vocoder.model.network.rnnms.dim_voc_latent=512"]
+                    ).training_vocoder.model.network
+    vocoder = Vocoder(net)
+    randomize(vocoder, np.random.default_rng(seed + 18))
+    rng = np.random.default_rng(seed + 19)
+    requests = [(rng.integers(0, net.size_i_codebook, size=int(rng.choice(MIX_CODES))),
+                 int(rng.integers(0, net.n_speakers))) for _ in range(8)]
+    srv = ContinuousBatcher(vocoder.to(DEVICE).eval(), slots=8, segment_frames=4,
+                            max_frames=2 * max(MIX_CODES) + 32, seed=seed, device=DEVICE)
+    torch.cuda.synchronize()
+    _grid_counts(reset=True)
+    rids = [srv.submit(z, spk) for z, spk in requests]
+    waves = srv.run()
+    counts = _grid_counts()
+    hop = net.rnnms.upsampling_t
+    for (z, _spk), rid in zip(requests, rids):
+        wave = waves[rid]
+        check(wave.shape == (2 * len(z) * hop,) and bool(np.isfinite(wave).all())
+              and float(np.abs(wave).max()) <= 1.0, f"wide server wave {wave.shape}")
+    check(counts["gru_scan_masked_grid"] == 2 and counts["gru_scan_masked"] == 0
+          and counts["gru_scan"] == 2 and counts["ar_decode"] == srv.stats["steps"] > 0,
+          f"wide server launches {counts}")
+    print(f"wide: served 8 requests with a PreNet of {net.rnnms.dim_voc_latent // 2} per "
+          f"direction, launches {json.dumps(counts)}  [{card}]")
+    return {"train": train_counts, "export": export_counts, "serve": counts}
 
 
 def _voc_trainer(seed: int, conf):
@@ -1676,30 +2071,44 @@ def main() -> int:
     print(_build.build_log)
 
     # Phase 3: each kernel against its plain version.
+    start = time.perf_counter()
     compared = phase_compare(args.seed, card)
+    compared_int8 = phase_compare(args.seed, card, "int8")
     compared_gru = phase_compare_gru(args.seed, card)
+    compared_masked_grid = phase_compare_gru_masked_grid(args.seed, card)
     compared_lstm = phase_compare_lstm(args.seed, card)
     compared_train = phase_compare_train(args.seed, card)
+    compared_lstm_grid = phase_compare_lstm_grid(args.seed, card)
     compared_gru_train = phase_compare_gru_train(args.seed, card)
+    print(f"phase 3: {time.perf_counter() - start:.3f} s wall")
     # Phase 4: the main paths, counts zeroed just before and read just after each.
+    start = time.perf_counter()
     converted = phase_convert(args.seed, card)
+    converted_int8 = phase_convert(args.seed, card, "int8")
+    converted_auto = phase_convert(args.seed, card, "auto")
     serve = phase_serve(args.seed, card)
-    launches = serve["launches"]
+    launches, launches_int8 = serve["launches"], serve["launches_int8"]
     exported = phase_export(args.seed, card)
     with tempfile.TemporaryDirectory() as tmp:
         trained = phase_train(args.seed, card, Path(tmp))
         phase_train_step(args.seed, card)
-        start = time.perf_counter()
+        mid = time.perf_counter()
         trained_voc = phase_train_vocoder(args.seed, card, Path(tmp))
-        print(f"phase 4e vocoder training: {time.perf_counter() - start:.3f} s wall")
+        print(f"phase 4e vocoder training: {time.perf_counter() - mid:.3f} s wall")
+        wide = phase_wide(args.seed, card, Path(tmp))
     phase_train_vocoder_step(args.seed, card)
+    print(f"phase 4: {time.perf_counter() - start:.3f} s wall")
     # Phase 5: times beside the bound.
+    start = time.perf_counter()
     timing, ar_ms_by_batch = phase_time(args.seed, card)
     timing_gru = phase_time_gru(args.seed, card)
+    timing_masked_grid = phase_time_gru_masked_grid(args.seed, card)
     timing_lstm = phase_time_lstm(args.seed, card)
-    phase_time_serve(serve, ar_ms_by_batch, card)
+    timing_lstm_grid = phase_time_lstm_grid(args.seed, card)
+    phase_time_serve(serve, ar_ms_by_batch["bf16"], card)
     timing_train = phase_time_train(args.seed, card)
     timing_voc = phase_time_vocoder(args.seed, card)
+    print(f"phase 5: {time.perf_counter() - start:.3f} s wall")
 
     source = "vectorquantizedcpc_tpu_torch/ops/csrc/"
     kernels = [
@@ -1714,10 +2123,27 @@ def main() -> int:
                 **{f"serve_{k}_slots": v["ar_decode"] for k, v in launches.items()},
             },
             "max_abs_err": compared["max_abs_err"],
-            **timing,
-            "ms_by_batch": ar_ms_by_batch,
+            **timing["bf16"],
+            "ms_by_batch": ar_ms_by_batch["bf16"],
             "library_ms": None,
-        }
+        },
+        {
+            "name": "ar_decode_int8",
+            "route": "cuda",
+            "source": source + "ar_decode.cu",
+            "replaces": "vectorquantizedcpc_tpu/ops/ar_decode.py:218",
+            "launches": launches_int8[8]["ar_decode_int8"],
+            "launches_by_path": {
+                "convert_int8": converted_int8["ar_decode_int8"],
+                "convert_auto": converted_auto["ar_decode_int8"],
+                **{f"serve_{k}_slots": v["ar_decode_int8"] for k, v in launches_int8.items()},
+                "vocoder_validation": trained_voc["launches_int8"]["ar_decode_int8"],
+            },
+            "max_abs_err": compared_int8["max_abs_err"],
+            **timing["int8"],
+            "ms_by_batch": ar_ms_by_batch["int8"],
+            "library_ms": None,
+        },
     ] + [
         {
             "name": name,
@@ -1729,6 +2155,16 @@ def main() -> int:
             **timing_gru[name],
         }
         for name, line in (("gru_scan", 59), ("gru_scan_masked", 245))
+    ] + [
+        {
+            "name": "gru_scan_masked_grid",
+            "route": "cuda",
+            "source": source + "gru_train.cu",
+            "replaces": "vectorquantizedcpc_tpu/ops/gru_train.py:245",
+            "launches": wide["serve"]["gru_scan_masked_grid"],
+            "max_abs_err": compared_masked_grid,
+            **timing_masked_grid,
+        }
     ] + [
         {
             "name": "lstm_scan",
@@ -1767,6 +2203,27 @@ def main() -> int:
             **timing_voc[name],
         }
         for name, line in (("gru_scan_train", 59), ("gru_scan_bwd", 114))
+    ] + [
+        {
+            "name": "lstm_scan_grid",
+            "route": "cuda",
+            "source": source + "lstm_grid.cu",
+            "replaces": "vectorquantizedcpc_tpu/ops/lstm_scan.py:48",
+            "launches": wide["train"]["lstm_scan_grid_train"] + wide["export"]["lstm_scan_grid"],
+            "launches_by_path": {"train_cpc_512": wide["train"]["lstm_scan_grid_train"],
+                                 "export_512": wide["export"]["lstm_scan_grid"]},
+            "max_abs_err": compared_lstm_grid["lstm_scan_grid"],
+            **timing_lstm_grid["lstm_scan_grid"],
+        },
+        {
+            "name": "lstm_scan_grid_bwd",
+            "route": "cuda",
+            "source": source + "lstm_grid.cu",
+            "replaces": "vectorquantizedcpc_tpu/ops/lstm_scan.py:105",
+            "launches": wide["train"]["lstm_scan_grid_bwd"],
+            "max_abs_err": compared_lstm_grid["lstm_scan_grid_bwd"],
+            **timing_lstm_grid["lstm_scan_grid_bwd"],
+        },
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

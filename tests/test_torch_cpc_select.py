@@ -110,10 +110,11 @@ def test_cpu_tensors_take_the_plain_version(rng):
 
 @pytest.mark.parametrize(
     "field, error",
-    [("wc_f64", "wc"), ("utt_i64", "utt_index"), ("seq_shape", "seq_index"), ("wide_z", "Z=")],
+    [("wc_f64", "wc"), ("utt_i64", "utt_index"), ("seq_shape", "seq_index"), ("wide_z", "z_shift")],
 )
 def test_input_checks(rng, field, error):
-    """The wrappers refuse what the kernels do not take, before any launch."""
+    """The wrappers refuse what the kernels do not take, before any launch; a
+    wide Z (264, past the old 256) is taken and fails only on a bad z_shift."""
     z = 264 if field == "wide_z" else 8
     wc, zs, utt, seq = _t(*_case(rng, z=z))
     if field == "wc_f64":
@@ -122,5 +123,8 @@ def test_input_checks(rng, field, error):
         utt = utt.long()
     if field == "seq_shape":
         seq = seq[..., :-1].contiguous()
+    if field == "wide_z":
+        port.check_select_inputs(wc, zs, utt, seq)
+        zs = zs[..., :-1].contiguous()
     with pytest.raises(ValueError, match=error):
-        port.check_select_inputs(wc, zs, utt, seq, kernel=True)
+        port.check_select_inputs(wc, zs, utt, seq)

@@ -1,19 +1,23 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card.
 
-Edge shapes that chip_smoke.py's full-width run does not reach. AR decode:
-hidden sizes that do not split evenly over the SMs, FC1 widths below the
-grid size, few classes, hop 1, odd batches, batches of several 8-row tiles
-up to the 128-row cap. GRU scans: batches off the 8-row tile, one row, one
-step, H = 96 and 128, rows masked at every step, the one-block kernel's
-shared-memory limit; the grid kernels (training forward, no-grad forward
+Edge shapes that chip_smoke.py's full-width run does not reach. AR decode,
+both modes: hidden sizes that do not split evenly over the SMs (int8: nor
+into 4-byte words), FC1 widths below the grid size, few classes, hop 1, odd
+batches, batches of several 8-row tiles up to the 128-row cap; int8 staging
+from the f32 h against the int8 buffer. GRU scans: batches off the 8-row
+tile, one row, one step, H = 96 and 128, rows masked at every step, the
+one-block kernel's shared-memory limit and the masked grid forward past it
+(H 184, 200, 1001); the grid kernels (training forward, no-grad forward
 past H 183, backward) at H 896, 200, 37 and 1001, B 1 to 40, and through
 autograd, their plan and its refusals.
-LSTM scan: batches off the 8-row cluster tile, one step, odd step counts,
-the width limits; its training forward and backward at B 1 and 9, T 1,
-H 32, 64 and 256, and through autograd. CPC selection forward and
+LSTM scan: batches off the 8-row cluster tile, one step, odd step counts;
+its training forward and backward at B 1 and 9, T 1, H 32, 64 and 256, and
+through autograd; the grid kernels at H 37, 360, 440 and 512 (forward and
+backward), their plan and its refusals. CPC selection forward and
 backward: odd L, tiles that do not fit shared memory, Z not a multiple of
-32, collision ties, out-of-range indices. Skipped without a card. This file
-imports no JAX, so it also runs on a machine without it:
+32 and Z past 256 (257, 300), collision ties, out-of-range indices.
+Skipped without a card. This file imports no JAX, so it also runs on a
+machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -99,6 +103,65 @@ def test_ar_decode_kernel_matches_plain(cuda, batch, hidden, fc, n_classes, hop,
             assert float((h_t[r] - ref_h[r]).abs().max()) <= 1e-2
 
 
+def _int8(w):
+    """``w`` in int8 mode: the three matrices quantized per column (the
+    activation's 1/127 folded into wh's and fc1's scales), FC2 as it is."""
+    from vectorquantizedcpc_tpu_torch.ops.quant import quantize_int8
+
+    qe, qw, qf = (quantize_int8(x.float()) for x in (w.embed_proj, w.wh, w.fc1_w))
+    return w._replace(embed_proj=qe.values, wh=qw.values, fc1_w=qf.values,
+                      embed_scale=qe.scale[0], wh_scale=(qw.scale / 127.0)[0],
+                      fc1_scale=(qf.scale / 127.0)[0])
+
+
+@pytest.mark.parametrize(
+    "batch, hidden, fc, n_classes, hop, frames",
+    [
+        (1, 896, 256, 256, 160, 2),
+        (9, 896, 256, 256, 160, 1),  # two row tiles
+        (128, 896, 256, 256, 160, 1),  # the cap
+        (5, 37, 11, 64, 1, 9),  # H not a multiple of 4: K zero-padded
+        (8, 301, 33, 100, 7, 5),  # nor here; last block holds 1 unit
+    ],
+)
+@pytest.mark.parametrize("greedy", [True, False])
+def test_ar_decode_int8_kernel_matches_plain(cuda, batch, hidden, fc, n_classes, hop, frames,
+                                             greedy):
+    """The int8 kernel against the int8 plain version under the prefix rule."""
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+
+    rng = np.random.default_rng(hidden + batch + 1)
+    w = _int8(_weights(rng, hidden, fc, n_classes, cuda))
+    cond_proj = torch.from_numpy(
+        rng.normal(0, 0.5, size=(frames, batch, 3 * hidden)).astype(np.float32)
+    ).to(cuda, torch.bfloat16)
+    h0 = torch.from_numpy(rng.uniform(-0.5, 0.5, size=(batch, hidden)).astype(np.float32)).to(cuda)
+    prev0 = torch.from_numpy(rng.integers(0, n_classes, size=batch).astype(np.int32)).to(cuda)
+    before = (ar.AR_DECODE_LAUNCHES, ar.AR_DECODE_INT8_LAUNCHES)
+    out, h_t = ar.ar_decode(cond_proj, h0, prev0, w, hop, seed=11, greedy=greedy)
+    torch.cuda.synchronize()
+    assert (ar.AR_DECODE_LAUNCHES, ar.AR_DECODE_INT8_LAUNCHES) == (before[0], before[1] + 1)
+    ref, ref_h, scores = ar.ar_decode_reference(
+        cond_proj, h0, prev0, w, hop, seed=11, greedy=greedy, return_scores=True
+    )
+    out, ref, scores = out.cpu().numpy(), ref.cpu().numpy(), scores.cpu().numpy()
+    for r in range(batch):
+        diff = np.nonzero(out[:, r] != ref[:, r])[0]
+        if diff.size:  # a near-tie of the plain version's scores
+            t0 = diff[0]
+            assert scores[t0, r].max() - scores[t0, r, out[t0, r]] <= 0.05
+        else:  # chip_smoke.py's MAX_H_ERR
+            assert float((h_t[r] - ref_h[r]).abs().max()) <= 1e-2
+
+
+def test_ar_decode_int8_plan_halves_the_weights(cuda):
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+
+    bf16 = ar.kernel_plan(8, 896, 256, 256)
+    int8 = ar.kernel_plan(8, 896, 256, 256, "int8")
+    assert bf16[:2] == int8[:2] and int8[2] < bf16[2]
+
+
 def test_ar_decode_kernel_refuses_bad_input(cuda):
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
 
@@ -181,14 +244,42 @@ def test_gru_scan_shared_memory_layout_and_limit(cuda):
 
     for hidden in (1, 96, 128, 183, 184):
         assert _build.library().vq_gru_scan_smem_bytes(hidden) == g.scan_smem_bytes(hidden)
-    # Past H 183 the masked scan refuses, and the plain one takes the grid kernel.
+    # Past H 183 both scans take the grid kernels.
     wh, bh, xproj, h0, valid, _ = _scan_case(np.random.default_rng(4), 2, 3, 184, cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        g.gru_scan_masked(wh, bh, xproj, valid, h0)
+    before = g.GRU_SCAN_MASKED_GRID_LAUNCHES
+    hs_m, _ = g.gru_scan_masked(wh, bh, xproj, valid, h0)
     hs, _ = g.gru_scan(wh, bh, xproj, h0)
-    ref, _ = g.gru_scan_reference(wh, bh, xproj, h0)
     torch.cuda.synchronize()
+    assert g.GRU_SCAN_MASKED_GRID_LAUNCHES == before + 1
+    for got, ref in ((hs, g.gru_scan_reference(wh, bh, xproj, h0)[0]),
+                     (hs_m, g.gru_scan_masked_reference(wh, bh, xproj, valid, h0)[0])):
+        assert float((got.float() - ref.float()).abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize(
+    "t, b, hidden",
+    [(33, 20, 200), (5, 40, 1001), (200, 48, 256), (4, 33, 2500)],  # 2500: K chunks
+)
+def test_gru_scan_masked_grid_matches_plain(cuda, t, b, hidden):
+    """The masked grid forward: rows masked at every step keep h0; an
+    all-valid mask gives the unmasked grid forward's bits."""
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    rng = np.random.default_rng(t + b + hidden)
+    wh, bh, xproj, h0, valid, lengths = _scan_case(rng, t, b, hidden, cuda)
+    before = (g.GRU_SCAN_MASKED_LAUNCHES, g.GRU_SCAN_MASKED_GRID_LAUNCHES)
+    hs, h_t = g.gru_scan_masked(wh, bh, xproj, valid, h0)
+    hs_all, h_all = g.gru_scan_masked(wh, bh, xproj, torch.ones_like(valid), h0)
+    plain, plain_h = g.gru_scan(wh, bh, xproj, h0)
+    torch.cuda.synchronize()
+    assert (g.GRU_SCAN_MASKED_LAUNCHES, g.GRU_SCAN_MASKED_GRID_LAUNCHES) == (before[0], before[1] + 2)
+    assert torch.equal(hs_all, plain) and torch.equal(h_all, plain_h)
+    ref, ref_h = g.gru_scan_masked_reference(wh, bh, xproj, valid, h0)
     assert float((hs.float() - ref.float()).abs().max()) <= 1e-2
+    assert float((h_t - ref_h).abs().max()) <= 1e-2
+    frozen = int(np.flatnonzero(lengths == 0)[0])
+    assert torch.equal(h_t[frozen], h0[frozen])
+    assert torch.equal(hs[:, frozen], h0[frozen].bfloat16().expand(t, -1))
 
 
 @pytest.mark.parametrize(
@@ -200,6 +291,8 @@ def test_gru_scan_shared_memory_layout_and_limit(cuda):
         (33, 32, 200),  # 2 units per block
         (7, 5, 37),  # one unit per block, 3H not a multiple of 8 or 16
         (3, 40, 1001),  # 8 units per block; two forward and three backward row tiles
+        (4, 33, 1200),  # the backward streams wh in K chunks
+        (3, 9, 2500),  # both stream wh in K chunks
     ],
 )
 def test_gru_scan_train_and_bwd_kernels_match_plain(cuda, t, b, hidden):
@@ -252,19 +345,26 @@ def test_gru_scan_autograd_on_card(cuda):
 def test_gru_grid_plan_and_refusals(cuda):
     from vectorquantizedcpc_tpu_torch.ops import gru_train as g
 
-    for b, hidden in ((32, 896), (3, 200), (40, 1001), (1, 37)):
-        blocks, units, fwd, bwd = g.grid_plan(b, hidden)
+    for b, hidden in ((32, 896), (3, 200), (40, 1001), (1, 37), (32, 1200), (32, 4096)):
+        blocks, units, fwd, bwd, fwd_chunk, bwd_chunk = g.grid_plan(b, hidden)
         sms = torch.cuda.get_device_properties(cuda).multi_processor_count
         assert units == -(-hidden // sms) and blocks == -(-hidden // units) <= sms
-        assert (fwd, bwd) == g.grid_smem_bytes(b, hidden, units)
-    # One unit per block: 896 blocks cannot all be resident; 4096 units do
-    # not fit one block's shared memory. Both refuse, neither shrinks.
-    for b, hidden, units in ((32, 896, 1), (32, 4096, 0)):
+        assert (fwd_chunk, bwd_chunk) == g.grid_chunks(b, hidden, units)
+        assert (fwd, bwd) == g.grid_smem_bytes(b, hidden, units, (fwd_chunk, bwd_chunk))
+    # H 4096 streams wh in K chunks on both sides; H 896 holds it whole.
+    assert g.grid_plan(32, 896)[4:] == (896, 2688)
+    assert max(g.grid_plan(32, 4096)[4:]) < 4096
+    # One unit per block: 896 blocks cannot all be resident; 65,536 rows of
+    # f32 carries do not fit one block's shared memory. Both refuse, neither
+    # shrinks.
+    for b, hidden, units in ((32, 896, 1), (65536, 4096, 0)):
         with pytest.raises(RuntimeError, match="GRU grid plan"):
             g.grid_plan(b, hidden, units)
     wh, bh, xproj, h0, _, _ = _scan_case(np.random.default_rng(5), 2, 3, 4096, cuda)
-    with pytest.raises(RuntimeError, match="GRU grid forward"):
-        g.gru_scan_train(wh, bh, xproj, h0)
+    got = g.gru_scan_train(wh, bh, xproj, h0)
+    ref = g.gru_scan_train_reference(wh, bh, xproj, h0)
+    for a, r in zip(got, ref):
+        assert float((a.float() - r.float()).abs().max()) <= 1e-2 * max(1.0, float(r.float().abs().max()))
 
 
 def test_server_refuses_more_slots_than_the_kernel_takes(cuda):
@@ -323,9 +423,16 @@ def test_lstm_scan_shared_memory_layout_and_limits(cuda):
 
     for hidden in (8, 64, 256, 432, 440):
         assert _build.library().vq_lstm_scan_smem_bytes(hidden) == ls.scan_smem_bytes(hidden)
-    for hidden, match in ((440, "shared memory"), (36, "multiple of 8")):
-        with pytest.raises(ValueError, match=match):
-            ls.lstm_scan(*_lstm_case(np.random.default_rng(0), 2, 3, hidden, cuda))
+    # Past the cluster kernel's widths the grid kernel takes the scan.
+    for hidden in (440, 36):
+        args = _lstm_case(np.random.default_rng(0), 2, 3, hidden, cuda)
+        before = ls.LSTM_SCAN_GRID_LAUNCHES
+        hs, _, c_t = ls.lstm_scan(*args)
+        ref, _, ref_c = ls.lstm_scan_reference(*args)
+        torch.cuda.synchronize()
+        assert ls.LSTM_SCAN_GRID_LAUNCHES == before + 1
+        assert float((hs.float() - ref.float()).abs().max()) <= 1e-2
+        assert float((c_t - ref_c).abs().max()) <= 1e-2
 
 
 @pytest.mark.parametrize(
@@ -383,11 +490,86 @@ def test_lstm_scan_bwd_shared_memory_layout_and_limit(cuda):
 
     for hidden in (8, 64, 256, 352, 360):
         assert _build.library().vq_lstm_scan_bwd_smem_bytes(hidden) == ls.bwd_smem_bytes(hidden)
+    # H 360: past the cluster backward's 352, the grid backward takes it.
     wh, xproj, h0, c0 = _lstm_case(np.random.default_rng(1), 2, 3, 360, cuda)
-    acts = torch.zeros(2, 3, 4 * 360, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        ls.lstm_scan_bwd(acts, torch.zeros_like(h0).expand(2, 3, 360).contiguous(),
-                         torch.zeros(2, 3, 360, dtype=torch.bfloat16, device=cuda), wh, h0, c0)
+    _, acts, c_prev, _, _ = ls.lstm_scan_train_reference(wh, xproj, h0, c0)
+    dhs = torch.ones(2, 3, 360, dtype=torch.bfloat16, device=cuda)
+    before = ls.LSTM_SCAN_GRID_BWD_LAUNCHES
+    got = ls.lstm_scan_bwd(acts, c_prev, dhs, wh, h0, c0)
+    torch.cuda.synchronize()
+    assert ls.LSTM_SCAN_GRID_BWD_LAUNCHES == before + 1
+    ref = ls.lstm_scan_bwd_reference(acts, c_prev, dhs, wh, h0, c0)
+    for a, r in zip(got, ref):
+        assert float((a.float() - r.float()).abs().max()) <= 1e-2 * float(r.float().abs().max()) + 1e-3
+
+
+@pytest.mark.parametrize(
+    "t, b, hidden",
+    [(70, 64, 512), (256, 16, 512), (9, 5, 37), (4, 33, 440), (1, 1, 37),
+     (6, 40, 1200),  # the backward streams wh in K chunks
+     (5, 17, 1600), (3, 9, 2047)],  # both do
+)
+def test_lstm_grid_kernels_match_plain(cuda, t, b, hidden):
+    """The grid forward (both variants: the inference one gives the training
+    one's hs, h_T, c_T bits) and the grid backward against the plain
+    versions, with chip_smoke.py's bounds."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    rng = np.random.default_rng(t + b + hidden)
+    args = _lstm_case(rng, t, b, hidden, cuda)
+    assert ls.scan_route(hidden) == ls.scan_route(hidden, backward=True) == "grid"
+    before = (ls.LSTM_SCAN_GRID_LAUNCHES, ls.LSTM_SCAN_GRID_TRAIN_LAUNCHES,
+              ls.LSTM_SCAN_GRID_BWD_LAUNCHES)
+    got = ls.lstm_scan_train(*args)
+    inf = ls.lstm_scan(*args)
+    torch.cuda.synchronize()
+    ref = ls.lstm_scan_train_reference(*args)
+    for name, a, r in zip(("hs", "acts", "c_prev", "h_T", "c_T"), got, ref):
+        assert float((a.float() - r.float()).abs().max()) <= 1e-2, name
+    for a, r in zip(inf, (got[0], got[3], got[4])):
+        assert torch.equal(a, r)
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+    dhs = f32(rng.normal(0, 1, size=(t, b, hidden))).bfloat16()
+    dh_t, dc_t = f32(rng.normal(0, 1, size=(b, hidden))), f32(rng.normal(0, 1, size=(b, hidden)))
+    kb = ls.lstm_scan_bwd(ref[1], ref[2], dhs, args[0], dh_t, dc_t)
+    torch.cuda.synchronize()
+    assert (ls.LSTM_SCAN_GRID_LAUNCHES, ls.LSTM_SCAN_GRID_TRAIN_LAUNCHES,
+            ls.LSTM_SCAN_GRID_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1, before[2] + 1)
+    rb = ls.lstm_scan_bwd_reference(ref[1], ref[2], dhs, args[0], dh_t, dc_t)
+    for name, a, r in zip(("dgates", "dh0", "dc0"), kb, rb):
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= 1e-2 * float(r.float().abs().max()) + 1e-3, (name, err)
+
+
+def test_lstm_grid_autograd_and_plan(cuda):
+    """``LstmScan`` at H 512 on the card against the CPU plain route; the
+    plan's sizes and K chunks, and its refusals (a grid that cannot be
+    resident, a block whose carries do not fit)."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    args = _lstm_case(np.random.default_rng(9), 21, 12, 512, cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [a.detach().to(dev).requires_grad_(i < 2) for i, a in enumerate(args)]
+        hs, h_t, c_t = ls.LstmScan.apply(*leaves)
+        (hs.float().square().sum() + h_t.sum() + c_t.sum()).backward()
+        grads.append([leaves[0].grad.float().cpu(), leaves[1].grad.float().cpu()])
+    for a, r in zip(*grads):
+        assert float((a - r).abs().max()) <= 2e-2 * float(r.abs().max())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for b, hidden in ((64, 512), (16, 37), (64, 1600), (64, 4096)):
+        chunks = []
+        for backward in (False, True):
+            blocks, units, smem, chunk = ls.grid_plan(b, hidden, backward=backward)
+            assert units == -(-hidden // sms) and blocks == -(-hidden // units) <= sms
+            assert chunk == ls.grid_chunks(b, hidden, units)[int(backward)]
+            chunks.append(chunk)
+            assert smem == ls.grid_smem_bytes(b, hidden, units, (chunk, chunk))[int(backward)]
+        whole = (hidden, 4 * hidden)
+        assert (tuple(chunks) == whole) == (hidden <= 512)  # wider widths stream in K chunks
+    for b, hidden, units, backward in ((64, 2048, 1, False), (65536, 2048, 0, True)):
+        with pytest.raises(RuntimeError, match="LSTM grid plan"):
+            ls.grid_plan(b, hidden, units, backward)
 
 
 def _select_case(rng, k, s, u, n, l, z, device):
@@ -410,6 +592,8 @@ def _select_case(rng, k, s, u, n, l, z, device):
         (1, 2, 8, 17, 200, 64),  # the (k, s) tile does not fit shared memory
         (3, 2, 5, 7, 9, 33),  # Z not a multiple of 32
         (2, 2, 3, 4, 6, 256),
+        (2, 2, 3, 4, 6, 257),  # past 256: the wc row from memory, Z in two chunks
+        (3, 2, 4, 17, 10, 300),
     ],
 )
 def test_cpc_select_kernels_match_plain(cuda, k, s, u, n, l, z):
@@ -444,8 +628,8 @@ def test_cpc_select_refuses_bad_input(cuda):
     from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
 
     wc, zs, utt, seq = _select_case(np.random.default_rng(0), 2, 2, 3, 4, 6, 264, cuda)
-    with pytest.raises(ValueError, match="Z=264"):
-        cs.cpc_select(wc, zs, utt, seq)
+    with pytest.raises(ValueError, match="z_shift"):  # any Z, but z_shift must match wc
+        cs.cpc_select(wc, zs[..., :-1].contiguous(), utt, seq)
     wc, zs, utt, seq = _select_case(np.random.default_rng(0), 2, 2, 3, 4, 6, 8, cuda)
     with pytest.raises(ValueError, match="utt_index"):
         cs.cpc_select(wc, zs, utt.long(), seq)

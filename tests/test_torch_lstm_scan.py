@@ -127,12 +127,13 @@ def test_lstm_apply_bf16_runs_the_scan_as_jax_runs_its_kernel(rng, monkeypatch):
         (32, 4, 2, "xproj_f32", "xproj"),
         (32, 4, 2, "h0_shape", "h0"),
         (32, 0, 2, None, "empty"),
-        (36, 4, 2, None, "multiple of 8"),
-        (440, 1, 1, None, "shared memory"),
+        (36, 4, 2, "c0_f64", "c0"),
+        (440, 1, 1, "wh_shape", "wh"),
     ],
 )
 def test_kernel_input_checks(hidden, t, b, field, error):
-    """The wrapper refuses what the kernel does not take, before any launch."""
+    """The wrapper refuses what the kernels do not take, before any launch
+    (any width is taken: tests/test_torch_widths.py)."""
     wh = torch.zeros(hidden, 4 * hidden, dtype=torch.bfloat16)
     xproj = torch.zeros(t, b, 4 * hidden, dtype=torch.bfloat16)
     h0 = c0 = torch.zeros(b, hidden)
@@ -140,8 +141,12 @@ def test_kernel_input_checks(hidden, t, b, field, error):
         xproj = xproj.float()
     if field == "h0_shape":
         h0 = torch.zeros(b, hidden + 1)
+    if field == "c0_f64":
+        c0 = c0.double()
+    if field == "wh_shape":
+        wh = wh[:, :-1]
     with pytest.raises(ValueError, match=error):
-        port.check_scan_inputs(wh, xproj, h0, c0, kernel=True)
+        port.check_scan_inputs(wh, xproj, h0, c0)
 
 
 def test_shared_memory_bound():

@@ -195,10 +195,12 @@ def test_no_grad_keeps_the_inference_scan(rng, monkeypatch):
 
 @pytest.mark.parametrize(
     "field, error",
-    [("acts_f32", "acts"), ("dhs_f32", "dhs"), ("c_prev_shape", "c_prev"), ("wide", "shared memory")],
+    [("acts_f32", "acts"), ("dhs_f32", "dhs"), ("c_prev_shape", "c_prev"), ("wide", "dc_t")],
 )
 def test_backward_input_checks(field, error):
-    """The backward wrapper refuses what its kernel does not take."""
+    """The backward wrapper refuses what its kernels do not take; a wide H
+    (360, past the cluster kernel's 352) is taken and fails only on a bad
+    dc_t."""
     hidden = 360 if field == "wide" else 32
     t, b = 3, 2
     args = {
@@ -215,8 +217,11 @@ def test_backward_input_checks(field, error):
         args["dhs"] = args["dhs"].float()
     if field == "c_prev_shape":
         args["c_prev"] = torch.zeros(t, b, hidden + 1)
+    if field == "wide":
+        port.check_bwd_inputs(**args)
+        args["dc_t"] = torch.zeros(b, hidden, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=error):
-        port.check_bwd_inputs(**args, kernel=True)
+        port.check_bwd_inputs(**args)
 
 
 def test_backward_shared_memory_bound():

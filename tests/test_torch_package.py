@@ -113,12 +113,13 @@ def test_config_rejects_bad_overrides(argv, match):
 
 
 def test_precision_modes():
-    from vectorquantizedcpc_tpu_torch.ops.ar_decode import resolve_precision
+    from vectorquantizedcpc_tpu_torch.ops.ar_decode import _STEP_US, _interp_step_us, resolve_precision
 
     for p in ("bfloat16", "bf16", "float32"):
         assert resolve_precision(p) == "bf16"
-    for p in ("int8", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            resolve_precision(p)
+    assert resolve_precision("int8", 8) == "int8"
+    for batch in (1, 8, 64, 128):  # auto: the faster mode of the table at the batch
+        faster = min(("bf16", "int8"), key=lambda m: (_interp_step_us(_STEP_US[m], batch), m))
+        assert resolve_precision("auto", batch, _STEP_US) == faster
     with pytest.raises(ValueError, match="precision"):
         resolve_precision("fp8")

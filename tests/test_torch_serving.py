@@ -182,7 +182,7 @@ def test_incremental_then_drain_matches_single_shot(models):
     [
         (dict(max_frames=8), 5, ValueError, "max_frames=8"),
         (dict(slots=0), 0, ValueError, "at least one slot"),
-        (dict(precision="int8"), 0, NotImplementedError, "int8"),
+        (dict(precision="fp8"), 0, ValueError, "precision"),
     ],
 )
 def test_server_refuses(models, kwargs, submit_codes, error, match):

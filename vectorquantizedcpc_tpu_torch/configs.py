@@ -317,9 +317,12 @@ class ConfData:
 
 @dataclass
 class ConfRuntime:
-    # "bfloat16" / "bf16" / "float32" decode through the bf16 kernel, as in
-    # the JAX package; "int8" and "auto" are not ported yet. The export's
-    # compute dtype: resolve_compute_dtype.
+    # The AR decode's mode (ops/ar_decode.resolve_precision): "bfloat16" /
+    # "bf16" / "float32" decode through the bf16 kernel, as in the JAX
+    # package; "int8" through the int8 kernel; "auto" picks per decode batch
+    # the mode with the lower step time on the card. Vocoder validation
+    # decodes at int8 only for "int8". The export's and training's compute
+    # dtype: resolve_compute_dtype (bfloat16 for "int8" and "auto").
     precision: str = "bfloat16"
     # "cpu" runs on the CPU; null or "cuda" needs a CUDA card.
     platform: Optional[str] = None

@@ -6,7 +6,9 @@ For each synthesis-list triple ``[wav_path, speaker_id, out_filename]``:
     -> vocoder decode with the target speaker -> loudness-match -> write wav
 
 Utterances are grouped into padded batches by 32-frame length buckets, so
-that the sample-by-sample decode serves several utterances at once. Work is
+that the sample-by-sample decode serves several utterances at once. The
+decode mode is resolved per batch (``runtime.precision`` "auto" may pick
+int8 for a full batch and bf16 for the smaller last one of a bucket). Work is
 queued on the device without waiting, with at most 3 batches in flight:
 the host's loudness matching and wav writing for one batch overlap the
 device's decode of the next.
@@ -27,7 +29,7 @@ from ..dsp.loudness import integrated_loudness, normalize_loudness
 from ..dsp.mel import wave_to_mel
 from ..models.encoder import Encoder
 from ..models.vocoder import Vocoder
-from ..ops.ar_decode import fused_ar_decode, prep_decode_weights, resolve_precision
+from ..ops.ar_decode import fused_ar_decode, resolve_precision
 from ..weights import load_cpc_checkpoint, load_vocoder_checkpoint
 
 QUANTUM = 32  # mel frames per length bucket
@@ -69,7 +71,8 @@ def convert(
     raises when no card is there and the CPU was not asked for.
     """
     device = resolve_device(device if device is not None else conf.runtime.platform)
-    precision = resolve_precision(conf.runtime.precision)
+    precision = conf.runtime.precision
+    resolve_precision(precision, batch_size)  # an unknown mode fails before any work
     in_dir, out_dir = Path(conf.in_dir), Path(conf.out_dir)
     speakers = _load_speakers(in_dir)
     with open(conf.synthesis_list) as f:
@@ -78,7 +81,7 @@ def convert(
 
     print(f"Load checkpoints from: {conf.cpc_checkpoint}, {conf.vocoder_checkpoint}")
     encoder, vocoder = load_models(conf, device)
-    weights = prep_decode_weights(vocoder)
+    weights = {}  # prepared decode weights by mode, filled by fused_ar_decode
 
     pp = conf.data.dataset.preprocess
     jobs = []

@@ -146,6 +146,7 @@ class ContinuousBatcher:
     Runs on ``device``, else on the CUDA card; raises without a card unless
     ``device="cpu"`` (the kernels' plain versions). The vocoder is moved
     there. ``greedy=True`` decodes by argmax, deterministically.
+    ``precision`` "auto" resolves at ``slots``, every launch's batch.
     """
 
     def __init__(
@@ -159,7 +160,7 @@ class ContinuousBatcher:
         seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        resolve_precision(precision)
+        precision = resolve_precision(precision, slots)
         self._device = resolve_device(device)
         # The plain version (CPU) takes any slot count, as the JAX server does.
         if slots < 1 or (self._device.type == "cuda" and slots > MAX_BATCH):
@@ -177,7 +178,7 @@ class ContinuousBatcher:
         self._n_classes = 2 ** conf.bits_mu_law
         self._greedy = greedy
         self._seed = seed
-        self._weights = prep_decode_weights(self._vocoder)
+        self._weights = prep_decode_weights(self._vocoder, precision)
         hidden, proj3h = self._weights.wh.shape
         self._pool = torch.zeros(
             slots, self._max_frames, proj3h, dtype=torch.bfloat16, device=self._device

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
 started together) for ``sm_90a`` and linked into one library with a plain C
 interface, loaded with ``ctypes``. The build lands in ``build/torch_kernels/``
-beside the package, named by a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is not. Nothing here runs at import
+beside the package, named by a hash of the sources, their headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is not. Nothing here runs at import
 time: the first kernel call builds.
 """
 
@@ -42,7 +43,7 @@ def _sources() -> List[Path]:
 
 def _library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libvqcpc_kernels_{digest.hexdigest()[:16]}.so"
@@ -96,9 +97,9 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        lib.vq_ar_decode_launch.argtypes = [p] * 13 + [i] * 7 + [u, p]
+        lib.vq_ar_decode_launch.argtypes = [p] * 17 + [i] * 8 + [u, p]
         lib.vq_ar_decode_launch.restype = i
-        lib.vq_ar_decode_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+        lib.vq_ar_decode_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
         lib.vq_ar_decode_plan.restype = i
         lib.vq_gru_scan_launch.argtypes = [p] * 6 + [i] * 3 + [p]
         lib.vq_gru_scan_launch.restype = i
@@ -108,7 +109,7 @@ def library() -> ctypes.CDLL:
         lib.vq_gru_scan_smem_bytes.restype = i
         lib.vq_gru_grid_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.vq_gru_grid_plan.restype = i
-        lib.vq_gru_scan_grid_launch.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.vq_gru_scan_grid_launch.argtypes = [p] * 9 + [i] * 4 + [p]
         lib.vq_gru_scan_grid_launch.restype = i
         lib.vq_gru_scan_bwd_launch.argtypes = [p] * 9 + [i] * 3 + [p]
         lib.vq_gru_scan_bwd_launch.restype = i
@@ -122,6 +123,12 @@ def library() -> ctypes.CDLL:
         lib.vq_lstm_scan_bwd_launch.restype = i
         lib.vq_lstm_scan_bwd_smem_bytes.argtypes = [i]
         lib.vq_lstm_scan_bwd_smem_bytes.restype = i
+        lib.vq_lstm_grid_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+        lib.vq_lstm_grid_plan.restype = i
+        lib.vq_lstm_scan_grid_launch.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.vq_lstm_scan_grid_launch.restype = i
+        lib.vq_lstm_scan_grid_bwd_launch.argtypes = [p] * 9 + [i] * 3 + [p]
+        lib.vq_lstm_scan_grid_bwd_launch.restype = i
         lib.vq_cpc_select_launch.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.vq_cpc_select_launch.restype = i
         lib.vq_cpc_select_bwd_launch.argtypes = [p] * 8 + [i] * 6 + [p]
@@ -155,6 +162,15 @@ def launch(entry: str, what: str, device, *args) -> None:
             torch.cuda.current_stream(device).cuda_stream,
         )
     check(err, what)
+
+
+def fit_chunk(k: int, size, limit: int) -> int:
+    """The K extent a grid block stages at once (csrc/grid_common.cuh
+    fit_chunk): all of ``k`` where ``size(k)`` bytes fit ``limit``, else the
+    widest multiple of 16 below ``k`` that fits; 0 where none does."""
+    if size(k) <= limit:
+        return k
+    return next((c for c in range((k - 1) // 16 * 16, 15, -16) if size(c) <= limit), 0)
 
 
 def check(err: int, what: str) -> None:

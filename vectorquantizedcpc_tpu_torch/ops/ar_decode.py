@@ -5,11 +5,20 @@ of the kernel in ``csrc/ar_decode.cu``, the port of the JAX package's
 ``ops/ar_decode.py:_decode_kernel``. For each 16 kHz sample: the
 pre-projected embedding row of the previous sample plus the frame-rate
 conditioning row, one GRU step, FC1 + ReLU, FC2, then argmax (greedy) or
-Gumbel-max sampling. Weights are bf16 with float32 accumulation.
+Gumbel-max sampling. Two modes, set by the weights (``prep_decode_weights``):
+bf16, weights in bf16 with float32 accumulation; int8, the embedding table,
+``wh`` and FC1 as int8 with per-column f32 scales, the hidden state
+quantized with the static scale 127 (it lies in (-1, 1)) and the products
+summed exactly in integers, FC2 in bf16 (JAX ``_mm`` / ``_embed_gather``).
 
-``ar_decode_reference`` computes the same bf16-rounded arithmetic as a
-torch loop. ``ar_decode`` uses it for CPU tensors only: a CUDA tensor
-launches the kernel or raises. ``AR_DECODE_LAUNCHES`` counts launches.
+``ar_decode_reference`` computes the same arithmetic as a torch loop, in
+either mode. ``ar_decode`` uses it for CPU tensors only: a CUDA tensor
+launches the kernel or raises. ``AR_DECODE_LAUNCHES`` counts launches of
+the bf16 kernel, ``AR_DECODE_INT8_LAUNCHES`` those of the int8 kernel.
+
+``resolve_precision`` maps ``runtime.precision`` to a mode; "auto" picks,
+per decode batch, the mode with the lower step time in a table measured on
+the H100 (``_STEP_US``, or a capture of the same card).
 
 Gumbel noise is a counter-based hash of (seed, step, row, class), the same
 bits in the kernel and in ``gumbel_bits``, so both sample alike. The TPU
@@ -18,63 +27,163 @@ compared with the JAX package by range and distribution only.
 """
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+import json
+import os
+from pathlib import Path
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..dsp.mulaw import mulaw_decode
 from ..models.vocoder import Vocoder, build_conditioning_frames
+from .quant import quantize_int8
 
 AR_DECODE_LAUNCHES = 0
+AR_DECODE_INT8_LAUNCHES = 0
 MAX_BATCH = 128  # kMaxBatch in csrc/ar_decode.cu: rows of one launch
 
 _M32 = 0xFFFFFFFF
 
 
 class DecodeWeights(NamedTuple):
-    """What the kernel reads, prepared once per vocoder."""
+    """What the kernel reads, prepared once per vocoder and mode."""
 
-    embed_proj: torch.Tensor  # (n_classes, 3H) bf16: ar_embed @ wx_embed
+    embed_proj: torch.Tensor  # (n_classes, 3H) bf16 or int8: ar_embed @ wx_embed
     wx_cond: torch.Tensor  # (V, 3H) f32, for project_cond_frames
     bx: torch.Tensor  # (3H,) f32
-    wh: torch.Tensor  # (H, 3H) bf16
+    wh: torch.Tensor  # (H, 3H) bf16 or int8
     bh: torch.Tensor  # (3H,) f32
-    fc1_w: torch.Tensor  # (H, F) bf16
+    fc1_w: torch.Tensor  # (H, F) bf16 or int8
     fc1_b: torch.Tensor  # (F,) f32
     fc2_w: torch.Tensor  # (F, n_classes) bf16
     fc2_b: torch.Tensor  # (n_classes,) f32
+    # int8 mode only (None in bf16 mode): per-column f32 scales.
+    embed_scale: Optional[torch.Tensor] = None  # (3H,) the table's own
+    wh_scale: Optional[torch.Tensor] = None  # (3H,) scale / 127 (the activation's)
+    fc1_scale: Optional[torch.Tensor] = None  # (F,) scale / 127
+
+    @property
+    def mode(self) -> str:
+        return "int8" if self.wh.dtype == torch.int8 else "bf16"
 
 
-def resolve_precision(precision: str) -> str:
-    """``runtime.precision`` -> decode mode. Every float spelling decodes in
-    bf16, as in the JAX package; int8 and auto are not ported yet."""
-    if precision in ("bfloat16", "bf16", "float32", "f32", "fp32"):
+_FLOAT_SPELLINGS = ("bfloat16", "bf16", "float32", "f32", "fp32")
+
+# Per-step kernel time (us/step) of each mode at the measured batches, the
+# table "auto" interpolates: chip_smoke.py phase 5 (100 frames = 16,000
+# steps per launch) on one NVIDIA H100 80GB HBM3 at a 700.00 W power limit
+# (PERF.md section 6). int8 is the faster mode up to 4 rows.
+_STEP_US = {
+    "bf16": [(1, 14.712), (8, 16.354), (32, 46.706), (64, 87.114), (128, 168.057)],
+    "int8": [(1, 13.581), (8, 17.325), (32, 50.136), (64, 94.204), (128, 182.051)],
+}
+
+STEP_US_CAPTURE_NAME = "BENCH_STEP_US.json"
+
+
+def _capture_paths():
+    env = os.environ.get("VQCPC_STEP_US_FILE")
+    if env:
+        yield Path(env)
+    yield Path(__file__).resolve().parents[2] / STEP_US_CAPTURE_NAME
+
+
+def load_measured_step_us() -> Optional[Dict[str, list]]:
+    """A step-time capture of this process's device, or None.
+
+    Read from ``$VQCPC_STEP_US_FILE``, then ``BENCH_STEP_US.json`` at the
+    repository root: ``{"device": ..., "bf16": [[batch, us], ...], "int8":
+    [...]}``, batches ascending. A capture whose ``device`` is not this
+    process's (``torch.cuda.get_device_name()``, or "cpu" without a card) is
+    ignored: another chip's times would steer "auto" to the wrong mode. So
+    is a file that cannot be read as such a table.
+    """
+    local = torch.cuda.get_device_name() if torch.cuda.is_available() else "cpu"
+    for path in _capture_paths():
+        try:
+            data = json.loads(path.read_text())
+            if str(data.get("device", "")) != local:
+                continue
+            table = {mode: [(int(b), float(us)) for b, us in data[mode]] for mode in ("bf16", "int8")}
+        except (OSError, ValueError, KeyError, TypeError, AttributeError):
+            continue
+        if all(len(v) >= 2 for v in table.values()):
+            return table
+    return None
+
+
+def _interp_step_us(table, batch: int) -> float:
+    """Piecewise-linear in batch; clamped extrapolation at the ends."""
+    if batch <= table[0][0]:
+        return table[0][1]
+    for (b0, t0), (b1, t1) in zip(table, table[1:]):
+        if batch <= b1:
+            return t0 + (t1 - t0) * (batch - b0) / (b1 - b0)
+    # Beyond the largest measured batch: scale linearly with batch.
+    b_last, t_last = table[-1]
+    return t_last * batch / b_last
+
+
+def resolve_precision(precision: str, batch: Optional[int] = None, step_us=None) -> str:
+    """``runtime.precision`` -> decode mode, "bf16" or "int8".
+
+    Every float spelling decodes in bf16, as in the JAX package. "auto"
+    picks, at this decode ``batch``, the mode with the lower step time (the
+    better throughput and the better per-stream real-time factor at once),
+    from ``step_us``, else a capture of this device (``load_measured_step_us``),
+    else ``_STEP_US``.
+    """
+    if precision in _FLOAT_SPELLINGS:
         return "bf16"
-    if precision in ("int8", "auto"):
-        raise NotImplementedError(
-            f"runtime.precision={precision!r}: the int8 mode of the AR decode "
-            "kernel is not ported yet (ROADMAP.md, queue 2: int8 AR decode)"
-        )
+    if precision == "int8":
+        return "int8"
+    if precision == "auto":
+        if batch is None:
+            raise ValueError("decode precision 'auto' resolves per batch; no batch was given")
+        table = step_us or load_measured_step_us() or _STEP_US
+        int8_us = _interp_step_us(table["int8"], batch)
+        return "int8" if int8_us < _interp_step_us(table["bf16"], batch) else "bf16"
     raise ValueError(f"unknown decode precision: {precision!r}")
 
 
 @torch.no_grad()
-def prep_decode_weights(vocoder: Vocoder) -> DecodeWeights:
-    """Cast and lay out the AR network's weights for the kernel."""
+def prep_decode_weights(vocoder: Vocoder, precision: str = "bf16") -> DecodeWeights:
+    """Cast and lay out the AR network's weights for the kernel, in the mode
+    of ``precision`` (not "auto": that needs a batch).
+
+    int8 (JAX ``prep_decode_weights(..., "int8")``): the pre-projected
+    embedding table is quantized per column with its own scale; ``wh`` and
+    FC1 with the activation's 1/127 folded into theirs; FC2 stays bf16.
+    """
+    mode = resolve_precision(precision)
     rnnms = vocoder.rnnms
     embed_dim = rnnms.embedding.embedding_dim
     wx = rnnms.rnn.weight_ih_l0.t().float()  # (E + V, 3H)
     embed_proj = rnnms.embedding.weight.float() @ wx[:embed_dim]
+    wh = rnnms.rnn.weight_hh_l0.t().float()
+    fc1 = rnnms.fc1.weight.t().float()
+    scales = {}
+    if mode == "int8":
+        q_embed, q_wh, q_fc1 = quantize_int8(embed_proj), quantize_int8(wh), quantize_int8(fc1)
+        embed_proj, wh, fc1 = q_embed.values, q_wh.values, q_fc1.values
+        scales = dict(
+            embed_scale=q_embed.scale[0].contiguous(),
+            wh_scale=(q_wh.scale / 127.0)[0].contiguous(),
+            fc1_scale=(q_fc1.scale / 127.0)[0].contiguous(),
+        )
+    else:
+        embed_proj, wh, fc1 = embed_proj.bfloat16(), wh.bfloat16(), fc1.bfloat16()
     return DecodeWeights(
-        embed_proj=embed_proj.bfloat16().contiguous(),
+        embed_proj=embed_proj.contiguous(),
         wx_cond=wx[embed_dim:].contiguous(),
         bx=rnnms.rnn.bias_ih_l0.float().contiguous(),
-        wh=rnnms.rnn.weight_hh_l0.t().bfloat16().contiguous(),
+        wh=wh.contiguous(),
         bh=rnnms.rnn.bias_hh_l0.float().contiguous(),
-        fc1_w=rnnms.fc1.weight.t().bfloat16().contiguous(),
+        fc1_w=fc1.contiguous(),
         fc1_b=rnnms.fc1.bias.float().contiguous(),
         fc2_w=rnnms.fc2.weight.t().bfloat16().contiguous(),
         fc2_b=rnnms.fc2.bias.float().contiguous(),
+        **scales,
     )
 
 
@@ -134,17 +243,31 @@ def ar_decode_reference(
 ):
     """Plain version of the kernel: (samples (T, B) int32, h_T (B, H) f32).
 
-    ``cond_proj`` is (Tf, B, 3H) bf16 at frame rate; T = Tf * hop. With
-    ``return_scores`` also returns the scores the argmax saw (T, B, C):
-    logits, plus the Gumbel noise when sampling.
+    ``cond_proj`` is (Tf, B, 3H) bf16 at frame rate; T = Tf * hop. The mode
+    is the weights' (``DecodeWeights.mode``). With ``return_scores`` also
+    returns the scores the argmax saw (T, B, C): logits, plus the Gumbel
+    noise when sampling.
+
+    int8: q(h) = round_half_even(h * 127); each integer product is summed
+    exactly in f64 (every partial sum is an integer below 2^53, so any
+    order gives the int32 sum of the kernel), rounded once to f32 and
+    scaled, as JAX's int32 ``dot`` followed by ``astype(float32)``.
     """
     tf, b, h3 = cond_proj.shape
     hidden = h3 // 3
     n_classes = weights.fc2_w.shape[1]
+    int8 = weights.mode == "int8"
     embed = weights.embed_proj.float()
-    wh = weights.wh.float()
-    fc1 = weights.fc1_w.float()
+    mm_dtype = torch.float64 if int8 else torch.float32
+    wh = weights.wh.to(mm_dtype)
+    fc1 = weights.fc1_w.to(mm_dtype)
     fc2 = weights.fc2_w.float()
+
+    def matmul(x, w, scale):
+        if int8:
+            return (torch.round(x * 127.0).double() @ w).float() * scale
+        return x.bfloat16().float() @ w
+
     h = h0.float().clone()
     prev = prev0.long()
     out = torch.empty(tf * hop, b, dtype=torch.int32, device=cond_proj.device)
@@ -152,15 +275,16 @@ def ar_decode_reference(
     for t in range(tf * hop):
         if t % hop == 0:
             cond_row = cond_proj[t // hop].float()
-        xp = embed[prev] + cond_row
-        hproj = h.bfloat16().float() @ wh + weights.bh
+        emb = embed[prev] * weights.embed_scale if int8 else embed[prev]
+        xp = emb + cond_row
+        hproj = matmul(h, wh, weights.wh_scale) + weights.bh
         xr, xz, xn = xp.split(hidden, dim=1)
         hr, hz, hn = hproj.split(hidden, dim=1)
         r = torch.sigmoid(xr + hr)
         z = torch.sigmoid(xz + hz)
         n = torch.tanh(xn + r * hn)
         h = (1.0 - z) * n + z * h
-        hid = torch.relu(h.bfloat16().float() @ fc1 + weights.fc1_b)
+        hid = torch.relu(matmul(h, fc1, weights.fc1_scale) + weights.fc1_b)
         scores = hid.bfloat16().float() @ fc2 + weights.fc2_b
         if not greedy:
             scores = scores + gumbel_noise(
@@ -179,18 +303,25 @@ def _check_kernel_inputs(cond_proj, h0, prev0, weights: DecodeWeights, hop: int)
     tf, b, h3 = cond_proj.shape
     hidden = h3 // 3
     fc, n_classes = weights.fc2_w.shape
+    w_dtype = weights.wh.dtype if weights.wh.dtype in (torch.int8, torch.bfloat16) else torch.bfloat16
     expect = {
         "cond_proj": (cond_proj, torch.bfloat16, (tf, b, h3)),
         "h0": (h0, torch.float32, (b, hidden)),
         "prev0": (prev0, torch.int32, (b,)),
-        "embed_proj": (weights.embed_proj, torch.bfloat16, (n_classes, h3)),
-        "wh": (weights.wh, torch.bfloat16, (hidden, h3)),
+        "embed_proj": (weights.embed_proj, w_dtype, (n_classes, h3)),
+        "wh": (weights.wh, w_dtype, (hidden, h3)),
         "bh": (weights.bh, torch.float32, (h3,)),
-        "fc1_w": (weights.fc1_w, torch.bfloat16, (hidden, fc)),
+        "fc1_w": (weights.fc1_w, w_dtype, (hidden, fc)),
         "fc1_b": (weights.fc1_b, torch.float32, (fc,)),
         "fc2_w": (weights.fc2_w, torch.bfloat16, (fc, n_classes)),
         "fc2_b": (weights.fc2_b, torch.float32, (n_classes,)),
     }
+    if w_dtype == torch.int8:
+        for name, n in (("embed_scale", h3), ("wh_scale", h3), ("fc1_scale", fc)):
+            x = getattr(weights, name)
+            if x is None:
+                raise ValueError(f"{name}: int8 weights need their scales")
+            expect[name] = (x, torch.float32, (n,))
     for name, (x, dtype, shape) in expect.items():
         if x.device != cond_proj.device:
             raise ValueError(f"{name} is on {x.device}, cond_proj on {cond_proj.device}")
@@ -216,13 +347,14 @@ def ar_decode(
     seed: int = 0,
     greedy: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decode Tf * hop samples: (samples (T, B) int32, h_T (B, H) f32).
+    """Decode Tf * hop samples in the weights' mode: (samples (T, B) int32,
+    h_T (B, H) f32).
 
     On a CUDA tensor this launches the kernel on the current stream and
     returns without waiting for it; on a CPU tensor it runs the plain
     version.
     """
-    global AR_DECODE_LAUNCHES
+    global AR_DECODE_LAUNCHES, AR_DECODE_INT8_LAUNCHES
     if cond_proj.device.type == "cpu":
         return ar_decode_reference(cond_proj, h0, prev0, weights, hop, seed, greedy)
     if cond_proj.device.type != "cuda":
@@ -235,25 +367,31 @@ def ar_decode(
     hidden = h3 // 3
     fc, n_classes = weights.fc2_w.shape
     device = cond_proj.device
+    int8 = weights.mode == "int8"
     h_buf = torch.empty(2, b, hidden, dtype=torch.float32, device=device)
     h_buf[0].copy_(h0)
+    # int8: q(h) of both steps in flight, each row padded to whole 4-byte words with zeros.
+    hq_buf = torch.zeros(2, b, -(-hidden // 4) * 4, dtype=torch.int8, device=device) if int8 else None
     hid_buf = torch.empty(b, fc, dtype=torch.float32, device=device)
     out = torch.empty(tf * hop, b, dtype=torch.int32, device=device)
     h_out = torch.empty(b, hidden, dtype=torch.float32, device=device)
     ptrs = [
         cond_proj, weights.embed_proj, weights.wh, weights.bh, weights.fc1_w,
-        weights.fc1_b, weights.fc2_w, weights.fc2_b, prev0, h_buf, hid_buf,
-        out, h_out,
+        weights.fc1_b, weights.fc2_w, weights.fc2_b, prev0, weights.embed_scale,
+        weights.wh_scale, weights.fc1_scale, h_buf, hq_buf, hid_buf, out, h_out,
     ]
     with torch.cuda.device(device):
         err = lib.vq_ar_decode_launch(
-            *[x.data_ptr() for x in ptrs],
-            tf * hop, b, hidden, fc, n_classes, hop, int(greedy),
+            *[None if x is None else x.data_ptr() for x in ptrs],
+            tf * hop, b, hidden, fc, n_classes, hop, int(greedy), int(int8),
             ctypes.c_uint(seed & _M32),
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "ar_decode kernel launch")
-    AR_DECODE_LAUNCHES += 1
+    if int8:
+        AR_DECODE_INT8_LAUNCHES += 1
+    else:
+        AR_DECODE_LAUNCHES += 1
     return out, h_out
 
 
@@ -281,7 +419,8 @@ def fused_ar_decode_segment(
     hop: int,
     greedy: bool = False,
 ) -> Tuple[torch.Tensor, DecodeState]:
-    """Decode ``Sf`` frames continuing from ``state``, in one launch.
+    """Decode ``Sf`` frames continuing from ``state``, in one launch, in the
+    weights' mode.
 
     ``cond_proj_frames`` is (B, Sf, 3H) bf16 (``project_cond_frames``).
     Returns (classes (B, Sf * hop) int32, the state after the last sample).
@@ -293,16 +432,19 @@ def fused_ar_decode_segment(
     return samples.t(), DecodeState(h=h_t, prev=samples[-1].clone())
 
 
-def kernel_plan(batch: int, hidden: int, fc: int, n_classes: int) -> Tuple[int, int, int]:
-    """(blocks, hidden units per block, shared memory bytes) of a launch."""
+def kernel_plan(
+    batch: int, hidden: int, fc: int, n_classes: int, precision: str = "bf16"
+) -> Tuple[int, int, int]:
+    """(blocks, hidden units per block, shared memory bytes) of a launch in
+    the mode of ``precision``."""
     from . import _build
 
     if not 1 <= batch <= MAX_BATCH:
         raise ValueError(f"batch {batch}: the kernel takes 1 to {MAX_BATCH} rows")
-
+    int8 = resolve_precision(precision, batch) == "int8"
     out3 = (ctypes.c_int * 3)()
     _build.check(
-        _build.library().vq_ar_decode_plan(batch, hidden, fc, n_classes, out3),
+        _build.library().vq_ar_decode_plan(batch, hidden, fc, n_classes, int(int8), out3),
         "ar_decode launch plan",
     )
     return tuple(out3)
@@ -316,16 +458,21 @@ def fused_ar_decode(
     seed: int = 0,
     greedy: bool = False,
     precision: str = "bf16",
-    weights: Optional[DecodeWeights] = None,
+    weights: Optional[Dict[str, DecodeWeights]] = None,
 ) -> torch.Tensor:
     """Codes (B, Tz) + speakers (B,) -> waveform (B, 2 Tz hop) in [-1, 1].
 
     The counterpart of the JAX package's ``fused_ar_decode``: PreNet
-    conditioning, frame-rate input projection, then ``ar_decode``.
+    conditioning, frame-rate input projection, then ``ar_decode`` in the
+    mode that ``precision`` resolves to at this batch. ``weights`` holds the
+    prepared weights by mode; a mode missing from it is prepared and added.
     """
-    resolve_precision(precision)
+    mode = resolve_precision(precision, z_indices.shape[0])
     if weights is None:
-        weights = prep_decode_weights(vocoder)
+        weights = {}
+    if mode not in weights:
+        weights[mode] = prep_decode_weights(vocoder, mode)
+    weights = weights[mode]
     conf = vocoder.conf.rnnms
     n_classes = 2 ** conf.bits_mu_law
     cond = build_conditioning_frames(vocoder, z_indices, speaker)

@@ -12,8 +12,8 @@ utterance u, negative n and anchor time l, all in f32::
 ``csrc/cpc_select.cu`` on CUDA tensors and run the plain versions on CPU
 tensors. Every score, positive or negative, is one dot summed by the same
 routine, so a negative drawn on the positive's own frame (or on an equal
-vector: z is quantized) ties with it bit for bit, on both routes. Any L is
-taken. ``CpcNegativeScores`` is the autograd Function (the custom VJP's
+vector: z is quantized) ties with it bit for bit, on both routes. Any L and
+any Z are taken. ``CpcNegativeScores`` is the autograd Function (the custom VJP's
 counterpart); the indices get no gradient. ``CPC_SELECT_LAUNCHES`` and
 ``CPC_SELECT_BWD_LAUNCHES`` count launches.
 """
@@ -26,13 +26,12 @@ from ._build import on_card as _on_card
 
 CPC_SELECT_LAUNCHES = 0
 CPC_SELECT_BWD_LAUNCHES = 0
-MAX_Z = 256  # kZLane * 32 in csrc/cpc_select.cu
 
 
-def check_select_inputs(wc, zs, utt_index, seq_index, kernel: bool = False) -> None:
+def check_select_inputs(wc, zs, utt_index, seq_index) -> None:
     """Raise ``ValueError`` on what the kernels do not take: wc and z_shift
     (K, S, U, L, Z) f32, utt_index (K, U, N) and seq_index (K, S, U, N, L)
-    int32, all contiguous on one device; for the kernel Z <= 256."""
+    int32, all contiguous on one device."""
     if wc.dim() != 5:
         raise ValueError(f"wc must be (K, S, U, L, Z); got {tuple(wc.shape)}")
     k, s, u, l, z = wc.shape
@@ -52,8 +51,6 @@ def check_select_inputs(wc, zs, utt_index, seq_index, kernel: bool = False) -> N
             raise ValueError(f"{name} must be contiguous")
     if min(k, s, u, l, z, n) < 1:
         raise ValueError(f"empty CPC selection: wc {tuple(wc.shape)}, N = {n}")
-    if kernel and z > MAX_Z:
-        raise ValueError(f"Z={z}: the kernel takes Z <= {MAX_Z}")
 
 
 def _flat_index(utt_index: torch.Tensor, seq_index: torch.Tensor) -> torch.Tensor:
@@ -102,7 +99,7 @@ def cpc_select(wc, zs, utt_index, seq_index) -> Tuple[torch.Tensor, torch.Tensor
     launches the kernel on the current stream without waiting for it."""
     global CPC_SELECT_LAUNCHES
     on_card = _on_card(wc, "cpc_select")
-    check_select_inputs(wc, zs, utt_index, seq_index, kernel=on_card)
+    check_select_inputs(wc, zs, utt_index, seq_index)
     if not on_card:
         return cpc_select_reference(wc, zs, utt_index, seq_index)
     from . import _build
@@ -126,7 +123,7 @@ def cpc_select_bwd(d_fneg, d_fpos, wc, zs, utt_index, seq_index):
     card, in an order that varies from run to run (f32 rounding only)."""
     global CPC_SELECT_BWD_LAUNCHES
     on_card = _on_card(wc, "cpc_select_bwd")
-    check_select_inputs(wc, zs, utt_index, seq_index, kernel=on_card)
+    check_select_inputs(wc, zs, utt_index, seq_index)
     k, s, u, l, z = wc.shape
     n = utt_index.shape[-1]
     for name, x, shape in (("d_fneg", d_fneg, (k, s, u, n, l)), ("d_fpos", d_fpos, (k, s, u, l))):

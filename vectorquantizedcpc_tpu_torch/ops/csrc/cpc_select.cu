@@ -18,9 +18,11 @@
 // H100 it is bound by its bytes (forward ~16 MB, ~4.8 us at 3.35 TB/s;
 // backward ~28.6 MB, ~8.5 us), so it is written as a gather:
 //   - a warp per anchor (u, l), its lanes over Z, the anchor's wc row in
-//     registers; lane n first loads negative n's (v, m) (and, backward,
-//     d_fneg), and the loop over negatives takes them by shuffle, so no
-//     step of it waits on device memory;
+//     registers (Z <= 256; wider rows are taken in chunks of 256, the
+//     forward adding each chunk's sums to the scores); lane n first
+//     loads negative n's (v, m) (and, backward, d_fneg), and the loop over
+//     negatives takes them by shuffle, so no step of it waits on device
+//     memory;
 //   - forward: a group of blocks per (k, s), each with the (k, s) tile of
 //     z_shift (U L x Z f32, 128 KB at the training shape) in shared memory
 //     when it fits, else read through the L1 cache; f_pos and every f_neg
@@ -45,7 +47,7 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxZLane = 8;  // Z values per lane: Z <= 256
+constexpr int kMaxZLane = 8;  // Z values per lane held in registers: 256 per chunk
 
 struct SelectArgs {
   const float* wc;   // (KS, U, L, Z)
@@ -119,6 +121,7 @@ __device__ void load_tile(float* tile, const float* src, size_t n) {
   }
 }
 
+// kZL Z values per lane in registers.
 template <int kZL>
 __global__ void __launch_bounds__(kThreads) cpc_select_kernel(SelectArgs a) {
   extern __shared__ __align__(16) float tile[];
@@ -135,20 +138,32 @@ __global__ void __launch_bounds__(kThreads) cpc_select_kernel(SelectArgs a) {
   const int lane = threadIdx.x % 32;
   for (int an = g * kWarps + threadIdx.x / 32; an < UL; an += a.groups * kWarps) {
     const int u = an / L, l = an - u * L;
-    float w[kZL];
-    load_row(w, a.wc + ks * ULZ + (size_t)an * Z, Z, lane);
-    const float fp = warp_dot(w, zs + (size_t)an * Z, Z, lane);
-    if (lane == 0) a.f_pos[(size_t)ks * UL + an] = fp;
-    for (int n0 = 0; n0 < N; n0 += 32) {
-      const int my_row = negative_row(a.utt, a.seq, k, ks, U, N, L, u, l, n0 + lane);
-      float mine = NAN;
-      const int count = min(32, N - n0);
-      for (int j = 0; j < count; ++j) {
-        const int row = __shfl_sync(0xffffffffu, my_row, j);
-        const float f = row >= 0 ? warp_dot(w, zs + (size_t)row * Z, Z, lane) : NAN;
-        if (lane == j) mine = f;
+    // Z in chunks of 32 kZL (one chunk when Z <= 32 kZL), each chunk's sums
+    // added to the scores by the thread that wrote them: every score of the
+    // anchor, positive or negative, goes through the same sums in one order.
+    for (int z0 = 0; z0 < Z; z0 += 32 * kZL) {
+      const int zc = min(32 * kZL, Z - z0);
+      float w[kZL];
+      load_row(w, a.wc + ks * ULZ + (size_t)an * Z + z0, zc, lane);
+      const float fp = warp_dot(w, zs + (size_t)an * Z + z0, zc, lane);
+      if (lane == 0) {
+        float* out = a.f_pos + (size_t)ks * UL + an;
+        *out = z0 == 0 ? fp : *out + fp;
       }
-      if (lane < count) a.f_neg[(((size_t)ks * U + u) * N + n0 + lane) * L + l] = mine;
+      for (int n0 = 0; n0 < N; n0 += 32) {
+        const int my_row = negative_row(a.utt, a.seq, k, ks, U, N, L, u, l, n0 + lane);
+        float mine = NAN;
+        const int count = min(32, N - n0);
+        for (int j = 0; j < count; ++j) {
+          const int row = __shfl_sync(0xffffffffu, my_row, j);
+          const float f = row >= 0 ? warp_dot(w, zs + (size_t)row * Z + z0, zc, lane) : NAN;
+          if (lane == j) mine = f;
+        }
+        if (lane < count) {
+          float* out = a.f_neg + (((size_t)ks * U + u) * N + n0 + lane) * L + l;
+          *out = z0 == 0 ? mine : *out + mine;
+        }
+      }
     }
   }
 }
@@ -176,46 +191,51 @@ __global__ void __launch_bounds__(kThreads) cpc_select_bwd_kernel(SelectBwdArgs 
     }
     __syncthreads();
   }
+  // Z in chunks of 32 kZL (one chunk when Z <= 32 kZL): each z is summed on
+  // its own, so the chunks change no sum.
   for (int an = g * kWarps + threadIdx.x / 32; an < UL; an += stride * kWarps) {
-    const int u = an / L, l = an - u * L;
-    const float dp = a.d_fpos[(size_t)ks * UL + an];
-    float w[kZL];  // gather: z_shift row of the anchor; scatter: its wc row
-    load_row(w, (gather ? zs : a.wc + ks * ULZ) + (size_t)an * Z, Z, lane);
-    float dw[kZL];
+    for (int z0 = 0; z0 < Z; z0 += 32 * kZL) {
+      const int zc = min(32 * kZL, Z - z0);
+      const int u = an / L, l = an - u * L;
+      const float dp = a.d_fpos[(size_t)ks * UL + an];
+      float w[kZL];  // gather: z_shift row of the anchor; scatter: its wc row
+      load_row(w, (gather ? zs : a.wc + ks * ULZ) + (size_t)an * Z + z0, zc, lane);
+      float dw[kZL];
 #pragma unroll
-    for (int i = 0; i < kZL; ++i) {
-      dw[i] = dp * w[i];
-      const int z = lane + 32 * i;
-      if (!gather && z < Z) atomicAdd(acc_zs + (size_t)an * Z + z, dw[i]);
-    }
-    for (int n0 = 0; n0 < N; n0 += 32) {
-      const int n = n0 + lane;
-      const int my_row = negative_row(a.utt, a.seq, k, ks, U, N, L, u, l, n);
-      const float my_d = n < N ? a.d_fneg[(((size_t)ks * U + u) * N + n) * L + l] : 0.f;
-      const int count = min(32, N - n0);
-      for (int j = 0; j < count; ++j) {
-        const int row = __shfl_sync(0xffffffffu, my_row, j);
-        const float d = __shfl_sync(0xffffffffu, my_d, j);
-        if (row < 0) continue;
-        const float* at = zs + (size_t)row * Z;
-        float* to = acc_zs + (size_t)row * Z;
+      for (int i = 0; i < kZL; ++i) {
+        dw[i] = dp * w[i];
+        const int z = lane + 32 * i;
+        if (!gather && z < zc) atomicAdd(acc_zs + (size_t)an * Z + z0 + z, dw[i]);
+      }
+      for (int n0 = 0; n0 < N; n0 += 32) {
+        const int n = n0 + lane;
+        const int my_row = negative_row(a.utt, a.seq, k, ks, U, N, L, u, l, n);
+        const float my_d = n < N ? a.d_fneg[(((size_t)ks * U + u) * N + n) * L + l] : 0.f;
+        const int count = min(32, N - n0);
+        for (int j = 0; j < count; ++j) {
+          const int row = __shfl_sync(0xffffffffu, my_row, j);
+          const float d = __shfl_sync(0xffffffffu, my_d, j);
+          if (row < 0) continue;
+          const float* at = zs + (size_t)row * Z + z0;
+          float* to = acc_zs + (size_t)row * Z + z0;
 #pragma unroll
-        for (int i = 0; i < kZL; ++i) {
-          const int z = lane + 32 * i;
-          if (z >= Z) continue;
-          if (gather) {
-            dw[i] = fmaf(d, at[z], dw[i]);
-          } else {
-            atomicAdd(to + z, d * w[i]);
+          for (int i = 0; i < kZL; ++i) {
+            const int z = lane + 32 * i;
+            if (z >= zc) continue;
+            if (gather) {
+              dw[i] = fmaf(d, at[z], dw[i]);
+            } else {
+              atomicAdd(to + z, d * w[i]);
+            }
           }
         }
       }
-    }
-    if (gather) {
+      if (gather) {
 #pragma unroll
-      for (int i = 0; i < kZL; ++i) {
-        const int z = lane + 32 * i;
-        if (z < Z) a.d_wc[ks * ULZ + (size_t)an * Z + z] = dw[i];
+        for (int i = 0; i < kZL; ++i) {
+          const int z = lane + 32 * i;
+          if (z < zc) a.d_wc[ks * ULZ + (size_t)an * Z + z0 + z] = dw[i];
+        }
       }
     }
   }
@@ -251,33 +271,26 @@ int group_count(int ks, int anchors, int reserved) {
 
 bool shape_ok(int ks, int s_count, int u_count, int n_count, int l_count, int z_dim) {
   return ks >= 1 && s_count >= 1 && ks % s_count == 0 && u_count >= 1 && n_count >= 0 &&
-         l_count >= 1 && z_dim >= 1 && z_dim <= 32 * kMaxZLane;
+         l_count >= 1 && z_dim >= 1;
 }
 
-template <template <int> class K, typename Args>
-cudaError_t launch(Args& a, int blocks, cudaStream_t stream) {
+// Z values per lane in registers: 2, 4 or 8 (chunks of 256 above 256).
+int lanes_for(int z_dim) {
+  if (z_dim <= 64) return 2;
+  if (z_dim <= 128) return 4;
+  return kMaxZLane;
+}
+
+template <typename Kernel, typename Args>
+cudaError_t run(Kernel kernel, Args& a, int blocks, cudaStream_t stream) {
   const size_t smem = tile_bytes(a.u_count, a.l_count, a.z_dim);
   a.tile = smem > 0;
-  auto run = [&](auto kernel) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, kThreads, smem, stream>>>(a);
-    return cudaGetLastError();
-  };
-  if (a.z_dim <= 64) return run(K<2>::kernel);
-  if (a.z_dim <= 128) return run(K<4>::kernel);
-  return run(K<8>::kernel);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
-
-template <int kZL>
-struct Fwd {
-  static constexpr auto kernel = cpc_select_kernel<kZL>;
-};
-template <int kZL>
-struct Bwd {
-  static constexpr auto kernel = cpc_select_bwd_kernel<kZL>;
-};
 
 }  // namespace
 
@@ -310,7 +323,13 @@ int vq_cpc_select_launch(const void* wc, const void* zs, const void* utt, const 
   a.l_count = l_count;
   a.z_dim = z_dim;
   a.groups = group_count(ks, u_count * l_count, 0);
-  return (int)launch<Fwd>(a, ks * a.groups, static_cast<cudaStream_t>(stream));
+  const int blocks = ks * a.groups;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (lanes_for(z_dim)) {
+    case 2: return (int)run(cpc_select_kernel<2>, a, blocks, s);
+    case 4: return (int)run(cpc_select_kernel<4>, a, blocks, s);
+    default: return (int)run(cpc_select_kernel<8>, a, blocks, s);
+  }
 }
 
 // d_zs must hold zeros when vq_cpc_select_uses_tile() is 0.
@@ -335,7 +354,13 @@ int vq_cpc_select_bwd_launch(const void* d_fneg, const void* d_fpos, const void*
   a.l_count = l_count;
   a.z_dim = z_dim;
   a.groups = group_count(ks, u_count * l_count, ks);  // the ks scatter blocks
-  return (int)launch<Bwd>(a, ks * (a.groups + 1), static_cast<cudaStream_t>(stream));
+  const int blocks = ks * (a.groups + 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (lanes_for(z_dim)) {
+    case 2: return (int)run(cpc_select_bwd_kernel<2>, a, blocks, s);
+    case 4: return (int)run(cpc_select_bwd_kernel<4>, a, blocks, s);
+    default: return (int)run(cpc_select_bwd_kernel<8>, a, blocks, s);
+  }
 }
 
 }  // extern "C"

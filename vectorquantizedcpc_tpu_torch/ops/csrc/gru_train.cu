@@ -3,7 +3,9 @@
 //
 // Replaces vectorquantizedcpc_tpu/ops/gru_train.py:_fwd_kernel (training
 // variant, save_residuals=True; and the no-grad variant wherever H is too
-// wide for gru_scan.cu's one-block kernel) and
+// wide for gru_scan.cu's one-block kernel),
+// vectorquantizedcpc_tpu/ops/gru_train.py:_fwd_kernel_masked where H is too
+// wide for it (template flag kMask), and
 // vectorquantizedcpc_tpu/ops/gru_train.py:_bwd_kernel.
 //
 // Forward, per step t and batch row b (torch gate order r, z, n; bh inside
@@ -44,7 +46,12 @@
 //     B 3H 2 bytes per block per step (172 KB at B 32) from L2 is the price
 //     of one barrier a step; owning columns instead would need a
 //     cross-block reduction and a second barrier.
-// Exchange reads use __ldcg (L1 is not coherent across SMs); the grid
+// Where a block's columns (forward) or rows (backward) of wh and its staged
+// tile do not fit 227 KB at their whole depth (on 132 SMs, H above about
+// 1,520 forward and 1,150 backward), the plan picks a K chunk and the block
+// stages, for each tile, its slice of wh and the tile chunk by chunk, adding
+// up the chunks' products: wh is then read from L2 every step instead of
+// once. Exchange reads use __ldcg (L1 is not coherent across SMs); the grid
 // barrier orders them after the writes. Shared-memory rows are padded by 8
 // bf16 so that fragment loads hit distinct banks; the K padding is zero.
 
@@ -54,18 +61,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "grid_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kFwdRows = 32;  // batch rows of one forward h tile
-constexpr int kBwdRows = 16;  // batch rows of one backward dgh tile
-constexpr int kPad = 8;       // bf16 elements after each shared-memory row
+using namespace vq_grid;
 
 struct FwdArgs {
   const __nv_bfloat16* xproj;  // (T, B, 3H)
+  const int* valid;            // (T, B) masked variant: rows at 0 keep their carry
   const __nv_bfloat16* wh;     // (H, 3H)
   const float* bh;             // (3H,)
   const float* h0;             // (B, H)
@@ -74,6 +80,7 @@ struct FwdArgs {
   __nv_bfloat16* hn;           // (T, B, H) residual: the recurrent n term
   float* h_out;                // (B, H)
   int steps, batch, hidden, units;
+  int chunk;                   // K extent staged at once (H: all of it)
 };
 
 struct BwdArgs {
@@ -87,33 +94,19 @@ struct BwdArgs {
   __nv_bfloat16* dgh;          // (T, B, 3H), also the exchange buffer
   float* dh0;                  // (B, H)
   int steps, batch, hidden, units;
+  int chunk;                   // K extent staged at once (3H: all of it)
 };
-
-__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// Returns the offset of a region of ``bytes`` at ``*off`` and moves past it.
-__host__ __device__ __forceinline__ size_t take(size_t* off, size_t bytes) {
-  const size_t at = *off;
-  *off += (bytes + 15) & ~size_t(15);
-  return at;
-}
-
-// Product slots of 16 x 8 f32 partial sums: one per warp, or one per tile
-// pair where there are more pairs than warps (no K split then).
-__host__ __device__ __forceinline__ int n_slots(int tile_pairs) {
-  return tile_pairs > kWarps ? tile_pairs : kWarps;
-}
 
 struct FwdLayout {
   size_t wh, h, part, carry, total;
   int kp, stride, np;
 };
 
-// Forward shared memory; the same on the host (size) and the card.
-// gru_train.py:grid_smem_bytes mirrors it.
-__host__ __device__ __forceinline__ FwdLayout fwd_layout(int B, int H, int U) {
+// Forward shared memory at K chunk ``kc`` (H: all of it); the same on the
+// host (size) and the card. gru_train.py:grid_smem_bytes mirrors it.
+__host__ __device__ __forceinline__ FwdLayout fwd_layout(int B, int H, int U, int kc) {
   FwdLayout L;
-  L.kp = round_up(H, 16);
+  L.kp = round_up(min(H, kc), 16);
   L.stride = L.kp + kPad;
   L.np = round_up(3 * U, 8);
   size_t off = 0;
@@ -130,9 +123,9 @@ struct BwdLayout {
   int kp, stride, np;
 };
 
-__host__ __device__ __forceinline__ BwdLayout bwd_layout(int B, int H, int U) {
+__host__ __device__ __forceinline__ BwdLayout bwd_layout(int B, int H, int U, int kc) {
   BwdLayout L;
-  L.kp = round_up(3 * H, 16);
+  L.kp = round_up(min(3 * H, kc), 16);
   L.stride = L.kp + kPad;
   L.np = round_up(U, 8);
   size_t off = 0;
@@ -145,89 +138,12 @@ __host__ __device__ __forceinline__ BwdLayout bwd_layout(int B, int H, int U) {
   return L;
 }
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A (16 x 16, row-major) B (16 x 8, column-major), bf16 in, f32 out.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Partial products of a (mt_count*16 x kp) tile ``a_s`` and ``nt_count*8``
-// columns ``b_s`` (column-major, ``stride`` apart), both in shared memory.
-// Each warp takes (row tile, column tile, K part) triples and writes its 16 x 8
-// sums to slot ((mt * nt_count + nt) * kparts + kpart) of ``part``; returns
-// kparts. Rows and columns beyond the data give sums nobody reads.
-__device__ __forceinline__ int tile_products(const __nv_bfloat16* a_s, const __nv_bfloat16* b_s,
-                                             int stride, int kp, int mt_count, int nt_count,
-                                             float* part) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int pairs = mt_count * nt_count;
-  const int kparts = pairs >= kWarps ? 1 : kWarps / pairs;
-  const int ksteps = kp / 16;
-  for (int task = warp; task < pairs * kparts; task += kWarps) {
-    const int pair = task / kparts, kpart = task % kparts;
-    const int mt = pair / nt_count, nt = pair % nt_count;
-    const int k_lo = kpart * ksteps / kparts, k_hi = (kpart + 1) * ksteps / kparts;
-    const __nv_bfloat16* a0 = a_s + (size_t)(mt * 16 + g) * stride + q * 2;
-    const __nv_bfloat16* a1 = a0 + 8 * stride;
-    const __nv_bfloat16* b0 = b_s + (size_t)(nt * 8 + g) * stride + q * 2;
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int ks = k_lo; ks < k_hi; ++ks) {
-      const int k = ks * 16;
-      const uint32_t a[4] = {ld_pair(a0 + k), ld_pair(a1 + k), ld_pair(a0 + k + 8),
-                             ld_pair(a1 + k + 8)};
-      const uint32_t b[2] = {ld_pair(b0 + k), ld_pair(b0 + k + 8)};
-      mma_16816(c, a, b);
-    }
-    float* out = part + (size_t)task * 128;
-    out[g * 8 + q * 2] = c[0];
-    out[g * 8 + q * 2 + 1] = c[1];
-    out[(g + 8) * 8 + q * 2] = c[2];
-    out[(g + 8) * 8 + q * 2 + 1] = c[3];
-  }
-  return kparts;
-}
-
-// Sum of the K parts of output (row, col) of tile_products.
-__device__ __forceinline__ float product_at(const float* part, int row, int col, int nt_count,
-                                            int kparts) {
-  const int pair = (row / 16) * nt_count + col / 8;
-  const float* p = part + (size_t)pair * kparts * 128 + (row % 16) * 8 + col % 8;
-  float s = 0.f;
-  for (int k = 0; k < kparts; ++k) s += p[k * 128];
-  return s;
-}
-
-// rows x n bf16 from global ``src`` (rows ``n`` apart, read through L2) into
-// shared ``dst`` (rows ``stride`` apart); 16-byte copies where aligned.
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int rows,
-                                           int n, int stride) {
-  if (n % 8 == 0) {
-    const int chunks = n / 8;
-    for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-      const int r = i / chunks, c = i % chunks;
-      const uint4 v = __ldcg(reinterpret_cast<const uint4*>(src + (size_t)r * n) + c);
-      *reinterpret_cast<uint4*>(dst + (size_t)r * stride + c * 8) = v;
-    }
-  } else {
-    const unsigned short* bits = reinterpret_cast<const unsigned short*>(src);
-    for (int i = threadIdx.x; i < rows * n; i += kThreads) {
-      const int r = i / n, k = i % n;
-      dst[(size_t)r * stride + k] = __ushort_as_bfloat16(__ldcg(bits + (size_t)r * n + k));
-    }
-  }
-}
-
-template <bool kSave>
+// kSave: also write the residuals acts and hn. kMask: rows whose valid[t, b]
+// is 0 keep their carry at step t, and hs[t] holds bf16 of it (the serving
+// PreNet's reverse direction, _fwd_kernel_masked). kStream: the plan's K
+// chunk is below H, so wh is staged with each chunk of the tile; otherwise
+// one pass over all of K with wh resident.
+template <bool kSave, bool kMask, bool kStream>
 __global__ void __launch_bounds__(kThreads, 1) gru_scan_grid_kernel(FwdArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -237,24 +153,17 @@ __global__ void __launch_bounds__(kThreads, 1) gru_scan_grid_kernel(FwdArgs a) {
   const int nu = min(U, H - u0);
   const int n_cols = 3 * nu;  // local column lc = gate * nu + unit
   const int nt_count = (n_cols + 7) / 8;
+  const int n_chunks = kStream ? (H + a.chunk - 1) / a.chunk : 1;
 
-  const FwdLayout L = fwd_layout(B, H, U);
+  const FwdLayout L = fwd_layout(B, H, U, a.chunk);
   __nv_bfloat16* wh_s = reinterpret_cast<__nv_bfloat16*>(smem + L.wh);
   __nv_bfloat16* h_s = reinterpret_cast<__nv_bfloat16*>(smem + L.h);
   float* part_s = reinterpret_cast<float*>(smem + L.part);
   float* carry_s = reinterpret_cast<float*>(smem + L.carry);  // [b][u]
 
-  // This block's columns of wh, column-major, zero beyond H and 3 nu (read
-  // row by row, so that neighbouring threads read neighbouring columns).
-  for (int i = tid; i < L.np * L.kp; i += kThreads) {
-    const int k = i / L.np, lc = i % L.np;
-    __nv_bfloat16 v = __float2bfloat16(0.f);
-    if (lc < n_cols && k < H) v = a.wh[(size_t)k * H3 + (lc / nu) * H + u0 + lc % nu];
-    wh_s[(size_t)lc * L.stride + k] = v;
-  }
-  for (int i = tid; i < kFwdRows * (L.kp - H); i += kThreads) {
-    const int r = i / (L.kp - H), k = H + i % (L.kp - H);
-    h_s[(size_t)r * L.stride + k] = __float2bfloat16(0.f);
+  if (!kStream) {  // all of this block's columns, resident for every step
+    stage_wh_cols(wh_s, a.wh, 3, H, u0, nu, L.np, L.stride, 0, H, L.kp);
+    zero_cols(h_s, kFwdRows, H, L.kp, L.stride);
   }
   for (int i = tid; i < B * nu; i += kThreads) {
     const int b = i / nu, u = i % nu;
@@ -273,18 +182,30 @@ __global__ void __launch_bounds__(kThreads, 1) gru_scan_grid_kernel(FwdArgs a) {
         x0[1] = __bfloat162float(xrow[H + j]);
         x0[2] = __bfloat162float(xrow[2 * H + j]);
       }
-      __syncthreads();  // the last tile's h_s and part_s are read
-      if (t == 0) {
-        for (int i = tid; i < rows * H; i += kThreads) {
-          const int r = i / H, k = i % H;
-          h_s[(size_t)r * L.stride + k] = __float2bfloat16(a.h0[(size_t)(r0 + r) * H + k]);
-        }
-      } else {
-        stage_rows(h_s, a.hs + ((size_t)(t - 1) * B + r0) * H, rows, H, L.stride);
-      }
-      __syncthreads();
       const int mt_count = (rows + 15) / 16;
-      const int kparts = tile_products(h_s, wh_s, L.stride, L.kp, mt_count, nt_count, part_s);
+      int kparts = 0;
+      for (int c = 0; c < n_chunks; ++c) {
+        const int k0 = kStream ? c * a.chunk : 0;
+        const int kn = kStream ? min(a.chunk, H - k0) : H;
+        const int kp = kStream ? round_up(kn, 16) : L.kp;
+        __syncthreads();  // the last tile's (or chunk's) h_s, wh_s and part_s are read
+        if (t == 0) {
+          for (int i = tid; i < rows * kn; i += kThreads) {
+            const int r = i / kn, k = i % kn;
+            h_s[(size_t)r * L.stride + k] =
+                __float2bfloat16(a.h0[(size_t)(r0 + r) * H + k0 + k]);
+          }
+        } else {
+          stage_rows(h_s, a.hs + ((size_t)(t - 1) * B + r0) * H + k0, rows, kn, H, L.stride);
+        }
+        if (kStream) {
+          stage_wh_cols(wh_s, a.wh, 3, H, u0, nu, L.np, L.stride, k0, kn, kp);
+          zero_cols(h_s, kFwdRows, kn, kp, L.stride);
+        }
+        __syncthreads();
+        kparts =
+            tile_products(h_s, wh_s, L.stride, kp, mt_count, nt_count, part_s, kStream && c > 0);
+      }
       __syncthreads();
 
       for (int i = tid; i < rows * nu; i += kThreads) {
@@ -302,7 +223,9 @@ __global__ void __launch_bounds__(kThreads, 1) gru_scan_grid_kernel(FwdArgs a) {
         const float r = sigmoid(xr + hr);
         const float z = sigmoid(xz + hz);
         const float n = tanhf(xn + r * hn);
-        const float h_new = (1.f - z) * n + z * carry_s[b * U + u];
+        const float carry = carry_s[b * U + u];
+        float h_new = (1.f - z) * n + z * carry;
+        if (kMask && a.valid[(size_t)t * B + b] == 0) h_new = carry;
         carry_s[b * U + u] = h_new;
         const size_t row = (size_t)t * B + b;
         a.hs[row * H + j] = __float2bfloat16(h_new);
@@ -319,6 +242,7 @@ __global__ void __launch_bounds__(kThreads, 1) gru_scan_grid_kernel(FwdArgs a) {
   }
 }
 
+template <bool kStream>
 __global__ void __launch_bounds__(kThreads, 1) gru_scan_bwd_kernel(BwdArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -327,24 +251,18 @@ __global__ void __launch_bounds__(kThreads, 1) gru_scan_bwd_kernel(BwdArgs a) {
   const int u0 = blockIdx.x * U;
   const int nu = min(U, H - u0);
   const int nt_count = (nu + 7) / 8;
+  const int n_chunks = kStream ? (H3 + a.chunk - 1) / a.chunk : 1;
 
-  const BwdLayout L = bwd_layout(B, H, U);
+  const BwdLayout L = bwd_layout(B, H, U, a.chunk);
   __nv_bfloat16* wh_s = reinterpret_cast<__nv_bfloat16*>(smem + L.wh);
   __nv_bfloat16* d_s = reinterpret_cast<__nv_bfloat16*>(smem + L.d);
   float* part_s = reinterpret_cast<float*>(smem + L.part);
   float* carry_s = reinterpret_cast<float*>(smem + L.carry);  // [b][u]
   float* dhz_s = reinterpret_cast<float*>(smem + L.dhz);      // dh z, [b][u]
 
-  // This block's rows of wh (each a column of wh^T), zero beyond 3H and nu.
-  for (int i = tid; i < L.np * L.kp; i += kThreads) {
-    const int u = i / L.kp, g = i % L.kp;
-    __nv_bfloat16 v = __float2bfloat16(0.f);
-    if (u < nu && g < H3) v = a.wh[(size_t)(u0 + u) * H3 + g];
-    wh_s[(size_t)u * L.stride + g] = v;
-  }
-  for (int i = tid; i < kBwdRows * (L.kp - H3); i += kThreads) {
-    const int r = i / (L.kp - H3), g = H3 + i % (L.kp - H3);
-    d_s[(size_t)r * L.stride + g] = __float2bfloat16(0.f);
+  if (!kStream) {  // all of this block's rows, resident for every step
+    stage_wh_rows(wh_s, a.wh, H3, u0, nu, L.np, L.stride, 0, H3, L.kp);
+    zero_cols(d_s, kBwdRows, H3, L.kp, L.stride);
   }
   for (int i = tid; i < B * nu; i += kThreads) {
     const int b = i / nu, u = i % nu;
@@ -384,10 +302,20 @@ __global__ void __launch_bounds__(kThreads, 1) gru_scan_bwd_kernel(BwdArgs a) {
     // carry = dh z + dgh[t] @ wh^T for this block's units, 16 rows at a time.
     for (int r0 = 0; r0 < B; r0 += kBwdRows) {
       const int rows = min(kBwdRows, B - r0);
-      __syncthreads();  // the last tile's d_s and part_s are read
-      stage_rows(d_s, a.dgh + ((size_t)t * B + r0) * H3, rows, H3, L.stride);
-      __syncthreads();
-      const int kparts = tile_products(d_s, wh_s, L.stride, L.kp, 1, nt_count, part_s);
+      int kparts = 0;
+      for (int c = 0; c < n_chunks; ++c) {
+        const int k0 = kStream ? c * a.chunk : 0;
+        const int kn = kStream ? min(a.chunk, H3 - k0) : H3;
+        const int kp = kStream ? round_up(kn, 16) : L.kp;
+        __syncthreads();  // the last tile's (or chunk's) d_s, wh_s and part_s are read
+        stage_rows(d_s, a.dgh + ((size_t)t * B + r0) * H3 + k0, rows, kn, H3, L.stride);
+        if (kStream) {
+          stage_wh_rows(wh_s, a.wh, H3, u0, nu, L.np, L.stride, k0, kn, kp);
+          zero_cols(d_s, kBwdRows, kn, kp, L.stride);
+        }
+        __syncthreads();
+        kparts = tile_products(d_s, wh_s, L.stride, kp, 1, nt_count, part_s, kStream && c > 0);
+      }
       __syncthreads();
       for (int i = tid; i < rows * nu; i += kThreads) {
         const int rb = i / nu, u = i % nu, b = r0 + rb;
@@ -404,40 +332,53 @@ __global__ void __launch_bounds__(kThreads, 1) gru_scan_bwd_kernel(BwdArgs a) {
 }
 
 struct Plan {
-  int grid, units;
+  int grid, units, fwd_chunk, bwd_chunk;
   size_t fwd_smem, bwd_smem;
 };
 
+// The forward kernel of a launch: with residuals (``save``), masked, or
+// neither; streaming wh in K chunks or not.
+const void* fwd_kernel(bool save, bool mask, bool stream) {
+  if (stream)
+    return save ? (const void*)gru_scan_grid_kernel<true, false, true>
+           : mask ? (const void*)gru_scan_grid_kernel<false, true, true>
+                  : (const void*)gru_scan_grid_kernel<false, false, true>;
+  return save ? (const void*)gru_scan_grid_kernel<true, false, false>
+         : mask ? (const void*)gru_scan_grid_kernel<false, true, false>
+                : (const void*)gru_scan_grid_kernel<false, false, false>;
+}
+
+const void* bwd_kernel(bool stream) {
+  return stream ? (const void*)gru_scan_bwd_kernel<true> : (const void*)gru_scan_bwd_kernel<false>;
+}
+
 // Plans a launch at these widths and readies the kernels' shared memory.
-// ``units`` 0 takes ceil(H / SMs); refuses what cannot be resident at once.
+// ``units`` 0 takes ceil(H / SMs); each K chunk is all of K (H forward, 3H
+// backward) where it fits, else the widest that does. Refuses a block that
+// does not fit even a 16-deep chunk or a grid that cannot be resident.
 cudaError_t plan_launch(int batch, int hidden, int units, Plan* p) {
   if (batch < 1 || hidden < 1 || units < 0) return cudaErrorInvalidValue;
-  int dev, sms, coop, max_smem;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int sms, max_smem;
+  cudaError_t err = device_limits(&sms, &max_smem);
   if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
   p->units = units > 0 ? units : (hidden + sms - 1) / sms;
   p->grid = (hidden + p->units - 1) / p->units;
-  p->fwd_smem = fwd_layout(batch, hidden, p->units).total;
-  p->bwd_smem = bwd_layout(batch, hidden, p->units).total;
-  if (p->fwd_smem > (size_t)max_smem || p->bwd_smem > (size_t)max_smem)
-    return cudaErrorInvalidValue;
-  const void* kernels[3] = {(const void*)gru_scan_grid_kernel<true>,
-                            (const void*)gru_scan_grid_kernel<false>,
-                            (const void*)gru_scan_bwd_kernel};
-  const size_t smem[3] = {p->fwd_smem, p->fwd_smem, p->bwd_smem};
-  for (int k = 0; k < 3; ++k) {
-    err = cudaFuncSetAttribute(kernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem[k]);
+  const int U = p->units;
+  p->fwd_chunk = fit_chunk(hidden, max_smem,
+                           [&](int kc) { return fwd_layout(batch, hidden, U, kc).total; });
+  p->bwd_chunk = fit_chunk(3 * hidden, max_smem,
+                           [&](int kc) { return bwd_layout(batch, hidden, U, kc).total; });
+  if (p->fwd_chunk == 0 || p->bwd_chunk == 0) return cudaErrorInvalidValue;
+  p->fwd_smem = fwd_layout(batch, hidden, U, p->fwd_chunk).total;
+  p->bwd_smem = bwd_layout(batch, hidden, U, p->bwd_chunk).total;
+  const bool fwd_stream = p->fwd_chunk < hidden;
+  const void* kernels[4] = {
+      fwd_kernel(true, false, fwd_stream), fwd_kernel(false, false, fwd_stream),
+      fwd_kernel(false, true, fwd_stream), bwd_kernel(p->bwd_chunk < 3 * hidden)};
+  const size_t smem[4] = {p->fwd_smem, p->fwd_smem, p->fwd_smem, p->bwd_smem};
+  for (int k = 0; k < 4; ++k) {
+    err = ready_resident(kernels[k], smem[k], p->grid, sms);
     if (err != cudaSuccess) return err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernels[k], kThreads, smem[k]);
-    if (err != cudaSuccess) return err;
-    if (per_sm * sms < p->grid) return cudaErrorCooperativeLaunchTooLarge;
   }
   return cudaSuccess;
 }
@@ -446,32 +387,37 @@ cudaError_t plan_launch(int batch, int hidden, int units, Plan* p) {
 
 extern "C" {
 
-// Blocks, hidden units per block and the forward's and backward's dynamic
-// shared memory bytes of a launch at these widths (``units`` 0: the
-// default); returns a cudaError_t.
-int vq_gru_grid_plan(int batch, int hidden, int units, int* out4) {
+// Blocks, hidden units per block, the forward's and backward's dynamic
+// shared memory bytes and their K chunks of a launch at these widths
+// (``units`` 0: the default); returns a cudaError_t.
+int vq_gru_grid_plan(int batch, int hidden, int units, int* out6) {
   Plan p;
   const cudaError_t err = plan_launch(batch, hidden, units, &p);
   if (err != cudaSuccess) return (int)err;
-  out4[0] = p.grid;
-  out4[1] = p.units;
-  out4[2] = (int)p.fwd_smem;
-  out4[3] = (int)p.bwd_smem;
+  out6[0] = p.grid;
+  out6[1] = p.units;
+  out6[2] = (int)p.fwd_smem;
+  out6[3] = (int)p.bwd_smem;
+  out6[4] = p.fwd_chunk;
+  out6[5] = p.bwd_chunk;
   return 0;
 }
 
 // The forward on ``stream``; with ``save`` 0, ``acts`` and ``hn`` are not
-// written (and may be null). Allocates nothing and does not synchronise;
+// written (and may be null); a non-null ``valid`` (T, B) int32 masks rows
+// (and takes ``save`` 0). Allocates nothing and does not synchronise;
 // returns cudaGetLastError() after the launch.
-int vq_gru_scan_grid_launch(const void* xproj, const void* wh, const void* bh, const void* h0,
-                            void* hs, void* acts, void* hn, void* h_out, int steps, int batch,
-                            int hidden, int save, void* stream) {
-  if (steps < 1 || (save && (acts == nullptr || hn == nullptr))) return (int)cudaErrorInvalidValue;
+int vq_gru_scan_grid_launch(const void* xproj, const void* valid, const void* wh, const void* bh,
+                            const void* h0, void* hs, void* acts, void* hn, void* h_out, int steps,
+                            int batch, int hidden, int save, void* stream) {
+  if (steps < 1 || (save && (acts == nullptr || hn == nullptr || valid != nullptr)))
+    return (int)cudaErrorInvalidValue;
   Plan p;
   cudaError_t err = plan_launch(batch, hidden, 0, &p);
   if (err != cudaSuccess) return (int)err;
   FwdArgs a;
   a.xproj = static_cast<const __nv_bfloat16*>(xproj);
+  a.valid = static_cast<const int*>(valid);
   a.wh = static_cast<const __nv_bfloat16*>(wh);
   a.bh = static_cast<const float*>(bh);
   a.h0 = static_cast<const float*>(h0);
@@ -483,9 +429,9 @@ int vq_gru_scan_grid_launch(const void* xproj, const void* wh, const void* bh, c
   a.batch = batch;
   a.hidden = hidden;
   a.units = p.units;
+  a.chunk = p.fwd_chunk;
   void* params[] = {&a};
-  const void* kernel = save ? (const void*)gru_scan_grid_kernel<true>
-                            : (const void*)gru_scan_grid_kernel<false>;
+  const void* kernel = fwd_kernel(save, valid != nullptr, p.fwd_chunk < hidden);
   cudaLaunchCooperativeKernel(kernel, dim3(p.grid), dim3(kThreads), params, p.fwd_smem,
                               static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
@@ -513,8 +459,9 @@ int vq_gru_scan_bwd_launch(const void* acts, const void* hn, const void* hprev, 
   a.batch = batch;
   a.hidden = hidden;
   a.units = p.units;
+  a.chunk = p.bwd_chunk;
   void* params[] = {&a};
-  cudaLaunchCooperativeKernel((const void*)gru_scan_bwd_kernel, dim3(p.grid), dim3(kThreads),
+  cudaLaunchCooperativeKernel(bwd_kernel(p.bwd_chunk < 3 * hidden), dim3(p.grid), dim3(kThreads),
                               params, p.bwd_smem, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

@@ -7,12 +7,15 @@ The port of the JAX package's ``ops/gru_train.py``, in kernels of two sources:
   ``gru_scan`` (``_fwd_kernel``, ``save_residuals=False``) and
   ``gru_scan_masked`` (``_fwd_kernel_masked``), the serving PreNet's;
 - ``csrc/gru_train.cu``: a cooperative grid with ``wh`` spread over the
-  SMs, at the vocoder's H 896 and any other width whose plan fits:
+  SMs, at the vocoder's H 896 and any other width (where a block's slice
+  of ``wh`` does not fit, it stages that slice with each K chunk of its
+  tile, ``grid_chunks``):
   ``gru_scan_train``, the training forward (``save_residuals=True``), which
   also returns ``acts`` (T, B, 3H) bf16 = sigmoid r | sigmoid z | tanh n and
   ``hns`` (T, B, H) bf16, the recurrent n term; the same forward without
-  residuals, which ``gru_scan`` launches for H > 183; and ``gru_scan_bwd``,
-  the reverse-time backward (``_bwd_kernel``).
+  residuals, which ``gru_scan`` launches for H > 183, and with a mask,
+  which ``gru_scan_masked`` launches for H > 183; and ``gru_scan_bwd``, the
+  reverse-time backward (``_bwd_kernel``).
 
 Torch gate order r, z, n, with ``bh`` inside the reset product::
 
@@ -33,11 +36,13 @@ from typing import Tuple
 
 import torch
 
+from ._build import fit_chunk as _fit_chunk
 from ._build import launch as _launch
 from ._build import on_card as _on_card
 
 GRU_SCAN_LAUNCHES = 0
-GRU_SCAN_MASKED_LAUNCHES = 0
+GRU_SCAN_MASKED_LAUNCHES = 0  # gru_scan.cu's masked kernel
+GRU_SCAN_MASKED_GRID_LAUNCHES = 0  # gru_train.cu's masked grid forward
 GRU_SCAN_TRAIN_LAUNCHES = 0
 GRU_SCAN_BWD_LAUNCHES = 0
 ROWS = 8  # kRows in csrc/gru_scan.cu: batch rows per block
@@ -63,15 +68,17 @@ def scan_smem_bytes(hidden: int) -> int:
     )
 
 
-def grid_smem_bytes(batch: int, hidden: int, units: int) -> Tuple[int, int]:
+def grid_smem_bytes(batch: int, hidden: int, units: int,
+                    chunks: Tuple[int, int] = (0, 0)) -> Tuple[int, int]:
     """Dynamic shared memory of one forward and one backward block of the grid
-    kernels (csrc/gru_train.cu fwd_layout and bwd_layout)."""
+    kernels (csrc/gru_train.cu fwd_layout and bwd_layout), each staging its
+    K (H, 3H) in chunks of ``chunks`` (0: all of it)."""
     sizes = []
-    for width, cols, rows, slots, carries in (
-        (hidden, 3 * units, FWD_ROWS, max(SLOTS, 2 * _cdiv(3 * units, 8)), 1),
-        (3 * hidden, units, BWD_ROWS, max(SLOTS, _cdiv(units, 8)), 2),
+    for width, cols, rows, slots, carries, chunk in (
+        (hidden, 3 * units, FWD_ROWS, max(SLOTS, 2 * _cdiv(3 * units, 8)), 1, chunks[0]),
+        (3 * hidden, units, BWD_ROWS, max(SLOTS, _cdiv(units, 8)), 2, chunks[1]),
     ):
-        stride = _cdiv(width, 16) * 16 + 8
+        stride = _cdiv(min(width, chunk or width), 16) * 16 + 8
         sizes.append(
             _align16(2 * _cdiv(cols, 8) * 8 * stride)  # this block's part of wh, bf16
             + _align16(2 * rows * stride)  # the h (forward) or dgh (backward) tile
@@ -81,22 +88,41 @@ def grid_smem_bytes(batch: int, hidden: int, units: int) -> Tuple[int, int]:
     return sizes[0], sizes[1]
 
 
+def grid_chunks(batch: int, hidden: int, units: int, limit: int = SMEM_LIMIT) -> Tuple[int, int]:
+    """The K chunks the grid plan picks for a forward and a backward block:
+    all of K (H, 3H) where the block fits ``limit`` bytes, else the widest
+    multiple of 16 that fits (the block then stages its slice of ``wh``
+    with each chunk of its tile); 0 where not even 16 fits."""
+    return (
+        _fit_chunk(hidden, lambda c: grid_smem_bytes(batch, hidden, units, (c, 0))[0], limit),
+        _fit_chunk(3 * hidden, lambda c: grid_smem_bytes(batch, hidden, units, (0, c))[1], limit),
+    )
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def grid_plan(batch: int, hidden: int, units: int = 0) -> Tuple[int, int, int, int]:
+def scan_route(hidden: int) -> str:
+    """The kernel of a no-grad scan (plain or masked) of width ``hidden`` on
+    the card: "block" (``csrc/gru_scan.cu``, which holds all of ``wh`` in one
+    block) up to ``BLOCK_MAX_HIDDEN``, else "grid" (``csrc/gru_train.cu``)."""
+    return "block" if hidden <= BLOCK_MAX_HIDDEN else "grid"
+
+
+def grid_plan(batch: int, hidden: int, units: int = 0) -> Tuple[int, ...]:
     """(blocks, hidden units per block, forward and backward shared memory
-    bytes) of a grid launch; ``units`` 0 takes ceil(H / SMs). Raises when the
-    grid cannot be resident on the card at once."""
+    bytes, forward and backward K chunks) of a grid launch; ``units`` 0 takes
+    ceil(H / SMs). Raises when the grid cannot be resident on the card at
+    once or a block does not fit."""
     from . import _build
 
-    out4 = (ctypes.c_int * 4)()
+    out6 = (ctypes.c_int * 6)()
     _build.check(
-        _build.library().vq_gru_grid_plan(batch, hidden, units, out4),
+        _build.library().vq_gru_grid_plan(batch, hidden, units, out6),
         f"GRU grid plan (B={batch}, H={hidden}, units={units or 'auto'})",
     )
-    return tuple(out4)
+    return tuple(out6)
 
 
 @torch.no_grad()
@@ -248,7 +274,7 @@ def _launch_block(entry: str, xproj, valid, wh, bh, h0):
     return hs, h_out
 
 
-def _grid_forward(wh, bh, xproj, h0, save: bool):
+def _grid_forward(wh, bh, xproj, h0, save: bool, valid=None):
     t, b, g3 = xproj.shape
     hidden = wh.shape[0]
     dev = xproj.device
@@ -257,7 +283,7 @@ def _grid_forward(wh, bh, xproj, h0, save: bool):
     hns = torch.empty_like(hs) if save else None
     h_out = torch.empty(b, hidden, dtype=torch.float32, device=dev)
     _launch("vq_gru_scan_grid_launch", "GRU grid forward kernel launch", dev,
-          xproj, wh, bh, h0, hs, acts, hns, h_out, t, b, hidden, int(save))
+            xproj, valid, wh, bh, h0, hs, acts, hns, h_out, t, b, hidden, int(save))
     return hs, acts, hns, h_out
 
 
@@ -273,7 +299,7 @@ def gru_scan(
     """
     global GRU_SCAN_LAUNCHES
     on_card = _on_card(xproj, "gru_scan")
-    wide = wh.dim() == 2 and wh.shape[0] > BLOCK_MAX_HIDDEN
+    wide = wh.dim() == 2 and scan_route(wh.shape[0]) == "grid"
     check_scan_inputs(wh, bh, xproj, h0, kernel=on_card and not wide)
     if not on_card:
         return gru_scan_reference(wh, bh, xproj, h0)
@@ -293,11 +319,19 @@ def gru_scan_masked(
     valid: torch.Tensor,
     h0: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """As ``gru_scan``, but rows keep their carry where ``valid[t, b]`` is 0."""
-    global GRU_SCAN_MASKED_LAUNCHES
-    check_scan_inputs(wh, bh, xproj, h0, valid, kernel=xproj.device.type != "cpu")
-    if not _on_card(xproj, "gru_scan_masked"):
+    """As ``gru_scan``, but rows keep their carry where ``valid[t, b]`` is 0:
+    ``gru_scan.cu``'s masked kernel up to H 183, the masked grid forward
+    above."""
+    global GRU_SCAN_MASKED_LAUNCHES, GRU_SCAN_MASKED_GRID_LAUNCHES
+    on_card = _on_card(xproj, "gru_scan_masked")
+    wide = wh.dim() == 2 and scan_route(wh.shape[0]) == "grid"
+    check_scan_inputs(wh, bh, xproj, h0, valid, kernel=on_card and not wide)
+    if not on_card:
         return gru_scan_masked_reference(wh, bh, xproj, valid, h0)
+    if wide:
+        hs, _, _, h_out = _grid_forward(wh, bh, xproj, h0, save=False, valid=valid)
+        GRU_SCAN_MASKED_GRID_LAUNCHES += 1
+        return hs, h_out
     out = _launch_block("vq_gru_scan_masked_launch", xproj, valid, wh, bh, h0)
     GRU_SCAN_MASKED_LAUNCHES += 1
     return out

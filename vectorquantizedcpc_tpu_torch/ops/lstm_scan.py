@@ -1,7 +1,7 @@
 """LSTM recurrence over a precomputed input projection: CUDA kernels and plain versions.
 
-Three kernels of ``csrc/lstm_scan.cu``, each a whole sequence in one launch,
-the port of the JAX package's ``ops/lstm_scan.py``:
+Three wrappers, each a whole sequence in one launch, the port of the JAX
+package's ``ops/lstm_scan.py``:
 
 - ``lstm_scan``: the forward's inference variant (``_fwd_kernel`` with
   ``save_residuals=False``), used without gradients;
@@ -9,6 +9,15 @@ the port of the JAX package's ``ops/lstm_scan.py``:
   which also returns the activated gates ``acts`` (bf16) and the cell
   states entering each step ``c_prev`` (f32);
 - ``lstm_scan_bwd``: the reverse-time backward (``_bwd_kernel``).
+
+Each launches one of two kernel families, as ``scan_route`` picks by
+width: ``csrc/lstm_scan.cu``'s cluster of 8 CTAs, which holds ``wh`` in
+the shared memory of one cluster (H a multiple of 8, at most 432 forward
+and 352 backward: the reference width 256), or ``csrc/lstm_grid.cu``'s
+cooperative grid of one block per SM, which takes every other width: above
+1,376 forward and 1,056 backward on 132 SMs, where a block's slice of
+``wh`` no longer fits, it stages that slice with each K chunk of its tile
+(``grid_chunks``).
 
 Torch gate order i, f, g, o::
 
@@ -22,25 +31,32 @@ around the training pair, the counterpart of ``fused_lstm_scan``'s custom
 VJP: its backward runs ``lstm_scan_bwd`` and one f32 product for ``dwh``.
 Each ``*_reference`` rounds at the kernel's places; a wrapper uses it for
 CPU tensors only: a CUDA tensor launches the kernel or raises. The
-``LSTM_SCAN*_LAUNCHES`` counters count launches.
+``LSTM_SCAN*_LAUNCHES`` counters count launches of the cluster kernels,
+``LSTM_SCAN_GRID*_LAUNCHES`` those of the grid kernels.
 """
 
+import ctypes
 from typing import Tuple
 
 import torch
 
+from ._build import fit_chunk as _fit_chunk
 from ._build import launch as _launch
 from ._build import on_card as _on_card
 
 LSTM_SCAN_LAUNCHES = 0
 LSTM_SCAN_TRAIN_LAUNCHES = 0
 LSTM_SCAN_BWD_LAUNCHES = 0
+LSTM_SCAN_GRID_LAUNCHES = 0  # the grid forward, inference variant
+LSTM_SCAN_GRID_TRAIN_LAUNCHES = 0  # the grid forward, training variant
+LSTM_SCAN_GRID_BWD_LAUNCHES = 0
 CLUSTER = 8  # kCluster in csrc/lstm_scan.cu: CTAs per cluster, each U = H / 8 units
 ROWS = 8  # kRows: batch rows per cluster
 SPLIT = 2  # kSplit: parts of the forward's H-deep product
 BWD_SPLIT = 8  # kBwdSplit: parts of the backward's 4H-deep product
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can opt into (227 KB)
-MAX_THREADS = 1024  # the kernels run H threads per CTA
+MAX_THREADS = 1024  # the cluster kernels run H threads per CTA
+FWD_ROWS, BWD_ROWS, SLOTS = 32, 16, 16  # kFwdRows, kBwdRows, kWarps in csrc/grid_common.cuh
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -67,6 +83,67 @@ def bwd_smem_bytes(hidden: int) -> int:
         + _align16(4 * 2 * 4 * hidden * ROWS)  # bf16(da) tile, two buffers, as f32
         + _align16(4 * BWD_SPLIT * ROWS * units)  # the product's parts
     )
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def scan_route(hidden: int, backward: bool = False) -> str:
+    """The kernel family that runs a scan of width ``hidden`` on the card:
+    "cluster" (``csrc/lstm_scan.cu``) where its CTAs hold the forward's
+    (``backward`` False) or the backward's slice of ``wh``, else "grid"
+    (``csrc/lstm_grid.cu``). The inference and training forwards always take
+    the same route, so their hs, h_T and c_T are the same bits."""
+    smem = bwd_smem_bytes(hidden) if backward else scan_smem_bytes(hidden)
+    fits = hidden % CLUSTER == 0 and CLUSTER <= hidden <= MAX_THREADS and smem <= SMEM_LIMIT
+    return "cluster" if fits else "grid"
+
+
+def grid_smem_bytes(batch: int, hidden: int, units: int,
+                    chunks: Tuple[int, int] = (0, 0)) -> Tuple[int, int]:
+    """Dynamic shared memory of one forward and one backward block of the grid
+    kernels (csrc/lstm_grid.cu fwd_layout and bwd_layout), each staging its
+    K (H, 4H) in chunks of ``chunks`` (0: all of it)."""
+    sizes = []
+    for width, cols, rows, slots, carries, chunk in (
+        (hidden, 4 * units, FWD_ROWS, max(SLOTS, 2 * _cdiv(4 * units, 8)), 1, chunks[0]),
+        (4 * hidden, units, BWD_ROWS, max(SLOTS, _cdiv(units, 8)), 2, chunks[1]),
+    ):
+        stride = _cdiv(min(width, chunk or width), 16) * 16 + 8
+        sizes.append(
+            _align16(2 * _cdiv(cols, 8) * 8 * stride)  # this block's part of wh, bf16
+            + _align16(2 * rows * stride)  # the h (forward) or dgates (backward) tile
+            + _align16(4 * 128 * slots)  # 16 x 8 partial products
+            + carries * _align16(4 * batch * units)  # the f32 carries
+        )
+    return sizes[0], sizes[1]
+
+
+def grid_chunks(batch: int, hidden: int, units: int, limit: int = SMEM_LIMIT) -> Tuple[int, int]:
+    """The K chunks the grid plan picks for a forward and a backward block:
+    all of K (H, 4H) where the block fits ``limit`` bytes, else the widest
+    multiple of 16 that fits (the block then stages its slice of ``wh``
+    with each chunk of its tile); 0 where not even 16 fits."""
+    return (
+        _fit_chunk(hidden, lambda c: grid_smem_bytes(batch, hidden, units, (c, 0))[0], limit),
+        _fit_chunk(4 * hidden, lambda c: grid_smem_bytes(batch, hidden, units, (0, c))[1], limit),
+    )
+
+
+def grid_plan(batch: int, hidden: int, units: int = 0, backward: bool = False):
+    """(blocks, hidden units per block, shared memory bytes, K chunk) of a
+    grid launch; ``units`` 0 takes ceil(H / SMs). Raises when the grid
+    cannot be resident on the card at once or a block does not fit."""
+    from . import _build
+
+    out4 = (ctypes.c_int * 4)()
+    _build.check(
+        _build.library().vq_lstm_grid_plan(batch, hidden, units, int(backward), out4),
+        f"LSTM grid plan (B={batch}, H={hidden}, units={units or 'auto'}, "
+        f"{'backward' if backward else 'forward'})",
+    )
+    return tuple(out4)
 
 
 def _gates(xproj_t, h, whf, hidden):
@@ -144,24 +221,10 @@ def _check(tensors: dict, device: torch.device) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_widths(hidden: int, smem: int, what: str, widest: int) -> None:
-    if hidden % CLUSTER or hidden > MAX_THREADS:
-        raise ValueError(f"H={hidden}: the kernel takes H a multiple of {CLUSTER}, "
-                         f"at most {MAX_THREADS}")
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"H={hidden} needs {smem} B of shared memory per {what} CTA; the limit of "
-            f"one H100 block is {SMEM_LIMIT} B (227 KB), so H <= {widest}"
-        )
-
-
-def check_scan_inputs(wh, xproj, h0, c0, kernel: bool = False) -> None:
-    """Raise ``ValueError`` on what the forward kernels do not take.
-
-    wh (H, 4H) bf16, xproj (T, B, 4H) bf16, h0 and c0 (B, H) f32, all
-    contiguous on one device. With ``kernel`` also the kernel's widths: H a
-    multiple of 8, within one CTA's threads and shared memory.
-    """
+def check_scan_inputs(wh, xproj, h0, c0) -> None:
+    """Raise ``ValueError`` on what the forward kernels do not take: wh
+    (H, 4H) bf16, xproj (T, B, 4H) bf16, h0 and c0 (B, H) f32, all contiguous
+    on one device. Any H >= 1: ``scan_route`` picks the kernel."""
     if wh.dim() != 2 or xproj.dim() != 3:
         raise ValueError(f"wh must be (H, 4H) and xproj (T, B, 4H); got {tuple(wh.shape)}, "
                          f"{tuple(xproj.shape)}")
@@ -175,14 +238,12 @@ def check_scan_inputs(wh, xproj, h0, c0, kernel: bool = False) -> None:
     }, xproj.device)
     if t < 1 or b < 1 or hidden < 1:
         raise ValueError(f"empty LSTM scan: xproj {tuple(xproj.shape)}")
-    if kernel:
-        _check_widths(hidden, scan_smem_bytes(hidden), "forward", 432)
 
 
-def check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t, kernel: bool = False) -> None:
-    """Raise ``ValueError`` on what the backward kernel does not take: acts
+def check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t) -> None:
+    """Raise ``ValueError`` on what the backward kernels do not take: acts
     (T, B, 4H) bf16, c_prev (T, B, H) f32, dhs (T, B, H) bf16, wh (H, 4H)
-    bf16, dh_t and dc_t (B, H) f32; with ``kernel`` H <= 352 as well."""
+    bf16, dh_t and dc_t (B, H) f32; any H >= 1."""
     if acts.dim() != 3 or wh.dim() != 2:
         raise ValueError(f"acts must be (T, B, 4H) and wh (H, 4H); got {tuple(acts.shape)}, "
                          f"{tuple(wh.shape)}")
@@ -198,8 +259,37 @@ def check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t, kernel: bool = False) ->
     }, acts.device)
     if t < 1 or b < 1 or hidden < 1:
         raise ValueError(f"empty LSTM scan backward: acts {tuple(acts.shape)}")
-    if kernel:
-        _check_widths(hidden, bwd_smem_bytes(hidden), "backward", 352)
+
+
+def _forward(wh, xproj, h0, c0, save: bool):
+    """Launch the forward on the card by ``scan_route``: (hs, acts, c_prev,
+    h_T, c_T), acts and c_prev None unless ``save``."""
+    global LSTM_SCAN_LAUNCHES, LSTM_SCAN_TRAIN_LAUNCHES
+    global LSTM_SCAN_GRID_LAUNCHES, LSTM_SCAN_GRID_TRAIN_LAUNCHES
+    t, b, g4 = xproj.shape
+    hidden = wh.shape[0]
+    dev = xproj.device
+    hs = torch.empty(t, b, hidden, dtype=torch.bfloat16, device=dev)
+    acts = torch.empty(t, b, g4, dtype=torch.bfloat16, device=dev) if save else None
+    c_prev = torch.empty(t, b, hidden, dtype=torch.float32, device=dev) if save else None
+    h_out = torch.empty(b, hidden, dtype=torch.float32, device=dev)
+    c_out = torch.empty_like(h_out)
+    if scan_route(hidden) == "grid":
+        _launch("vq_lstm_scan_grid_launch", "LSTM grid forward kernel launch", dev,
+                xproj, wh, h0, c0, hs, acts, c_prev, h_out, c_out, t, b, hidden, int(save))
+        if save:
+            LSTM_SCAN_GRID_TRAIN_LAUNCHES += 1
+        else:
+            LSTM_SCAN_GRID_LAUNCHES += 1
+    elif save:
+        _launch("vq_lstm_scan_train_launch", "lstm_scan_train kernel launch", dev,
+                xproj, wh, h0, c0, hs, acts, c_prev, h_out, c_out, t, b, hidden)
+        LSTM_SCAN_TRAIN_LAUNCHES += 1
+    else:
+        _launch("vq_lstm_scan_launch", "lstm_scan kernel launch", dev,
+                xproj, wh, h0, c0, hs, h_out, c_out, t, b, hidden)
+        LSTM_SCAN_LAUNCHES += 1
+    return hs, acts, c_prev, h_out, c_out
 
 
 def lstm_scan(
@@ -207,53 +297,34 @@ def lstm_scan(
 ) -> Tensors3:
     """LSTM over ``xproj`` from (h0, c0): (hs (T, B, H) bf16, h_T, c_T (B, H) f32).
 
-    On a CUDA tensor this launches the inference kernel on the current
-    stream and returns without waiting for it; on a CPU tensor it runs the
-    plain version.
+    On a CUDA tensor this launches the inference kernel of ``scan_route``
+    on the current stream and returns without waiting for it; on a CPU
+    tensor it runs the plain version.
     """
-    global LSTM_SCAN_LAUNCHES
     on_card = _on_card(xproj, "lstm_scan")
-    check_scan_inputs(wh, xproj, h0, c0, kernel=on_card)
+    check_scan_inputs(wh, xproj, h0, c0)
     if not on_card:
         return lstm_scan_reference(wh, xproj, h0, c0)
-    t, b, _ = xproj.shape
-    hidden = wh.shape[0]
-    hs = torch.empty(t, b, hidden, dtype=torch.bfloat16, device=xproj.device)
-    h_out = torch.empty(b, hidden, dtype=torch.float32, device=xproj.device)
-    c_out = torch.empty_like(h_out)
-    _launch("vq_lstm_scan_launch", "lstm_scan kernel launch", xproj.device,
-            xproj, wh, h0, c0, hs, h_out, c_out, t, b, hidden)
-    LSTM_SCAN_LAUNCHES += 1
+    hs, _, _, h_out, c_out = _forward(wh, xproj, h0, c0, save=False)
     return hs, h_out, c_out
 
 
 def lstm_scan_train(wh, xproj, h0, c0):
     """The training forward: (hs, acts (T, B, 4H) bf16, c_prev (T, B, H) f32,
     h_T, c_T). hs, h_T and c_T are ``lstm_scan``'s bits."""
-    global LSTM_SCAN_TRAIN_LAUNCHES
     on_card = _on_card(xproj, "lstm_scan_train")
-    check_scan_inputs(wh, xproj, h0, c0, kernel=on_card)
+    check_scan_inputs(wh, xproj, h0, c0)
     if not on_card:
         return lstm_scan_train_reference(wh, xproj, h0, c0)
-    t, b, g4 = xproj.shape
-    hidden = wh.shape[0]
-    dev = xproj.device
-    hs = torch.empty(t, b, hidden, dtype=torch.bfloat16, device=dev)
-    acts = torch.empty(t, b, g4, dtype=torch.bfloat16, device=dev)
-    c_prev = torch.empty(t, b, hidden, dtype=torch.float32, device=dev)
-    h_out = torch.empty(b, hidden, dtype=torch.float32, device=dev)
-    c_out = torch.empty_like(h_out)
-    _launch("vq_lstm_scan_train_launch", "lstm_scan_train kernel launch", dev,
-            xproj, wh, h0, c0, hs, acts, c_prev, h_out, c_out, t, b, hidden)
-    LSTM_SCAN_TRAIN_LAUNCHES += 1
-    return hs, acts, c_prev, h_out, c_out
+    return _forward(wh, xproj, h0, c0, save=True)
 
 
 def lstm_scan_bwd(acts, c_prev, dhs, wh, dh_t, dc_t) -> Tensors3:
-    """The reverse-time backward: (dgates (T, B, 4H) bf16, dh0, dc0 (B, H) f32)."""
-    global LSTM_SCAN_BWD_LAUNCHES
+    """The reverse-time backward: (dgates (T, B, 4H) bf16, dh0, dc0 (B, H) f32),
+    by the kernel of ``scan_route(H, backward=True)``."""
+    global LSTM_SCAN_BWD_LAUNCHES, LSTM_SCAN_GRID_BWD_LAUNCHES
     on_card = _on_card(acts, "lstm_scan_bwd")
-    check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t, kernel=on_card)
+    check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t)
     if not on_card:
         return lstm_scan_bwd_reference(acts, c_prev, dhs, wh, dh_t, dc_t)
     t, b, _ = acts.shape
@@ -261,9 +332,14 @@ def lstm_scan_bwd(acts, c_prev, dhs, wh, dh_t, dc_t) -> Tensors3:
     dgates = torch.empty_like(acts)
     dh0 = torch.empty(b, hidden, dtype=torch.float32, device=acts.device)
     dc0 = torch.empty_like(dh0)
-    _launch("vq_lstm_scan_bwd_launch", "lstm_scan_bwd kernel launch", acts.device,
-            acts, c_prev, dhs, wh, dh_t, dc_t, dgates, dh0, dc0, t, b, hidden)
-    LSTM_SCAN_BWD_LAUNCHES += 1
+    args = (acts, c_prev, dhs, wh, dh_t, dc_t, dgates, dh0, dc0, t, b, hidden)
+    if scan_route(hidden, backward=True) == "grid":
+        _launch("vq_lstm_scan_grid_bwd_launch", "LSTM grid backward kernel launch",
+                acts.device, *args)
+        LSTM_SCAN_GRID_BWD_LAUNCHES += 1
+    else:
+        _launch("vq_lstm_scan_bwd_launch", "lstm_scan_bwd kernel launch", acts.device, *args)
+        LSTM_SCAN_BWD_LAUNCHES += 1
     return dgates, dh0, dc0
 
 

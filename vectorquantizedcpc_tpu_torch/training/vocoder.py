@@ -17,7 +17,10 @@ time:
 - validation every ``val_interval_epoch`` epochs on the three whole held-out
   utterances: reconstruction and conversion to speaker (spk + 5) %
   n_speakers, decoded with a seed of the global step through the AR decode
-  kernel on a card (``vocoder_generate`` on the CPU), written as wavs;
+  kernel on a card, in int8 when ``runtime.precision`` is "int8" and in
+  bf16 otherwise; on the CPU the plain f32 ``vocoder_generate`` in every
+  mode, as JAX ``training/vocoder.py:234-249`` keeps its scan path off the
+  TPU; written as wavs;
 - checkpoints every ``checkpoint_minutes`` of wall time and at the end,
   auto-resume from the latest, a final save on preemption.
 
@@ -40,7 +43,7 @@ from ..device import resolve_device
 from ..dsp.audio_io import write_wav
 from ..models.encoder import Encoder
 from ..models.vocoder import Vocoder, vocoder_forward, vocoder_generate
-from ..ops.ar_decode import fused_ar_decode, prep_decode_weights, resolve_precision
+from ..ops.ar_decode import fused_ar_decode, resolve_precision
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .preemption import install_preemption_handler, preemption_requested
 from .schedule import MultiStepSchedule
@@ -126,6 +129,14 @@ class VocoderTrainer:
         self.step, self.epoch = int(ckpt["step"]), int(ckpt["epoch"])
 
 
+def validation_precision(precision: str) -> str:
+    """The validation decode's mode for ``runtime.precision``: int8 only when
+    it is "int8", bf16 for every other mode ("auto" included), as JAX
+    ``training/vocoder.py:238``; an unknown mode raises ``ValueError``."""
+    resolve_precision(precision, 1)
+    return "int8" if precision == "int8" else "bf16"
+
+
 @torch.no_grad()
 def validate(conf: ConfGlobal, trainer: VocoderTrainer, val_items, out_dir: Path,
              global_step: int, writer=None) -> None:
@@ -136,12 +147,14 @@ def validate(conf: ConfGlobal, trainer: VocoderTrainer, val_items, out_dir: Path
     sr = conf.training_vocoder.model.sampling_rate
     vocoder = trainer.vocoder.eval()
     on_card = trainer.device.type == "cuda"
-    weights = prep_decode_weights(vocoder) if on_card else None
+    precision = validation_precision(conf.runtime.precision)
+    weights = {}  # prepared once for every utterance of this validation
 
     def generate(codes, spk):
         spk = torch.tensor([spk], device=trainer.device)
         if on_card:
-            return fused_ar_decode(vocoder, codes, spk, seed=global_step, weights=weights)
+            return fused_ar_decode(vocoder, codes, spk, seed=global_step, precision=precision,
+                                   weights=weights)
         gen = torch.Generator(device=trainer.device).manual_seed(global_step)
         return vocoder_generate(vocoder, codes, spk, generator=gen)
 
@@ -192,7 +205,7 @@ def train_vocoder(
     raises when no card is there and the CPU was not asked for.
     """
     device = resolve_device(device if device is not None else conf.runtime.platform)
-    resolve_precision(conf.runtime.precision)  # the validation decode's mode
+    validation_precision(conf.runtime.precision)  # an unknown mode fails before any work
     tv = conf.training_vocoder
     ckpt_dir = (Path(tv.ckpt_log.dir_root) / tv.ckpt_log.name_exp / tv.ckpt_log.name_version
                 / "checkpoints")
