@@ -56,7 +56,10 @@ Phases (any failure ends the run with a non-zero exit):
    library call for the same function at the main paths' shapes, beside
    the least time the card could take; the AR step in both modes at B in
    {1, 8, 32, 64, 128} and the mode "auto" picks at each (the table of
-   ``ops/ar_decode.py:_STEP_US``); the grid LSTM pair at H 512 beside cuDNN's LSTM; the masked grid forward;
+   ``ops/ar_decode.py:_STEP_US``); the AR step's split by phase from the
+   stamped kernel variant (launched only here) at B 1, 8 and 64 in both
+   modes; the GRU scans beside cuDNN's GRU with their ratio; the grid
+   LSTM pair at H 512 beside cuDNN's LSTM; the masked grid forward;
    each serving drain beside the request mix's slot-utilisation ceiling
    times the raw kernel rate at that many rows; the export's wall time;
    cuDNN's LSTM forward and backward beside the training pair; the CPC
@@ -605,7 +608,7 @@ def phase_serve(seed: int, card: str) -> dict:
         and read just after; every wave and count checked."""
         srv = server(slots=slots, precision=precision)
         torch.cuda.synchronize()
-        ar.AR_DECODE_LAUNCHES = ar.AR_DECODE_INT8_LAUNCHES = 0
+        ar.AR_DECODE_LAUNCHES = ar.AR_DECODE_INT8_LAUNCHES = ar.AR_DECODE_STAMPED_LAUNCHES = 0
         g.GRU_SCAN_LAUNCHES = g.GRU_SCAN_MASKED_LAUNCHES = 0
         start = time.perf_counter()
         waves = drain(srv, requests)
@@ -613,6 +616,7 @@ def phase_serve(seed: int, card: str) -> dict:
         launches = {
             "ar_decode": ar.AR_DECODE_LAUNCHES,
             "ar_decode_int8": ar.AR_DECODE_INT8_LAUNCHES,
+            "ar_decode_stamped": ar.AR_DECODE_STAMPED_LAUNCHES,
             "gru_scan": g.GRU_SCAN_LAUNCHES,
             "gru_scan_masked": g.GRU_SCAN_MASKED_LAUNCHES,
         }
@@ -624,7 +628,7 @@ def phase_serve(seed: int, card: str) -> dict:
             check(wave.shape == (2 * len(z) * hop,), f"wave of {wave.shape} for {len(z)} codes")
             check(bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) <= 1.0, "wave range")
         check(srv.stats["samples_out"] == valid, f"samples_out {srv.stats['samples_out']} != {valid}")
-        check(launches[key] == steps > 0 and launches[other] == 0,
+        check(launches[key] == steps > 0 and launches[other] == launches["ar_decode_stamped"] == 0,
               f"{precision}: AR launches {launches}, {steps} steps")
         check(launches["gru_scan"] == 2 and launches["gru_scan_masked"] == 2,
               f"GRU launches {launches}: expected 2 layers x 1 each")
@@ -906,6 +910,52 @@ def phase_time(seed: int, card: str):
     return timing, ms_by_batch
 
 
+STAMP_BATCHES = (1, 8, 64)
+STAMP_FRAMES = 8  # 1,280 steps per stamped launch
+
+
+def phase_stamps(seed: int, card: str) -> dict:
+    """The AR step's split by phase, from the kernel variant that stamps
+    clock64 per phase on block 0 and the grid's last block
+    (``ar_decode_stamped``, reached from nothing but this phase), in both
+    modes at B 1, 8 and 64; ``summarize_stamps`` turns the buffer into
+    microseconds per step. Returns {mode: {B: split}}."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+
+    net = load_conf([]).training_vocoder.model.network
+    vocoder = Vocoder(net)
+    rng = np.random.default_rng(seed + 2)
+    randomize(vocoder, rng)
+    vocoder = vocoder.to(DEVICE).eval()
+    hop, hidden = net.rnnms.upsampling_t, net.rnnms.wave_ar.size_h_rnn
+    n_classes = 2 ** net.rnnms.bits_mu_law
+    steps = STAMP_FRAMES * hop
+    cond = torch.from_numpy(rng.uniform(
+        -1, 1, size=(max(STAMP_BATCHES), STAMP_FRAMES, net.rnnms.dim_voc_latent)
+    ).astype(np.float32)).to(DEVICE)
+    out = {}
+    for mode in ("bf16", "int8"):
+        w = ar.prep_decode_weights(vocoder, mode)
+        cond_all = ar.project_cond_frames(w, cond).transpose(0, 1).contiguous()
+        out[mode] = {}
+        for batch in STAMP_BATCHES:
+            h0, prev0 = ar.init_decode_state(batch, hidden, n_classes, cond.device)
+            args = (cond_all[:, :batch].contiguous(), h0, prev0, w, hop)
+            ar.ar_decode_stamped(*args, seed=1)  # warm-up
+            _, _, stamps = ar.ar_decode_stamped(*args, seed=1)
+            torch.cuda.synchronize()
+            split = ar.summarize_stamps(stamps.cpu().tolist(), steps)
+            check(bool(split), f"stamps {mode} B={batch}: no block recorded")
+            out[mode][batch] = split
+            for block, phases in split.items():
+                print(f"stamps ar_decode {mode} B={batch} {block} (us/step over {steps - 1} "
+                      f"steps, sampled): " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+                      + f"  [{card}]")
+    return out
+
+
 def _gru_bound(x: dict, masked: bool):
     """(bound ms, what bounds it): each input read once, each output
     written once; the operations of the steps the data needs."""
@@ -954,7 +1004,8 @@ def phase_time_gru(seed: int, card: str) -> dict:
             }
             print(f"timing {name} G={GRU_G} T={GRU_T} H={GRU_H}: kernel {res['ms']:.4f} ms "
                   f"= {res['ms'] * 1e3 / GRU_T:.3f} us/step; plain {res['plain_ms']:.3f} ms; "
-                  f"cuDNN nn.GRU (fp16) {res['library_ms']:.4f} ms; bound "
+                  f"cuDNN nn.GRU (fp16) {res['library_ms']:.4f} ms, kernel / cuDNN = "
+                  f"{res['ms'] / res['library_ms']:.3f}; bound "
                   f"{bound * 1e3:.3f} us by {by} ({flops:.4g} FLOP, {n_bytes:.4g} B); "
                   f"bound / kernel = {bound / res['ms'] * 100:.3f} %  [{card}]")
             out[name] = res
@@ -2097,10 +2148,15 @@ def main() -> int:
         print(f"phase 4e vocoder training: {time.perf_counter() - mid:.3f} s wall")
         wide = phase_wide(args.seed, card, Path(tmp))
     phase_train_vocoder_step(args.seed, card)
-    print(f"phase 4: {time.perf_counter() - start:.3f} s wall")
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+
+    check(ar.AR_DECODE_STAMPED_LAUNCHES == 0, "a main path launched the stamped AR kernel")
+    print(f"phase 4: {time.perf_counter() - start:.3f} s wall; the stamped AR kernel launched "
+          f"{ar.AR_DECODE_STAMPED_LAUNCHES} times in phases 1-4")
     # Phase 5: times beside the bound.
     start = time.perf_counter()
     timing, ar_ms_by_batch = phase_time(args.seed, card)
+    stamps = phase_stamps(args.seed, card)
     timing_gru = phase_time_gru(args.seed, card)
     timing_masked_grid = phase_time_gru_masked_grid(args.seed, card)
     timing_lstm = phase_time_lstm(args.seed, card)
@@ -2125,6 +2181,7 @@ def main() -> int:
             "max_abs_err": compared["max_abs_err"],
             **timing["bf16"],
             "ms_by_batch": ar_ms_by_batch["bf16"],
+            "stamps_us_per_step": stamps["bf16"],
             "library_ms": None,
         },
         {
@@ -2142,6 +2199,7 @@ def main() -> int:
             "max_abs_err": compared_int8["max_abs_err"],
             **timing["int8"],
             "ms_by_batch": ar_ms_by_batch["int8"],
+            "stamps_us_per_step": stamps["int8"],
             "library_ms": None,
         },
     ] + [

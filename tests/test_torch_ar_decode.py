@@ -146,3 +146,66 @@ def test_kernel_input_checks(models, rng, field, bad):
     with pytest.raises(ValueError, match="rows"):  # 130 rows > MAX_BATCH = 128
         big = cond_proj.repeat(1, 65, 1)
         port._check_kernel_inputs(big, h0.repeat(65, 1), prev0.repeat(65), w, 8)
+
+
+@pytest.mark.parametrize(
+    "batch, mode, smem",
+    [
+        (1, "bf16", 201440),
+        (8, "bf16", 202208),
+        (64, "bf16", 200288),
+        (128, "bf16", 207456),
+        (1, "int8", 174736),
+        (8, "int8", 175504),
+        (128, "int8", 180752),
+    ],
+)
+def test_decode_plan_at_the_reference_widths(batch, mode, smem):
+    """The kernel's plan at H 896, F 256, C 256 on an H100's 132 SMs: 128
+    blocks of 7 units. A block holds 23 A rows (21 wh columns, 2 FC1
+    columns) and a zero row of K (1,792 bf16 or 896 int8 bytes, + 64 pad),
+    fc2^T as 16 x 8 x 32 lanes x 32 bytes of fragments (128 KB), 21
+    embedding columns, hproj and the carry of its units per row, 8 partial
+    tiles where K is split over the warps (under 8 row tiles), its biases,
+    8 FC1 rows of 256 bf16 (+ 64 pad) to sample; int8 also its scales."""
+    rb = 1792 if mode == "bf16" else 896
+    assert port.exchange_row_bytes(896, mode) == rb
+    grid, units, got = port.decode_plan(batch, 896, 256, 256, mode)
+    assert (grid, units, got) == (128, 7, smem)
+    w = 1 if mode == "int8" else 2
+    parts = [24 * (rb + 64), 131072, 256 * 21 * w, 4 * batch * 21, 4 * batch * 7,
+             (8 if batch < 57 else 0) * 2 * 512, 4 * (21 + 2 + 256), 8 * (512 + 64),
+             176 if mode == "int8" else 0, 512, 256, 256]
+    assert got == sum(-(-p // 16) * 16 for p in parts)
+    assert got <= 232448  # one H100 block's shared memory
+
+
+def test_decode_plan_other_widths():
+    """Units per block and FC1 columns per block as the grid divides them;
+    exchanged rows padded to whole 64-byte K blocks."""
+    assert port.decode_plan(3, 1001, 256, 256)[:2] == (126, 8)
+    assert port.decode_plan(70, 37, 11, 64)[:2] == (37, 1)
+    assert port.decode_plan(8, 301, 33, 100, "int8")[:2] == (101, 3)
+    assert port.exchange_row_bytes(37, "bf16") == 128
+    assert port.exchange_row_bytes(301, "int8") == 320
+
+
+def test_summarize_stamps_on_a_synthetic_buffer():
+    """Two blocks' rows: globaltimer and clock64 at the first step's start
+    and the last step's end, then each step's cycles per phase. At 2
+    cycles per ns, 2,000 cycles are 1 us; the first step is left out."""
+    n_ph, steps = len(port.STAMP_PHASES), 4
+    per_step = [2000 * (i + 1) for i in range(n_ph)]  # phase i takes i + 1 us
+    first = [999_999] * n_ph  # a cold first step, skipped
+    total = sum(per_step)
+    row0 = [1000, 5000, 1000 + steps * total // 2, 5000 + steps * total]
+    row0 += first + per_step * (steps - 1)
+    empty = [0] * (4 + steps * n_ph)  # a block that recorded nothing
+    split = port.summarize_stamps(np.array([row0, empty]), steps)
+    assert list(split) == ["block 0"]
+    got = split["block 0"]
+    for i, phase in enumerate(port.STAMP_PHASES):
+        assert got[phase] == pytest.approx(i + 1)
+    assert got["total"] == pytest.approx(sum(range(1, n_ph + 1)))
+    assert got["wall"] == pytest.approx(total / 2 / 1e3)
+    assert port.summarize_stamps([row0, row0], steps, skip=0)["last block"]["gate pass"] > 1

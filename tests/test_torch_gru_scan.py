@@ -152,13 +152,37 @@ def test_wrappers_refuse_bad_input(rng, field, bad, match):
 
 
 def test_hidden_beyond_shared_memory_is_refused():
-    """The kernel keeps wh in one block's shared memory: H <= 183."""
-    assert port.scan_smem_bytes(128) == 120320
-    assert port.scan_smem_bytes(183) <= port.SMEM_LIMIT < port.scan_smem_bytes(184)
-    big = 184
+    """The kernel keeps wh in the registers of a warp per 16 units, at most
+    12 warps: H <= 192. Shared memory holds two 8-row bf16 h tiles, the
+    xproj ring (and the fragments past 8 K steps), far below one block's
+    limit."""
+    assert port.scan_smem_bytes(128) == 2 * 2 * 8 * 136 + 2 * 3 * 8 * 392 + 96 == 23264
+    assert port.scan_plan(192)[1] <= port.MAX_WARPS < port.scan_plan(193)[1]
+    assert port.scan_smem_bytes(192) <= port.SMEM_LIMIT
+    big = 193
     wh = torch.zeros(big, 3 * big, dtype=torch.bfloat16)
     args = (wh, torch.zeros(3 * big), torch.zeros(2, 1, 3 * big, dtype=torch.bfloat16),
             torch.zeros(1, big))
     port.check_scan_inputs(*args)  # the plain version takes any width
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="registers"):
         port.check_scan_inputs(*args, kernel=True)
+
+
+@pytest.mark.parametrize(
+    "hidden, threads, warps, smem",
+    [
+        (1, 32, 1, 2 * 2 * 8 * (16 + 8) + 2 * 3 * 8 * 11 + 96),  # one unit: K padded to 16
+        (40, 96, 3, 2 * 2 * 8 * (48 + 8) + 2 * 3 * 8 * 128 + 96),  # H not a multiple of 16
+        (128, 256, 8, 23264),  # the serving PreNet: every fragment in registers
+        (129, 288, 9, 4864 + 2 * 3 * 8 * 395 + 96 + 16 * 32 * 3 * 9 * 1),  # a K step shared
+        (192, 384, 12, 6400 + 2 * 3 * 8 * 584 + 96 + 16 * 32 * 3 * 12 * 4),  # the limit
+    ],
+)
+def test_scan_plan(hidden, threads, warps, smem):
+    """gru_scan.cu's block: a warp per 16 units (threads = 32 x warps), two
+    bf16 h tiles of 8 rows of K + 8, a 3-stage ring of 8 xproj rows of 3H +
+    8 bf16 and of 8 mask words, and the A fragments of the K steps past the
+    8 held in registers, 16 bytes a lane per warp, gate and step."""
+    assert port.scan_plan(hidden) == (threads, warps, smem)
+    assert port.scan_smem_bytes(hidden) == smem <= port.SMEM_LIMIT
+    assert port.scan_route(hidden) == "block"

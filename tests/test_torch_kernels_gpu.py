@@ -1,14 +1,16 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card.
 
 Edge shapes that chip_smoke.py's full-width run does not reach. AR decode,
-both modes: hidden sizes that do not split evenly over the SMs (int8: nor
+both modes: B 1, 7, 8, 9, 127 and 128 at the reference widths (the edges of
+the 8-row mma tiles and of the two sampling layouts), chained greedy
+segments against one launch, the plan against its Python mirror, hidden sizes that do not split evenly over the SMs (int8: nor
 into 4-byte words), FC1 widths below the grid size, few classes, hop 1, odd
 batches, batches of several 8-row tiles up to the 128-row cap; int8 staging
 from the f32 h against the int8 buffer. GRU scans: batches off the 8-row
 tile, one row, one step, H = 96 and 128, rows masked at every step, the
 one-block kernel's shared-memory limit and the masked grid forward past it
-(H 184, 200, 1001); the grid kernels (training forward, no-grad forward
-past H 183, backward) at H 896, 200, 37 and 1001, B 1 to 40, and through
+(H 193, 200, 1001); the grid kernels (training forward, no-grad forward
+past H 192, backward) at H 896, 200, 37 and 1001, B 1 to 40, and through
 autograd, their plan and its refusals.
 LSTM scan: batches off the 8-row cluster tile, one step, odd step counts;
 its training forward and backward at B 1 and 9, T 1, H 32, 64 and 256, and
@@ -176,6 +178,78 @@ def test_ar_decode_kernel_refuses_bad_input(cuda):
         ar.ar_decode(cond[:, :2].float(), h0[:2], prev0[:2], w, hop=4)
 
 
+def _decode_case(rng, batch, hidden, n_classes, frames, device):
+    cond_proj = torch.from_numpy(
+        rng.normal(0, 0.5, size=(frames, batch, 3 * hidden)).astype(np.float32)
+    ).to(device, torch.bfloat16)
+    h0 = torch.from_numpy(rng.uniform(-0.5, 0.5, size=(batch, hidden)).astype(np.float32)).to(device)
+    prev0 = torch.from_numpy(rng.integers(0, n_classes, size=batch).astype(np.int32)).to(device)
+    return cond_proj, h0, prev0
+
+
+@pytest.mark.parametrize("batch", [1, 7, 8, 9, 127, 128])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_ar_decode_tile_edges_match_plain(cuda, batch, mode):
+    """Batches at the edges of the 8-row N tiles and of the two sampling
+    layouts (up to 8 rows every block samples every row; above, block g
+    samples rows g, g + G, ...), at the reference widths, sampled, under
+    the prefix rule."""
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+
+    rng = np.random.default_rng(batch + 7)
+    w = _weights(rng, 896, 256, 256, cuda)
+    w = _int8(w) if mode == "int8" else w
+    cond_proj, h0, prev0 = _decode_case(rng, batch, 896, 256, 1, cuda)
+    out, h_t = ar.ar_decode(cond_proj, h0, prev0, w, 160, seed=5)
+    torch.cuda.synchronize()
+    ref, ref_h, scores = ar.ar_decode_reference(cond_proj, h0, prev0, w, 160, seed=5,
+                                                return_scores=True)
+    out, ref, scores = out.cpu().numpy(), ref.cpu().numpy(), scores.cpu().numpy()
+    for r in range(batch):
+        diff = np.nonzero(out[:, r] != ref[:, r])[0]
+        if diff.size:
+            t0 = diff[0]
+            assert scores[t0, r].max() - scores[t0, r, out[t0, r]] <= 0.05
+        else:
+            assert float((h_t[r] - ref_h[r]).abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("batch", [8, 12])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_ar_decode_chained_segments_equal_one_launch(cuda, batch, mode):
+    """Greedy, 4 chained segments give one launch's samples and final h bit
+    for bit, in both sampling layouts."""
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+
+    rng = np.random.default_rng(batch + 11)
+    w = _weights(rng, 896, 256, 256, cuda)
+    w = _int8(w) if mode == "int8" else w
+    cond_proj, h0, prev0 = _decode_case(rng, batch, 896, 256, 4, cuda)
+    one, h_one = ar.ar_decode(cond_proj, h0, prev0, w, 40, seed=3, greedy=True)
+    state, outs = ar.DecodeState(h0, prev0), []
+    for k in range(4):
+        seg = cond_proj[k: k + 1].transpose(0, 1)
+        classes, state = ar.fused_ar_decode_segment(w, seg, state, ar.segment_seed(3, k), 40,
+                                                    greedy=True)
+        outs.append(classes)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, dim=1).t(), one)
+    assert torch.equal(state.h, h_one)
+
+
+def test_ar_decode_plan_mirror(cuda):
+    """``decode_plan`` (the Python mirror the CPU tests pin) gives the
+    kernel's own plan on this card."""
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape in [(1, 896, 256, 256), (8, 896, 256, 256), (64, 896, 256, 256),
+                  (128, 896, 256, 256), (3, 1001, 256, 256), (70, 37, 11, 64),
+                  (8, 301, 33, 100)]:
+        for mode in ("bf16", "int8"):
+            assert ar.kernel_plan(*shape, mode) == ar.decode_plan(*shape, mode, sms=sms)
+
+
 def _scan_case(rng, t, b, hidden, device):
     """GRU-scan operands at the kernel's types and a reverse-time mask whose
     row lengths include 0 (masked at every step), 1 and t."""
@@ -199,6 +273,10 @@ def _scan_case(rng, t, b, hidden, device):
         (5, 1, 96),  # one row, 3H = 288 threads
         (1, 8, 128),  # one step
         (17, 20, 96),
+        (7, 13, 40),  # H not a multiple of 16: the last warp's units padded
+        (3, 5, 1),  # one unit
+        (6, 11, 183),  # K steps past the 8 held in registers, read from shared memory
+        (4, 9, 192),  # the widest: 12 warps
     ],
 )
 @pytest.mark.parametrize("masked", [False, True])
@@ -242,10 +320,10 @@ def test_gru_scan_shared_memory_layout_and_limit(cuda):
     from vectorquantizedcpc_tpu_torch.ops import _build
     from vectorquantizedcpc_tpu_torch.ops import gru_train as g
 
-    for hidden in (1, 96, 128, 183, 184):
+    for hidden in (1, 96, 128, 129, 183, 192, 193):
         assert _build.library().vq_gru_scan_smem_bytes(hidden) == g.scan_smem_bytes(hidden)
-    # Past H 183 both scans take the grid kernels.
-    wh, bh, xproj, h0, valid, _ = _scan_case(np.random.default_rng(4), 2, 3, 184, cuda)
+    # Past H 192 both scans take the grid kernels.
+    wh, bh, xproj, h0, valid, _ = _scan_case(np.random.default_rng(4), 2, 3, 193, cuda)
     before = g.GRU_SCAN_MASKED_GRID_LAUNCHES
     hs_m, _ = g.gru_scan_masked(wh, bh, xproj, valid, h0)
     hs, _ = g.gru_scan(wh, bh, xproj, h0)

@@ -97,8 +97,10 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        lib.vq_ar_decode_launch.argtypes = [p] * 17 + [i] * 8 + [u, p]
+        lib.vq_ar_decode_launch.argtypes = [p] * 18 + [i] * 8 + [u, p]
         lib.vq_ar_decode_launch.restype = i
+        lib.vq_ar_decode_stamped_launch.argtypes = [p] * 18 + [i] * 8 + [u, p, p]
+        lib.vq_ar_decode_stamped_launch.restype = i
         lib.vq_ar_decode_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
         lib.vq_ar_decode_plan.restype = i
         lib.vq_gru_scan_launch.argtypes = [p] * 6 + [i] * 3 + [p]

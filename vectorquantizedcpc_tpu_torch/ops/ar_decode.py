@@ -15,6 +15,9 @@ summed exactly in integers, FC2 in bf16 (JAX ``_mm`` / ``_embed_gather``).
 either mode. ``ar_decode`` uses it for CPU tensors only: a CUDA tensor
 launches the kernel or raises. ``AR_DECODE_LAUNCHES`` counts launches of
 the bf16 kernel, ``AR_DECODE_INT8_LAUNCHES`` those of the int8 kernel.
+``ar_decode_stamped`` runs the kernel variant that records the cycles of
+each phase of a step (counted apart, in ``AR_DECODE_STAMPED_LAUNCHES``);
+``summarize_stamps`` turns its buffer into microseconds per phase.
 
 ``resolve_precision`` maps ``runtime.precision`` to a mode; "auto" picks,
 per decode batch, the mode with the lower step time in a table measured on
@@ -40,6 +43,13 @@ from .quant import quantize_int8
 
 AR_DECODE_LAUNCHES = 0
 AR_DECODE_INT8_LAUNCHES = 0
+AR_DECODE_STAMPED_LAUNCHES = 0  # the stamped variant; measurement only
+# The phases a step of the stamped kernel times, in the order of
+# csrc/ar_decode.cu's Phase.
+STAMP_PHASES = ("gate pass", "barrier 1", "product", "reduce", "barrier 2", "fc2 stage",
+                "fc2 product", "sample", "barrier 3")
+SMS = 132  # the H100's SMs: the grid the plan mirrors assume
+TILE, K_BLOCK = 8, 64  # kTile (batch rows of an mma N tile), kKBlock (bytes of a K block)
 MAX_BATCH = 128  # kMaxBatch in csrc/ar_decode.cu: rows of one launch
 
 _M32 = 0xFFFFFFFF
@@ -72,10 +82,10 @@ _FLOAT_SPELLINGS = ("bfloat16", "bf16", "float32", "f32", "fp32")
 # Per-step kernel time (us/step) of each mode at the measured batches, the
 # table "auto" interpolates: chip_smoke.py phase 5 (100 frames = 16,000
 # steps per launch) on one NVIDIA H100 80GB HBM3 at a 700.00 W power limit
-# (PERF.md section 6). int8 is the faster mode up to 4 rows.
+# (PERF.md section 5). bf16 is the faster mode up to 9 rows, int8 from 10.
 _STEP_US = {
-    "bf16": [(1, 14.712), (8, 16.354), (32, 46.706), (64, 87.114), (128, 168.057)],
-    "int8": [(1, 13.581), (8, 17.325), (32, 50.136), (64, 94.204), (128, 182.051)],
+    "bf16": [(1, 7.041), (8, 7.909), (32, 10.873), (64, 13.031), (128, 18.67)],
+    "int8": [(1, 7.12), (8, 7.98), (32, 9.794), (64, 10.577), (128, 14.312)],
 }
 
 STEP_US_CAPTURE_NAME = "BENCH_STEP_US.json"
@@ -338,6 +348,43 @@ def _check_kernel_inputs(cond_proj, h0, prev0, weights: DecodeWeights, hop: int)
         )
 
 
+def _launch(cond_proj, h0, prev0, weights: DecodeWeights, hop: int, seed: int, greedy: bool,
+            stamps: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel (the stamped variant where ``stamps`` is given)."""
+    _check_kernel_inputs(cond_proj, h0, prev0, weights, hop)
+    from . import _build
+
+    lib = _build.library()
+    tf, b, h3 = cond_proj.shape
+    hidden = h3 // 3
+    fc, n_classes = weights.fc2_w.shape
+    device = cond_proj.device
+    int8 = weights.mode == "int8"
+    # bf16(h) or q(h) of both steps in flight, rows zero-padded to whole K blocks.
+    x_buf = torch.zeros(2, b, exchange_row_bytes(hidden, weights.mode), dtype=torch.uint8,
+                        device=device)
+    hid_buf = torch.zeros(b, _cdiv(fc, 32) * 32, dtype=torch.bfloat16, device=device)
+    out = torch.empty(tf * hop, b, dtype=torch.int32, device=device)
+    h_out = torch.empty(b, hidden, dtype=torch.float32, device=device)
+    sync = torch.zeros(1, dtype=torch.int32, device=device)  # the grid barrier's count
+    ptrs = [
+        cond_proj, weights.embed_proj, weights.wh, weights.bh, weights.fc1_w,
+        weights.fc1_b, weights.fc2_w, weights.fc2_b, prev0, weights.embed_scale,
+        weights.wh_scale, weights.fc1_scale, h0, x_buf, hid_buf, out, h_out, sync,
+    ]
+    args = [None if x is None else x.data_ptr() for x in ptrs]
+    args += [tf * hop, b, hidden, fc, n_classes, hop, int(greedy), int(int8),
+             ctypes.c_uint(seed & _M32)]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if stamps is None:
+            err = lib.vq_ar_decode_launch(*args, stream)
+        else:
+            err = lib.vq_ar_decode_stamped_launch(*args, stamps.data_ptr(), stream)
+    _build.check(err, "ar_decode kernel launch")
+    return out, h_out
+
+
 def ar_decode(
     cond_proj: torch.Tensor,
     h0: torch.Tensor,
@@ -359,40 +406,65 @@ def ar_decode(
         return ar_decode_reference(cond_proj, h0, prev0, weights, hop, seed, greedy)
     if cond_proj.device.type != "cuda":
         raise ValueError(f"ar_decode runs on cuda or cpu, not {cond_proj.device}")
-    _check_kernel_inputs(cond_proj, h0, prev0, weights, hop)
-    from . import _build
-
-    lib = _build.library()
-    tf, b, h3 = cond_proj.shape
-    hidden = h3 // 3
-    fc, n_classes = weights.fc2_w.shape
-    device = cond_proj.device
-    int8 = weights.mode == "int8"
-    h_buf = torch.empty(2, b, hidden, dtype=torch.float32, device=device)
-    h_buf[0].copy_(h0)
-    # int8: q(h) of both steps in flight, each row padded to whole 4-byte words with zeros.
-    hq_buf = torch.zeros(2, b, -(-hidden // 4) * 4, dtype=torch.int8, device=device) if int8 else None
-    hid_buf = torch.empty(b, fc, dtype=torch.float32, device=device)
-    out = torch.empty(tf * hop, b, dtype=torch.int32, device=device)
-    h_out = torch.empty(b, hidden, dtype=torch.float32, device=device)
-    ptrs = [
-        cond_proj, weights.embed_proj, weights.wh, weights.bh, weights.fc1_w,
-        weights.fc1_b, weights.fc2_w, weights.fc2_b, prev0, weights.embed_scale,
-        weights.wh_scale, weights.fc1_scale, h_buf, hq_buf, hid_buf, out, h_out,
-    ]
-    with torch.cuda.device(device):
-        err = lib.vq_ar_decode_launch(
-            *[None if x is None else x.data_ptr() for x in ptrs],
-            tf * hop, b, hidden, fc, n_classes, hop, int(greedy), int(int8),
-            ctypes.c_uint(seed & _M32),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _build.check(err, "ar_decode kernel launch")
-    if int8:
+    out = _launch(cond_proj, h0, prev0, weights, hop, seed, greedy)
+    if weights.mode == "int8":
         AR_DECODE_INT8_LAUNCHES += 1
     else:
         AR_DECODE_LAUNCHES += 1
-    return out, h_out
+    return out
+
+
+def ar_decode_stamped(
+    cond_proj: torch.Tensor,
+    h0: torch.Tensor,
+    prev0: torch.Tensor,
+    weights: DecodeWeights,
+    hop: int,
+    seed: int = 0,
+    greedy: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``ar_decode`` through the kernel variant that stamps its phases, on a
+    CUDA tensor only (a measurement: no entry point of the package calls
+    it). Returns (samples, h_T, stamps (2, 4 + T x len(STAMP_PHASES)) int64)
+    for ``summarize_stamps``."""
+    global AR_DECODE_STAMPED_LAUNCHES
+    if cond_proj.device.type != "cuda":
+        raise ValueError(f"ar_decode_stamped runs on cuda only, not {cond_proj.device}")
+    n_steps = cond_proj.shape[0] * hop
+    stamps = torch.zeros(2, 4 + n_steps * len(STAMP_PHASES), dtype=torch.int64,
+                         device=cond_proj.device)
+    out, h_out = _launch(cond_proj, h0, prev0, weights, hop, seed, greedy, stamps)
+    AR_DECODE_STAMPED_LAUNCHES += 1
+    return out, h_out, stamps
+
+
+def summarize_stamps(stamps, n_steps: int, skip: int = 1) -> Dict[str, Dict[str, float]]:
+    """The stamped kernel's buffer -> microseconds per step of each phase.
+
+    ``stamps`` is (2, 4 + n_steps x len(STAMP_PHASES)) integers, any array
+    or nested list: per stamped block (block 0, then the grid's last block)
+    the globaltimer (ns) and clock64 at the first step's start and at the
+    last step's end, then each step's cycles per phase. The clock rate
+    comes from those two pairs; the first ``skip`` steps are left out of
+    the means. Returns {block: {phase: us, ..., "total": us, "wall":
+    us}}, "wall" the globaltimer's time per step; a block that recorded
+    nothing is left out.
+    """
+    n_ph = len(STAMP_PHASES)
+    out = {}
+    for name, row in zip(("block 0", "last block"), stamps):
+        row = [int(v) for v in row]
+        ns, cycles = row[2] - row[0], row[3] - row[1]
+        if ns <= 0 or cycles <= 0:
+            continue
+        per_us = cycles / ns * 1e3  # clock64 ticks per microsecond
+        steps = [row[4 + t * n_ph: 4 + (t + 1) * n_ph] for t in range(skip, n_steps)]
+        split = {ph: sum(s[i] for s in steps) / len(steps) / per_us
+                 for i, ph in enumerate(STAMP_PHASES)}
+        split["total"] = sum(split[ph] for ph in STAMP_PHASES)
+        split["wall"] = ns / 1e3 / n_steps
+        out[name] = split
+    return out
 
 
 class DecodeState(NamedTuple):
@@ -430,6 +502,55 @@ def fused_ar_decode_segment(
     cond_proj = cond_proj_frames.transpose(0, 1).contiguous()
     samples, h_t = ar_decode(cond_proj, state.h, state.prev, weights, hop, seed, greedy)
     return samples.t(), DecodeState(h=h_t, prev=samples[-1].clone())
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align16(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+def exchange_row_bytes(hidden: int, mode: str) -> int:
+    """Bytes of one h row the blocks exchange (csrc row_bytes): H bf16 or
+    int8 values, zero-padded to whole 64-byte K blocks."""
+    return _cdiv(hidden * (1 if mode == "int8" else 2), K_BLOCK) * K_BLOCK
+
+
+def decode_plan(batch: int, hidden: int, fc: int, n_classes: int, mode: str = "bf16",
+                sms: int = SMS) -> Tuple[int, int, int]:
+    """(blocks, hidden units per block, shared memory bytes) of a launch in
+    ``mode`` on ``sms`` SMs: the mirror of csrc/ar_decode.cu's plan_launch
+    and make_layout. A block holds its wh and FC1 columns as rows of K
+    (plus one zero row), fc2^T as mma fragments, its columns of the
+    embedding, hproj and the f32 carry of its units for every row, the
+    product's partial tiles (under 8 row tiles), its biases, the FC1 rows
+    it samples, the int8 scales, and the sampling scratch."""
+    int8 = mode == "int8"
+    units = _cdiv(hidden, sms)
+    grid = _cdiv(hidden, units)
+    fc_cols = _cdiv(fc, grid)
+    rb = exchange_row_bytes(hidden, mode)
+    stride = rb + (192 - rb % 128) % 128
+    m_tiles = _cdiv(3 * units + fc_cols, 16)
+    slots = 8 if _cdiv(batch, TILE) < 8 else 0  # partial tiles where K is split over the warps
+    hid_row = _cdiv(fc, 32) * 64
+    hid_row += (192 - hid_row % 128) % 128
+    smem = sum(_align16(n) for n in (
+        (3 * units + fc_cols + 1) * stride,  # wh | FC1 rows, one zero row
+        _cdiv(n_classes, 16) * (_cdiv(fc, 32) * 32 // 32) * 32 * 32,  # fc2^T fragments
+        n_classes * 3 * units * (1 if int8 else 2),  # embedding columns
+        4 * batch * 3 * units,  # hproj of the next step
+        4 * batch * units,  # f32 carry
+        slots * m_tiles * 32 * 16,  # partial 16 x 8 tiles
+        4 * (3 * units + fc_cols + n_classes),  # bh, FC1 and FC2 biases
+        TILE * hid_row,  # FC1 rows of up to 8 sampled rows
+        4 * (6 * units + fc_cols) if int8 else 0,  # scales
+        4 * MAX_BATCH,  # prev
+        4 * 8 * TILE, 4 * 8 * TILE,  # the sample's per-warp best value and index
+    ))
+    return grid, units, smem
 
 
 def kernel_plan(

@@ -2,8 +2,9 @@
 
 The port of the JAX package's ``ops/gru_train.py``, in kernels of two sources:
 
-- ``csrc/gru_scan.cu``: a block per 8 batch rows holding all of ``wh`` in
-  its shared memory, so H <= 183 (``BLOCK_MAX_HIDDEN``): the no-grad forward
+- ``csrc/gru_scan.cu``: a block per 8 batch rows, a warp per 16 hidden
+  units holding its rows of ``wh``^T as ``mma.sync`` fragments for the whole
+  scan, so H <= 192 (``BLOCK_MAX_HIDDEN``, 12 warps): the no-grad forward
   ``gru_scan`` (``_fwd_kernel``, ``save_residuals=False``) and
   ``gru_scan_masked`` (``_fwd_kernel_masked``), the serving PreNet's;
 - ``csrc/gru_train.cu``: a cooperative grid with ``wh`` spread over the
@@ -13,8 +14,8 @@ The port of the JAX package's ``ops/gru_train.py``, in kernels of two sources:
   ``gru_scan_train``, the training forward (``save_residuals=True``), which
   also returns ``acts`` (T, B, 3H) bf16 = sigmoid r | sigmoid z | tanh n and
   ``hns`` (T, B, H) bf16, the recurrent n term; the same forward without
-  residuals, which ``gru_scan`` launches for H > 183, and with a mask,
-  which ``gru_scan_masked`` launches for H > 183; and ``gru_scan_bwd``, the
+  residuals, which ``gru_scan`` launches for H > 192, and with a mask,
+  which ``gru_scan_masked`` launches for H > 192; and ``gru_scan_bwd``, the
   reverse-time backward (``_bwd_kernel``).
 
 Torch gate order r, z, n, with ``bh`` inside the reset product::
@@ -45,9 +46,12 @@ GRU_SCAN_MASKED_LAUNCHES = 0  # gru_scan.cu's masked kernel
 GRU_SCAN_MASKED_GRID_LAUNCHES = 0  # gru_train.cu's masked grid forward
 GRU_SCAN_TRAIN_LAUNCHES = 0
 GRU_SCAN_BWD_LAUNCHES = 0
-ROWS = 8  # kRows in csrc/gru_scan.cu: batch rows per block
+ROWS = 8  # kRows in csrc/gru_scan.cu: batch rows per block, the mma's N
+REG_STEPS = 8  # kRegSteps: 16-deep K steps of wh^T held in registers
+STAGES = 3  # kStages: xproj steps in the shared ring
+MAX_WARPS = 12  # kMaxWarps: a warp per 16 hidden units, of up to 168 registers
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can opt into (227 KB)
-BLOCK_MAX_HIDDEN = 183  # the widest H whose wh fits one gru_scan.cu block
+BLOCK_MAX_HIDDEN = 16 * MAX_WARPS  # 192: the widest H one gru_scan.cu block takes
 FWD_ROWS, BWD_ROWS, SLOTS = 32, 16, 16  # kFwdRows, kBwdRows, kWarps in csrc/gru_train.cu
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -57,15 +61,27 @@ def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def scan_smem_bytes(hidden: int) -> int:
-    """Dynamic shared memory of one block at width ``hidden`` (csrc make_layout)."""
-    h3 = 3 * hidden
-    return (
-        _align16(2 * hidden * h3)  # wh bf16
-        + _align16(4 * h3)  # bh
-        + 2 * _align16(4 * ROWS * hidden)  # h f32 and bf16(h)
-        + _align16(4 * ROWS * h3)  # hproj
+def scan_plan(hidden: int) -> Tuple[int, int, int]:
+    """(threads, warps, dynamic shared memory bytes) of one ``gru_scan.cu``
+    block at width ``hidden`` (csrc make_layout): a warp per 16 units, as
+    many 16-deep K steps; two bf16 h tiles of 8 rows of K + 8; a ring of
+    ``STAGES`` xproj stages (8 rows of 3H + 8 bf16) and mask stages (8
+    int32); the A fragments of the K steps past ``REG_STEPS`` (16 bytes a
+    lane per warp, gate and step)."""
+    warps = _cdiv(hidden, 16)
+    extra = max(0, warps - REG_STEPS)
+    smem = (
+        _align16(2 * 2 * ROWS * (16 * warps + 8))
+        + _align16(2 * STAGES * ROWS * (3 * hidden + 8))
+        + _align16(4 * STAGES * ROWS)
+        + _align16(16 * 32 * 3 * warps * extra)
     )
+    return 32 * warps, warps, smem
+
+
+def scan_smem_bytes(hidden: int) -> int:
+    """Dynamic shared memory of one ``gru_scan.cu`` block at width ``hidden``."""
+    return scan_plan(hidden)[2]
 
 
 def grid_smem_bytes(batch: int, hidden: int, units: int,
@@ -106,7 +122,8 @@ def _cdiv(a: int, b: int) -> int:
 def scan_route(hidden: int) -> str:
     """The kernel of a no-grad scan (plain or masked) of width ``hidden`` on
     the card: "block" (``csrc/gru_scan.cu``, which holds all of ``wh`` in one
-    block) up to ``BLOCK_MAX_HIDDEN``, else "grid" (``csrc/gru_train.cu``)."""
+    block's registers) up to ``BLOCK_MAX_HIDDEN``, else "grid"
+    (``csrc/gru_train.cu``)."""
     return "block" if hidden <= BLOCK_MAX_HIDDEN else "grid"
 
 
@@ -217,7 +234,7 @@ def check_scan_inputs(wh, bh, xproj, h0, valid=None, kernel: bool = False) -> No
 
     wh (H, 3H) bf16, bh (3H,) f32, xproj (T, B, 3H) bf16, h0 (B, H) f32,
     valid (T, B) int32, all contiguous on one device. With ``kernel`` also
-    the shared-memory limit of one ``gru_scan.cu`` block.
+    the width limit of one ``gru_scan.cu`` block.
     """
     if wh.dim() != 2 or xproj.dim() != 3:
         raise ValueError(f"wh must be (H, 3H) and xproj (T, B, 3H); got {tuple(wh.shape)}, "
@@ -235,10 +252,10 @@ def check_scan_inputs(wh, bh, xproj, h0, valid=None, kernel: bool = False) -> No
     _check(expect, xproj.device)
     if t < 1 or b < 1 or hidden < 1:
         raise ValueError(f"empty GRU scan: xproj {tuple(xproj.shape)}")
-    if kernel and scan_smem_bytes(hidden) > SMEM_LIMIT:
+    if kernel and hidden > BLOCK_MAX_HIDDEN:
         raise ValueError(
-            f"H={hidden} needs {scan_smem_bytes(hidden)} B of shared memory per block; "
-            f"the limit of one H100 block is {SMEM_LIMIT} B (227 KB), so H <= 183"
+            f"H={hidden} needs {scan_plan(hidden)[1]} warps holding wh in their registers; "
+            f"one gru_scan.cu block takes {MAX_WARPS}, so H <= {BLOCK_MAX_HIDDEN}"
         )
 
 
@@ -293,7 +310,7 @@ def gru_scan(
     """GRU over ``xproj`` from ``h0``: (hs (T, B, H) bf16, h_T (B, H) f32).
 
     On a CUDA tensor this launches a kernel on the current stream and
-    returns without waiting for it: ``gru_scan.cu``'s up to H 183, the grid
+    returns without waiting for it: ``gru_scan.cu``'s up to H 192, the grid
     forward without residuals above. On a CPU tensor it runs the plain
     version.
     """
@@ -320,7 +337,7 @@ def gru_scan_masked(
     h0: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """As ``gru_scan``, but rows keep their carry where ``valid[t, b]`` is 0:
-    ``gru_scan.cu``'s masked kernel up to H 183, the masked grid forward
+    ``gru_scan.cu``'s masked kernel up to H 192, the masked grid forward
     above."""
     global GRU_SCAN_MASKED_LAUNCHES, GRU_SCAN_MASKED_GRID_LAUNCHES
     on_card = _on_card(xproj, "gru_scan_masked")
