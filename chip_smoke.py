@@ -58,14 +58,18 @@ Phases (any failure ends the run with a non-zero exit):
    {1, 8, 32, 64, 128} and the mode "auto" picks at each (the table of
    ``ops/ar_decode.py:_STEP_US``); the AR step's split by phase from the
    stamped kernel variant (launched only here) at B 1, 8 and 64 in both
-   modes; the GRU scans beside cuDNN's GRU with their ratio; the grid
+   modes; the GRU grid kernels' split by phase at the vocoder's shape from
+   their stamped variants (launched only here, giving the plain launches'
+   bits); the GRU scans beside cuDNN's GRU with their ratio; the grid
    LSTM pair at H 512 beside cuDNN's LSTM; the masked grid forward;
    each serving drain beside the request mix's slot-utilisation ceiling
    times the raw kernel rate at that many rows; the export's wall time;
    cuDNN's LSTM forward and backward beside the training pair; the CPC
    train step in steps/s to the device with the kernels' share; the GRU
-   training pair beside cuDNN's GRU, and the vocoder train step in samples/s
-   to the device, its kernels' and the device's busy share, its peak memory.
+   training pair and GruScan's dwh product beside cuDNN's GRU, their
+   bounds and the one-group kernels' times, and the vocoder train step in
+   samples/s to the device, its kernels' and the device's busy share, its
+   peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -174,6 +178,10 @@ GRU_TRAIN_SHAPES = {"training": (VOC_T, VOC_B, VOC_H), "partial tile": (9, 3, VO
                     "one step": (1, VOC_B, VOC_H), "H 200": (640, VOC_B, 200),
                     "K chunks": (48, 8, 2500)}
 VOC_EPOCHS, VOC_VAL_EVERY = 4, 2  # 125 training utterances at B 32: 3 steps an epoch
+# The GRU training pair before row groups (every block reading all rows)
+# and GruScan's dwh as an f32 product, at VOC_T, VOC_B, VOC_H (PERF.md
+# section 6; H100 80GB HBM3 at 700 W).
+ONE_GROUP_MS = {"gru_scan_train": 34.701, "gru_scan_bwd": 48.821, "dwh": 16.931}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -433,8 +441,9 @@ def phase_compare_gru_masked_grid(seed: int, card: str) -> float:
         short = int(np.argmin(x["lengths"]))
         check(torch.equal(hs[: GRU_T - 1, short], x["h0"][short].bfloat16().expand(GRU_T - 1, -1)),
               f"masked grid H={hidden}: a row of length 1 moved before its only valid step")
-        chunk = g.grid_chunks(GRU_G, hidden, -(-hidden // _sms()))[0]
-        print(f"compare gru_scan_masked_grid G={GRU_G} T={GRU_T} H={hidden} (K chunk {chunk}): "
+        plan = g.grid_plan(GRU_G, hidden)
+        print(f"compare gru_scan_masked_grid G={GRU_G} T={GRU_T} H={hidden} ({plan.groups} row "
+              f"groups of {plan.rows}, K chunk {plan.chunk}): "
               f"hs max abs diff {err_hs:.3e}, h_T {err_h:.3e} (bound {MAX_GRU_ERR}); all-valid "
               f"mask bit-identical to the grid forward; masked rows keep their carry  [{card}]")
         worst = max(worst, err_hs, err_h)
@@ -953,6 +962,44 @@ def phase_stamps(seed: int, card: str) -> dict:
                 print(f"stamps ar_decode {mode} B={batch} {block} (us/step over {steps - 1} "
                       f"steps, sampled): " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
                       + f"  [{card}]")
+    return out
+
+
+def phase_gru_stamps(seed: int, card: str) -> dict:
+    """The GRU grid kernels' split by phase at the vocoder's T 5,120, B 32,
+    H 896, from their stamped variants (``gru_scan_train_stamped``,
+    ``gru_scan_bwd_stamped``, reached from nothing but this phase), which
+    must give the plain launches' bits. Returns {"forward": split,
+    "backward": split}, each {block: {phase: us per step}}."""
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    steps, batch, hidden = GRU_TRAIN_SHAPES["training"]
+    args = _gru_train_inputs(seed, steps, batch, hidden)
+    plain = g.gru_scan_train(*args)
+    g.gru_scan_train_stamped(*args)  # warm-up
+    *got, stamps = g.gru_scan_train_stamped(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+          "the stamped GRU grid forward's outputs are not the plain launch's bits")
+    out = {"forward": g.summarize_grid_stamps(stamps.cpu().tolist(), steps)}
+    rng = np.random.default_rng(seed + 17)
+    dhs = torch.from_numpy(rng.normal(size=(steps, batch, hidden)).astype(np.float32)).to(
+        DEVICE).bfloat16()
+    h_prevs = torch.cat([args[3].bfloat16()[None], plain[0][:-1]]).contiguous()
+    bwd_args = (plain[1], plain[2], h_prevs, dhs, args[0], torch.zeros_like(plain[3]))
+    plain_b = g.gru_scan_bwd(*bwd_args)
+    g.gru_scan_bwd_stamped(*bwd_args)
+    *got_b, stamps_b = g.gru_scan_bwd_stamped(*bwd_args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got_b, plain_b)),
+          "the stamped gru_scan_bwd's outputs are not the plain launch's bits")
+    out["backward"] = g.summarize_grid_stamps(stamps_b.cpu().tolist(), steps, backward=True)
+    for kernel, split in out.items():
+        check(bool(split), f"stamps GRU grid {kernel}: no block recorded")
+        for block, phases in split.items():
+            print(f"stamps gru grid {kernel} T={steps} B={batch} H={hidden} {block} (us/step over "
+                  f"{steps - 1} steps): " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+                  + f"  [{card}]")
     return out
 
 
@@ -2032,10 +2079,17 @@ def phase_time_vocoder(seed: int, card: str) -> dict:
               f"{bound:.4f} ms by {by} ({flops:.4g} FLOP, {n_bytes:.4g} B); bound / kernel = "
               f"{bound / res['ms'] * 100:.3f} %  [{card}]")
     del lib_out, inputs, gru_in, cudnn
-    dwh_ms = time_cuda(lambda: h_prevs.reshape(-1, hidden).t().float()
-                       @ dgh.reshape(-1, 3 * hidden).float(), reps=3)
-    print(f"timing dwh = h_prevs^T dgh ({steps * batch}-deep, f32): {dwh_ms:.3f} ms = "
-          f"{flops / dwh_ms / 1e9:.1f} TFLOP/s  [{card}]")
+    # GruScan.backward's dwh: one product of the bf16 operands, f32 sums.
+    dwh_ms = time_cuda(lambda: g._bf16_product(h_prevs.reshape(-1, hidden).t(),
+                                               dgh.reshape(-1, 3 * hidden)), reps=5)
+    dwh_bound, dwh_by = _bound(_nbytes(h_prevs, dgh) + hidden * 3 * hidden * 2, flops,
+                               PEAK_BF16_FLOPS)
+    print(f"timing dwh = h_prevs^T dgh ({steps * batch}-deep, bf16 in, f32 sums): {dwh_ms:.3f} ms "
+          f"= {flops / dwh_ms / 1e9:.1f} TFLOP/s; bound {dwh_bound:.4f} ms by {dwh_by}  [{card}]")
+    for name, ms in (("gru_scan_train", out["gru_scan_train"]["ms"]),
+                     ("gru_scan_bwd", out["gru_scan_bwd"]["ms"]), ("dwh", dwh_ms)):
+        print(f"timing {name} against the one-group kernels ({ONE_GROUP_MS[name]} ms, the same "
+              f"shape and card type): {ms:.3f} ms, {ONE_GROUP_MS[name] / ms:.2f}x  [{card}]")
 
     conf = load_conf([f"seed={seed}"])
     trainer = _voc_trainer(seed, conf)
@@ -2150,13 +2204,18 @@ def main() -> int:
     phase_train_vocoder_step(args.seed, card)
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
 
-    check(ar.AR_DECODE_STAMPED_LAUNCHES == 0, "a main path launched the stamped AR kernel")
-    print(f"phase 4: {time.perf_counter() - start:.3f} s wall; the stamped AR kernel launched "
-          f"{ar.AR_DECODE_STAMPED_LAUNCHES} times in phases 1-4")
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    stamped = (ar.AR_DECODE_STAMPED_LAUNCHES, g.GRU_SCAN_TRAIN_STAMPED_LAUNCHES,
+               g.GRU_SCAN_BWD_STAMPED_LAUNCHES)
+    check(stamped == (0, 0, 0), f"a main path launched a stamped kernel: {stamped}")
+    print(f"phase 4: {time.perf_counter() - start:.3f} s wall; the stamped AR and GRU grid kernels "
+          f"launched {stamped} times in phases 1-4")
     # Phase 5: times beside the bound.
     start = time.perf_counter()
     timing, ar_ms_by_batch = phase_time(args.seed, card)
     stamps = phase_stamps(args.seed, card)
+    gru_stamps = phase_gru_stamps(args.seed, card)
     timing_gru = phase_time_gru(args.seed, card)
     timing_masked_grid = phase_time_gru_masked_grid(args.seed, card)
     timing_lstm = phase_time_lstm(args.seed, card)
@@ -2259,8 +2318,10 @@ def main() -> int:
             "launches": trained_voc["launches"][name],
             "max_abs_err": compared_gru_train[name],
             **timing_voc[name],
+            "stamps_us_per_step": gru_stamps[kernel],
         }
-        for name, line in (("gru_scan_train", 59), ("gru_scan_bwd", 114))
+        for name, line, kernel in (("gru_scan_train", 59, "forward"),
+                                   ("gru_scan_bwd", 114, "backward"))
     ] + [
         {
             "name": "lstm_scan_grid",

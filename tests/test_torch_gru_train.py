@@ -227,13 +227,121 @@ def test_backward_refuses_bad_input(rng, field, bad, match):
 
 
 def test_grid_shared_memory():
-    """The vocoder's B 32, H 896 on 128 blocks of 7 units: the forward holds
-    24 padded columns of wh and a 32-row h tile (rows of 896 + 8 bf16), the
-    backward 8 padded rows of wh and a 16-row dgh tile (rows of 2688 + 8);
-    both fit one H100 block. H 192 is the widest one-block kernel (12 warps)."""
-    fwd, bwd = port.grid_smem_bytes(32, 896, 7)
-    assert fwd == 2 * 24 * 904 + 2 * 32 * 904 + 4 * 128 * 16 + 4 * 32 * 7 == 110336
-    assert bwd == 2 * 8 * 2696 + 2 * 16 * 2696 + 4 * 128 * 16 + 2 * 4 * 32 * 7 == 139392
-    assert max(port.grid_smem_bytes(32, 200, 2)) < max(fwd, bwd) < port.SMEM_LIMIT
+    """The vocoder's B 32, H 896 in 4 row groups of 8 rows, 32 blocks of 28
+    units: the forward holds its 84 columns of wh as A rows of 896 bf16
+    (1,792 bytes, padded to 1,856: 64 modulo 128) plus a zero row, a 16 x 8
+    f32 tile of partial sums (176 floats with its padding) per warp (8) and
+    A tile (6, each row of tiles padded by 16 floats), and 84 f32 biases;
+    the backward its 28 rows of wh (2,688 bf16, 5,376 bytes padded to
+    5,440) plus a zero row and 8 x 2 tiles. Both fit one H100 block. H 192
+    is the widest one-block kernel (12 warps)."""
+    fwd = port.group_plan(32, 896)
+    bwd = port.group_plan(32, 896, backward=True)
+    assert fwd.smem == 85 * 1856 + 4 * (176 * 8 + 16) * 6 + 4 * 84 == 192272
+    assert bwd.smem == 29 * 5440 + 4 * (176 * 8 + 16) * 2 == 169152
+    assert (fwd.groups, fwd.rows, fwd.blocks, fwd.units) == (4, 8, 32, 28)
+    assert port.grid_smem_bytes(8, 896, 28) == (fwd.smem, bwd.smem)  # one group's layout
+    assert max(port.grid_smem_bytes(32, 200, 2)) < max(fwd.smem, bwd.smem) < port.SMEM_LIMIT
     assert port.scan_smem_bytes(port.BLOCK_MAX_HIDDEN) <= port.SMEM_LIMIT
     assert port.scan_plan(port.BLOCK_MAX_HIDDEN + 1)[1] > port.MAX_WARPS
+
+
+@pytest.mark.parametrize(
+    "batch, hidden, fwd, bwd",
+    [
+        (32, 896, (4, 8, 32, 28), None),  # the vocoder: 4 groups of 8 rows, 32 blocks of 28 units
+        (1, 896, (1, 8, 128, 7), None),  # B <= 8: one group, the one-group layout
+        (8, 896, (1, 8, 128, 7), None),
+        (9, 896, (2, 8, 64, 14), None),  # the last group holds one row
+        # Forward: 5 groups of 8 would not fit, so 3 of 16, the last of one
+        # row; backward: 5 groups of 8, the last of one row.
+        (33, 896, (3, 16, 43, 21), (5, 8, 26, 35)),
+        (40, 1001, (3, 16, 44, 23), None),  # 3 groups of 16, the last of 8
+        (48, 256, (6, 8, 22, 12), None),  # the serving PreNet at 256 wide
+        (32, 1200, (2, 16, 64, 19), None),  # 4 groups would not fit: 2 of 16
+    ],
+)
+def test_grid_plan_row_groups(batch, hidden, fwd, bwd):
+    """The plan mirror (csrc/gru_train.cu plan_direction) on 132 SMs: the
+    most row groups of 8-row multiples whose blocks hold their slice of wh
+    whole, each group with its own blocks on an equal share of the SMs; the
+    groups cover the batch, the last one partial where B is not a multiple
+    of the rows, and the blocks cover H. ``bwd`` None: as ``fwd``."""
+    for backward, plan in ((False, fwd), (True, bwd or fwd)):
+        got = port.group_plan(batch, hidden, backward)
+        assert tuple(got[:4]) == plan
+        assert got.chunk == (3 if backward else 1) * hidden  # wh held whole
+        groups, rows, blocks, units = plan
+        assert (groups - 1) * rows < batch <= groups * rows
+        assert (blocks - 1) * units < hidden <= blocks * units
+        assert groups * blocks <= port.SMS and got.smem <= port.SMEM_LIMIT
+
+
+def _pr7_layout_bytes(batch, hidden, units):
+    """Shared memory of a forward and a backward block of the one-group
+    layout that the grid kernels had before row groups (every block staging
+    all rows: a 32-row h tile forward, a 16-row dgh tile backward, K padded
+    by 8 bf16, the f32 carries in shared memory)."""
+    sizes = []
+    for width, cols, rows, slots, carries in (
+        (hidden, 3 * units, 32, max(16, 2 * -(-3 * units // 8)), 1),
+        (3 * hidden, units, 16, max(16, -(-units // 8)), 2),
+    ):
+        stride = -(-width // 16) * 16 + 8
+        sizes.append(port._align16(2 * -(-cols // 8) * 8 * stride) + port._align16(2 * rows * stride)
+                     + port._align16(4 * 128 * slots) + carries * port._align16(4 * batch * units))
+    return sizes
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 9, 32, 33, 40, 64, 65, 128, 256])
+def test_grid_plan_streams_no_width_held_whole_before(batch):
+    """No width at which the one-group layout held wh whole (on 132 SMs,
+    ceil(H / 132) units a block) streams it in K chunks now, for batches up
+    to 256 (at 512 and wide H the partial-sum tiles of 64 N tiles a block
+    outgrow the old layout's f32 carries). And the plan
+    never combines row groups with K chunks: where one group's slice does
+    not fit, the wider slices of more groups fit less."""
+    for hidden in list(range(1, 4200, 13)) + [896, 1150, 1200, 1520]:
+        old = _pr7_layout_bytes(batch, hidden, -(-hidden // 132))
+        for backward in (False, True):
+            plan = port.group_plan(batch, hidden, backward)
+            k = (3 if backward else 1) * hidden
+            if old[backward] <= port.SMEM_LIMIT:
+                assert plan.chunk == k, (batch, hidden, backward, plan)
+            if plan.chunk < k:
+                assert plan.groups == 1, (batch, hidden, backward, plan)
+
+
+def test_grid_plan_chunks_and_refusals():
+    """Past one group's whole slice the plan keeps one group and stages K in
+    the widest multiple of 16 that fits; a grid that cannot be resident or
+    a block that fits no chunk is refused."""
+    for hidden, backward in ((2500, False), (2500, True), (4096, False), (4096, True)):
+        plan = port.group_plan(32, hidden, backward)
+        k = (3 if backward else 1) * hidden
+        assert plan.groups == 1 and 16 <= plan.chunk < k and plan.chunk % 16 == 0
+        assert plan.smem <= port.SMEM_LIMIT < port.grid_layout_bytes(
+            plan.rows, hidden, plan.units, backward, plan.chunk + 16)
+    with pytest.raises(ValueError):
+        port.group_plan(32, 896, units=1)  # 896 blocks of one unit
+    with pytest.raises(ValueError):
+        port.group_plan(65536, 4096)
+
+
+def test_summarize_grid_stamps_on_a_synthetic_buffer():
+    """The stamped grid kernels' buffers: per stamped block the globaltimer
+    and clock64 at the first step's start and the last step's end, then
+    each step's cycles per phase (forward and backward phases). At 2
+    cycles per ns, 2,000 cycles are 1 us; the first step is left out."""
+    for backward, phases in ((False, port.FWD_STAMP_PHASES), (True, port.BWD_STAMP_PHASES)):
+        steps = 5
+        per_step = [2000 * (i + 1) for i in range(len(phases))]
+        total = sum(per_step)
+        row = [10, 20, 10 + steps * total // 2, 20 + steps * total]
+        row += [777_777] * len(phases) + per_step * (steps - 1)
+        split = port.summarize_grid_stamps(np.array([row, row]), steps, backward)
+        assert list(split) == ["block 0", "last block"]
+        for i, phase in enumerate(phases):
+            assert split["block 0"][phase] == pytest.approx(i + 1)
+        assert split["last block"]["total"] == pytest.approx(sum(range(1, len(phases) + 1)))
+        assert split["block 0"]["wall"] == pytest.approx(total / 2 / 1e3)

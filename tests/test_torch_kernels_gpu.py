@@ -10,8 +10,11 @@ from the f32 h against the int8 buffer. GRU scans: batches off the 8-row
 tile, one row, one step, H = 96 and 128, rows masked at every step, the
 one-block kernel's shared-memory limit and the masked grid forward past it
 (H 193, 200, 1001); the grid kernels (training forward, no-grad forward
-past H 192, backward) at H 896, 200, 37 and 1001, B 1 to 40, and through
-autograd, their plan and its refusals.
+past H 192, backward) at H 896, 200, 37, 1001, 1200 and 2500, B 1 to 40
+(row groups of 8 and 16, partial last groups, one group of 40 rows with K
+chunks), through autograd, two launches giving the same bits, the stamped
+variants giving the plain launches' bits, their plan against its Python
+mirror and its refusals.
 LSTM scan: batches off the 8-row cluster tile, one step, odd step counts;
 its training forward and backward at B 1 and 9, T 1, H 32, 64 and 256, and
 through autograd; the grid kernels at H 37, 360, 440 and 512 (forward and
@@ -363,14 +366,18 @@ def test_gru_scan_masked_grid_matches_plain(cuda, t, b, hidden):
 @pytest.mark.parametrize(
     "t, b, hidden",
     [
-        (640, 32, 896),  # the vocoder's widths
+        (640, 32, 896),  # the vocoder's widths: 4 row groups of 8
         (9, 3, 896),  # a partial row tile
         (1, 32, 896),  # one step
-        (33, 32, 200),  # 2 units per block
+        (5, 33, 896),  # forward 3 row groups of 16, backward 5 of 8 (3 A tiles: two passes)
+        (6, 9, 896),  # 2 row groups, the last of one row
+        (4, 40, 896),  # forward 3 row groups of 16 (the last of 8), backward 5 of 8
+        (33, 32, 200),  # 4 row groups of 29 blocks of 7 units
         (7, 5, 37),  # one unit per block, 3H not a multiple of 8 or 16
-        (3, 40, 1001),  # 8 units per block; two forward and three backward row tiles
-        (4, 33, 1200),  # the backward streams wh in K chunks
+        (3, 40, 1001),  # 3 row groups of 16, the last of 8
+        (4, 33, 1200),  # forward 2 row groups of 24, backward 3 of 16; wh held whole
         (3, 9, 2500),  # both stream wh in K chunks
+        (3, 40, 2500),  # one group of 40 rows (5 N tiles), K chunks
     ],
 )
 def test_gru_scan_train_and_bwd_kernels_match_plain(cuda, t, b, hidden):
@@ -404,6 +411,38 @@ def test_gru_scan_train_and_bwd_kernels_match_plain(cuda, t, b, hidden):
         assert err <= 1e-2 * float(r.float().abs().max()) + 1e-3, (name, err)
 
 
+def test_gru_grid_kernels_repeat_their_bits_and_stamps_change_nothing(cuda):
+    """Two launches of each grid kernel give the same bits (every sum in a
+    fixed order, no float atomics), and so do the stamped variants, whose
+    buffers record both stamped blocks at every step."""
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    rng = np.random.default_rng(21)
+    wh, bh, xproj, h0, _, _ = _scan_case(rng, 24, 32, 896, cuda)
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+    dhs = f32(rng.normal(0, 1, size=(24, 32, 896))).bfloat16()
+    dh_t = f32(rng.normal(0, 1, size=(32, 896)))
+    fwd = [g.gru_scan_train(wh, bh, xproj, h0) for _ in range(2)]
+    *stamped, stamps = g.gru_scan_train_stamped(wh, bh, xproj, h0)
+    h_prevs = torch.cat([h0.bfloat16()[None], fwd[0][0][:-1]]).contiguous()
+    bwd_args = (fwd[0][1], fwd[0][2], h_prevs, dhs, wh, dh_t)
+    bwd = [g.gru_scan_bwd(*bwd_args) for _ in range(2)]
+    *stamped_b, stamps_b = g.gru_scan_bwd_stamped(*bwd_args)
+    torch.cuda.synchronize()
+    for a, b in zip(fwd[0], fwd[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(fwd[0], stamped):
+        assert torch.equal(a, b)
+    for a, b in zip(bwd[0], bwd[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(bwd[0], stamped_b):
+        assert torch.equal(a, b)
+    for buf, backward in ((stamps, False), (stamps_b, True)):
+        split = g.summarize_grid_stamps(buf.cpu().tolist(), 24, backward)
+        assert set(split) == {"block 0", "last block"}
+        assert all(v["total"] > 0 for v in split.values())
+
+
 def test_gru_scan_autograd_on_card(cuda):
     """``GruScan`` on the card against the same Function on the CPU (plain
     versions): every gradient within 2e-2 of its largest element."""
@@ -423,18 +462,20 @@ def test_gru_scan_autograd_on_card(cuda):
 def test_gru_grid_plan_and_refusals(cuda):
     from vectorquantizedcpc_tpu_torch.ops import gru_train as g
 
-    for b, hidden in ((32, 896), (3, 200), (40, 1001), (1, 37), (32, 1200), (32, 4096)):
-        blocks, units, fwd, bwd, fwd_chunk, bwd_chunk = g.grid_plan(b, hidden)
-        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-        assert units == -(-hidden // sms) and blocks == -(-hidden // units) <= sms
-        assert (fwd_chunk, bwd_chunk) == g.grid_chunks(b, hidden, units)
-        assert (fwd, bwd) == g.grid_smem_bytes(b, hidden, units, (fwd_chunk, bwd_chunk))
-    # H 4096 streams wh in K chunks on both sides; H 896 holds it whole.
-    assert g.grid_plan(32, 896)[4:] == (896, 2688)
-    assert max(g.grid_plan(32, 4096)[4:]) < 4096
-    # One unit per block: 896 blocks cannot all be resident; 65,536 rows of
-    # f32 carries do not fit one block's shared memory. Both refuse, neither
-    # shrinks.
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for b, hidden in ((32, 896), (3, 200), (40, 1001), (1, 37), (32, 1200), (32, 4096), (33, 896)):
+        for backward in (False, True):
+            plan = g.grid_plan(b, hidden, backward=backward)
+            assert plan == g.group_plan(b, hidden, backward, sms=sms)
+            assert plan.groups * plan.blocks <= sms and plan.blocks == -(-hidden // plan.units)
+    # The vocoder's B 32, H 896: 4 row groups of 8 rows, 32 blocks of 28
+    # units, wh held whole; H 4096 streams wh in K chunks on both sides.
+    assert g.grid_plan(32, 896)[:4] == (4, 8, 32, 28) and g.grid_plan(32, 896).chunk == 896
+    assert g.grid_plan(32, 896, backward=True).chunk == 2688
+    assert g.grid_plan(32, 4096).chunk < 4096 and g.grid_plan(32, 4096, backward=True).chunk < 4096
+    # One unit per block: 896 blocks cannot all be resident; 65,536 rows'
+    # partial sums and carries do not fit one block's shared memory. Both
+    # refuse, neither shrinks.
     for b, hidden, units in ((32, 896, 1), (65536, 4096, 0)):
         with pytest.raises(RuntimeError, match="GRU grid plan"):
             g.grid_plan(b, hidden, units)

@@ -69,7 +69,7 @@ def test_grid_layouts_fit_one_block():
         (ls, 64, 4096, 4, (False, False)),
         (ls, 64, 16384, 4, (False, False)),
         (gt, 32, 896, 3, (True, True)),  # the vocoder's width holds wh whole
-        (gt, 32, 1200, 3, (True, False)),
+        (gt, 32, 1200, 3, (True, True)),  # no staged tile: the backward holds wh whole too
         (gt, 32, 4096, 3, (False, False)),
     ],
 )

@@ -111,10 +111,14 @@ def library() -> ctypes.CDLL:
         lib.vq_gru_scan_smem_bytes.restype = i
         lib.vq_gru_grid_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.vq_gru_grid_plan.restype = i
-        lib.vq_gru_scan_grid_launch.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.vq_gru_scan_grid_launch.argtypes = [p] * 10 + [i] * 4 + [p]
         lib.vq_gru_scan_grid_launch.restype = i
-        lib.vq_gru_scan_bwd_launch.argtypes = [p] * 9 + [i] * 3 + [p]
+        lib.vq_gru_scan_bwd_launch.argtypes = [p] * 10 + [i] * 3 + [p]
         lib.vq_gru_scan_bwd_launch.restype = i
+        lib.vq_gru_scan_grid_stamped_launch.argtypes = [p] * 10 + [i] * 4 + [p, p]
+        lib.vq_gru_scan_grid_stamped_launch.restype = i
+        lib.vq_gru_scan_bwd_stamped_launch.argtypes = [p] * 10 + [i] * 3 + [p, p]
+        lib.vq_gru_scan_bwd_stamped_launch.restype = i
         lib.vq_lstm_scan_launch.argtypes = [p] * 7 + [i] * 3 + [p]
         lib.vq_lstm_scan_launch.restype = i
         lib.vq_lstm_scan_smem_bytes.argtypes = [i]

@@ -438,11 +438,14 @@ def ar_decode_stamped(
     return out, h_out, stamps
 
 
-def summarize_stamps(stamps, n_steps: int, skip: int = 1) -> Dict[str, Dict[str, float]]:
-    """The stamped kernel's buffer -> microseconds per step of each phase.
+def summarize_stamps(stamps, n_steps: int, skip: int = 1,
+                     phases: Tuple[str, ...] = STAMP_PHASES) -> Dict[str, Dict[str, float]]:
+    """A stamped kernel's buffer -> microseconds per step of each phase.
 
-    ``stamps`` is (2, 4 + n_steps x len(STAMP_PHASES)) integers, any array
-    or nested list: per stamped block (block 0, then the grid's last block)
+    ``stamps`` is (2, 4 + n_steps x len(phases)) integers, any array or
+    nested list (``phases``: this kernel's by default, or those of the GRU
+    grid kernels, ``gru_train.FWD_STAMP_PHASES`` and ``BWD_STAMP_PHASES``):
+    per stamped block (block 0, then the grid's last block)
     the globaltimer (ns) and clock64 at the first step's start and at the
     last step's end, then each step's cycles per phase. The clock rate
     comes from those two pairs; the first ``skip`` steps are left out of
@@ -450,7 +453,7 @@ def summarize_stamps(stamps, n_steps: int, skip: int = 1) -> Dict[str, Dict[str,
     us}}, "wall" the globaltimer's time per step; a block that recorded
     nothing is left out.
     """
-    n_ph = len(STAMP_PHASES)
+    n_ph = len(phases)
     out = {}
     for name, row in zip(("block 0", "last block"), stamps):
         row = [int(v) for v in row]
@@ -460,8 +463,8 @@ def summarize_stamps(stamps, n_steps: int, skip: int = 1) -> Dict[str, Dict[str,
         per_us = cycles / ns * 1e3  # clock64 ticks per microsecond
         steps = [row[4 + t * n_ph: 4 + (t + 1) * n_ph] for t in range(skip, n_steps)]
         split = {ph: sum(s[i] for s in steps) / len(steps) / per_us
-                 for i, ph in enumerate(STAMP_PHASES)}
-        split["total"] = sum(split[ph] for ph in STAMP_PHASES)
+                 for i, ph in enumerate(phases)}
+        split["total"] = sum(split[ph] for ph in phases)
         split["wall"] = ns / 1e3 / n_steps
         out[name] = split
     return out

@@ -8,7 +8,10 @@
 // distinct banks; the K padding is zero. Where the slice and the tile do not
 // fit at their whole depth, the plan picks a K chunk (fit_chunk) and the
 // kernel stages the tile and the slice chunk by chunk, adding each chunk's
-// products to the last.
+// products to the last (lstm_grid.cu). The row-group scans of gru_train.cu
+// take their own tiles; they share the plan's helpers, the barrier count
+// (count_arrive / count_wait), the two-step mma (mma_k32) and the
+// per-phase clock stamps of their measurement variants (PhaseStamps).
 
 #pragma once
 
@@ -194,6 +197,17 @@ inline cudaError_t ready_resident(const void* kernel, size_t smem, int grid, int
   return per_sm * sms < grid ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
 }
 
+// The same for blocks of ``threads`` threads.
+inline cudaError_t ready_resident(const void* kernel, size_t smem, int grid, int sms, int threads) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  return per_sm * sms < grid ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
+}
+
 // The device's SM count, whether it launches cooperative grids, and its
 // opt-in shared memory per block.
 inline cudaError_t device_limits(int* sms, int* max_smem) {
@@ -205,6 +219,98 @@ inline cudaError_t device_limits(int* sms, int* max_smem) {
     err = cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   return coop ? cudaSuccess : cudaErrorNotSupported;
+}
+
+// A barrier of some blocks on a count that only grows (the launch is
+// cooperative, so every block is resident): once the block's writes are
+// done, its thread 0 adds 1 with release semantics; count_wait polls, with
+// acquire loads, until the count reaches ``target`` (the blocks that share
+// the count times the barriers passed so far). In two halves, so that a
+// block can do work that needs no other block's writes between them.
+__device__ __forceinline__ void count_arrive(unsigned int* count) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count) : "memory");
+}
+
+__device__ __forceinline__ void count_wait(const unsigned int* count, unsigned int target) {
+  if (threadIdx.x == 0) {
+    unsigned int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(count) : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+}
+
+// Per-phase clock64 counts of thread 0 of two blocks (block 0 and the
+// grid's last block) of a stamped scan: the cycles since the last mark go
+// to the phase that ends at the next one. Row layout: globaltimer and
+// clock64 at the first step's start, the same at the last step's end, then
+// n_steps x kPhases cycle counts (ops/ar_decode.py:summarize_stamps).
+template <int kPhases>
+struct PhaseStamps {
+  long long* row = nullptr;
+  long long last = 0, acc[kPhases];
+
+  __device__ void open(long long* buf, int n_steps) {
+    const int blk = blockIdx.x, last_blk = gridDim.x - 1;
+    const int sel = blk == 0 ? 0 : (blk == last_blk ? 1 : -1);
+    if (buf == nullptr || sel < 0 || threadIdx.x != 0) return;
+    row = buf + (size_t)sel * (4 + (size_t)n_steps * kPhases);
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    row[0] = (long long)ns;
+    last = row[1] = clock64();
+  }
+  __device__ void begin_step() {
+    if (row != nullptr)
+      for (int p = 0; p < kPhases; ++p) acc[p] = 0;
+  }
+  __device__ void mark(int phase) {
+    if (row == nullptr) return;
+    const long long now = clock64();
+    acc[phase] += now - last;
+    last = now;
+  }
+  __device__ void end_step(int s) {
+    if (row == nullptr) return;
+    for (int p = 0; p < kPhases; ++p) row[4 + (size_t)s * kPhases + p] = acc[p];
+  }
+  __device__ void close() {
+    if (row == nullptr) return;
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    row[2] = (long long)ns;
+    row[3] = clock64();
+  }
+};
+
+// Makes a stamped kernel wait for ``v`` (a load's result) before its next
+// mark: a predicate on the value cannot be set before the value is there.
+__device__ __forceinline__ void settle(uint32_t v) {
+  asm volatile("{\n .reg .pred p;\n setp.eq.u32 p, %0, 0x5eed5eed;\n @p nanosleep.u32 1;\n}\n"
+               ::"r"(v));
+}
+__device__ __forceinline__ void settle(float v) { settle(__float_as_uint(v)); }
+
+// Two mma steps over one 32-deep K block (the row-group scans of
+// gru_train.cu): ``lo`` / ``hi`` hold A rows g / g + 8 and ``b`` the B
+// column g, 16 bytes each at the lane's K offset (8 bf16 from 8 q). Words
+// x, y feed the first step (K halves a0 / a2 and b0 / b1), z, w the
+// second; the same permutation of K on both sides leaves the sum as it is.
+__device__ __forceinline__ void mma_k32(float c0[4], float c1[4], const uint4& lo, const uint4& hi,
+                                        const uint4& b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c0[0]), "+f"(c0[1]), "+f"(c0[2]), "+f"(c0[3])
+      : "r"(lo.x), "r"(hi.x), "r"(lo.y), "r"(hi.y), "r"(b.x), "r"(b.y));
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c1[0]), "+f"(c1[1]), "+f"(c1[2]), "+f"(c1[3])
+      : "r"(lo.z), "r"(hi.z), "r"(lo.w), "r"(hi.w), "r"(b.z), "r"(b.w));
 }
 
 }  // namespace vq_grid

@@ -7,10 +7,13 @@ The port of the JAX package's ``ops/gru_train.py``, in kernels of two sources:
   scan, so H <= 192 (``BLOCK_MAX_HIDDEN``, 12 warps): the no-grad forward
   ``gru_scan`` (``_fwd_kernel``, ``save_residuals=False``) and
   ``gru_scan_masked`` (``_fwd_kernel_masked``), the serving PreNet's;
-- ``csrc/gru_train.cu``: a cooperative grid with ``wh`` spread over the
-  SMs, at the vocoder's H 896 and any other width (where a block's slice
-  of ``wh`` does not fit, it stages that slice with each K chunk of its
-  tile, ``grid_chunks``):
+- ``csrc/gru_train.cu``: a cooperative grid split into row groups (the
+  batch rows are independent sequences), each group's blocks spreading
+  ``wh`` over their SMs and handing h on through tagged exchange words
+  (forward) or one barrier per step (backward), at the vocoder's H 896 and
+  any other width (``group_plan`` mirrors the plan; where even one
+  group's slice of ``wh`` does not fit a block, the blocks stage it with
+  each K chunk of every step):
   ``gru_scan_train``, the training forward (``save_residuals=True``), which
   also returns ``acts`` (T, B, 3H) bf16 = sigmoid r | sigmoid z | tanh n and
   ``hns`` (T, B, H) bf16, the recurrent n term; the same forward without
@@ -29,11 +32,13 @@ Torch gate order r, z, n, with ``bh`` inside the reset product::
 training pair, the counterpart of ``fused_gru_scan``'s custom VJP. Each
 ``*_reference`` rounds at the kernel's places; a wrapper uses it for CPU
 tensors only: a CUDA tensor launches the kernel or raises. The
-``GRU_SCAN*_LAUNCHES`` counters count launches.
+``GRU_SCAN*_LAUNCHES`` counters count launches. The grid pair's stamped
+variants (``gru_scan_train_stamped``, ``gru_scan_bwd_stamped``) time each
+phase of a step for ``summarize_grid_stamps``; no entry point calls them.
 """
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -46,13 +51,25 @@ GRU_SCAN_MASKED_LAUNCHES = 0  # gru_scan.cu's masked kernel
 GRU_SCAN_MASKED_GRID_LAUNCHES = 0  # gru_train.cu's masked grid forward
 GRU_SCAN_TRAIN_LAUNCHES = 0
 GRU_SCAN_BWD_LAUNCHES = 0
+# The stamped grid kernels (measurement only: no entry point calls them).
+GRU_SCAN_TRAIN_STAMPED_LAUNCHES = 0
+GRU_SCAN_BWD_STAMPED_LAUNCHES = 0
+# The phases of a step that the stamped grid kernels time, in the order of
+# csrc/gru_train.cu's FwdPhase and BwdPhase.
+FWD_STAMP_PHASES = ("xproj", "h load", "product", "reduce", "gate pass", "prefetch")
+BWD_STAMP_PHASES = ("residuals", "gate grads", "barrier", "dgh load", "product", "carry")
 ROWS = 8  # kRows in csrc/gru_scan.cu: batch rows per block, the mma's N
 REG_STEPS = 8  # kRegSteps: 16-deep K steps of wh^T held in registers
 STAGES = 3  # kStages: xproj steps in the shared ring
 MAX_WARPS = 12  # kMaxWarps: a warp per 16 hidden units, of up to 168 registers
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can opt into (227 KB)
 BLOCK_MAX_HIDDEN = 16 * MAX_WARPS  # 192: the widest H one gru_scan.cu block takes
-FWD_ROWS, BWD_ROWS, SLOTS = 32, 16, 16  # kFwdRows, kBwdRows, kWarps in csrc/gru_train.cu
+# csrc/gru_train.cu: kBlockWarps, kMaxPairs, kKBlock; SYNC_WORDS = kMaxGroups
+# x kSyncStride, the uint32 barrier counts a backward launch is given.
+GRID_WARPS, MAX_PAIRS, K_BLOCK = 8, 2, 32
+SYNC_WORDS = 256 * 32
+PART_TILE = 8 * 20 + 16  # kPartTile: floats of a 16 x 8 tile of partial sums
+SMS = 132  # the H100's SMs: the grid the plan mirror assumes
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -84,35 +101,95 @@ def scan_smem_bytes(hidden: int) -> int:
     return scan_plan(hidden)[2]
 
 
+def grid_layout_bytes(rows: int, hidden: int, units: int, backward: bool, chunk: int = 0) -> int:
+    """Dynamic shared memory of one grid block of a group of ``rows`` rows
+    (csrc/gru_train.cu block_layout): its A operand, ``units`` rows of
+    ``wh`` (backward, K = 3H) or its 3 ``units`` columns (forward, K = H)
+    over a K chunk of ``chunk`` (0: all of K) padded to 32, each row padded
+    to 64 bytes modulo 128, and one zero row; a 16 x 8 f32 tile of partial
+    sums (``PART_TILE`` floats, padded against bank conflicts) per 16-row A
+    tile (plus 16 floats between A tiles where that keeps them 16 modulo 32
+    apart) and product task (a warp, or an 8-row N tile
+    where there are more of them than warps); the forward's 3 ``units``
+    f32 biases. The threads carry up to 512 (row, unit) pairs in
+    registers; past that, each pair's carry (and in the backward dh z)
+    takes f32 in shared memory."""
+    k, m_rows = (3 * hidden, units) if backward else (hidden, 3 * units)
+    row_bytes = 2 * _cdiv(min(k, chunk or k), K_BLOCK) * K_BLOCK
+    stride = row_bytes + (192 - row_bytes % 128) % 128
+    tasks = max(GRID_WARPS, _cdiv(rows, 8))
+    tile_row = tasks * PART_TILE + (16 if tasks % 2 == 0 else 0)
+    tail = max(0, rows * units - MAX_PAIRS * 32 * GRID_WARPS)
+    return (_align16((m_rows + 1) * stride) + _align16(4 * tile_row * _cdiv(m_rows, 16))
+            + (0 if backward else _align16(4 * m_rows)) + _align16(4 * (2 if backward else 1) * tail))
+
+
 def grid_smem_bytes(batch: int, hidden: int, units: int,
                     chunks: Tuple[int, int] = (0, 0)) -> Tuple[int, int]:
-    """Dynamic shared memory of one forward and one backward block of the grid
-    kernels (csrc/gru_train.cu fwd_layout and bwd_layout), each staging its
-    K (H, 3H) in chunks of ``chunks`` (0: all of it)."""
-    sizes = []
-    for width, cols, rows, slots, carries, chunk in (
-        (hidden, 3 * units, FWD_ROWS, max(SLOTS, 2 * _cdiv(3 * units, 8)), 1, chunks[0]),
-        (3 * hidden, units, BWD_ROWS, max(SLOTS, _cdiv(units, 8)), 2, chunks[1]),
-    ):
-        stride = _cdiv(min(width, chunk or width), 16) * 16 + 8
-        sizes.append(
-            _align16(2 * _cdiv(cols, 8) * 8 * stride)  # this block's part of wh, bf16
-            + _align16(2 * rows * stride)  # the h (forward) or dgh (backward) tile
-            + _align16(4 * 128 * slots)  # 16 x 8 partial products
-            + carries * _align16(4 * batch * units)  # the f32 carry (and dh z)
-        )
-    return sizes[0], sizes[1]
+    """A forward and a backward block's shared memory at ``units`` hidden
+    units in one group of all ``batch`` rows (``grid_layout_bytes``), each
+    over K chunks of ``chunks`` (0: all of K)."""
+    rows = _cdiv(batch, 8) * 8
+    return (grid_layout_bytes(rows, hidden, units, False, chunks[0]),
+            grid_layout_bytes(rows, hidden, units, True, chunks[1]))
 
 
 def grid_chunks(batch: int, hidden: int, units: int, limit: int = SMEM_LIMIT) -> Tuple[int, int]:
-    """The K chunks the grid plan picks for a forward and a backward block:
+    """The K chunks of a forward and a backward block of ``units`` units:
     all of K (H, 3H) where the block fits ``limit`` bytes, else the widest
     multiple of 16 that fits (the block then stages its slice of ``wh``
-    with each chunk of its tile); 0 where not even 16 fits."""
+    with each chunk of every step); 0 where not even 16 fits."""
     return (
         _fit_chunk(hidden, lambda c: grid_smem_bytes(batch, hidden, units, (c, 0))[0], limit),
         _fit_chunk(3 * hidden, lambda c: grid_smem_bytes(batch, hidden, units, (0, c))[1], limit),
     )
+
+
+class GridPlan(NamedTuple):
+    """One direction of a grid launch: ``groups`` row groups of ``rows``
+    rows (the last may hold fewer), each of ``blocks`` blocks of ``units``
+    hidden units, ``smem`` bytes of shared memory a block, K staged in
+    chunks of ``chunk`` (all of K where ``wh`` stays resident)."""
+
+    groups: int
+    rows: int
+    blocks: int
+    units: int
+    smem: int
+    chunk: int
+
+
+def group_plan(batch: int, hidden: int, backward: bool = False, units: int = 0,
+               sms: int = SMS, limit: int = SMEM_LIMIT) -> GridPlan:
+    """The grid plan of csrc/gru_train.cu (plan_direction) on ``sms`` SMs:
+    the most row groups (rows a multiple of 8) whose blocks hold their
+    slice of ``wh`` whole; where none do, the fewest groups, with the
+    widest K chunk that fits. Each group takes ``sms // groups`` SMs and
+    splits H over them (``units`` 0: as few units a block as that allows).
+    Raises ``ValueError`` where no grid fits."""
+    k = 3 * hidden if backward else hidden
+    fewest = None
+    for rows in range(8, _cdiv(batch, 8) * 8 + 1, 8):
+        groups = _cdiv(batch, rows)
+        if groups > min(sms, SYNC_WORDS // 32):
+            continue
+        share = sms // groups
+        u = units or _cdiv(hidden, share)
+        blocks = _cdiv(hidden, u)
+        if blocks > share:
+            continue
+        smem = grid_layout_bytes(rows, hidden, u, backward)
+        if smem <= limit:
+            return GridPlan(groups, rows, blocks, u, smem, k)
+        if fewest is None or groups < fewest.groups:
+            fewest = GridPlan(groups, rows, blocks, u, 0, 0)
+    if fewest is None:
+        raise ValueError(f"no GRU grid of row groups fits B={batch}, H={hidden} on {sms} SMs")
+    size = lambda c: grid_layout_bytes(fewest.rows, hidden, fewest.units, backward, c)
+    chunk = _fit_chunk(k, size, limit)
+    if chunk == 0:
+        raise ValueError(f"a GRU grid block of {fewest.units} units does not fit {limit} bytes")
+    return fewest._replace(smem=size(chunk), chunk=chunk)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -127,19 +204,20 @@ def scan_route(hidden: int) -> str:
     return "block" if hidden <= BLOCK_MAX_HIDDEN else "grid"
 
 
-def grid_plan(batch: int, hidden: int, units: int = 0) -> Tuple[int, ...]:
-    """(blocks, hidden units per block, forward and backward shared memory
-    bytes, forward and backward K chunks) of a grid launch; ``units`` 0 takes
-    ceil(H / SMs). Raises when the grid cannot be resident on the card at
-    once or a block does not fit."""
+def grid_plan(batch: int, hidden: int, units: int = 0,
+              backward: bool = False) -> GridPlan:
+    """The card's plan of a forward (or ``backward``) grid launch
+    (``group_plan`` mirrors it); ``units`` 0 takes the default. Raises
+    when the grid cannot be resident on the card at once or a block does
+    not fit."""
     from . import _build
 
-    out6 = (ctypes.c_int * 6)()
+    out12 = (ctypes.c_int * 12)()
     _build.check(
-        _build.library().vq_gru_grid_plan(batch, hidden, units, out6),
+        _build.library().vq_gru_grid_plan(batch, hidden, units, out12),
         f"GRU grid plan (B={batch}, H={hidden}, units={units or 'auto'})",
     )
-    return tuple(out6)
+    return GridPlan(*out12[6:] if backward else out12[:6])
 
 
 @torch.no_grad()
@@ -291,7 +369,20 @@ def _launch_block(entry: str, xproj, valid, wh, bh, h0):
     return hs, h_out
 
 
-def _grid_forward(wh, bh, xproj, h0, save: bool, valid=None):
+def _exchange_buffer(batch: int, hidden: int, device) -> torch.Tensor:
+    """The forward's exchange of h between blocks, zeroed: two slots of (B,
+    H) words, each bf16(h) and the tag of its step (no tag is 0)."""
+    return torch.zeros(2, batch, hidden, dtype=torch.int32, device=device)
+
+
+def _sync_buffer(device) -> torch.Tensor:
+    """The row groups' barrier counts of one backward launch, zeroed."""
+    return torch.zeros(SYNC_WORDS, dtype=torch.int32, device=device)
+
+
+def _grid_forward(wh, bh, xproj, h0, save: bool, valid=None, stamps=None):
+    """One launch of the grid forward (its stamped variant where ``stamps``
+    is given): (hs, acts, hns, h_out), acts and hns None without ``save``."""
     t, b, g3 = xproj.shape
     hidden = wh.shape[0]
     dev = xproj.device
@@ -299,9 +390,31 @@ def _grid_forward(wh, bh, xproj, h0, save: bool, valid=None):
     acts = torch.empty(t, b, g3, dtype=torch.bfloat16, device=dev) if save else None
     hns = torch.empty_like(hs) if save else None
     h_out = torch.empty(b, hidden, dtype=torch.float32, device=dev)
-    _launch("vq_gru_scan_grid_launch", "GRU grid forward kernel launch", dev,
-            xproj, valid, wh, bh, h0, hs, acts, hns, h_out, t, b, hidden, int(save))
+    args = [xproj, valid, wh, bh, h0, hs, acts, hns, h_out, _exchange_buffer(b, hidden, dev), t,
+            b, hidden, int(save)]
+    if stamps is None:
+        _launch("vq_gru_scan_grid_launch", "GRU grid forward kernel launch", dev, *args)
+    else:
+        _launch("vq_gru_scan_grid_stamped_launch", "stamped GRU grid forward kernel launch", dev,
+                *args, stamps)
     return hs, acts, hns, h_out
+
+
+def _grid_backward(acts, hns, h_prevs, dhs, wh, dh_t, stamps=None) -> Tensors3:
+    """One launch of the grid backward (its stamped variant where
+    ``stamps`` is given): (dgx, dgh, dh0)."""
+    t, b, _ = acts.shape
+    hidden = wh.shape[0]
+    dgx, dgh = torch.empty_like(acts), torch.empty_like(acts)
+    dh0 = torch.empty(b, hidden, dtype=torch.float32, device=acts.device)
+    args = [acts, hns, h_prevs, dhs, wh, dh_t, dgx, dgh, dh0, _sync_buffer(acts.device), t, b,
+            hidden]
+    if stamps is None:
+        _launch("vq_gru_scan_bwd_launch", "gru_scan_bwd kernel launch", acts.device, *args)
+    else:
+        _launch("vq_gru_scan_bwd_stamped_launch", "stamped gru_scan_bwd kernel launch",
+                acts.device, *args, stamps)
+    return dgx, dgh, dh0
 
 
 def gru_scan(
@@ -375,14 +488,65 @@ def gru_scan_bwd(acts, hns, h_prevs, dhs, wh, dh_t) -> Tensors3:
     check_bwd_inputs(acts, hns, h_prevs, dhs, wh, dh_t)
     if not on_card:
         return gru_scan_bwd_reference(acts, hns, h_prevs, dhs, wh, dh_t)
-    t, b, _ = acts.shape
-    hidden = wh.shape[0]
-    dgx, dgh = torch.empty_like(acts), torch.empty_like(acts)
-    dh0 = torch.empty(b, hidden, dtype=torch.float32, device=acts.device)
-    _launch("vq_gru_scan_bwd_launch", "gru_scan_bwd kernel launch", acts.device,
-          acts, hns, h_prevs, dhs, wh, dh_t, dgx, dgh, dh0, t, b, hidden)
+    out = _grid_backward(acts, hns, h_prevs, dhs, wh, dh_t)
     GRU_SCAN_BWD_LAUNCHES += 1
-    return dgx, dgh, dh0
+    return out
+
+
+def _stamp_buffer(steps: int, phases, device) -> torch.Tensor:
+    return torch.zeros(2, 4 + steps * len(phases), dtype=torch.int64, device=device)
+
+
+def gru_scan_train_stamped(wh, bh, xproj, h0):
+    """``gru_scan_train`` through the kernel variant that stamps its phases,
+    on a CUDA tensor only (a measurement: no entry point of the package
+    calls it). Returns its four outputs and stamps (2, 4 + T x
+    len(FWD_STAMP_PHASES)) int64 for ``summarize_grid_stamps``."""
+    global GRU_SCAN_TRAIN_STAMPED_LAUNCHES
+    if xproj.device.type != "cuda":
+        raise ValueError(f"gru_scan_train_stamped runs on cuda only, not {xproj.device}")
+    check_scan_inputs(wh, bh, xproj, h0)
+    stamps = _stamp_buffer(xproj.shape[0], FWD_STAMP_PHASES, xproj.device)
+    out = _grid_forward(wh, bh, xproj, h0, save=True, stamps=stamps)
+    GRU_SCAN_TRAIN_STAMPED_LAUNCHES += 1
+    return (*out, stamps)
+
+
+def gru_scan_bwd_stamped(acts, hns, h_prevs, dhs, wh, dh_t):
+    """``gru_scan_bwd`` through the kernel variant that stamps its phases,
+    on a CUDA tensor only. Returns (dgx, dgh, dh0, stamps (2, 4 + T x
+    len(BWD_STAMP_PHASES)) int64); the stamps' steps run in reverse time."""
+    global GRU_SCAN_BWD_STAMPED_LAUNCHES
+    if acts.device.type != "cuda":
+        raise ValueError(f"gru_scan_bwd_stamped runs on cuda only, not {acts.device}")
+    check_bwd_inputs(acts, hns, h_prevs, dhs, wh, dh_t)
+    stamps = _stamp_buffer(acts.shape[0], BWD_STAMP_PHASES, acts.device)
+    out = _grid_backward(acts, hns, h_prevs, dhs, wh, dh_t, stamps)
+    GRU_SCAN_BWD_STAMPED_LAUNCHES += 1
+    return (*out, stamps)
+
+
+def summarize_grid_stamps(stamps, n_steps: int, backward: bool = False, skip: int = 1):
+    """A stamped grid kernel's buffer -> {block: {phase: us per step, ...,
+    "total", "wall"}} (``ar_decode.summarize_stamps`` over this kernel's
+    phases)."""
+    from .ar_decode import summarize_stamps
+
+    return summarize_stamps(stamps, n_steps, skip,
+                            BWD_STAMP_PHASES if backward else FWD_STAMP_PHASES)
+
+
+def _bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of bf16 operands (on the card, the tensor cores), summed in f32
+    throughout and rounded once to bf16: no bf16 partial sums of a split K,
+    as JAX's einsum(..., preferred_element_type=f32).astype(bf16)."""
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return a @ b
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
 
 
 class GruScan(torch.autograd.Function):
@@ -390,8 +554,9 @@ class GruScan(torch.autograd.Function):
     backward, as ``fused_gru_scan``'s ``_fused_fwd`` / ``_fused_bwd``.
 
     Outside the backward kernel: h_prevs = [bf16(h0), hs[:-1]]; dwh =
-    h_prevs^T dgh, a T B deep sum in f32 rounded once to wh's dtype; dbh =
-    the f32 sum of dgh; dxproj = dgx in xproj's dtype; dh0 in h0's dtype.
+    h_prevs^T dgh, one product of the bf16 operands, a T B deep sum in f32
+    rounded once to wh's bf16; dbh = the f32 sum of dgh; dxproj = dgx in
+    xproj's dtype; dh0 in h0's dtype.
     Missing cotangents of hs and h_T count as zeros.
     """
 
@@ -411,7 +576,7 @@ class GruScan(torch.autograd.Function):
         h_prevs = torch.cat([h0.bfloat16()[None], hs[:-1]], dim=0)  # (T, B, H)
         dgx, dgh, dh0 = gru_scan_bwd(acts, hns, h_prevs, dhs, wh, dh_t.contiguous())
         hidden = wh.shape[0]
-        dwh = h_prevs.reshape(-1, hidden).t().float() @ dgh.reshape(-1, 3 * hidden).float()
+        dwh = _bf16_product(h_prevs.reshape(-1, hidden).t(), dgh.reshape(-1, 3 * hidden))
         dbh = dgh.sum(dim=(0, 1), dtype=torch.float32)
         return dwh.to(wh.dtype), dbh.to(bh_dtype), dgx.to(xproj_dtype), dh0.to(h0.dtype)
 
