@@ -60,7 +60,11 @@ Phases (any failure ends the run with a non-zero exit):
    stamped kernel variant (launched only here) at B 1, 8 and 64 in both
    modes; the GRU grid kernels' split by phase at the vocoder's shape from
    their stamped variants (launched only here, giving the plain launches'
-   bits); the GRU scans beside cuDNN's GRU with their ratio; the grid
+   bits); the cluster LSTM pair's split by phase at the export and
+   training shapes from its stamped variants (launched only here, same
+   bits), beside the split of the FMA kernels it replaced; the grid LSTM
+   pair at H 256 through its entry points, the one-family yardstick; the
+   GRU scans beside cuDNN's GRU with their ratio; the grid
    LSTM pair at H 512 beside cuDNN's LSTM; the masked grid forward;
    each serving drain beside the request mix's slot-utilisation ceiling
    times the raw kernel rate at that many rows; the export's wall time;
@@ -69,7 +73,8 @@ Phases (any failure ends the run with a non-zero exit):
    training pair and GruScan's dwh product beside cuDNN's GRU, their
    bounds and the one-group kernels' times, and the vocoder train step in
    samples/s to the device, its kernels' and the device's busy share, its
-   peak memory.
+   peak memory; last, the LSTM pair, the kernels that must not move, the
+   CPC step and the export beside their earlier figures.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -182,6 +187,26 @@ VOC_EPOCHS, VOC_VAL_EVERY = 4, 2  # 125 training utterances at B 32: 3 steps an 
 # and GruScan's dwh as an f32 product, at VOC_T, VOC_B, VOC_H (PERF.md
 # section 6; H100 80GB HBM3 at 700 W).
 ONE_GROUP_MS = {"gru_scan_train": 34.701, "gru_scan_bwd": 48.821, "dwh": 16.931}
+# The cluster LSTM pair before its redesign on the tensor cores (FMA loops,
+# scalar remote stores, one cluster.sync a step) at LSTM_SHAPES: its stamped
+# split, us per step on rank 0 of the first cluster, and the figures
+# PERF.md section 6 held for it and for the kernels that must not move
+# (H100 80GB HBM3 at 700 W; ms per call; the CPC step and export from
+# PERF.md section 5).
+FMA_LSTM_STAMPS = {
+    "forward export": {"xproj": 0.312, "product": 5.199, "part sum": 0.129, "gate pass": 0.295,
+                       "remote writes": 0.721, "barrier": 2.178, "total": 8.835},
+    "training forward training": {"xproj": 0.327, "product": 5.214, "part sum": 0.166,
+                                  "gate pass": 0.357, "remote writes": 1.155, "barrier": 1.350,
+                                  "total": 8.569},
+    "backward training": {"residuals": 0.351, "gate grads": 0.294, "remote writes": 5.073,
+                          "barrier": 1.597, "product": 4.978, "part sum": 0.147, "total": 12.439},
+}
+EARLIER_MS = {"lstm_scan": 1.7029, "lstm_scan_train": 0.5012, "lstm_scan_bwd": 0.8480,
+              "lstm_scan_grid": 0.6796, "lstm_scan_grid_bwd": 0.9968, "gru_scan_train": 20.156,
+              "gru_scan_bwd": 21.835, "gru_scan_masked_grid": 0.5025, "cpc_step": 13.614,
+              "cpc_device_busy": 2.797}
+EARLIER_EXPORT_FRAMES_S = 2998.8
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1001,6 +1026,151 @@ def phase_gru_stamps(seed: int, card: str) -> dict:
                   f"{steps - 1} steps): " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
                   + f"  [{card}]")
     return out
+
+
+def phase_lstm_stamps(seed: int, card: str) -> dict:
+    """The cluster LSTM kernels' split by phase, from their stamped variants
+    (``lstm_scan_stamped``, ``lstm_scan_bwd_stamped``, reached from nothing
+    but this phase), which must give the plain launches' bits: the
+    inference forward at the export shape, the training forward and the
+    backward at the training shape. Returns {shape: {kernel: split}}, each
+    split {CTA: {phase: us per step}}."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    out = {}
+    for shape, (batch, steps) in LSTM_SHAPES.items():
+        args = _lstm_inputs(seed, batch, steps)
+        save = shape == "training"
+        plain = ls.lstm_scan_train(*args) if save else ls.lstm_scan(*args)
+        ls.lstm_scan_stamped(*args, save=save)  # warm-up
+        hs, acts, c_prev, h_t, c_t, stamps = ls.lstm_scan_stamped(*args, save=save)
+        torch.cuda.synchronize()
+        got = (hs, acts, c_prev, h_t, c_t) if save else (hs, h_t, c_t)
+        check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+              f"the stamped LSTM forward's outputs at the {shape} shape are not the plain bits")
+        splits = {"training forward" if save else "forward":
+                  ls.summarize_scan_stamps(stamps.cpu().tolist(), steps)}
+        if save:
+            rng = np.random.default_rng(seed + 12)
+            dhs = torch.from_numpy(rng.normal(size=(steps, batch, LSTM_H)).astype(np.float32)).to(
+                DEVICE).bfloat16()
+            bwd_args = (acts, c_prev, dhs, args[0], torch.zeros_like(h_t), torch.zeros_like(c_t))
+            plain_b = ls.lstm_scan_bwd(*bwd_args)
+            ls.lstm_scan_bwd_stamped(*bwd_args)
+            *got_b, stamps_b = ls.lstm_scan_bwd_stamped(*bwd_args)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got_b, plain_b)),
+                  "the stamped lstm_scan_bwd's outputs are not the plain launch's bits")
+            splits["backward"] = ls.summarize_scan_stamps(stamps_b.cpu().tolist(), steps, True)
+        for kernel, split in splits.items():
+            check(bool(split), f"stamps LSTM {kernel} at {shape}: no CTA recorded")
+            for block, phases in split.items():
+                print(f"stamps lstm {kernel} {shape} B={batch} T={steps} H={LSTM_H} {block} "
+                      f"(us/step over {steps - 1} steps): "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()) + f"  [{card}]")
+        out[shape] = splits
+    return out
+
+
+def phase_time_lstm_grid_h256(seed: int, card: str) -> dict:
+    """The grid LSTM pair (csrc/lstm_grid.cu) at the cluster kernels' H 256,
+    launched through its entry points (``scan_route`` sends H 256 to the
+    cluster), held against the plain versions and timed at the export shape
+    (inference) and the training shape (training forward, backward): the
+    yardstick of one LSTM kernel family."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+    from vectorquantizedcpc_tpu_torch.ops._build import launch
+
+    def forward(args, save):
+        wh, xproj, h0, c0 = args
+        t, b, _ = xproj.shape
+        hs = torch.empty(t, b, LSTM_H, dtype=torch.bfloat16, device=DEVICE)
+        acts = torch.empty_like(xproj) if save else None
+        c_prev = torch.empty(t, b, LSTM_H, device=DEVICE) if save else None
+        h_out, c_out = torch.empty_like(h0), torch.empty_like(c0)
+        launch("vq_lstm_scan_grid_launch", "LSTM grid forward at H 256", xproj.device, xproj, wh,
+               h0, c0, hs, acts, c_prev, h_out, c_out, t, b, LSTM_H, int(save))
+        return (hs, acts, c_prev, h_out, c_out) if save else (hs, h_out, c_out)
+
+    def backward(acts, c_prev, dhs, wh, dh_t, dc_t):
+        t, b, _ = acts.shape
+        dgates, dh0, dc0 = torch.empty_like(acts), torch.empty_like(dh_t), torch.empty_like(dc_t)
+        launch("vq_lstm_scan_grid_bwd_launch", "LSTM grid backward at H 256", acts.device, acts,
+               c_prev, dhs, wh, dh_t, dc_t, dgates, dh0, dc0, t, b, LSTM_H)
+        return dgates, dh0, dc0
+
+    out = {}
+    batch, steps = LSTM_SHAPES["export"]
+    args = _lstm_inputs(seed, batch, steps)
+    got, ref = forward(args, False), ls.lstm_scan_reference(*args)
+    errs = [float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref)]
+    check(max(errs) <= MAX_LSTM_ERR, f"grid LSTM at H 256, export shape: {errs}")
+    with torch.no_grad():
+        out["lstm_scan"] = time_cuda(lambda: forward(args, False), reps=20)
+    batch, steps = LSTM_SHAPES["training"]
+    args = _lstm_inputs(seed, batch, steps)
+    got, ref = forward(args, True), ls.lstm_scan_train_reference(*args)
+    errs = [float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref)]
+    check(max(errs) <= MAX_LSTM_ERR, f"grid LSTM at H 256, training shape: {errs}")
+    rng = np.random.default_rng(seed + 12)
+    dhs = torch.from_numpy(rng.normal(size=(steps, batch, LSTM_H)).astype(np.float32)).to(
+        DEVICE).bfloat16()
+    bwd_args = (ref[1], ref[2], dhs, args[0], torch.zeros_like(ref[3]), torch.zeros_like(ref[4]))
+    kb, rb = backward(*bwd_args), ls.lstm_scan_bwd_reference(*bwd_args)
+    for what, a, r in zip(("dgates", "dh0", "dc0"), kb, rb):
+        e, m = _rel_err(a, r)
+        check(e <= MAX_LSTM_BWD_REL * m + 1e-3, f"grid LSTM backward at H 256: {what} {e} of {m}")
+    out["lstm_scan_train"] = time_cuda(lambda: forward(args, True), reps=20)
+    out["lstm_scan_bwd"] = time_cuda(lambda: backward(*bwd_args), reps=20)
+    print(f"timing lstm grid pair at H={LSTM_H} (yardstick; the cluster kernels take H 256): "
+          f"inference B={LSTM_SHAPES['export'][0]} T={LSTM_SHAPES['export'][1]} "
+          f"{out['lstm_scan']:.4f} ms, training forward B={batch} T={steps} "
+          f"{out['lstm_scan_train']:.4f} ms, backward {out['lstm_scan_bwd']:.4f} ms  [{card}]")
+    return out
+
+
+def report_lstm(stamps: dict, timing_lstm: dict, timing_train: dict, grid_h256: dict,
+                timing_lstm_grid: dict, timing_voc: dict, timing_masked_grid: dict,
+                exported: dict, card: str) -> None:
+    """Phase 5's account of the cluster LSTM pair: the stamped split of the
+    FMA kernels (FMA_LSTM_STAMPS) beside this run's; each kernel beside its
+    bound, cuDNN, the grid pair at H 256 and its earlier time (EARLIER_MS);
+    the kernels that must not move, the CPC step and the export beside
+    theirs."""
+    for kernel, split in (("forward export", stamps["export"]["forward"]),
+                          ("training forward training", stamps["training"]["training forward"]),
+                          ("backward training", stamps["training"]["backward"])):
+        old = FMA_LSTM_STAMPS[kernel]
+        print(f"stamps lstm {kernel}, rank 0, us/step, FMA kernels -> this run: "
+              + ", ".join(f"{ph} {old[ph]:.3f} -> {split['block 0'][ph]:.3f}" for ph in old)
+              + f"  [{card}]")
+    rows = (("lstm_scan", timing_lstm["export"], LSTM_SHAPES["export"]),
+            ("lstm_scan_train", timing_train["lstm_scan_train"], LSTM_SHAPES["training"]),
+            ("lstm_scan_bwd", timing_train["lstm_scan_bwd"], LSTM_SHAPES["training"]))
+    for name, res, (batch, steps) in rows:
+        print(f"lstm table {name} B={batch} T={steps} H={LSTM_H}: kernel {res['ms']:.4f} ms = "
+              f"{res['ms'] * 1e3 / steps:.3f} us/step (earlier {EARLIER_MS[name]} ms, "
+              f"{EARLIER_MS[name] / res['ms']:.2f}x); bound {res['bound_ms'] * 1e3:.3f} us by "
+              f"{res['bound_by']}; cuDNN {res['library_ms']:.4f} ms; grid pair at H 256 "
+              f"{grid_h256[name]:.4f} ms (cluster / grid {res['ms'] / grid_h256[name]:.3f})  "
+              f"[{card}]")
+    unmoved = {"lstm_scan_grid": timing_lstm_grid["lstm_scan_grid"]["ms"],
+               "lstm_scan_grid_bwd": timing_lstm_grid["lstm_scan_grid_bwd"]["ms"],
+               "gru_scan_train": timing_voc["gru_scan_train"]["ms"],
+               "gru_scan_bwd": timing_voc["gru_scan_bwd"]["ms"],
+               "gru_scan_masked_grid": timing_masked_grid["ms"]}
+    print("unmoved kernels, this run against earlier (ms): " + ", ".join(
+        f"{k} {v:.4f} vs {EARLIER_MS[k]} ({(v / EARLIER_MS[k] - 1) * 100:+.1f} %)"
+        for k, v in unmoved.items()) + f"  [{card}]")
+    step = timing_train["step"]
+    busy = step.get("device_busy_ms")
+    busy_text = "not measured" if busy is None else (
+        f"{busy:.3f} ms of device work (earlier {EARLIER_MS['cpc_device_busy']}), idle "
+        f"{(1 - busy / step['ms']) * 100:.2f} %")
+    fps = exported["frames"] / exported["seconds"]
+    print(f"end to end: CPC train step {step['ms']:.3f} ms = {step['steps_per_s']:.2f} steps/s "
+          f"(earlier {EARLIER_MS['cpc_step']} ms), {busy_text}; export {fps:.1f} latent frames/s "
+          f"(earlier {EARLIER_EXPORT_FRAMES_S})  [{card}]")
 
 
 def _gru_bound(x: dict, masked: bool):
@@ -2042,6 +2212,7 @@ def phase_time_vocoder(seed: int, card: str) -> dict:
     beside them; the dwh product; the vocoder train step to the device."""
     from vectorquantizedcpc_tpu_torch.configs import load_conf
     from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+    from vectorquantizedcpc_tpu_torch.ops.matmul import bf16_product
 
     start = time.perf_counter()
     out = {}
@@ -2080,7 +2251,7 @@ def phase_time_vocoder(seed: int, card: str) -> dict:
               f"{bound / res['ms'] * 100:.3f} %  [{card}]")
     del lib_out, inputs, gru_in, cudnn
     # GruScan.backward's dwh: one product of the bf16 operands, f32 sums.
-    dwh_ms = time_cuda(lambda: g._bf16_product(h_prevs.reshape(-1, hidden).t(),
+    dwh_ms = time_cuda(lambda: bf16_product(h_prevs.reshape(-1, hidden).t(),
                                                dgh.reshape(-1, 3 * hidden)), reps=5)
     dwh_bound, dwh_by = _bound(_nbytes(h_prevs, dgh) + hidden * 3 * hidden * 2, flops,
                                PEAK_BF16_FLOPS)
@@ -2205,12 +2376,14 @@ def main() -> int:
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
 
     from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
 
     stamped = (ar.AR_DECODE_STAMPED_LAUNCHES, g.GRU_SCAN_TRAIN_STAMPED_LAUNCHES,
-               g.GRU_SCAN_BWD_STAMPED_LAUNCHES)
-    check(stamped == (0, 0, 0), f"a main path launched a stamped kernel: {stamped}")
-    print(f"phase 4: {time.perf_counter() - start:.3f} s wall; the stamped AR and GRU grid kernels "
-          f"launched {stamped} times in phases 1-4")
+               g.GRU_SCAN_BWD_STAMPED_LAUNCHES, ls.LSTM_SCAN_STAMPED_LAUNCHES,
+               ls.LSTM_SCAN_BWD_STAMPED_LAUNCHES)
+    check(stamped == (0, 0, 0, 0, 0), f"a main path launched a stamped kernel: {stamped}")
+    print(f"phase 4: {time.perf_counter() - start:.3f} s wall; the stamped AR, GRU grid and LSTM "
+          f"cluster kernels launched {stamped} times in phases 1-4")
     # Phase 5: times beside the bound.
     start = time.perf_counter()
     timing, ar_ms_by_batch = phase_time(args.seed, card)
@@ -2218,11 +2391,15 @@ def main() -> int:
     gru_stamps = phase_gru_stamps(args.seed, card)
     timing_gru = phase_time_gru(args.seed, card)
     timing_masked_grid = phase_time_gru_masked_grid(args.seed, card)
+    lstm_stamps = phase_lstm_stamps(args.seed, card)
     timing_lstm = phase_time_lstm(args.seed, card)
+    timing_lstm_h256 = phase_time_lstm_grid_h256(args.seed, card)
     timing_lstm_grid = phase_time_lstm_grid(args.seed, card)
     phase_time_serve(serve, ar_ms_by_batch["bf16"], card)
     timing_train = phase_time_train(args.seed, card)
     timing_voc = phase_time_vocoder(args.seed, card)
+    report_lstm(lstm_stamps, timing_lstm, timing_train, timing_lstm_h256, timing_lstm_grid,
+                timing_voc, timing_masked_grid, exported, card)
     print(f"phase 5: {time.perf_counter() - start:.3f} s wall")
 
     source = "vectorquantizedcpc_tpu_torch/ops/csrc/"
@@ -2292,6 +2469,8 @@ def main() -> int:
             "max_abs_err": compared_lstm,
             **timing_lstm["export"],
             "training_shape": timing_lstm["training"],
+            "stamps_us_per_step": lstm_stamps["export"]["forward"],
+            "grid_h256_ms": timing_lstm_h256["lstm_scan"],
         }
     ] + [
         {
@@ -2302,12 +2481,14 @@ def main() -> int:
             "launches": trained["launches"][name],
             "max_abs_err": compared_train[name],
             **timing_train[name],
+            **({"stamps_us_per_step": lstm_stamps["training"][kernel],
+                "grid_h256_ms": timing_lstm_h256[name]} if kernel else {}),
         }
-        for name, src, line in (
-            ("lstm_scan_train", "lstm_scan.cu", "lstm_scan.py:48"),
-            ("lstm_scan_bwd", "lstm_scan.cu", "lstm_scan.py:105"),
-            ("cpc_select", "cpc_select.cu", "cpc_select.py:65"),
-            ("cpc_select_bwd", "cpc_select.cu", "cpc_select.py:106"),
+        for name, src, line, kernel in (
+            ("lstm_scan_train", "lstm_scan.cu", "lstm_scan.py:48", "training forward"),
+            ("lstm_scan_bwd", "lstm_scan.cu", "lstm_scan.py:105", "backward"),
+            ("cpc_select", "cpc_select.cu", "cpc_select.py:65", None),
+            ("cpc_select_bwd", "cpc_select.cu", "cpc_select.py:106", None),
         )
     ] + [
         {

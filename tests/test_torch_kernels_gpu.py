@@ -16,9 +16,11 @@ chunks), through autograd, two launches giving the same bits, the stamped
 variants giving the plain launches' bits, their plan against its Python
 mirror and its refusals.
 LSTM scan: batches off the 8-row cluster tile, one step, odd step counts;
-its training forward and backward at B 1 and 9, T 1, H 32, 64 and 256, and
-through autograd; the grid kernels at H 37, 360, 440 and 512 (forward and
-backward), their plan and its refusals. CPC selection forward and
+its training forward and backward at B 1, 3, 9 and 16, T 1 and 256, H 8,
+32, 64, 256, 264, 352 and 432 (past 256 part of wh in shared memory), two
+launches and the stamped variants giving the same bits, the plan against
+its Python mirror, and through autograd; the grid kernels at H 37, 360,
+440 and 512 (forward and backward), their plan and its refusals. CPC selection forward and
 backward: odd L, tiles that do not fit shared memory, Z not a multiple of
 32 and Z past 256 (257, 300), collision ties, out-of-range indices.
 Skipped without a card. This file imports no JAX, so it also runs on a
@@ -540,8 +542,9 @@ def test_lstm_scan_shared_memory_layout_and_limits(cuda):
     from vectorquantizedcpc_tpu_torch.ops import _build
     from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
 
-    for hidden in (8, 64, 256, 432, 440):
+    for hidden in (8, 64, 256, 264, 432):
         assert _build.library().vq_lstm_scan_smem_bytes(hidden) == ls.scan_smem_bytes(hidden)
+    assert _build.library().vq_lstm_scan_smem_bytes(440) == 0  # past the cluster widths
     # Past the cluster kernel's widths the grid kernel takes the scan.
     for hidden in (440, 36):
         args = _lstm_case(np.random.default_rng(0), 2, 3, hidden, cuda)
@@ -556,17 +559,37 @@ def test_lstm_scan_shared_memory_layout_and_limits(cuda):
 
 @pytest.mark.parametrize(
     "t, b, hidden",
-    [(1, 1, 256), (70, 9, 256), (5, 64, 32), (13, 17, 64), (70, 64, 256), (4, 3, 352)],
+    [(1, 1, 256), (70, 9, 256), (5, 64, 32), (13, 17, 64), (70, 64, 256), (4, 3, 352),
+     (70, 3, 256),  # a partial cluster
+     (1, 64, 256),  # one step
+     (256, 16, 256),  # the export shape
+     (6, 5, 8),  # one unit per CTA, on 8 places of K (7 of them padding)
+     (9, 11, 264),  # past 256: K blocks of wh in shared memory
+     (5, 9, 432)],  # the widest forward (its backward takes the grid)
 )
 def test_lstm_scan_train_and_bwd_kernels_match_plain(cuda, t, b, hidden):
+    """The cluster pair against the plain versions; the inference forward
+    gives the training forward's bits; a second launch of each kernel and
+    the stamped variants give the first launch's bits."""
     from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
 
     rng = np.random.default_rng(t * 7 + b + hidden)
     args = _lstm_case(rng, t, b, hidden, cuda)
+    cluster_bwd = ls.scan_route(hidden, backward=True) == "cluster"
+    assert ls.scan_route(hidden) == "cluster"
     before = (ls.LSTM_SCAN_TRAIN_LAUNCHES, ls.LSTM_SCAN_BWD_LAUNCHES)
     got = ls.lstm_scan_train(*args)
     inf = ls.lstm_scan(*args)
+    again = ls.lstm_scan_train(*args)
+    *stamped, stamps = ls.lstm_scan_stamped(*args, save=True)
+    *stamped_inf, _ = ls.lstm_scan_stamped(*args)
     torch.cuda.synchronize()
+    for a, r, s in zip(got, again, stamped):
+        assert torch.equal(a, r) and torch.equal(a, s)
+    for a, s in zip((got[0], got[3], got[4]), (stamped_inf[0], stamped_inf[3], stamped_inf[4])):
+        assert torch.equal(a, s)
+    split = ls.summarize_scan_stamps(stamps.cpu().tolist(), t, skip=min(1, t - 1))
+    assert set(split) == {"block 0", "last block"} and all(v["wall"] > 0 for v in split.values())
     ref = ls.lstm_scan_train_reference(*args)
     # chip_smoke.py's bounds: a bf16 ulp of |h| < 1 and f32 sums.
     for name, a, r in zip(("hs", "acts", "c_prev", "h_T", "c_T"), got, ref):
@@ -576,11 +599,19 @@ def test_lstm_scan_train_and_bwd_kernels_match_plain(cuda, t, b, hidden):
     f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
     dhs = f32(rng.normal(0, 1, size=(t, b, hidden))).bfloat16()
     dh_t, dc_t = f32(rng.normal(0, 1, size=(b, hidden))), f32(rng.normal(0, 1, size=(b, hidden)))
-    kb = ls.lstm_scan_bwd(ref[1], ref[2], dhs, args[0], dh_t, dc_t)
+    bwd_args = (ref[1], ref[2], dhs, args[0], dh_t, dc_t)
+    kb = ls.lstm_scan_bwd(*bwd_args)
     torch.cuda.synchronize()
-    rb = ls.lstm_scan_bwd_reference(ref[1], ref[2], dhs, args[0], dh_t, dc_t)
-    assert (ls.LSTM_SCAN_TRAIN_LAUNCHES, ls.LSTM_SCAN_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    rb = ls.lstm_scan_bwd_reference(*bwd_args)
+    assert (ls.LSTM_SCAN_TRAIN_LAUNCHES, ls.LSTM_SCAN_BWD_LAUNCHES) == (
+        before[0] + 2, before[1] + int(cluster_bwd))
     assert kb[0].dtype == torch.bfloat16 and kb[0].shape == (t, b, 4 * hidden)
+    if cluster_bwd:
+        again_b = ls.lstm_scan_bwd(*bwd_args)
+        *stamped_b, _ = ls.lstm_scan_bwd_stamped(*bwd_args)
+        torch.cuda.synchronize()
+        for a, r, s in zip(kb, again_b, stamped_b):
+            assert torch.equal(a, r) and torch.equal(a, s)
     # chip_smoke.py's bounds: one bf16 ulp of da, carried by the gates.
     for name, a, r in zip(("dgates", "dh0", "dc0"), kb, rb):
         err = float((a.float() - r.float()).abs().max())
@@ -607,8 +638,9 @@ def test_lstm_scan_bwd_shared_memory_layout_and_limit(cuda):
     from vectorquantizedcpc_tpu_torch.ops import _build
     from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
 
-    for hidden in (8, 64, 256, 352, 360):
+    for hidden in (8, 64, 256, 264, 352):
         assert _build.library().vq_lstm_scan_bwd_smem_bytes(hidden) == ls.bwd_smem_bytes(hidden)
+    assert _build.library().vq_lstm_scan_bwd_smem_bytes(360) == 0  # past the cluster widths
     # H 360: past the cluster backward's 352, the grid backward takes it.
     wh, xproj, h0, c0 = _lstm_case(np.random.default_rng(1), 2, 3, 360, cuda)
     _, acts, c_prev, _, _ = ls.lstm_scan_train_reference(wh, xproj, h0, c0)

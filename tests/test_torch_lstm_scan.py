@@ -150,6 +150,10 @@ def test_kernel_input_checks(hidden, t, b, field, error):
 
 
 def test_shared_memory_bound():
-    """H = 256 fits one CTA with room to spare; 432 is the widest that fits."""
-    assert port.scan_smem_bytes(256) == 65536 + 16384 + 8192
-    assert port.scan_smem_bytes(432) <= port.SMEM_LIMIT < port.scan_smem_bytes(440)
+    """H = 256: wh in registers, only the double-buffered bf16(h) tile (2 x
+    8 K blocks of 512 B) and two mbarriers in shared memory; 432, the
+    widest the cluster forward takes, keeps 12 of its 14 K blocks a warp in
+    shared memory and still fits one CTA."""
+    assert port.scan_smem_bytes(256) == 2 * 8 * 512 + 16 == 8208
+    assert port.scan_smem_bytes(432) == 2 * 14 * 512 + 14 * 12 * 1024 + 16 <= port.SMEM_LIMIT
+    assert port.scan_route(432) == "cluster" != port.scan_route(440)

@@ -225,7 +225,12 @@ def test_backward_input_checks(field, error):
 
 
 def test_backward_shared_memory_bound():
-    """H = 256: 64 KB of wh rows, the 64 KB da tile pair, 8 KB of parts;
-    352 is the widest that fits one block."""
-    assert port.bwd_smem_bytes(256) == 65536 + 65536 + 8192
-    assert port.bwd_smem_bytes(352) <= port.SMEM_LIMIT < port.bwd_smem_bytes(360)
+    """H = 256: wh in registers; the double-buffered bf16(da) tile (2 x 32
+    K blocks of 512 B), a 16 x 8 f32 partial sum for each of 8 warps and two
+    mbarriers; 352 (44 units on 48 places), the widest the cluster backward
+    takes, keeps 4 of its 12 K blocks a warp in shared memory and still fits
+    one CTA."""
+    assert port.bwd_smem_bytes(256) == 2 * 32 * 512 + 8 * 512 + 16 == 36880
+    assert port.bwd_smem_bytes(352) == 2 * 48 * 512 + 12 * 512 + 12 * 4 * 1024 + 16
+    assert port.bwd_smem_bytes(352) <= port.SMEM_LIMIT
+    assert port.scan_route(352, backward=True) == "cluster" != port.scan_route(360, backward=True)

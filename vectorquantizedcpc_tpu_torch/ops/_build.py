@@ -127,6 +127,10 @@ def library() -> ctypes.CDLL:
         lib.vq_lstm_scan_train_launch.restype = i
         lib.vq_lstm_scan_bwd_launch.argtypes = [p] * 9 + [i] * 3 + [p]
         lib.vq_lstm_scan_bwd_launch.restype = i
+        lib.vq_lstm_scan_stamped_launch.argtypes = [p] * 9 + [i] * 4 + [p, p]
+        lib.vq_lstm_scan_stamped_launch.restype = i
+        lib.vq_lstm_scan_bwd_stamped_launch.argtypes = [p] * 9 + [i] * 3 + [p, p]
+        lib.vq_lstm_scan_bwd_stamped_launch.restype = i
         lib.vq_lstm_scan_bwd_smem_bytes.argtypes = [i]
         lib.vq_lstm_scan_bwd_smem_bytes.restype = i
         lib.vq_lstm_grid_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]

@@ -45,6 +45,7 @@ import torch
 from ._build import fit_chunk as _fit_chunk
 from ._build import launch as _launch
 from ._build import on_card as _on_card
+from .matmul import bf16_product
 
 GRU_SCAN_LAUNCHES = 0
 GRU_SCAN_MASKED_LAUNCHES = 0  # gru_scan.cu's masked kernel
@@ -536,19 +537,6 @@ def summarize_grid_stamps(stamps, n_steps: int, backward: bool = False, skip: in
                             BWD_STAMP_PHASES if backward else FWD_STAMP_PHASES)
 
 
-def _bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b of bf16 operands (on the card, the tensor cores), summed in f32
-    throughout and rounded once to bf16: no bf16 partial sums of a split K,
-    as JAX's einsum(..., preferred_element_type=f32).astype(bf16)."""
-    matmul = torch.backends.cuda.matmul
-    reduced = matmul.allow_bf16_reduced_precision_reduction
-    matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        return a @ b
-    finally:
-        matmul.allow_bf16_reduced_precision_reduction = reduced
-
-
 class GruScan(torch.autograd.Function):
     """Differentiable scan: ``gru_scan_train`` forward, ``gru_scan_bwd``
     backward, as ``fused_gru_scan``'s ``_fused_fwd`` / ``_fused_bwd``.
@@ -576,7 +564,7 @@ class GruScan(torch.autograd.Function):
         h_prevs = torch.cat([h0.bfloat16()[None], hs[:-1]], dim=0)  # (T, B, H)
         dgx, dgh, dh0 = gru_scan_bwd(acts, hns, h_prevs, dhs, wh, dh_t.contiguous())
         hidden = wh.shape[0]
-        dwh = _bf16_product(h_prevs.reshape(-1, hidden).t(), dgh.reshape(-1, 3 * hidden))
+        dwh = bf16_product(h_prevs.reshape(-1, hidden).t(), dgh.reshape(-1, 3 * hidden))
         dbh = dgh.sum(dim=(0, 1), dtype=torch.float32)
         return dwh.to(wh.dtype), dbh.to(bh_dtype), dgx.to(xproj_dtype), dh0.to(h0.dtype)
 

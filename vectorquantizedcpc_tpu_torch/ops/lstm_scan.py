@@ -11,9 +11,12 @@ package's ``ops/lstm_scan.py``:
 - ``lstm_scan_bwd``: the reverse-time backward (``_bwd_kernel``).
 
 Each launches one of two kernel families, as ``scan_route`` picks by
-width: ``csrc/lstm_scan.cu``'s cluster of 8 CTAs, which holds ``wh`` in
-the shared memory of one cluster (H a multiple of 8, at most 432 forward
-and 352 backward: the reference width 256), or ``csrc/lstm_grid.cu``'s
+width: ``csrc/lstm_scan.cu``'s cluster of 8 CTAs, which spreads ``wh``
+over one cluster as ``mma.sync`` fragments, in registers up to H 256 (the
+reference width) and partly in shared memory above (H a multiple of 8, at
+most 432 forward and 352 backward; ``scan_plan``, ``bwd_plan`` and the
+fragment maps ``tile_at``, ``fwd_a_column``, ``fwd_gate_lane`` mirror its
+layout), or ``csrc/lstm_grid.cu``'s
 cooperative grid of one block per SM, which takes every other width: above
 1,376 forward and 1,056 backward on 132 SMs, where a block's slice of
 ``wh`` no longer fits, it stages that slice with each K chunk of its tile
@@ -28,11 +31,14 @@ Torch gate order i, f, g, o::
 ``hs`` is stored in bf16. Any T >= 1 is taken (the TPU kernel's time-chunk
 divisor has no counterpart here). ``LstmScan`` is the autograd Function
 around the training pair, the counterpart of ``fused_lstm_scan``'s custom
-VJP: its backward runs ``lstm_scan_bwd`` and one f32 product for ``dwh``.
+VJP: its backward runs ``lstm_scan_bwd`` and one bf16 product for ``dwh``.
 Each ``*_reference`` rounds at the kernel's places; a wrapper uses it for
 CPU tensors only: a CUDA tensor launches the kernel or raises. The
 ``LSTM_SCAN*_LAUNCHES`` counters count launches of the cluster kernels,
-``LSTM_SCAN_GRID*_LAUNCHES`` those of the grid kernels.
+``LSTM_SCAN_GRID*_LAUNCHES`` those of the grid kernels. The cluster
+kernels' stamped variants (``lstm_scan_stamped``, ``lstm_scan_bwd_stamped``)
+time each phase of a step for ``summarize_scan_stamps``; no entry point
+calls them.
 """
 
 import ctypes
@@ -43,6 +49,7 @@ import torch
 from ._build import fit_chunk as _fit_chunk
 from ._build import launch as _launch
 from ._build import on_card as _on_card
+from .matmul import bf16_product
 
 LSTM_SCAN_LAUNCHES = 0
 LSTM_SCAN_TRAIN_LAUNCHES = 0
@@ -50,12 +57,21 @@ LSTM_SCAN_BWD_LAUNCHES = 0
 LSTM_SCAN_GRID_LAUNCHES = 0  # the grid forward, inference variant
 LSTM_SCAN_GRID_TRAIN_LAUNCHES = 0  # the grid forward, training variant
 LSTM_SCAN_GRID_BWD_LAUNCHES = 0
+# The stamped cluster kernels (measurement only: no entry point calls them).
+LSTM_SCAN_STAMPED_LAUNCHES = 0  # both forward variants
+LSTM_SCAN_BWD_STAMPED_LAUNCHES = 0
+# The phases of a step that the stamped cluster kernels time, in the order
+# of FwdPhase and BwdPhase in csrc/lstm_scan.cu.
+FWD_STAMP_PHASES = ("xproj", "product", "part sum", "gate pass", "remote writes", "barrier")
+BWD_STAMP_PHASES = ("residuals", "gate grads", "remote writes", "barrier", "product", "part sum")
 CLUSTER = 8  # kCluster in csrc/lstm_scan.cu: CTAs per cluster, each U = H / 8 units
-ROWS = 8  # kRows: batch rows per cluster
-SPLIT = 2  # kSplit: parts of the forward's H-deep product
-BWD_SPLIT = 8  # kBwdSplit: parts of the backward's 4H-deep product
+ROWS = 8  # kRows: batch rows per cluster, the mma's N
+REG_BLOCKS = 8  # kRegBlocks: 32-deep K blocks of a warp's wh slice held in registers
+WIDE_REG_BLOCKS = 2  # kWideRegBlocks: the same in the forward above H 256
+PARTS = 4  # kParts: the backward's K parts per 16-unit m-tile, a warp each
+BLOCK = 256  # kBlock: bf16 of one 32-deep K block of a tile (32 lanes x 8)
+MAX_HIDDEN, MAX_BWD_HIDDEN = 432, 352  # kMaxHidden, kMaxBwdHidden: the cluster route's widths
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can opt into (227 KB)
-MAX_THREADS = 1024  # the cluster kernels run H threads per CTA
 FWD_ROWS, BWD_ROWS, SLOTS = 32, 16, 16  # kFwdRows, kBwdRows, kWarps in csrc/grid_common.cuh
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -65,39 +81,127 @@ def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def scan_smem_bytes(hidden: int) -> int:
-    """Dynamic shared memory of one forward CTA at width ``hidden`` (csrc make_layout)."""
-    c4 = 4 * (hidden // CLUSTER)
-    return (
-        _align16(2 * hidden * c4)  # this CTA's wh columns, bf16
-        + _align16(4 * 2 * hidden * ROWS)  # bf16(h) tile, two buffers, as f32
-        + _align16(4 * SPLIT * ROWS * c4)  # the product's parts
-    )
-
-
-def bwd_smem_bytes(hidden: int) -> int:
-    """Dynamic shared memory of one backward CTA (csrc make_bwd_layout)."""
-    units = hidden // CLUSTER
-    return (
-        _align16(2 * units * 4 * hidden)  # this CTA's wh rows, bf16
-        + _align16(4 * 2 * 4 * hidden * ROWS)  # bf16(da) tile, two buffers, as f32
-        + _align16(4 * BWD_SPLIT * ROWS * units)  # the product's parts
-    )
-
-
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def padded_units(hidden: int) -> int:
+    """Up: the places of K one CTA's U = H / 8 units take in a cluster
+    kernel's tile, U rounded up to 8 (csrc padded_units)."""
+    return (hidden // CLUSTER + 7) // 8 * 8
+
+
+def scan_plan(hidden: int) -> Tuple[int, int, int, int]:
+    """(warps, K blocks held in registers, K blocks in shared memory,
+    dynamic shared memory bytes) of one forward CTA at width ``hidden``
+    (csrc fwd_plan): a warp per 4 units, each over the 8 Up places of K
+    (Up / 4 blocks), all in registers up to ``REG_BLOCKS`` of them, else
+    ``WIDE_REG_BLOCKS``; the double-buffered bf16(h) tile, the fragments
+    past the registers and two mbarriers."""
+    warps, kblocks = _cdiv(hidden // CLUSTER, 4), padded_units(hidden) // 4
+    extra = kblocks - WIDE_REG_BLOCKS if kblocks > REG_BLOCKS else 0
+    smem = (_align16(2 * 2 * kblocks * BLOCK) + _align16(2 * warps * extra * 2 * BLOCK)
+            + _align16(2 * 8))
+    return warps, kblocks - extra, extra, smem
+
+
+def bwd_plan(hidden: int) -> Tuple[int, int, int, int]:
+    """The same for one backward CTA (csrc bwd_plan): ``PARTS`` warps per
+    16-unit m-tile, each over ceil(Up / PARTS) of the Up 32-deep blocks of
+    the 4 x 8 Up places of K; the double-buffered bf16(da) tile, a 16 x 8 f32
+    partial sum per warp, the fragments past ``REG_BLOCKS`` and two
+    mbarriers."""
+    up = padded_units(hidden)
+    warps = PARTS * _cdiv(hidden // CLUSTER, 16)
+    kblocks = _cdiv(up, PARTS)
+    extra = max(0, kblocks - REG_BLOCKS)
+    smem = (_align16(2 * 2 * up * BLOCK) + _align16(4 * warps * 32 * 4)
+            + _align16(2 * warps * extra * 2 * BLOCK) + _align16(2 * 8))
+    return warps, kblocks - extra, extra, smem
+
+
+def scan_smem_bytes(hidden: int) -> int:
+    """Dynamic shared memory of one forward CTA at width ``hidden`` (csrc fwd_plan)."""
+    return scan_plan(hidden)[3]
+
+
+def bwd_smem_bytes(hidden: int) -> int:
+    """Dynamic shared memory of one backward CTA (csrc bwd_plan)."""
+    return bwd_plan(hidden)[3]
+
+
+def exchange_bytes(hidden: int, backward: bool = False) -> int:
+    """Bytes each CTA sends every other CTA of its cluster a step (csrc
+    Plan::send_bytes): 8 of each of the 8 rows per forward warp; the 8
+    rows x Up places of each of the 4 gates backward."""
+    if backward:
+        return 4 * ROWS * padded_units(hidden) * 2
+    return scan_plan(hidden)[0] * ROWS * 8
+
+
+def place(hidden: int, k: int) -> int:
+    """The place in a padded K range of unit (forward: row of wh) ``k``:
+    CTA k // U's place k % U."""
+    units = hidden // CLUSTER
+    return k // units * padded_units(hidden) + k % units
+
+
+def unpadded(hidden: int, k: int) -> int:
+    """The unit that place ``k`` holds (csrc unpadded); -1 for padding."""
+    units, up = hidden // CLUSTER, padded_units(hidden)
+    return k // up * units + k % up if k % up < units else -1
+
+
+def tile_at(row: int, k: int) -> int:
+    """Offset (bf16) of (row, place k) in a cluster kernel's B tile (csrc
+    tile_at): K block k // 32, lane row * 4 + k % 32 // 8, 8 bf16 a lane."""
+    return ((k >> 5) * 32 + row * 4 + ((k & 31) >> 3)) * 8 + (k & 7)
+
+
+def fwd_a_column(hidden: int, rank: int, warp: int, m: int) -> int:
+    """The column of ``wh`` that M row ``m`` of ``warp``'s m-tile holds in
+    CTA ``rank`` of the forward (csrc fwd_fragment): gate (m & 1) + 2 (m >> 3)
+    of local unit 4 warp + (m >> 1) & 3; -1 for a unit past U."""
+    units = hidden // CLUSTER
+    unit = 4 * warp + ((m >> 1) & 3)
+    gate = (m & 1) + 2 * (m >> 3)
+    return gate * hidden + rank * units + unit if unit < units else -1
+
+
+def fwd_gate_lane(warp: int, lane: int) -> Tuple[int, int]:
+    """(batch row, local unit) whose four gates ``lane`` of ``warp`` holds
+    after the forward's shuffle: row 2q + p, unit 4 warp + g // 2, with
+    g = lane // 4, q = lane % 4, p = g % 2."""
+    g, q = lane >> 2, lane & 3
+    return 2 * q + (g & 1), 4 * warp + (g >> 1)
+
+
+def bwd_warp_blocks(hidden: int, warp: int) -> Tuple[int, int, int]:
+    """(m-tile, first K block, K blocks) of ``warp`` in a backward CTA
+    (csrc lstm_scan_bwd_kernel): m-tile warp // PARTS of 16 units, K part
+    warp % PARTS of the Up 32-deep blocks of the 4 x 8 Up places of K."""
+    up = padded_units(hidden)
+    per = bwd_plan(hidden)[1] + bwd_plan(hidden)[2]
+    mt, part = divmod(warp, PARTS)
+    return mt, part * per, max(0, min(per, up - part * per))
+
+
+def bwd_partial_at(unit: int, row: int) -> Tuple[int, int, int]:
+    """(m-tile, lane, accumulator element) that holds local unit ``unit``
+    and batch row ``row`` of a backward warp's 16 x 8 partial sum: M row
+    unit % 16 = g + 8 (element // 2), N column row = 2q + element % 2."""
+    m = unit & 15
+    return unit >> 4, (m & 7) * 4 + (row >> 1), (m >> 3) * 2 + (row & 1)
+
+
 def scan_route(hidden: int, backward: bool = False) -> str:
     """The kernel family that runs a scan of width ``hidden`` on the card:
-    "cluster" (``csrc/lstm_scan.cu``) where its CTAs hold the forward's
-    (``backward`` False) or the backward's slice of ``wh``, else "grid"
+    "cluster" (``csrc/lstm_scan.cu``) for H a multiple of 8 up to
+    ``MAX_HIDDEN`` (forward) or ``MAX_BWD_HIDDEN`` (backward), else "grid"
     (``csrc/lstm_grid.cu``). The inference and training forwards always take
     the same route, so their hs, h_T and c_T are the same bits."""
-    smem = bwd_smem_bytes(hidden) if backward else scan_smem_bytes(hidden)
-    fits = hidden % CLUSTER == 0 and CLUSTER <= hidden <= MAX_THREADS and smem <= SMEM_LIMIT
-    return "cluster" if fits else "grid"
+    top = MAX_BWD_HIDDEN if backward else MAX_HIDDEN
+    return "cluster" if hidden % CLUSTER == 0 and CLUSTER <= hidden <= top else "grid"
 
 
 def grid_smem_bytes(batch: int, hidden: int, units: int,
@@ -261,9 +365,10 @@ def check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t) -> None:
         raise ValueError(f"empty LSTM scan backward: acts {tuple(acts.shape)}")
 
 
-def _forward(wh, xproj, h0, c0, save: bool):
-    """Launch the forward on the card by ``scan_route``: (hs, acts, c_prev,
-    h_T, c_T), acts and c_prev None unless ``save``."""
+def _forward(wh, xproj, h0, c0, save: bool, stamps=None):
+    """Launch the forward on the card by ``scan_route`` (the cluster's
+    stamped variant where ``stamps`` is given): (hs, acts, c_prev, h_T,
+    c_T), acts and c_prev None unless ``save``."""
     global LSTM_SCAN_LAUNCHES, LSTM_SCAN_TRAIN_LAUNCHES
     global LSTM_SCAN_GRID_LAUNCHES, LSTM_SCAN_GRID_TRAIN_LAUNCHES
     t, b, g4 = xproj.shape
@@ -274,7 +379,10 @@ def _forward(wh, xproj, h0, c0, save: bool):
     c_prev = torch.empty(t, b, hidden, dtype=torch.float32, device=dev) if save else None
     h_out = torch.empty(b, hidden, dtype=torch.float32, device=dev)
     c_out = torch.empty_like(h_out)
-    if scan_route(hidden) == "grid":
+    if stamps is not None:
+        _launch("vq_lstm_scan_stamped_launch", "stamped lstm_scan kernel launch", dev, xproj, wh,
+                h0, c0, hs, acts, c_prev, h_out, c_out, t, b, hidden, int(save), stamps)
+    elif scan_route(hidden) == "grid":
         _launch("vq_lstm_scan_grid_launch", "LSTM grid forward kernel launch", dev,
                 xproj, wh, h0, c0, hs, acts, c_prev, h_out, c_out, t, b, hidden, int(save))
         if save:
@@ -290,6 +398,29 @@ def _forward(wh, xproj, h0, c0, save: bool):
                 xproj, wh, h0, c0, hs, h_out, c_out, t, b, hidden)
         LSTM_SCAN_LAUNCHES += 1
     return hs, acts, c_prev, h_out, c_out
+
+
+def _backward(acts, c_prev, dhs, wh, dh_t, dc_t, stamps=None) -> Tensors3:
+    """Launch the backward on the card by ``scan_route(H, backward=True)``
+    (the cluster's stamped variant where ``stamps`` is given)."""
+    global LSTM_SCAN_BWD_LAUNCHES, LSTM_SCAN_GRID_BWD_LAUNCHES
+    t, b, _ = acts.shape
+    hidden = wh.shape[0]
+    dgates = torch.empty_like(acts)
+    dh0 = torch.empty(b, hidden, dtype=torch.float32, device=acts.device)
+    dc0 = torch.empty_like(dh0)
+    args = (acts, c_prev, dhs, wh, dh_t, dc_t, dgates, dh0, dc0, t, b, hidden)
+    if stamps is not None:
+        _launch("vq_lstm_scan_bwd_stamped_launch", "stamped lstm_scan_bwd kernel launch",
+                acts.device, *args, stamps)
+    elif scan_route(hidden, backward=True) == "grid":
+        _launch("vq_lstm_scan_grid_bwd_launch", "LSTM grid backward kernel launch",
+                acts.device, *args)
+        LSTM_SCAN_GRID_BWD_LAUNCHES += 1
+    else:
+        _launch("vq_lstm_scan_bwd_launch", "lstm_scan_bwd kernel launch", acts.device, *args)
+        LSTM_SCAN_BWD_LAUNCHES += 1
+    return dgates, dh0, dc0
 
 
 def lstm_scan(
@@ -322,33 +453,68 @@ def lstm_scan_train(wh, xproj, h0, c0):
 def lstm_scan_bwd(acts, c_prev, dhs, wh, dh_t, dc_t) -> Tensors3:
     """The reverse-time backward: (dgates (T, B, 4H) bf16, dh0, dc0 (B, H) f32),
     by the kernel of ``scan_route(H, backward=True)``."""
-    global LSTM_SCAN_BWD_LAUNCHES, LSTM_SCAN_GRID_BWD_LAUNCHES
     on_card = _on_card(acts, "lstm_scan_bwd")
     check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t)
     if not on_card:
         return lstm_scan_bwd_reference(acts, c_prev, dhs, wh, dh_t, dc_t)
-    t, b, _ = acts.shape
-    hidden = wh.shape[0]
-    dgates = torch.empty_like(acts)
-    dh0 = torch.empty(b, hidden, dtype=torch.float32, device=acts.device)
-    dc0 = torch.empty_like(dh0)
-    args = (acts, c_prev, dhs, wh, dh_t, dc_t, dgates, dh0, dc0, t, b, hidden)
-    if scan_route(hidden, backward=True) == "grid":
-        _launch("vq_lstm_scan_grid_bwd_launch", "LSTM grid backward kernel launch",
-                acts.device, *args)
-        LSTM_SCAN_GRID_BWD_LAUNCHES += 1
-    else:
-        _launch("vq_lstm_scan_bwd_launch", "lstm_scan_bwd kernel launch", acts.device, *args)
-        LSTM_SCAN_BWD_LAUNCHES += 1
-    return dgates, dh0, dc0
+    return _backward(acts, c_prev, dhs, wh, dh_t, dc_t)
+
+
+def _check_stamped(x, hidden: int, backward: bool, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda only, not {x.device}")
+    if scan_route(hidden, backward) != "cluster":
+        raise ValueError(f"{what}: H {hidden} takes the grid route")
+
+
+def lstm_scan_stamped(wh, xproj, h0, c0, save: bool = False):
+    """The cluster forward through its variant that stamps each phase of a
+    step, on a CUDA tensor at a cluster width only (a measurement: no entry
+    point of the package calls it). Returns (hs, acts, c_prev, h_T, c_T,
+    stamps (2, 4 + T x len(FWD_STAMP_PHASES)) int64), acts and c_prev None
+    unless ``save``; the outputs are the plain launch's bits."""
+    global LSTM_SCAN_STAMPED_LAUNCHES
+    check_scan_inputs(wh, xproj, h0, c0)
+    _check_stamped(xproj, wh.shape[0], False, "lstm_scan_stamped")
+    stamps = torch.zeros(2, 4 + xproj.shape[0] * len(FWD_STAMP_PHASES), dtype=torch.int64,
+                         device=xproj.device)
+    out = _forward(wh, xproj, h0, c0, save, stamps)
+    LSTM_SCAN_STAMPED_LAUNCHES += 1
+    return (*out, stamps)
+
+
+def lstm_scan_bwd_stamped(acts, c_prev, dhs, wh, dh_t, dc_t):
+    """``lstm_scan_bwd`` through the cluster backward's stamped variant, on a
+    CUDA tensor at a cluster width only: (dgates, dh0, dc0, stamps (2, 4 +
+    T x len(BWD_STAMP_PHASES)) int64), the stamps' steps in reverse time."""
+    global LSTM_SCAN_BWD_STAMPED_LAUNCHES
+    check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t)
+    _check_stamped(acts, wh.shape[0], True, "lstm_scan_bwd_stamped")
+    stamps = torch.zeros(2, 4 + acts.shape[0] * len(BWD_STAMP_PHASES), dtype=torch.int64,
+                         device=acts.device)
+    out = _backward(acts, c_prev, dhs, wh, dh_t, dc_t, stamps)
+    LSTM_SCAN_BWD_STAMPED_LAUNCHES += 1
+    return (*out, stamps)
+
+
+def summarize_scan_stamps(stamps, n_steps: int, backward: bool = False, skip: int = 1):
+    """A stamped cluster kernel's buffer -> {CTA: {phase: us per step, ...,
+    "total", "wall"}} over ``FWD_STAMP_PHASES`` or ``BWD_STAMP_PHASES``;
+    "block 0" is rank 0 of the first cluster, "last block" the last
+    cluster's last rank (``ar_decode.summarize_stamps``)."""
+    from .ar_decode import summarize_stamps
+
+    return summarize_stamps(stamps, n_steps, skip,
+                            BWD_STAMP_PHASES if backward else FWD_STAMP_PHASES)
 
 
 class LstmScan(torch.autograd.Function):
     """Differentiable scan: ``lstm_scan_train`` forward, ``lstm_scan_bwd``
     backward, as ``fused_lstm_scan``'s ``_fused_fwd`` / ``_fused_bwd``.
 
-    Outside the backward kernel: h_prevs = [bf16(h0), hs[:-1]];
-    dwh = h_prevs^T dgates summed in f32, cast to wh's dtype; dxproj =
+    Outside the backward kernel: h_prevs = [bf16(h0), hs[:-1]]; dwh =
+    h_prevs^T dgates, one product of the bf16 operands, a T B deep sum in
+    f32 rounded once to wh's bf16 (``matmul.bf16_product``); dxproj =
     dgates in xproj's dtype; dh0, dc0 in h0's dtype. Missing cotangents of
     h_T and c_T count as zeros.
     """
@@ -373,5 +539,5 @@ class LstmScan(torch.autograd.Function):
         )
         h_prevs = torch.cat([h0.bfloat16()[None], hs[:-1]], dim=0)  # (T, B, H)
         hidden = wh.shape[0]
-        dwh = (h_prevs.reshape(-1, hidden).float().t() @ dgates.reshape(-1, 4 * hidden).float())
+        dwh = bf16_product(h_prevs.reshape(-1, hidden).t(), dgates.reshape(-1, 4 * hidden))
         return dwh.to(wh.dtype), dgates.to(ctx.xproj_dtype), dh0.to(h0.dtype), dc0.to(h0.dtype)
