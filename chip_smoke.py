@@ -862,6 +862,34 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# torch.cuda._sleep's spin, in clock cycles, ahead of time_device's launches:
+# ~28 ms at 1.755 GHz, more than the host takes to enqueue them.
+SLEEP_CYCLES = 50_000_000
+
+
+def time_device(fn, reps: int) -> tuple:
+    """(device ms per call, host us per call). The ``reps`` calls are
+    enqueued behind a ``torch.cuda._sleep`` so that the CUDA events bracket
+    only the device's work, the launches running back to back; the host's
+    enqueue time per call is the wrapper's cost. Fails if the sleep ended
+    before the host had enqueued every call."""
+    fn()
+    torch.cuda.synchronize()
+    slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    slept.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    check(slept.elapsed_time(start) > host_ms, f"time_device: the sleep ({slept.elapsed_time(start):.3f}"
+          f" ms) ended before the {reps} calls were enqueued ({host_ms:.3f} ms)")
+    return start.elapsed_time(end) / reps, host_ms * 1e3 / reps
+
+
 def _decode_bound(w, batch: int, steps: int, cond_proj, h0, prev0):
     """(bound ms, what bounds it, operations, bytes) of one decode: each
     input read once and each output written once; the products at the
@@ -2113,13 +2141,106 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def phase_time_select(seed: int, card: str) -> dict:
+    """The selection pair at the training shape: the host loop's time per
+    call (``time_cuda``, as earlier PRs read it), the device's own time and
+    the host's cost per call (``time_device``), the plain versions, the
+    bound, and the dense route as a yardstick: a composite of PyTorch calls,
+    not a library kernel for the function (forward: bmm of wc against the
+    (k, s) tile, then gather; backward: the scores' cotangents scattered
+    into the dense (k, s) tile, then two bmm), f32 with TF32 off."""
+    from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k, s, u, n, l, z = SELECT_SHAPES["training"]
+    wc, zs, utt, seq = _select_inputs(seed, k, s, u, n, l, z)
+    f_neg, f_pos = cs.cpc_select(wc, zs, utt, seq)
+    d_neg, d_pos = torch.randn_like(f_neg), torch.randn_like(f_pos)
+    dots = 2 * k * s * u * (n + 1) * l * z
+    ks, ul = k * s, u * l
+    # Candidate rows of each anchor, positive first: (KS, U L, 1 + N) int64.
+    cand = torch.cat([torch.arange(ul, device=DEVICE).reshape(1, u, 1, l).expand(ks, u, 1, l),
+                      (utt.long()[:, None, :, :, None] * l + seq.long()).reshape(ks, u, n, l)],
+                     dim=2).permute(0, 1, 3, 2).reshape(ks, ul, n + 1).contiguous()
+    d_cand = torch.cat([d_pos.reshape(ks, u, 1, l), d_neg.reshape(ks, u, n, l)],
+                       dim=2).permute(0, 1, 3, 2).reshape(ks, ul, n + 1).contiguous()
+    wc3, zs3 = wc.reshape(ks, ul, z), zs.reshape(ks, ul, z)
+
+    def dense_fwd():
+        return torch.gather(torch.bmm(wc3, zs3.transpose(1, 2)), 2, cand)
+
+    def dense_bwd():
+        dense = torch.zeros(ks, ul, ul, device=DEVICE).scatter_add_(2, cand, d_cand)
+        return torch.bmm(dense, zs3), torch.bmm(dense.transpose(1, 2), wc3)
+
+    rows = {
+        "cpc_select": (lambda: cs.cpc_select(wc, zs, utt, seq),
+                       lambda: cs.cpc_select_reference(wc, zs, utt, seq),
+                       _nbytes(wc, zs, utt, seq, f_neg, f_pos), dots, dense_fwd, 2),
+        "cpc_select_bwd": (lambda: cs.cpc_select_bwd(d_neg, d_pos, wc, zs, utt, seq),
+                           lambda: cs.cpc_select_bwd_reference(d_neg, d_pos, wc, zs, utt, seq),
+                           _nbytes(d_neg, d_pos, wc, zs, utt, seq, wc, zs), 2 * dots, dense_bwd,
+                           4),
+    }
+    out = {}
+    for name, (kernel, plain, n_bytes, ops, dense, calls) in rows.items():
+        bound, by = _bound(n_bytes, ops, PEAK_F32_FLOPS)
+        device_ms, host_us = time_device(kernel, reps=200)
+        dense_ms, _ = time_device(dense, reps=50)
+        res = {"ms": time_cuda(kernel, reps=50), "device_ms": device_ms, "host_us": host_us,
+               "plain_ms": time_cuda(plain, reps=5), "bound_ms": bound, "bound_by": by,
+               "library_ms": None, "dense_route_ms": dense_ms}
+        print(f"timing {name} K={k} S={s} U={u} N={n} L={l} Z={z}: host loop "
+              f"{res['ms']:.4f} ms, device only {device_ms:.4f} ms (bound / device = "
+              f"{bound / device_ms * 100:.2f} %), host {host_us:.2f} us per call; dense route "
+              f"(a composite of {calls} PyTorch calls, f32, TF32 off) {dense_ms:.4f} ms device "
+              f"only  [{card}]")
+        out[name] = res
+    return out
+
+
+def phase_select_stamps(seed: int, card: str) -> dict:
+    """The selection pair's split by phase at the training shape, from the
+    stamped variants (``cpc_select_stamped``, ``cpc_select_bwd_stamped``,
+    reached from nothing but this phase): us that thread 0 of block 0 and of
+    the last block spent in each phase. The stamped forward and d_wc must be
+    the plain launches' bits, d_zs within MAX_SELECT_REL."""
+    from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
+
+    k, s, u, n, l, z = SELECT_SHAPES["training"]
+    wc, zs, utt, seq = _select_inputs(seed, k, s, u, n, l, z)
+    rng = np.random.default_rng(seed + 10)
+    d_neg = torch.from_numpy(rng.normal(size=(k, s, u, n, l)).astype(np.float32)).to(DEVICE)
+    d_pos = torch.from_numpy(rng.normal(size=(k, s, u, l)).astype(np.float32)).to(DEVICE)
+    plain = cs.cpc_select(wc, zs, utt, seq)
+    plain_b = cs.cpc_select_bwd(d_neg, d_pos, wc, zs, utt, seq)
+    cs.cpc_select_stamped(wc, zs, utt, seq)  # warm-up
+    *got, stamps = cs.cpc_select_stamped(wc, zs, utt, seq)
+    cs.cpc_select_bwd_stamped(d_neg, d_pos, wc, zs, utt, seq)
+    *got_b, stamps_b = cs.cpc_select_bwd_stamped(d_neg, d_pos, wc, zs, utt, seq)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+          "the stamped cpc_select's outputs are not the plain launch's bits")
+    check(torch.equal(got_b[0], plain_b[0]), "the stamped cpc_select_bwd's d_wc is not the plain bits")
+    e, m = _rel_err(got_b[1], plain_b[1])
+    check(e <= MAX_SELECT_REL * m, f"the stamped cpc_select_bwd's d_zs differs by {e} (largest {m})")
+    out = {"forward": cs.summarize_select_stamps(stamps.cpu().tolist()),
+           "backward": cs.summarize_select_stamps(stamps_b.cpu().tolist(), True)}
+    for kernel, split in out.items():
+        check(bool(split), f"stamps cpc_select {kernel}: no block recorded")
+        for block, phases in split.items():
+            print(f"stamps cpc_select {kernel} K={k} S={s} U={u} N={n} L={l} Z={z} {block} (us "
+                  f"over the launch, thread 0): " + ", ".join(f"{ph} {v:.3f}" for ph, v in
+                                                               phases.items()) + f"  [{card}]")
+    return out
+
+
 def phase_time_train(seed: int, card: str) -> dict:
     """The training kernels, their plain versions and bounds at the training
     shape; cuDNN's LSTM (fp16, with the input projection) forward and
     backward beside the LSTM pair; the train step to the device."""
     from vectorquantizedcpc_tpu_torch.configs import load_conf
     from vectorquantizedcpc_tpu_torch.models.cpc import sample_negative_indices
-    from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
     from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
     from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
 
@@ -2153,23 +2274,7 @@ def phase_time_train(seed: int, card: str) -> dict:
         out[name] = {"ms": time_cuda(kernel, reps=20), "plain_ms": time_cuda(plain, reps=2),
                      "bound_ms": bound, "bound_by": by, "library_ms": time_cuda(lib, reps=20)}
 
-    k, s, u, n, l, z = SELECT_SHAPES["training"]
-    wc, zs, utt, seq = _select_inputs(seed, k, s, u, n, l, z)
-    f_neg, f_pos = cs.cpc_select(wc, zs, utt, seq)
-    d_neg, d_pos = torch.randn_like(f_neg), torch.randn_like(f_pos)
-    dots = 2 * k * s * u * (n + 1) * l * z
-    rows = {
-        "cpc_select": (lambda: cs.cpc_select(wc, zs, utt, seq),
-                       lambda: cs.cpc_select_reference(wc, zs, utt, seq),
-                       _nbytes(wc, zs, utt, seq, f_neg, f_pos), dots),
-        "cpc_select_bwd": (lambda: cs.cpc_select_bwd(d_neg, d_pos, wc, zs, utt, seq),
-                           lambda: cs.cpc_select_bwd_reference(d_neg, d_pos, wc, zs, utt, seq),
-                           _nbytes(d_neg, d_pos, wc, zs, utt, seq, wc, zs), 2 * dots),
-    }
-    for name, (kernel, plain, n_bytes, ops) in rows.items():
-        bound, by = _bound(n_bytes, ops, PEAK_F32_FLOPS)
-        out[name] = {"ms": time_cuda(kernel, reps=50), "plain_ms": time_cuda(plain, reps=5),
-                     "bound_ms": bound, "bound_by": by, "library_ms": None}
+    out.update(phase_time_select(seed, card))
     for name, res in out.items():
         lib = "none" if res["library_ms"] is None else f"{res['library_ms']:.4f} ms"
         print(f"timing {name}: kernel {res['ms']:.4f} ms; plain {res['plain_ms']:.3f} ms; "
@@ -2375,15 +2480,17 @@ def main() -> int:
     phase_train_vocoder_step(args.seed, card)
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
 
+    from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
     from vectorquantizedcpc_tpu_torch.ops import gru_train as g
     from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
 
     stamped = (ar.AR_DECODE_STAMPED_LAUNCHES, g.GRU_SCAN_TRAIN_STAMPED_LAUNCHES,
                g.GRU_SCAN_BWD_STAMPED_LAUNCHES, ls.LSTM_SCAN_STAMPED_LAUNCHES,
-               ls.LSTM_SCAN_BWD_STAMPED_LAUNCHES)
-    check(stamped == (0, 0, 0, 0, 0), f"a main path launched a stamped kernel: {stamped}")
-    print(f"phase 4: {time.perf_counter() - start:.3f} s wall; the stamped AR, GRU grid and LSTM "
-          f"cluster kernels launched {stamped} times in phases 1-4")
+               ls.LSTM_SCAN_BWD_STAMPED_LAUNCHES, cs.CPC_SELECT_STAMPED_LAUNCHES,
+               cs.CPC_SELECT_BWD_STAMPED_LAUNCHES)
+    check(stamped == (0,) * 7, f"a main path launched a stamped kernel: {stamped}")
+    print(f"phase 4: {time.perf_counter() - start:.3f} s wall; the stamped AR, GRU grid, LSTM "
+          f"cluster and selection kernels launched {stamped} times in phases 1-4")
     # Phase 5: times beside the bound.
     start = time.perf_counter()
     timing, ar_ms_by_batch = phase_time(args.seed, card)
@@ -2396,6 +2503,7 @@ def main() -> int:
     timing_lstm_h256 = phase_time_lstm_grid_h256(args.seed, card)
     timing_lstm_grid = phase_time_lstm_grid(args.seed, card)
     phase_time_serve(serve, ar_ms_by_batch["bf16"], card)
+    select_stamps = phase_select_stamps(args.seed, card)
     timing_train = phase_time_train(args.seed, card)
     timing_voc = phase_time_vocoder(args.seed, card)
     report_lstm(lstm_stamps, timing_lstm, timing_train, timing_lstm_h256, timing_lstm_grid,

@@ -143,6 +143,10 @@ def library() -> ctypes.CDLL:
         lib.vq_cpc_select_launch.restype = i
         lib.vq_cpc_select_bwd_launch.argtypes = [p] * 8 + [i] * 6 + [p]
         lib.vq_cpc_select_bwd_launch.restype = i
+        lib.vq_cpc_select_stamped_launch.argtypes = [p] * 6 + [i] * 6 + [p, p]
+        lib.vq_cpc_select_stamped_launch.restype = i
+        lib.vq_cpc_select_bwd_stamped_launch.argtypes = [p] * 8 + [i] * 6 + [p, p]
+        lib.vq_cpc_select_bwd_stamped_launch.restype = i
         lib.vq_cpc_select_uses_tile.argtypes = [i] * 3
         lib.vq_cpc_select_uses_tile.restype = i
         lib.vq_cuda_error_string.argtypes = [i]

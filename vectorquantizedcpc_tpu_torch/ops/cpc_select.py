@@ -26,6 +26,12 @@ from ._build import on_card as _on_card
 
 CPC_SELECT_LAUNCHES = 0
 CPC_SELECT_BWD_LAUNCHES = 0
+# The stamped kernels (measurement only: no entry point calls them).
+CPC_SELECT_STAMPED_LAUNCHES = 0
+CPC_SELECT_BWD_STAMPED_LAUNCHES = 0
+# The phases the stamped kernels time, in csrc/cpc_select.cu's Phase order.
+FWD_STAMP_PHASES = ("tile load", "row and index loads", "dots", "stores")
+BWD_STAMP_PHASES = ("tile load", "row and index loads", "sums", "stores")
 
 
 def check_select_inputs(wc, zs, utt_index, seq_index) -> None:
@@ -149,6 +155,62 @@ def cpc_select_bwd(d_fneg, d_fpos, wc, zs, utt_index, seq_index):
     _build.check(err, "cpc_select_bwd kernel launch")
     CPC_SELECT_BWD_LAUNCHES += 1
     return d_wc, d_zs
+
+
+def _stamps(wc, what: str) -> torch.Tensor:
+    if wc.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda only, not {wc.device}")
+    return torch.zeros(2, 4 + len(FWD_STAMP_PHASES), dtype=torch.int64, device=wc.device)
+
+
+def cpc_select_stamped(wc, zs, utt_index, seq_index):
+    """``cpc_select`` through the kernel's variant that stamps its phases, on
+    a CUDA tensor only (a measurement: no entry point of the package calls
+    it): (f_neg, f_pos, stamps (2, 4 + len(FWD_STAMP_PHASES)) int64), the
+    outputs the plain launch's bits."""
+    global CPC_SELECT_STAMPED_LAUNCHES
+    check_select_inputs(wc, zs, utt_index, seq_index)
+    stamps = _stamps(wc, "cpc_select_stamped")
+    from . import _build
+
+    k, s, u, l, z = wc.shape
+    n = utt_index.shape[-1]
+    f_neg = torch.empty(k, s, u, n, l, dtype=torch.float32, device=wc.device)
+    f_pos = torch.empty(k, s, u, l, dtype=torch.float32, device=wc.device)
+    _build.launch("vq_cpc_select_stamped_launch", "stamped cpc_select kernel launch", wc.device,
+                  wc, zs, utt_index, seq_index, f_neg, f_pos, k * s, s, u, n, l, z, stamps)
+    CPC_SELECT_STAMPED_LAUNCHES += 1
+    return f_neg, f_pos, stamps
+
+
+def cpc_select_bwd_stamped(d_fneg, d_fpos, wc, zs, utt_index, seq_index):
+    """``cpc_select_bwd`` through the kernel's stamped variant, on a CUDA
+    tensor only: (d_wc, d_zs, stamps (2, 4 + len(BWD_STAMP_PHASES)) int64)."""
+    global CPC_SELECT_BWD_STAMPED_LAUNCHES
+    check_select_inputs(wc, zs, utt_index, seq_index)
+    stamps = _stamps(wc, "cpc_select_bwd_stamped")
+    from . import _build
+
+    k, s, u, l, z = wc.shape
+    n = utt_index.shape[-1]
+    d_wc = torch.empty_like(wc)
+    d_zs = torch.empty_like(zs) if _build.library().vq_cpc_select_uses_tile(u, l, z) else (
+        torch.zeros_like(zs))
+    _build.launch("vq_cpc_select_bwd_stamped_launch", "stamped cpc_select_bwd kernel launch",
+                  wc.device, d_fneg, d_fpos, wc, zs, utt_index, seq_index, d_wc, d_zs, k * s, s,
+                  u, n, l, z, stamps)
+    CPC_SELECT_BWD_STAMPED_LAUNCHES += 1
+    return d_wc, d_zs, stamps
+
+
+def summarize_select_stamps(stamps, backward: bool = False):
+    """A stamped selection kernel's buffer -> {block: {phase: us, ...,
+    "total", "wall"}}: the microseconds thread 0 of block 0 and of the last
+    block spent in each phase of ``FWD_STAMP_PHASES`` / ``BWD_STAMP_PHASES``
+    over the whole launch (``ar_decode.summarize_stamps`` with one step)."""
+    from .ar_decode import summarize_stamps
+
+    return summarize_stamps(stamps, 1, 0, BWD_STAMP_PHASES if backward else FWD_STAMP_PHASES)
 
 
 class CpcNegativeScores(torch.autograd.Function):

@@ -43,7 +43,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "grid_common.cuh"
+
 namespace {
+
+using vq_grid::PhaseStamps;
+using vq_grid::settle;
+
+// Phases of the stamped variants (ops/cpc_select.py:FWD_STAMP_PHASES,
+// BWD_STAMP_PHASES): cycles of thread 0 of block 0 and of the last block.
+enum Phase { kTile, kLoads, kSums, kStores, kPhases };
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
@@ -59,6 +68,7 @@ struct SelectArgs {
   int ks, s_count, u_count, n_count, l_count, z_dim;
   int groups;        // blocks per (k, s)
   int tile;          // 1: the block's z_shift tile in shared memory
+  long long* stamps; // kStamps: (2, 4 + kPhases)
 };
 
 struct SelectBwdArgs {
@@ -73,6 +83,7 @@ struct SelectBwdArgs {
   int ks, s_count, u_count, n_count, l_count, z_dim;
   int groups;           // gather blocks per (k, s); the scatter blocks follow
   int tile;             // 1: each block's tile in shared memory
+  long long* stamps;    // kStamps: (2, 4 + kPhases)
 };
 
 // w . row over Z, each lane summing its z = lane + 32 i in order, then a
@@ -122,8 +133,13 @@ __device__ void load_tile(float* tile, const float* src, size_t n) {
 }
 
 // kZL Z values per lane in registers.
-template <int kZL>
+template <int kZL, bool kStamps>
 __global__ void __launch_bounds__(kThreads) cpc_select_kernel(SelectArgs a) {
+  PhaseStamps<kPhases> st;
+  if constexpr (kStamps) {
+    st.open(a.stamps, 1);
+    st.begin_step();
+  }
   extern __shared__ __align__(16) float tile[];
   const int U = a.u_count, N = a.n_count, L = a.l_count, Z = a.z_dim;
   const int ks = blockIdx.x / a.groups, g = blockIdx.x % a.groups, k = ks / a.s_count;
@@ -135,6 +151,7 @@ __global__ void __launch_bounds__(kThreads) cpc_select_kernel(SelectArgs a) {
     __syncthreads();
     zs = tile;
   }
+  if constexpr (kStamps) st.mark(kTile);
   const int lane = threadIdx.x % 32;
   for (int an = g * kWarps + threadIdx.x / 32; an < UL; an += a.groups * kWarps) {
     const int u = an / L, l = an - u * L;
@@ -145,13 +162,23 @@ __global__ void __launch_bounds__(kThreads) cpc_select_kernel(SelectArgs a) {
       const int zc = min(32 * kZL, Z - z0);
       float w[kZL];
       load_row(w, a.wc + ks * ULZ + (size_t)an * Z + z0, zc, lane);
+      if constexpr (kStamps) {
+        settle(w[0]);
+        st.mark(kLoads);
+      }
       const float fp = warp_dot(w, zs + (size_t)an * Z + z0, zc, lane);
+      if constexpr (kStamps) st.mark(kSums);
       if (lane == 0) {
         float* out = a.f_pos + (size_t)ks * UL + an;
         *out = z0 == 0 ? fp : *out + fp;
       }
+      if constexpr (kStamps) st.mark(kStores);
       for (int n0 = 0; n0 < N; n0 += 32) {
         const int my_row = negative_row(a.utt, a.seq, k, ks, U, N, L, u, l, n0 + lane);
+        if constexpr (kStamps) {
+          settle((uint32_t)my_row);
+          st.mark(kLoads);
+        }
         float mine = NAN;
         const int count = min(32, N - n0);
         for (int j = 0; j < count; ++j) {
@@ -159,17 +186,28 @@ __global__ void __launch_bounds__(kThreads) cpc_select_kernel(SelectArgs a) {
           const float f = row >= 0 ? warp_dot(w, zs + (size_t)row * Z + z0, zc, lane) : NAN;
           if (lane == j) mine = f;
         }
+        if constexpr (kStamps) st.mark(kSums);
         if (lane < count) {
           float* out = a.f_neg + (((size_t)ks * U + u) * N + n0 + lane) * L + l;
           *out = z0 == 0 ? mine : *out + mine;
         }
+        if constexpr (kStamps) st.mark(kStores);
       }
     }
   }
+  if constexpr (kStamps) {
+    st.end_step(0);
+    st.close();
+  }
 }
 
-template <int kZL>
+template <int kZL, bool kStamps>
 __global__ void __launch_bounds__(kThreads) cpc_select_bwd_kernel(SelectBwdArgs a) {
+  PhaseStamps<kPhases> st;
+  if constexpr (kStamps) {
+    st.open(a.stamps, 1);
+    st.begin_step();
+  }
   extern __shared__ __align__(16) float tile[];
   const int U = a.u_count, N = a.n_count, L = a.l_count, Z = a.z_dim;
   const bool gather = blockIdx.x < a.ks * a.groups;
@@ -191,6 +229,7 @@ __global__ void __launch_bounds__(kThreads) cpc_select_bwd_kernel(SelectBwdArgs 
     }
     __syncthreads();
   }
+  if constexpr (kStamps) st.mark(kTile);
   // Z in chunks of 32 kZL (one chunk when Z <= 32 kZL): each z is summed on
   // its own, so the chunks change no sum.
   for (int an = g * kWarps + threadIdx.x / 32; an < UL; an += stride * kWarps) {
@@ -200,6 +239,11 @@ __global__ void __launch_bounds__(kThreads) cpc_select_bwd_kernel(SelectBwdArgs 
       const float dp = a.d_fpos[(size_t)ks * UL + an];
       float w[kZL];  // gather: z_shift row of the anchor; scatter: its wc row
       load_row(w, (gather ? zs : a.wc + ks * ULZ) + (size_t)an * Z + z0, zc, lane);
+      if constexpr (kStamps) {
+        settle(w[0]);
+        settle(dp);
+        st.mark(kLoads);
+      }
       float dw[kZL];
 #pragma unroll
       for (int i = 0; i < kZL; ++i) {
@@ -212,6 +256,11 @@ __global__ void __launch_bounds__(kThreads) cpc_select_bwd_kernel(SelectBwdArgs 
         const int my_row = negative_row(a.utt, a.seq, k, ks, U, N, L, u, l, n);
         const float my_d = n < N ? a.d_fneg[(((size_t)ks * U + u) * N + n) * L + l] : 0.f;
         const int count = min(32, N - n0);
+        if constexpr (kStamps) {
+          settle((uint32_t)my_row);
+          settle(my_d);
+          st.mark(kLoads);
+        }
         for (int j = 0; j < count; ++j) {
           const int row = __shfl_sync(0xffffffffu, my_row, j);
           const float d = __shfl_sync(0xffffffffu, my_d, j);
@@ -229,6 +278,10 @@ __global__ void __launch_bounds__(kThreads) cpc_select_bwd_kernel(SelectBwdArgs 
             }
           }
         }
+        if constexpr (kStamps) {
+          settle(dw[0]);
+          st.mark(kSums);
+        }
       }
       if (gather) {
 #pragma unroll
@@ -237,12 +290,18 @@ __global__ void __launch_bounds__(kThreads) cpc_select_bwd_kernel(SelectBwdArgs 
           if (z < zc) a.d_wc[ks * ULZ + (size_t)an * Z + z0 + z] = dw[i];
         }
       }
+      if constexpr (kStamps) st.mark(kStores);
     }
   }
   if (a.tile && !gather) {
     __syncthreads();
     float* out = a.d_zs + ks * ULZ;
     for (size_t i = threadIdx.x; i < ULZ; i += blockDim.x) out[i] = tile[i];
+  }
+  if constexpr (kStamps) {
+    st.mark(kStores);
+    st.end_step(0);
+    st.close();
   }
 }
 
@@ -292,22 +351,13 @@ cudaError_t run(Kernel kernel, Args& a, int blocks, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// 1 when the z_shift / d_zs tile of one (k, s) fits one block's shared
-// memory on the current card (else the kernels read and add in device memory).
-int vq_cpc_select_uses_tile(int u_count, int l_count, int z_dim) {
-  return tile_bytes(u_count, l_count, z_dim) > 0;
-}
-
 // The launches below run on ``stream``, allocate nothing and do not
-// synchronise; each returns cudaGetLastError() after the launch.
+// synchronise; each returns cudaGetLastError() after the launch. The
+// stamped variants take ``stamps``, int64 (2, 4 + kPhases), zeroed.
 
-int vq_cpc_select_launch(const void* wc, const void* zs, const void* utt, const void* seq,
-                         void* f_neg, void* f_pos, int ks, int s_count, int u_count,
-                         int n_count, int l_count, int z_dim, void* stream) {
+static int launch_fwd(const void* wc, const void* zs, const void* utt, const void* seq,
+                      void* f_neg, void* f_pos, int ks, int s_count, int u_count, int n_count,
+                      int l_count, int z_dim, void* stamps, void* stream) {
   if (!shape_ok(ks, s_count, u_count, n_count, l_count, z_dim)) return cudaErrorInvalidValue;
   SelectArgs a;
   a.wc = static_cast<const float*>(wc);
@@ -322,21 +372,25 @@ int vq_cpc_select_launch(const void* wc, const void* zs, const void* utt, const 
   a.n_count = n_count;
   a.l_count = l_count;
   a.z_dim = z_dim;
+  a.stamps = static_cast<long long*>(stamps);
   a.groups = group_count(ks, u_count * l_count, 0);
   const int blocks = ks * a.groups;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool st = stamps != nullptr;
   switch (lanes_for(z_dim)) {
-    case 2: return (int)run(cpc_select_kernel<2>, a, blocks, s);
-    case 4: return (int)run(cpc_select_kernel<4>, a, blocks, s);
-    default: return (int)run(cpc_select_kernel<8>, a, blocks, s);
+    case 2: return (int)(st ? run(cpc_select_kernel<2, true>, a, blocks, s)
+                            : run(cpc_select_kernel<2, false>, a, blocks, s));
+    case 4: return (int)(st ? run(cpc_select_kernel<4, true>, a, blocks, s)
+                            : run(cpc_select_kernel<4, false>, a, blocks, s));
+    default: return (int)(st ? run(cpc_select_kernel<8, true>, a, blocks, s)
+                             : run(cpc_select_kernel<8, false>, a, blocks, s));
   }
 }
 
-// d_zs must hold zeros when vq_cpc_select_uses_tile() is 0.
-int vq_cpc_select_bwd_launch(const void* d_fneg, const void* d_fpos, const void* wc,
-                             const void* zs, const void* utt, const void* seq, void* d_wc,
-                             void* d_zs, int ks, int s_count, int u_count, int n_count,
-                             int l_count, int z_dim, void* stream) {
+static int launch_bwd(const void* d_fneg, const void* d_fpos, const void* wc, const void* zs,
+                      const void* utt, const void* seq, void* d_wc, void* d_zs, int ks,
+                      int s_count, int u_count, int n_count, int l_count, int z_dim,
+                      void* stamps, void* stream) {
   if (!shape_ok(ks, s_count, u_count, n_count, l_count, z_dim)) return cudaErrorInvalidValue;
   SelectBwdArgs a;
   a.d_fneg = static_cast<const float*>(d_fneg);
@@ -353,14 +407,64 @@ int vq_cpc_select_bwd_launch(const void* d_fneg, const void* d_fpos, const void*
   a.n_count = n_count;
   a.l_count = l_count;
   a.z_dim = z_dim;
+  a.stamps = static_cast<long long*>(stamps);
   a.groups = group_count(ks, u_count * l_count, ks);  // the ks scatter blocks
   const int blocks = ks * (a.groups + 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool st = stamps != nullptr;
   switch (lanes_for(z_dim)) {
-    case 2: return (int)run(cpc_select_bwd_kernel<2>, a, blocks, s);
-    case 4: return (int)run(cpc_select_bwd_kernel<4>, a, blocks, s);
-    default: return (int)run(cpc_select_bwd_kernel<8>, a, blocks, s);
+    case 2: return (int)(st ? run(cpc_select_bwd_kernel<2, true>, a, blocks, s)
+                            : run(cpc_select_bwd_kernel<2, false>, a, blocks, s));
+    case 4: return (int)(st ? run(cpc_select_bwd_kernel<4, true>, a, blocks, s)
+                            : run(cpc_select_bwd_kernel<4, false>, a, blocks, s));
+    default: return (int)(st ? run(cpc_select_bwd_kernel<8, true>, a, blocks, s)
+                             : run(cpc_select_bwd_kernel<8, false>, a, blocks, s));
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// 1 when the z_shift / d_zs tile of one (k, s) fits one block's shared
+// memory on the current card (else the kernels read and add in device memory).
+int vq_cpc_select_uses_tile(int u_count, int l_count, int z_dim) {
+  return tile_bytes(u_count, l_count, z_dim) > 0;
+}
+
+int vq_cpc_select_launch(const void* wc, const void* zs, const void* utt, const void* seq,
+                         void* f_neg, void* f_pos, int ks, int s_count, int u_count,
+                         int n_count, int l_count, int z_dim, void* stream) {
+  return launch_fwd(wc, zs, utt, seq, f_neg, f_pos, ks, s_count, u_count, n_count, l_count,
+                    z_dim, nullptr, stream);
+}
+
+int vq_cpc_select_stamped_launch(const void* wc, const void* zs, const void* utt,
+                                 const void* seq, void* f_neg, void* f_pos, int ks, int s_count,
+                                 int u_count, int n_count, int l_count, int z_dim, void* stamps,
+                                 void* stream) {
+  if (stamps == nullptr) return cudaErrorInvalidValue;
+  return launch_fwd(wc, zs, utt, seq, f_neg, f_pos, ks, s_count, u_count, n_count, l_count,
+                    z_dim, stamps, stream);
+}
+
+// d_zs must hold zeros when vq_cpc_select_uses_tile() is 0.
+int vq_cpc_select_bwd_launch(const void* d_fneg, const void* d_fpos, const void* wc,
+                             const void* zs, const void* utt, const void* seq, void* d_wc,
+                             void* d_zs, int ks, int s_count, int u_count, int n_count,
+                             int l_count, int z_dim, void* stream) {
+  return launch_bwd(d_fneg, d_fpos, wc, zs, utt, seq, d_wc, d_zs, ks, s_count, u_count, n_count,
+                    l_count, z_dim, nullptr, stream);
+}
+
+int vq_cpc_select_bwd_stamped_launch(const void* d_fneg, const void* d_fpos, const void* wc,
+                                     const void* zs, const void* utt, const void* seq,
+                                     void* d_wc, void* d_zs, int ks, int s_count, int u_count,
+                                     int n_count, int l_count, int z_dim, void* stamps,
+                                     void* stream) {
+  if (stamps == nullptr) return cudaErrorInvalidValue;
+  return launch_bwd(d_fneg, d_fpos, wc, zs, utt, seq, d_wc, d_zs, ks, s_count, u_count, n_count,
+                    l_count, z_dim, stamps, stream);
 }
 
 }  // extern "C"
