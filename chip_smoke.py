@@ -1531,6 +1531,17 @@ def phase_compare_train(seed: int, card: str) -> dict:
               f"(bound {MAX_SELECT_REL} x largest); {int(own.sum())} own-frame and "
               f"{int(equal.sum())} equal-vector negatives, all bit-equal to their positives  "
               f"[{card}]")
+        # One writer per output, sums in a fixed order: repeated launches
+        # give the same bits; d_zs sums in the plain version's index_add_
+        # order with its roundings, so it matches that version run on the CPU.
+        again = cs.cpc_select(wc, zs, utt, seq) + cs.cpc_select_bwd(d_neg, d_pos, wc, zs, utt, seq)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(again, (f_neg, f_pos, d_wc, d_zs))),
+              f"cpc_select {name}: a second launch gave other bits")
+        cpu_zs = cs.cpc_select_bwd_reference(*(x.cpu() for x in (d_neg, d_pos, wc, zs, utt, seq)))[1]
+        print(f"compare cpc_select {name}: a second launch of both kernels gave the same bits; "
+              f"d_zs {'equals' if torch.equal(d_zs.cpu(), cpu_zs) else 'differs from'} the plain "
+              f"version's on the CPU bit for bit  [{card}]")
         worst["cpc_select"] = max(worst["cpc_select"], errs[0][0], errs[1][0])
         worst["cpc_select_bwd"] = max(worst["cpc_select_bwd"], errs[2][0], errs[3][0])
     return worst
@@ -2202,9 +2213,11 @@ def phase_time_select(seed: int, card: str) -> dict:
 def phase_select_stamps(seed: int, card: str) -> dict:
     """The selection pair's split by phase at the training shape, from the
     stamped variants (``cpc_select_stamped``, ``cpc_select_bwd_stamped``,
-    reached from nothing but this phase): us that thread 0 of block 0 and of
-    the last block spent in each phase. The stamped forward and d_wc must be
-    the plain launches' bits, d_zs within MAX_SELECT_REL."""
+    reached from nothing but this phase), whose outputs must be the plain
+    launches' bits: us that thread 0 of block 0 and of the last block spent
+    in each phase over the launch, for the forward and for the backward's
+    two kernels (the sum kernel's block 0 sums d_wc rows, its last block
+    d_zs rows). Returns {kernel: {block: {phase: us}}}."""
     from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
 
     k, s, u, n, l, z = SELECT_SHAPES["training"]
@@ -2221,11 +2234,10 @@ def phase_select_stamps(seed: int, card: str) -> dict:
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, plain)),
           "the stamped cpc_select's outputs are not the plain launch's bits")
-    check(torch.equal(got_b[0], plain_b[0]), "the stamped cpc_select_bwd's d_wc is not the plain bits")
-    e, m = _rel_err(got_b[1], plain_b[1])
-    check(e <= MAX_SELECT_REL * m, f"the stamped cpc_select_bwd's d_zs differs by {e} (largest {m})")
-    out = {"forward": cs.summarize_select_stamps(stamps.cpu().tolist()),
-           "backward": cs.summarize_select_stamps(stamps_b.cpu().tolist(), True)}
+    check(all(torch.equal(a, b) for a, b in zip(got_b, plain_b)),
+          "the stamped cpc_select_bwd's d_wc, d_zs are not the plain launch's bits")
+    out = {**cs.summarize_select_stamps(stamps.cpu().tolist()),
+           **cs.summarize_select_stamps(stamps_b.cpu().tolist(), True)}
     for kernel, split in out.items():
         check(bool(split), f"stamps cpc_select {kernel}: no block recorded")
         for block, phases in split.items():

@@ -128,3 +128,160 @@ def test_input_checks(rng, field, error):
         zs = zs[..., :-1].contiguous()
     with pytest.raises(ValueError, match=error):
         port.check_select_inputs(wc, zs, utt, seq)
+
+
+H100 = {"sms": 132, "smem": 232448}  # SMs and shared memory per block (opt-in) of one H100
+
+
+@pytest.mark.parametrize(
+    "shape, want",
+    [
+        # The training shape: every kernel stages its (k, s) tile; the sums
+        # also their entries (16 + 131,072 + 73,728 bytes).
+        ((6, 8, 8, 17, 64, 64), {"pieces": 2, "threads": 1024, "blocks": 132, "sum_blocks": 132,
+                                 "zp": 64, "fwd_tile": 1, "fwd_smem": 165904, "sum_tile": 1,
+                                 "sum_entries": 1, "sum_smem": 204816, "list_counts": 1,
+                                 "list_smem": 35888}),
+        # A tile of 1,600 rows does not fit: rows through L1, entries staged.
+        ((1, 2, 8, 17, 200, 64), {"fwd_tile": 0, "fwd_smem": 16, "sum_tile": 0, "sum_entries": 1,
+                                  "sum_smem": 230416, "list_counts": 1, "list_smem": 110960}),
+        # Z 300: 8 pieces a lane, two passes, 512 threads; rows padded to 4.
+        ((6, 8, 8, 17, 64, 300), {"pieces": 8, "threads": 512, "zp": 300, "fwd_tile": 0,
+                                  "sum_tile": 0, "sum_entries": 1, "sum_smem": 73744}),
+        ((3, 2, 5, 7, 9, 33), {"pieces": 2, "zp": 36, "blocks": 132, "fwd_tile": 1,
+                               "fwd_smem": 16 + 45 * 36 * 4 + 5 * 7 * 9 * 4}),
+        ((1, 1, 1, 1, 1, 1), {"blocks": 1, "sum_blocks": 2, "zp": 4, "fwd_smem": 16 + 16 + 4}),
+        # The counts of U 16, N 40, L 200 do not fit: the list blocks count in the workspace.
+        ((1, 1, 16, 40, 200, 64), {"list_counts": 0, "list_smem": 4 * (4 + 640 + 400)}),
+    ],
+)
+def test_select_plan(shape, want):
+    """The launch plan's Python mirror (csrc/cpc_select.cu:make_plan) at the
+    training shape and the edges the kernels must keep taking."""
+    plan = port.select_plan(*shape, **H100)
+    assert tuple(plan) == port.PLAN_FIELDS
+    assert {k: plan[k] for k in want} == want
+    assert plan["fwd_smem"] <= H100["smem"] and plan["sum_smem"] <= H100["smem"]
+
+
+def test_workspace_words():
+    """Two lists of K S U L (N + 1) (row, d) pairs, a span per row, counts."""
+    k, s, u, n, l = 6, 8, 8, 17, 64
+    assert port.workspace_words(k, s, u, n, l) == 4 * 48 * 512 * 18 + 2 * 48 * 512 + 48 * 8704
+
+
+def _emulate_lists(utt, seq, d_neg, d_pos):
+    """csrc/cpc_select.cu:select_lists_kernel, block by block in numpy: the
+    d_wc lists, the d_zs lists and their spans of each (k, s)."""
+    k_, s_, u_, n_, l_ = seq.shape
+    ks_ = k_ * s_
+    cap = u_ * l_ * (n_ + 1)
+    wc_list = np.full((ks_, cap, 2), -7, np.int64)
+    zs_list = np.full((ks_, cap, 2), -7, np.int64)
+    span = np.zeros((ks_, u_ * l_, 2), np.int64)
+    seq_f = seq.reshape(ks_, u_ * n_, l_)
+    d_f = d_neg.reshape(ks_, u_ * n_, l_)
+    dp = d_pos.reshape(ks_, u_ * l_)
+    for ks in range(ks_):
+        uv_all = utt[ks // s_].reshape(-1)
+        for v in range(u_):
+            pairs = [p for p in range(u_ * n_) if uv_all[p] == v]
+            bad = [p for p in range(u_ * n_) if v == 0 and not 0 <= uv_all[p] < u_]
+            nlt = sum(1 for p in range(u_ * n_) if 0 <= uv_all[p] < v)
+            nfirst = sum(1 for p in pairs if p < v * n_)
+            cnt = np.zeros((len(pairs), l_), np.int64)
+            for l in range(l_):
+                wc_list[ks, (v * l_ + l) * (n_ + 1)] = (v * l_ + l, d_pos.view(np.int32).reshape(
+                    ks_, -1)[ks, v * l_ + l])
+            for i, p in enumerate(pairs + bad):
+                u, n = divmod(p, n_)
+                for l in range(l_):
+                    m = seq_f[ks, p, l]
+                    valid = i < len(pairs) and 0 <= m < l_
+                    wc_list[ks, (u * l_ + l) * (n_ + 1) + 1 + n] = (
+                        v * l_ + m if valid else -1, d_f[ks, p, l:l + 1].view(np.int32)[0])
+                    if valid:
+                        cnt[i, m] += 1
+            offpos, start = np.zeros(l_, np.int64), np.zeros(l_, np.int64)
+            for m in range(l_):
+                run = pos = 0
+                for i in range(len(pairs)):
+                    if i == nfirst:
+                        pos, run = run, run + 1
+                    cnt[i, m], run = run, run + cnt[i, m]
+                if nfirst == len(pairs):
+                    pos, run = run, run + 1
+                offpos[m], start[m] = pos, run
+            tot = start.copy()
+            start = np.concatenate([[0], np.cumsum(tot)[:-1]])
+            base = l_ * (v + nlt)
+            span[ks, v * l_:(v + 1) * l_] = np.stack([base + start, tot], -1)
+            assert base + tot.sum() <= l_ * (v + 1 + nlt + len(pairs))  # inside v's room
+            for m in range(l_):
+                zs_list[ks, base + start[m] + offpos[m]] = (
+                    v * l_ + m, dp[ks:ks + 1, v * l_ + m].view(np.int32)[0])
+            for i, p in enumerate(pairs):
+                u = p // n_
+                for l in range(l_):
+                    m = seq_f[ks, p, l]
+                    if 0 <= m < l_:
+                        zs_list[ks, base + start[m] + cnt[i, m]] = (
+                            u * l_ + l, d_f[ks, p, l:l + 1].view(np.int32)[0])
+                        cnt[i, m] += 1
+    return wc_list, zs_list, span
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 4, 5, 10), (1, 2, 3, 7, 6), (1, 2, 1, 3, 4), (1, 1, 2, 1, 2)])
+def test_backward_lists_order_and_sums(rng, shape):
+    """The backward's list kernel emulated over its plan: every d_zs row's
+    sources in ascending (u, n, l), the positive before its own utterance's
+    negatives (index_add_'s order in the plain version), no source lost or
+    repeated, out-of-range indices dropped; d x row summed over the lists in
+    order, a product then a sum in f32 as the sum kernel does, gives the
+    plain version's d_zs bit for bit and its d_wc within 1e-5."""
+    k, s, u, n, l = shape
+    wc, zs, utt, seq = _case(rng, k=k, s=s, u=u, n=n, l=l, z=8)
+    if u * n > 1:
+        utt[0, 0, 0] = u  # a pair selecting no utterance
+    seq[0, 0, 0, 0, min(1, l - 1)] = -1  # a time out of range
+    d_neg = rng.normal(size=(k, s, u, n, l)).astype(np.float32)
+    d_pos = rng.normal(size=(k, s, u, l)).astype(np.float32)
+    wc_list, zs_list, span = _emulate_lists(utt, seq, d_neg, d_pos)
+    ks_, ul = k * s, u * l
+    wcf, zsf = wc.reshape(ks_, ul, -1), zs.reshape(ks_, ul, -1)
+    got_zs = np.zeros_like(zsf)
+    got_wc = np.zeros_like(wcf)
+    for ks in range(ks_):
+        uv = utt[ks // s]
+        want = {t: [] for t in range(ul)}  # the plain version's index order
+        for uu in range(u):
+            for nn in range(-1, n):
+                for ll in range(l):
+                    if nn < 0:
+                        want[uu * l + ll].append(uu * l + ll)
+                        continue
+                    vv, mm = uv[uu, nn], seq[ks // s, ks % s, uu, nn, ll]
+                    if 0 <= vv < u and 0 <= mm < l:
+                        want[vv * l + mm].append(uu * l + ll)
+        for t in range(ul):
+            first, count = span[ks, t]
+            ents = zs_list[ks, first:first + count]
+            assert ents[:, 0].tolist() == want[t]
+            acc = np.zeros(zsf.shape[-1], np.float32)
+            for row, dbits in ents:
+                acc = acc + np.float32(np.int32(dbits).view(np.float32)) * wcf[ks, row]
+            got_zs[ks, t] = acc
+            acc = np.zeros(zsf.shape[-1], np.float32)
+            for row, dbits in wc_list[ks, t * (n + 1):(t + 1) * (n + 1)]:
+                if row >= 0:
+                    acc = acc + np.float32(np.int32(dbits).view(np.float32)) * zsf[ks, row]
+            got_wc[ks, t] = acc
+    # The plain version takes no index out of range: point those sources at
+    # row 0 with d = 0, which adds only zeros.
+    dead = (utt[:, None, :, :, None] >= u) | (seq < 0) | np.zeros(seq.shape, bool)
+    fixed_utt, fixed_seq = np.where(utt >= u, 0, utt), np.where(seq < 0, 0, seq)
+    ref_wc, ref_zs = port.cpc_select_bwd_reference(
+        *_t(np.where(dead, 0, d_neg).astype(np.float32), d_pos, wc, zs, fixed_utt, fixed_seq))
+    np.testing.assert_array_equal(got_zs, ref_zs.numpy().reshape(ks_, ul, -1))
+    np.testing.assert_allclose(got_wc, ref_wc.numpy().reshape(ks_, ul, -1),
+                               atol=1e-5 * float(ref_wc.abs().max()))

@@ -139,16 +139,16 @@ def library() -> ctypes.CDLL:
         lib.vq_lstm_scan_grid_launch.restype = i
         lib.vq_lstm_scan_grid_bwd_launch.argtypes = [p] * 9 + [i] * 3 + [p]
         lib.vq_lstm_scan_grid_bwd_launch.restype = i
-        lib.vq_cpc_select_launch.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.vq_cpc_select_launch.argtypes = [p] * 6 + [i] * 7 + [p]
         lib.vq_cpc_select_launch.restype = i
-        lib.vq_cpc_select_bwd_launch.argtypes = [p] * 8 + [i] * 6 + [p]
-        lib.vq_cpc_select_bwd_launch.restype = i
-        lib.vq_cpc_select_stamped_launch.argtypes = [p] * 6 + [i] * 6 + [p, p]
+        lib.vq_cpc_select_stamped_launch.argtypes = [p] * 6 + [i] * 6 + [p, i, p]
         lib.vq_cpc_select_stamped_launch.restype = i
-        lib.vq_cpc_select_bwd_stamped_launch.argtypes = [p] * 8 + [i] * 6 + [p, p]
+        lib.vq_cpc_select_bwd_launch.argtypes = [p] * 9 + [i] * 7 + [p]
+        lib.vq_cpc_select_bwd_launch.restype = i
+        lib.vq_cpc_select_bwd_stamped_launch.argtypes = [p] * 9 + [i] * 6 + [p, i, p]
         lib.vq_cpc_select_bwd_stamped_launch.restype = i
-        lib.vq_cpc_select_uses_tile.argtypes = [i] * 3
-        lib.vq_cpc_select_uses_tile.restype = i
+        lib.vq_cpc_select_plan.argtypes = [i] * 7 + [ctypes.POINTER(i)]
+        lib.vq_cpc_select_plan.restype = i
         lib.vq_cuda_error_string.argtypes = [i]
         lib.vq_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

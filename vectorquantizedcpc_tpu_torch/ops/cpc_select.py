@@ -12,13 +12,20 @@ utterance u, negative n and anchor time l, all in f32::
 ``csrc/cpc_select.cu`` on CUDA tensors and run the plain versions on CPU
 tensors. Every score, positive or negative, is one dot summed by the same
 routine, so a negative drawn on the positive's own frame (or on an equal
-vector: z is quantized) ties with it bit for bit, on both routes. Any L and
-any Z are taken. ``CpcNegativeScores`` is the autograd Function (the custom VJP's
+vector: z is quantized) ties with it bit for bit, on both routes. The
+backward gives each row of d_wc and d_zs one writer that sums its sources
+in a fixed order (d_zs: ascending (u, n, l), the positive before its own
+utterance's negatives, as the plain version's ``index_add_``), so both are
+the same bits on every launch. Any K, S, U, N, L and Z are taken.
+``CpcNegativeScores`` is the autograd Function (the custom VJP's
 counterpart); the indices get no gradient. ``CPC_SELECT_LAUNCHES`` and
-``CPC_SELECT_BWD_LAUNCHES`` count launches.
+``CPC_SELECT_BWD_LAUNCHES`` count launches (the backward's are two kernels,
+counted once). ``select_plan`` mirrors the kernels' launch plan; the
+stamped variants (``cpc_select_stamped``, ``cpc_select_bwd_stamped``) time
+each phase for ``summarize_select_stamps``; no entry point calls them.
 """
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -29,9 +36,64 @@ CPC_SELECT_BWD_LAUNCHES = 0
 # The stamped kernels (measurement only: no entry point calls them).
 CPC_SELECT_STAMPED_LAUNCHES = 0
 CPC_SELECT_BWD_STAMPED_LAUNCHES = 0
-# The phases the stamped kernels time, in csrc/cpc_select.cu's Phase order.
+# The phases the stamped kernels time, in csrc/cpc_select.cu's Phase and
+# ListPhase order: the forward, the backward's sum kernel, its list kernel.
 FWD_STAMP_PHASES = ("tile load", "row and index loads", "dots", "stores")
-BWD_STAMP_PHASES = ("tile load", "row and index loads", "sums", "stores")
+BWD_STAMP_PHASES = ("tile load", "list loads", "sums", "stores")
+LIST_STAMP_PHASES = ("pair lists", "counts", "offsets", "placement")
+
+# csrc/cpc_select.cu's Plan, field by field (vq_cpc_select_plan's order).
+PLAN_FIELDS = ("pieces", "threads", "blocks", "sum_blocks", "zp", "fwd_tile", "fwd_smem",
+               "sum_tile", "sum_entries", "sum_smem", "list_counts", "list_smem")
+_BAR = 16  # shared-memory bytes of a block's staging mbarrier
+
+
+def select_plan(k: int, s: int, u: int, n: int, l: int, z: int, sms: int,
+                smem: int) -> Dict[str, int]:
+    """The kernels' launch plan (``csrc/cpc_select.cu:make_plan``) on a card
+    of ``sms`` SMs and ``smem`` bytes of shared memory per block: 16-byte
+    pieces per lane per pass over Z and the block size; the forward's
+    blocks (one per SM, no more than anchors) and the sum kernel's (no more
+    than rows of d_wc and d_zs); the staged row stride; what each kernel
+    stages in shared memory, and its bytes (a tile of U L rows, the forward
+    with its seq_index slice, the sums with the list entries of a (k, s));
+    whether the list blocks (one per (k, s, v), 256 threads) count in
+    shared memory."""
+    pieces = 2 if z <= 64 else (4 if z <= 128 else 8)
+    items = k * s * u * l
+    zp = -(-z // 4) * 4
+    ul, unl = u * l, u * n * l
+    tile, entries = ul * zp * 4, ul * (n + 1) * 8
+    fwd_tile = _BAR + tile + unl * 4 <= smem
+    sum_tile = _BAR + tile <= smem
+    sum_entries = _BAR + (tile if sum_tile else 0) + entries <= smem
+    lists = 4 * (4 + u * n + 2 * l)
+    list_counts = lists + unl * 4 <= smem
+    return {
+        "pieces": pieces, "threads": 1024 if pieces == 2 else 512,
+        "blocks": min(items, sms), "sum_blocks": min(2 * items, sms), "zp": zp,
+        "fwd_tile": int(fwd_tile), "fwd_smem": _BAR + tile + unl * 4 if fwd_tile else _BAR,
+        "sum_tile": int(sum_tile), "sum_entries": int(sum_entries),
+        "sum_smem": _BAR + (tile if sum_tile else 0) + (entries if sum_entries else 0),
+        "list_counts": int(list_counts), "list_smem": lists + (unl * 4 if list_counts else 0),
+    }
+
+
+def workspace_words(k: int, s: int, u: int, n: int, l: int) -> int:
+    """int32 words of the backward's workspace: the d_wc and d_zs lists
+    ((row, d) pairs, K S U L (N + 1) each), each d_zs row's (first entry,
+    count), and room for the list blocks' counts (K S U N L)."""
+    ks = k * s
+    return 4 * ks * u * l * (n + 1) + 2 * ks * u * l + ks * u * n * l
+
+
+def _expect(name: str, x, dtype, shape, device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, wc on {device}")
+    if x.dtype != dtype or x.shape != shape:
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def check_select_inputs(wc, zs, utt_index, seq_index) -> None:
@@ -42,21 +104,29 @@ def check_select_inputs(wc, zs, utt_index, seq_index) -> None:
         raise ValueError(f"wc must be (K, S, U, L, Z); got {tuple(wc.shape)}")
     k, s, u, l, z = wc.shape
     n = utt_index.shape[-1] if utt_index.dim() == 3 else -1
-    expect = {
-        "wc": (wc, torch.float32, (k, s, u, l, z)),
-        "z_shift": (zs, torch.float32, (k, s, u, l, z)),
-        "utt_index": (utt_index, torch.int32, (k, u, n)),
-        "seq_index": (seq_index, torch.int32, (k, s, u, n, l)),
-    }
-    for name, (x, dtype, shape) in expect.items():
-        if x.device != wc.device:
-            raise ValueError(f"{name} is on {x.device}, wc on {wc.device}")
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    dev = wc.device
+    _expect("wc", wc, torch.float32, wc.shape, dev)
+    _expect("z_shift", zs, torch.float32, wc.shape, dev)
+    _expect("utt_index", utt_index, torch.int32, (k, u, n), dev)
+    _expect("seq_index", seq_index, torch.int32, (k, s, u, n, l), dev)
     if min(k, s, u, l, z, n) < 1:
         raise ValueError(f"empty CPC selection: wc {tuple(wc.shape)}, N = {n}")
+
+
+def _launch(entry: str, what: str, x, *args) -> None:
+    """Call the C entry ``entry`` on ``x``'s card and current stream
+    (tensors as their data pointers; the device index and stream last)."""
+    from . import _build
+
+    dev = x.device.index
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(entry, what, x, *args)
+    err = getattr(_build.library(), entry)(
+        *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], dev,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        _build.check(err, what)
 
 
 def _flat_index(utt_index: torch.Tensor, seq_index: torch.Tensor) -> torch.Tensor:
@@ -100,6 +170,34 @@ def cpc_select_bwd_reference(d_fneg, d_fpos, wc, zs, utt_index, seq_index):
     return d_wc, d_zs.reshape(k, s, u, l, z)
 
 
+def _fwd(wc, zs, utt_index, seq_index, stamps=None):
+    k, s, u, l, z = wc.shape
+    n = utt_index.shape[-1]
+    f_neg = torch.empty(k, s, u, n, l, dtype=torch.float32, device=wc.device)
+    f_pos = torch.empty(k, s, u, l, dtype=torch.float32, device=wc.device)
+    if stamps is None:
+        _launch("vq_cpc_select_launch", "cpc_select kernel launch", wc, wc, zs, utt_index,
+                seq_index, f_neg, f_pos, k * s, s, u, n, l, z)
+    else:
+        _launch("vq_cpc_select_stamped_launch", "stamped cpc_select kernel launch", wc, wc, zs,
+                utt_index, seq_index, f_neg, f_pos, k * s, s, u, n, l, z, stamps)
+    return f_neg, f_pos
+
+
+def _bwd(d_fneg, d_fpos, wc, zs, utt_index, seq_index, stamps=None):
+    k, s, u, l, z = wc.shape
+    n = utt_index.shape[-1]
+    d_wc, d_zs = torch.empty_like(wc), torch.empty_like(zs)
+    work = torch.empty(workspace_words(k, s, u, n, l), dtype=torch.int32, device=wc.device)
+    args = (d_fneg, d_fpos, wc, zs, utt_index, seq_index, d_wc, d_zs, work, k * s, s, u, n, l, z)
+    if stamps is None:
+        _launch("vq_cpc_select_bwd_launch", "cpc_select_bwd kernel launch", wc, *args)
+    else:
+        _launch("vq_cpc_select_bwd_stamped_launch", "stamped cpc_select_bwd kernel launch", wc,
+                *args, stamps)
+    return d_wc, d_zs
+
+
 def cpc_select(wc, zs, utt_index, seq_index) -> Tuple[torch.Tensor, torch.Tensor]:
     """(f_neg (K, S, U, N, L), f_pos (K, S, U, L)) f32. On a CUDA tensor this
     launches the kernel on the current stream without waiting for it."""
@@ -108,59 +206,36 @@ def cpc_select(wc, zs, utt_index, seq_index) -> Tuple[torch.Tensor, torch.Tensor
     check_select_inputs(wc, zs, utt_index, seq_index)
     if not on_card:
         return cpc_select_reference(wc, zs, utt_index, seq_index)
-    from . import _build
-
-    k, s, u, l, z = wc.shape
-    n = utt_index.shape[-1]
-    f_neg = torch.empty(k, s, u, n, l, dtype=torch.float32, device=wc.device)
-    f_pos = torch.empty(k, s, u, l, dtype=torch.float32, device=wc.device)
-    with torch.cuda.device(wc.device):
-        err = _build.library().vq_cpc_select_launch(
-            *[x.data_ptr() for x in (wc, zs, utt_index, seq_index, f_neg, f_pos)],
-            k * s, s, u, n, l, z, torch.cuda.current_stream(wc.device).cuda_stream,
-        )
-    _build.check(err, "cpc_select kernel launch")
+    out = _fwd(wc, zs, utt_index, seq_index)
     CPC_SELECT_LAUNCHES += 1
-    return f_neg, f_pos
+    return out
+
+
+def _check_cotangents(d_fneg, d_fpos, wc, n: int) -> None:
+    k, s, u, l, _ = wc.shape
+    _expect("d_fneg", d_fneg, torch.float32, (k, s, u, n, l), wc.device)
+    _expect("d_fpos", d_fpos, torch.float32, (k, s, u, l), wc.device)
 
 
 def cpc_select_bwd(d_fneg, d_fpos, wc, zs, utt_index, seq_index):
-    """(d_wc, d_zs), both (K, S, U, L, Z) f32. d_zs sums with atomics on the
-    card, in an order that varies from run to run (f32 rounding only)."""
+    """(d_wc, d_zs), both (K, S, U, L, Z) f32. On the card: two launches (the
+    selection inverted into per-row lists, then one writer per row), no
+    atomics: the same bits on every launch."""
     global CPC_SELECT_BWD_LAUNCHES
     on_card = _on_card(wc, "cpc_select_bwd")
     check_select_inputs(wc, zs, utt_index, seq_index)
-    k, s, u, l, z = wc.shape
-    n = utt_index.shape[-1]
-    for name, x, shape in (("d_fneg", d_fneg, (k, s, u, n, l)), ("d_fpos", d_fpos, (k, s, u, l))):
-        if x.device != wc.device or x.dtype != torch.float32 or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected float32 {shape} on {wc.device}, got "
-                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_cotangents(d_fneg, d_fpos, wc, utt_index.shape[-1])
     if not on_card:
         return cpc_select_bwd_reference(d_fneg, d_fpos, wc, zs, utt_index, seq_index)
-    from . import _build
-
-    lib = _build.library()
-    d_wc = torch.empty_like(wc)
-    # The kernel adds into the output itself when its tile does not fit.
-    tiled = lib.vq_cpc_select_uses_tile(u, l, z)
-    d_zs = torch.empty_like(zs) if tiled else torch.zeros_like(zs)
-    with torch.cuda.device(wc.device):
-        err = lib.vq_cpc_select_bwd_launch(
-            *[x.data_ptr() for x in (d_fneg, d_fpos, wc, zs, utt_index, seq_index, d_wc, d_zs)],
-            k * s, s, u, n, l, z, torch.cuda.current_stream(wc.device).cuda_stream,
-        )
-    _build.check(err, "cpc_select_bwd kernel launch")
+    out = _bwd(d_fneg, d_fpos, wc, zs, utt_index, seq_index)
     CPC_SELECT_BWD_LAUNCHES += 1
-    return d_wc, d_zs
+    return out
 
 
-def _stamps(wc, what: str) -> torch.Tensor:
+def _stamps(wc, rows: int, what: str) -> torch.Tensor:
     if wc.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda only, not {wc.device}")
-    return torch.zeros(2, 4 + len(FWD_STAMP_PHASES), dtype=torch.int64, device=wc.device)
+    return torch.zeros(rows, 4 + len(FWD_STAMP_PHASES), dtype=torch.int64, device=wc.device)
 
 
 def cpc_select_stamped(wc, zs, utt_index, seq_index):
@@ -170,47 +245,39 @@ def cpc_select_stamped(wc, zs, utt_index, seq_index):
     outputs the plain launch's bits."""
     global CPC_SELECT_STAMPED_LAUNCHES
     check_select_inputs(wc, zs, utt_index, seq_index)
-    stamps = _stamps(wc, "cpc_select_stamped")
-    from . import _build
-
-    k, s, u, l, z = wc.shape
-    n = utt_index.shape[-1]
-    f_neg = torch.empty(k, s, u, n, l, dtype=torch.float32, device=wc.device)
-    f_pos = torch.empty(k, s, u, l, dtype=torch.float32, device=wc.device)
-    _build.launch("vq_cpc_select_stamped_launch", "stamped cpc_select kernel launch", wc.device,
-                  wc, zs, utt_index, seq_index, f_neg, f_pos, k * s, s, u, n, l, z, stamps)
+    stamps = _stamps(wc, 2, "cpc_select_stamped")
+    out = _fwd(wc, zs, utt_index, seq_index, stamps)
     CPC_SELECT_STAMPED_LAUNCHES += 1
-    return f_neg, f_pos, stamps
+    return (*out, stamps)
 
 
 def cpc_select_bwd_stamped(d_fneg, d_fpos, wc, zs, utt_index, seq_index):
-    """``cpc_select_bwd`` through the kernel's stamped variant, on a CUDA
-    tensor only: (d_wc, d_zs, stamps (2, 4 + len(BWD_STAMP_PHASES)) int64)."""
+    """``cpc_select_bwd`` through the kernels' stamped variants, on a CUDA
+    tensor only: (d_wc, d_zs, stamps (4, 4 + len(BWD_STAMP_PHASES)) int64:
+    the sum kernel's two rows, then the list kernel's), the outputs the
+    plain launch's bits."""
     global CPC_SELECT_BWD_STAMPED_LAUNCHES
     check_select_inputs(wc, zs, utt_index, seq_index)
-    stamps = _stamps(wc, "cpc_select_bwd_stamped")
-    from . import _build
-
-    k, s, u, l, z = wc.shape
-    n = utt_index.shape[-1]
-    d_wc = torch.empty_like(wc)
-    d_zs = torch.empty_like(zs) if _build.library().vq_cpc_select_uses_tile(u, l, z) else (
-        torch.zeros_like(zs))
-    _build.launch("vq_cpc_select_bwd_stamped_launch", "stamped cpc_select_bwd kernel launch",
-                  wc.device, d_fneg, d_fpos, wc, zs, utt_index, seq_index, d_wc, d_zs, k * s, s,
-                  u, n, l, z, stamps)
+    _check_cotangents(d_fneg, d_fpos, wc, utt_index.shape[-1])
+    stamps = _stamps(wc, 4, "cpc_select_bwd_stamped")
+    out = _bwd(d_fneg, d_fpos, wc, zs, utt_index, seq_index, stamps)
     CPC_SELECT_BWD_STAMPED_LAUNCHES += 1
-    return d_wc, d_zs, stamps
+    return (*out, stamps)
 
 
-def summarize_select_stamps(stamps, backward: bool = False):
-    """A stamped selection kernel's buffer -> {block: {phase: us, ...,
-    "total", "wall"}}: the microseconds thread 0 of block 0 and of the last
-    block spent in each phase of ``FWD_STAMP_PHASES`` / ``BWD_STAMP_PHASES``
-    over the whole launch (``ar_decode.summarize_stamps`` with one step)."""
+def summarize_select_stamps(stamps, backward: bool = False) -> Dict[str, Dict[str, dict]]:
+    """A stamped selection buffer -> {kernel: {block: {phase: us, ...,
+    "total", "wall"}}}: the microseconds thread 0 of block 0 and of the last
+    block spent in each phase over the launch (``ar_decode.summarize_stamps``
+    with one step). Forward: {"forward": ...}; backward: {"sums": ...,
+    "lists": ...}."""
     from .ar_decode import summarize_stamps
 
-    return summarize_stamps(stamps, 1, 0, BWD_STAMP_PHASES if backward else FWD_STAMP_PHASES)
+    rows = [list(r) for r in stamps]
+    if not backward:
+        return {"forward": summarize_stamps(rows, 1, 0, FWD_STAMP_PHASES)}
+    return {"sums": summarize_stamps(rows[:2], 1, 0, BWD_STAMP_PHASES),
+            "lists": summarize_stamps(rows[2:], 1, 0, LIST_STAMP_PHASES)}
 
 
 class CpcNegativeScores(torch.autograd.Function):

@@ -15,29 +15,45 @@
 // utterance, because the MXU favours dense products and its gathers were
 // slow. The function needs only (N + 1) L dots of length Z per (k, s, u):
 // 57 MFLOP at the training shape (K 6, S 8, U 8, N 17, L 64, Z 64). On an
-// H100 it is bound by its bytes (forward ~16 MB, ~4.8 us at 3.35 TB/s;
-// backward ~28.6 MB, ~8.5 us), so it is written as a gather:
-//   - a warp per anchor (u, l), its lanes over Z, the anchor's wc row in
-//     registers (Z <= 256; wider rows are taken in chunks of 256, the
-//     forward adding each chunk's sums to the scores); lane n first
-//     loads negative n's (v, m) (and, backward, d_fneg), and the loop over
-//     negatives takes them by shuffle, so no step of it waits on device
-//     memory;
-//   - forward: a group of blocks per (k, s), each with the (k, s) tile of
-//     z_shift (U L x Z f32, 128 KB at the training shape) in shared memory
-//     when it fits, else read through the L1 cache; f_pos and every f_neg
-//     are summed by the same routine in the same order (lane FMAs, then a
-//     fixed xor butterfly), so a negative that lands on the positive's own
-//     frame, or on an equal vector, ties with it bit for bit;
-//   - backward, one launch of two kinds of blocks: gather blocks give d_wc
-//     (one writer per anchor, the z_shift tile in shared memory as in the
-//     forward); one scatter block per (k, s) owns that d_zs tile in shared
-//     memory (when it fits; else the zeroed output in device memory), since
-//     every contribution to it comes from the same (k, s), adds into it with
-//     atomics and writes it out once. The atomics' order varies from run to
-//     run, so d_zs does too, by f32 rounding; d_wc does not.
+// H100 its bound is its bytes (forward ~16 MB, ~4.8 us at 3.35 TB/s;
+// backward ~28.6 MB, ~8.5 us), and a gather reads each candidate row of
+// 256 bytes from shared memory: 113 MB forward, 3.8 us at 128 bytes a clock
+// on 132 SMs, if every SM takes its share. So:
+//   - every kernel spreads its items (anchors, or rows of d_wc and d_zs)
+//     over one block per SM in equal contiguous ranges; a range covers at
+//     most two (k, s) segments. A segment whose dots read at least as many
+//     rows as its (k, s) tile holds stages the tile in shared memory (a
+//     bulk copy, cp.async.bulk, on an mbarrier; rows padded to a multiple
+//     of 4 floats), else it reads rows through the L1 cache; so does every
+//     segment when the tile does not fit;
+//   - 8 lanes take one row: lane g reads 16-byte pieces g, g + 8, ... of
+//     it, so each quarter warp reads 128 contiguous bytes, one shared-memory
+//     wavefront whatever the row; Z past 32 x 8 pieces is taken in passes;
+//   - forward: the (k, s) seq_index slice is staged with the tile; each
+//     block's dots (anchor, candidate), positive first, are cut in equal
+//     contiguous runs over its groups of 8 lanes; a group keeps its
+//     anchor's wc piece in registers, sums its pieces by FMA in one order
+//     and adds the 8 lanes by a fixed xor butterfly of 3 shuffles: f_pos and
+//     every f_neg go through the same routine, so a negative that lands on
+//     the positive's own frame, or on an equal vector, ties with it bit for
+//     bit;
+//   - backward, two launches and no atomics. The list kernel (one block
+//     per (k, s, v)) inverts the selection: it counts the sources of each
+//     row (v, m) of d_zs, places them in ascending (u, n, l) order with the
+//     positive before u = v's negatives (cpc_select_bwd_reference's
+//     index_add_ order), and writes each anchor's own list for d_wc
+//     (positive, then n ascending). The sum kernel gives every row of d_wc
+//     and d_zs one writer, a group of 8 lanes that adds d x row over its
+//     list in order (a product, then a sum: the plain version's roundings),
+//     from the staged z_shift or wc tile. d_zs is the same bits on every
+//     launch, and those of the plain version run on the CPU.
 // Indices out of range give NaN scores (forward) and no contribution
 // (backward) rather than reading outside the tile.
+//
+// The kStamps variants (vq_cpc_select_stamped_launch,
+// vq_cpc_select_bwd_stamped_launch) also record, on thread 0 of block 0
+// and of the last block, the clock64 cycles of each phase (Phase,
+// ListPhase) over the launch; no entry point of the package launches them.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,146 +66,552 @@ namespace {
 using vq_grid::PhaseStamps;
 using vq_grid::settle;
 
+constexpr int kGroup = 8;           // lanes that take one row
+constexpr int kListThreads = 256;   // threads of a list block
+constexpr int kBar = 16;            // shared-memory bytes of the staging mbarrier
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
+
 // Phases of the stamped variants (ops/cpc_select.py:FWD_STAMP_PHASES,
-// BWD_STAMP_PHASES): cycles of thread 0 of block 0 and of the last block.
+// BWD_STAMP_PHASES; the list kernel's LIST_STAMP_PHASES).
 enum Phase { kTile, kLoads, kSums, kStores, kPhases };
+enum ListPhase { kPairs, kCounts, kOffsets, kPlace };
+static_assert(kPlace + 1 == kPhases, "one stamp row layout for both kernels");
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxZLane = 8;  // Z values per lane held in registers: 256 per chunk
+// What a launch stages; ops/cpc_select.py:select_plan mirrors it.
+struct Plan {
+  int pieces;       // 16-byte pieces per lane per pass over Z (2, 4 or 8)
+  int threads;      // of a forward or sum block
+  int blocks;       // forward blocks; the sum kernel has twice the items
+  int sum_blocks;
+  int zp;           // row stride of a staged tile: Z rounded up to 4 floats
+  int fwd_tile;     // 1: the forward stages tiles and seq_index slices
+  int fwd_smem;
+  int sum_tile;     // 1: the sum kernel stages tiles
+  int sum_entries;  // 1: ... and its segments' list entries
+  int sum_smem;
+  int list_counts;  // 1: the list blocks count in shared memory (else in the workspace)
+  int list_smem;
+};
+constexpr int kPlanFields = sizeof(Plan) / sizeof(int);
 
-struct SelectArgs {
-  const float* wc;   // (KS, U, L, Z)
-  const float* zs;   // (KS, U, L, Z) z_shift
-  const int* utt;    // (K, U, N)
-  const int* seq;    // (KS, U, N, L)
-  float* f_neg;      // (KS, U, N, L)
-  float* f_pos;      // (KS, U, L)
-  int ks, s_count, u_count, n_count, l_count, z_dim;
-  int groups;        // blocks per (k, s)
-  int tile;          // 1: the block's z_shift tile in shared memory
-  long long* stamps; // kStamps: (2, 4 + kPhases)
+struct FwdArgs {
+  const float* wc;  // (KS, U, L, Z)
+  const float* zs;  // (KS, U, L, Z) z_shift
+  const int* utt;   // (K, U, N)
+  const int* seq;   // (KS, U, N, L)
+  float* f_neg;     // (KS, U, N, L)
+  float* f_pos;     // (KS, U, L)
+  int ks, s_count, u, n, l, z, zp, tile;
+  long long* stamps;  // kStamps: (2, 4 + kPhases)
 };
 
-struct SelectBwdArgs {
+struct ListArgs {
   const float* d_fneg;  // (KS, U, N, L)
   const float* d_fpos;  // (KS, U, L)
-  const float* wc;      // (KS, U, L, Z)
-  const float* zs;      // (KS, U, L, Z)
-  const int* utt;       // (K, U, N)
-  const int* seq;       // (KS, U, N, L)
-  float* d_wc;          // (KS, U, L, Z)
-  float* d_zs;          // (KS, U, L, Z); zeroed by the caller when tile == 0
-  int ks, s_count, u_count, n_count, l_count, z_dim;
-  int groups;           // gather blocks per (k, s); the scatter blocks follow
-  int tile;             // 1: each block's tile in shared memory
+  const int* utt;
+  const int* seq;
+  int2* wc_list;        // (KS, U L (N + 1)): per anchor, (row, d) of its positive, then negatives
+  int2* zs_list;        // (KS, U L (N + 1)): per d_zs row, its sources' (row, d) in order
+  int2* zs_span;        // (KS, U L): (first entry, count) of each d_zs row's sources
+  int* counts;          // (KS, U N L) when the counts do not fit shared memory, else null
+  int ks, s_count, u, n, l;
   long long* stamps;    // kStamps: (2, 4 + kPhases)
 };
 
-// w . row over Z, each lane summing its z = lane + 32 i in order, then a
-// fixed xor butterfly; every lane ends with the same value. Called by all
-// 32 lanes of the warp.
-template <int kZL>
-__device__ __forceinline__ float warp_dot(const float (&w)[kZL], const float* row, int Z,
-                                          int lane) {
+struct SumArgs {
+  const float* wc;
+  const float* zs;
+  const int2* wc_list;
+  const int2* zs_list;
+  const int2* zs_span;
+  float* d_wc;  // (KS, U, L, Z)
+  float* d_zs;  // (KS, U, L, Z)
+  int ks, u, n, l, z, zp, tile, entries;
+  long long* stamps;  // kStamps: (2, 4 + kPhases)
+};
+
+// ---------------------------------------------------------------- device
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The one arrival of the phase, expecting ``tx`` bytes of bulk copies.
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar, uint32_t tx) {
+  asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n"
+               ::"r"(smem_addr(bar)), "r"(tx)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ``bytes`` (a multiple of 16, both ends 16-byte aligned) from device
+// memory into shared memory, completing on ``bar``; issued by one thread.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  constexpr uint32_t kPiece = 1u << 15;
+  for (uint32_t off = 0; off < bytes; off += kPiece) {
+    const uint32_t n = bytes - off < kPiece ? bytes - off : kPiece;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_addr(static_cast<char*>(dst) + off)),
+        "l"(static_cast<const char*>(src) + off), "r"(n), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Stages ``rows`` rows of ``z`` floats at ``src`` into ``tile`` with a row
+// stride of ``zp`` (zeros after z); then ``words`` ints at ``isrc`` into
+// ``idst`` (``idst`` may be null). Bulk copies where the rows need no
+// padding and both ends are 16-byte aligned, the block's threads
+// otherwise. Called by the whole block; returns once the data is there.
+__device__ void stage(float* tile, const float* src, int rows, int z, int zp, int* idst,
+                      const int* isrc, size_t words, unsigned long long* bar, uint32_t& parity) {
+  const size_t tile_bytes = (size_t)rows * zp * sizeof(float);
+  const bool bulk_tile = z == zp && aligned16(src);
+  const bool bulk_words = idst != nullptr && words % 4 == 0 && aligned16(isrc);
+  if (threadIdx.x == 0) {
+    const uint32_t tx = (bulk_tile ? (uint32_t)tile_bytes : 0u) +
+                        (bulk_words ? (uint32_t)(words * sizeof(int)) : 0u);
+    mbar_arrive(bar, tx);
+    if (bulk_tile) bulk_load(tile, src, (uint32_t)tile_bytes, bar);
+    if (bulk_words) bulk_load(idst, isrc, (uint32_t)(words * sizeof(int)), bar);
+  }
+  if (!bulk_tile) {
+    for (size_t i = threadIdx.x; i < (size_t)rows * zp; i += blockDim.x) {
+      const size_t r = i / zp, c = i - r * zp;
+      tile[i] = c < (size_t)z ? src[r * z + c] : 0.f;
+    }
+  }
+  if (idst != nullptr && !bulk_words)
+    for (size_t i = threadIdx.x; i < words; i += blockDim.x) idst[i] = isrc[i];
+  mbar_wait(bar, parity);
+  parity ^= 1u;
+  __syncthreads();
+}
+
+// Four floats at ``p``: one 16-byte load where ``vec``, else those below
+// ``rem`` one by one and zeros after.
+__device__ __forceinline__ float4 load4(const float* p, int rem, bool vec) {
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  return make_float4(rem > 0 ? p[0] : 0.f, rem > 1 ? p[1] : 0.f, rem > 2 ? p[2] : 0.f,
+                     rem > 3 ? p[3] : 0.f);
+}
+
+__device__ __forceinline__ void store4(float* p, const float4& x, int rem, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = x;
+    return;
+  }
+  if (rem > 0) p[0] = x.x;
+  if (rem > 1) p[1] = x.y;
+  if (rem > 2) p[2] = x.z;
+  if (rem > 3) p[3] = x.w;
+}
+
+// The lane's pieces of a row's pass [z0, z0 + zc): piece i is the 4 floats
+// at 4 (g + 8 i).
+template <int kP>
+__device__ __forceinline__ void load_pieces(float4 (&w)[kP], const float* row, int zc, int g,
+                                            bool vec) {
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const int z = 4 * (g + kGroup * i);
+    w[i] = z < zc ? load4(row + z, zc - z, vec) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// w . row over the pass, on each group of 8 lanes: each lane sums its
+// pieces by FMA in order, then a fixed xor butterfly within the group;
+// every lane of the group ends with the same value. Called by the whole warp.
+template <int kP>
+__device__ __forceinline__ float group_dot(const float4 (&w)[kP], const float* row, int zc, int g,
+                                           bool vec) {
   float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < kZL; ++i) {
-    const int z = lane + 32 * i;
-    if (z < Z) acc = fmaf(w[i], row[z], acc);
+  for (int i = 0; i < kP; ++i) {
+    const int z = 4 * (g + kGroup * i);
+    if (z < zc) {
+      const float4 x = load4(row + z, zc - z, vec);
+      acc = fmaf(w[i].x, x.x, acc);
+      acc = fmaf(w[i].y, x.y, acc);
+      acc = fmaf(w[i].z, x.z, acc);
+      acc = fmaf(w[i].w, x.w, acc);
+    }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  acc += __shfl_xor_sync(kFull, acc, 1);
+  acc += __shfl_xor_sync(kFull, acc, 2);
+  acc += __shfl_xor_sync(kFull, acc, 4);
   return acc;
 }
 
-template <int kZL>
-__device__ __forceinline__ void load_row(float (&w)[kZL], const float* row, int Z, int lane) {
-#pragma unroll
-  for (int i = 0; i < kZL; ++i) {
-    const int z = lane + 32 * i;
-    w[i] = z < Z ? row[z] : 0.f;
-  }
+// The block's items [i0, i1) of ``total``, in equal contiguous ranges.
+__device__ __forceinline__ void block_range(long long total, long long& i0, long long& i1) {
+  i0 = total * blockIdx.x / gridDim.x;
+  i1 = total * (blockIdx.x + 1) / gridDim.x;
 }
 
-// Negative n of anchor (u, l): its row v L + m of the (k, s) tile, or -1
-// when n >= N or an index is out of range.
-__device__ __forceinline__ int negative_row(const int* utt, const int* seq, int k, int ks, int U,
-                                            int N, int L, int u, int l, int n) {
-  if (n >= N) return -1;
-  const int v = utt[(k * U + u) * N + n];
-  const int m = seq[(((size_t)ks * U + u) * N + n) * L + l];
-  return (v >= 0 && v < U && m >= 0 && m < L) ? v * L + m : -1;
-}
-
-__device__ void load_tile(float* tile, const float* src, size_t n) {
-  const bool vec = (n % 4 == 0) && ((reinterpret_cast<uintptr_t>(src) & 15) == 0);
-  if (vec) {
-    for (size_t i = threadIdx.x; i < n / 4; i += blockDim.x)
-      reinterpret_cast<float4*>(tile)[i] = reinterpret_cast<const float4*>(src)[i];
-  } else {
-    for (size_t i = threadIdx.x; i < n; i += blockDim.x) tile[i] = src[i];
-  }
-}
-
-// kZL Z values per lane in registers.
-template <int kZL, bool kStamps>
-__global__ void __launch_bounds__(kThreads) cpc_select_kernel(SelectArgs a) {
+// Forward: kP pieces per lane per pass, kThreads threads.
+template <int kP, int kThreads, bool kStamps>
+__global__ void __launch_bounds__(kThreads, 1) select_fwd_kernel(FwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
+  float* tile = reinterpret_cast<float*>(smem + kBar);
+  const int U = a.u, N = a.n, L = a.l, Z = a.z, UL = U * L, UNL = U * N * L;
+  int* seq_s = reinterpret_cast<int*>(tile + (size_t)UL * a.zp);
+  constexpr int kGroups = kThreads / kGroup;
+  const int group = threadIdx.x / kGroup, g = threadIdx.x % kGroup;
   PhaseStamps<kPhases> st;
   if constexpr (kStamps) {
     st.open(a.stamps, 1);
     st.begin_step();
   }
-  extern __shared__ __align__(16) float tile[];
-  const int U = a.u_count, N = a.n_count, L = a.l_count, Z = a.z_dim;
-  const int ks = blockIdx.x / a.groups, g = blockIdx.x % a.groups, k = ks / a.s_count;
-  const int UL = U * L;
-  const size_t ULZ = (size_t)UL * Z;
-  const float* zs = a.zs + ks * ULZ;
-  if (a.tile) {
-    load_tile(tile, zs, ULZ);
-    __syncthreads();
-    zs = tile;
-  }
-  if constexpr (kStamps) st.mark(kTile);
-  const int lane = threadIdx.x % 32;
-  for (int an = g * kWarps + threadIdx.x / 32; an < UL; an += a.groups * kWarps) {
-    const int u = an / L, l = an - u * L;
-    // Z in chunks of 32 kZL (one chunk when Z <= 32 kZL), each chunk's sums
-    // added to the scores by the thread that wrote them: every score of the
-    // anchor, positive or negative, goes through the same sums in one order.
-    for (int z0 = 0; z0 < Z; z0 += 32 * kZL) {
-      const int zc = min(32 * kZL, Z - z0);
-      float w[kZL];
-      load_row(w, a.wc + ks * ULZ + (size_t)an * Z + z0, zc, lane);
-      if constexpr (kStamps) {
-        settle(w[0]);
-        st.mark(kLoads);
-      }
-      const float fp = warp_dot(w, zs + (size_t)an * Z + z0, zc, lane);
-      if constexpr (kStamps) st.mark(kSums);
-      if (lane == 0) {
+  if (threadIdx.x == 0) mbar_init(bar);
+  __syncthreads();
+  uint32_t parity = 0;
+  const bool vec_wc = Z % 4 == 0 && aligned16(a.wc);
+  long long seg, end;
+  block_range((long long)a.ks * UL, seg, end);
+  while (seg < end) {
+    const int ks = (int)(seg / UL), an0 = (int)(seg - (long long)ks * UL);
+    const int an1 = (int)min((long long)UL, end - (long long)ks * UL);
+    seg = (long long)ks * UL + an1;
+    const int k = ks / a.s_count;
+    const float* rows = a.zs + (size_t)ks * UL * Z;
+    const int* seq = a.seq + (size_t)ks * UNL;
+    int stride = Z;
+    bool vec = Z % 4 == 0 && aligned16(a.zs);
+    // The tile pays where the segment's dots read at least as many rows as it holds.
+    if (a.tile && (long long)(an1 - an0) * (N + 1) >= UL) {
+      __syncthreads();  // every thread is done with the last segment's tile
+      stage(tile, rows, UL, Z, a.zp, seq_s, seq, (size_t)UNL, bar, parity);
+      rows = tile;
+      seq = seq_s;
+      stride = a.zp;
+      vec = true;
+    }
+    if constexpr (kStamps) st.mark(kTile);
+    // Runs of `per` dots: the same count for every group, so each warp
+    // reaches the shuffles together (a group past its run sums a dummy row).
+    const long long dots = (long long)(an1 - an0) * (N + 1);
+    const long long per = (dots + kGroups - 1) / kGroups;
+    const long long d0 = min(dots, per * group), d1 = min(dots, d0 + per);
+    for (int z0 = 0; z0 < Z; z0 += 32 * kP) {
+      const int zc = min(32 * kP, Z - z0);
+      float4 w[kP];
+      // Dot d is candidate j of anchor an0 + d / (N + 1), j = 0 the positive.
+      const long long dd = d0 < d1 ? d0 : 0;
+      int an = an0 + (int)(dd / (N + 1)), j = (int)(dd % (N + 1)), u = an / L, l = an - u * L;
+      bool fresh = true;
+      for (long long d = d0; d < d0 + per; ++d) {
+        const bool live = d < d1;
+        if (fresh) {
+          load_pieces(w, a.wc + ((size_t)ks * UL + an) * Z + z0, zc, g, vec_wc);
+          fresh = false;
+          if constexpr (kStamps) {
+            settle(w[0].x);
+            st.mark(kLoads);
+          }
+        }
+        int row = live ? an : -1;
         float* out = a.f_pos + (size_t)ks * UL + an;
-        *out = z0 == 0 ? fp : *out + fp;
-      }
-      if constexpr (kStamps) st.mark(kStores);
-      for (int n0 = 0; n0 < N; n0 += 32) {
-        const int my_row = negative_row(a.utt, a.seq, k, ks, U, N, L, u, l, n0 + lane);
-        if constexpr (kStamps) {
-          settle((uint32_t)my_row);
-          st.mark(kLoads);
+        if (live && j > 0) {
+          const int v = a.utt[((size_t)k * U + u) * N + j - 1];
+          const int m = seq[((size_t)u * N + j - 1) * L + l];
+          row = (v >= 0 && v < U && m >= 0 && m < L) ? v * L + m : -1;
+          out = a.f_neg + (((size_t)ks * U + u) * N + j - 1) * L + l;
+          if constexpr (kStamps) {
+            settle((uint32_t)row);
+            st.mark(kLoads);
+          }
         }
-        float mine = NAN;
-        const int count = min(32, N - n0);
-        for (int j = 0; j < count; ++j) {
-          const int row = __shfl_sync(0xffffffffu, my_row, j);
-          const float f = row >= 0 ? warp_dot(w, zs + (size_t)row * Z + z0, zc, lane) : NAN;
-          if (lane == j) mine = f;
-        }
+        float f = group_dot(w, rows + (size_t)max(row, 0) * stride + z0, zc, g, vec);
+        if (row < 0) f = NAN;
         if constexpr (kStamps) st.mark(kSums);
-        if (lane < count) {
-          float* out = a.f_neg + (((size_t)ks * U + u) * N + n0 + lane) * L + l;
-          *out = z0 == 0 ? mine : *out + mine;
+        if (live && g == 0) *out = z0 == 0 ? f : *out + f;
+        if constexpr (kStamps) st.mark(kStores);
+        if (live && ++j > N) {
+          j = 0;
+          ++an;
+          fresh = d + 1 < d1;
+          if (++l == L) {
+            l = 0;
+            ++u;
+          }
+        }
+      }
+    }
+  }
+  if constexpr (kStamps) {
+    st.end_step(0);
+    st.close();
+  }
+}
+
+// Backward, first launch: block (ks, v) lists the sources of the d_zs rows
+// (v, m) of its (k, s) and the d_wc entries of the pairs (u, n) that select
+// utterance v (block v = 0 also those of pairs whose utt_index is out of
+// range). The rows of v own entries [L (v + p_v), L (v + 1 + p_v + P_v)) of
+// the (k, s) list, p_v the pairs selecting an utterance below v and P_v
+// those selecting v: room for every source.
+template <bool kStamps>
+__global__ void __launch_bounds__(kListThreads) select_lists_kernel(ListArgs a) {
+  extern __shared__ __align__(16) int lsm[];
+  const int U = a.u, N = a.n, L = a.l, UN = U * N, UL = U * L;
+  const int ks = blockIdx.x / U, v = blockIdx.x - ks * U, k = ks / a.s_count;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  const unsigned lt = (1u << lane) - 1u;
+  int* info = lsm;             // P_v, p_v, pairs out of range (v = 0), pairs of v with u < v
+  int* pairs = lsm + 4;        // UN: the pairs (u N + n) of v ascending; out-of-range ones from the end
+  int* offpos = pairs + UN;    // L: the positive's place among its row's sources
+  int* start = offpos + L;     // L: sources of each row, then their first entry in the block's room
+  PhaseStamps<kPhases> st;
+  if constexpr (kStamps) {
+    st.open(a.stamps, 1);
+    st.begin_step();
+  }
+  if (warp == 0) {
+    int np = 0, nlt = 0, nbad = 0, nfirst = 0;
+    for (int p0 = 0; p0 < UN; p0 += 32) {
+      const int p = p0 + lane;
+      const int uv = p < UN ? a.utt[(size_t)k * UN + p] : -1;
+      const bool mine = p < UN && uv == v;
+      const bool bad = v == 0 && p < UN && (uv < 0 || uv >= U);
+      const unsigned bm = __ballot_sync(kFull, mine), bb = __ballot_sync(kFull, bad);
+      if (mine) pairs[np + __popc(bm & lt)] = p;
+      if (bad) pairs[UN - 1 - nbad - __popc(bb & lt)] = p;
+      np += __popc(bm);
+      nbad += __popc(bb);
+      nlt += __popc(__ballot_sync(kFull, p < UN && uv >= 0 && uv < v));
+      nfirst += __popc(__ballot_sync(kFull, mine && p < v * N));
+    }
+    if (lane == 0) {
+      info[0] = np;
+      info[1] = nlt;
+      info[2] = nbad;
+      info[3] = nfirst;
+    }
+  }
+  __syncthreads();
+  const int np = info[0], nlt = info[1], nbad = info[2], nfirst = info[3];
+  int* cnt = a.counts != nullptr ? a.counts + ((size_t)ks * UN + nlt) * L : start + L;
+  const size_t list0 = (size_t)ks * UL * (N + 1);
+  if constexpr (kStamps) st.mark(kPairs);
+
+  // Counts: cnt[i L + m] sources of pair i at m; the d_wc entries.
+  for (int i = threadIdx.x; i < np * L; i += blockDim.x) cnt[i] = 0;
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    const int an = v * L + l;
+    a.wc_list[list0 + (size_t)an * (N + 1)] =
+        make_int2(an, __float_as_int(a.d_fpos[(size_t)ks * UL + an]));
+  }
+  __syncthreads();
+  for (int i = warp; i < np + nbad; i += warps) {
+    const bool own = i < np;
+    const int p = own ? pairs[i] : pairs[UN - 1 - (i - np)];
+    const int u = p / N, n = p - u * N;
+    const int* srow = a.seq + ((size_t)ks * UN + p) * L;
+    const float* drow = a.d_fneg + ((size_t)ks * UN + p) * L;
+    for (int l0 = 0; l0 < L; l0 += 32) {
+      const int l = l0 + lane;
+      const int m = l < L ? srow[l] : -1;
+      const bool valid = own && m >= 0 && m < L;
+      if (l < L)
+        a.wc_list[list0 + (size_t)(u * L + l) * (N + 1) + 1 + n] =
+            make_int2(valid ? v * L + m : -1, __float_as_int(drow[l]));
+      if (own) {
+        const unsigned mask = __match_any_sync(kFull, valid ? m : -1 - lane);
+        if (valid && (mask & lt) == 0) cnt[i * L + m] += __popc(mask);
+        __syncwarp();
+      }
+    }
+  }
+  __syncthreads();
+  if constexpr (kStamps) st.mark(kCounts);
+
+  // Offsets: row m's sources run over the pairs in order, the positive
+  // before the first pair of an anchor utterance u >= v; cnt becomes each
+  // pair's first place among them.
+  for (int m = threadIdx.x; m < L; m += blockDim.x) {
+    int run = 0, pos = 0;
+    for (int i = 0; i < np; ++i) {
+      if (i == nfirst) pos = run++;
+      const int c = cnt[i * L + m];
+      cnt[i * L + m] = run;
+      run += c;
+    }
+    if (nfirst == np) pos = run++;
+    offpos[m] = pos;
+    start[m] = run;
+  }
+  __syncthreads();
+  if constexpr (kStamps) st.mark(kOffsets);
+
+  // The rows' first entries (an exclusive scan over m) and spans.
+  const int base = L * (v + nlt);
+  if (warp == 0) {
+    int carry = 0;
+    for (int m0 = 0; m0 < L; m0 += 32) {
+      const int m = m0 + lane;
+      const int x = m < L ? start[m] : 0;
+      int incl = x;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (m < L) {
+        start[m] = carry + incl - x;
+        a.zs_span[(size_t)ks * UL + v * L + m] = make_int2(base + carry + incl - x, x);
+      }
+      carry += __shfl_sync(kFull, incl, 31);
+    }
+  }
+  __syncthreads();
+  int2* list = a.zs_list + list0 + base;
+  for (int m = threadIdx.x; m < L; m += blockDim.x)
+    list[start[m] + offpos[m]] =
+        make_int2(v * L + m, __float_as_int(a.d_fpos[(size_t)ks * UL + v * L + m]));
+  for (int i = warp; i < np; i += warps) {
+    const int p = pairs[i], u = p / N;
+    const int* srow = a.seq + ((size_t)ks * UN + p) * L;
+    const float* drow = a.d_fneg + ((size_t)ks * UN + p) * L;
+    for (int l0 = 0; l0 < L; l0 += 32) {
+      const int l = l0 + lane;
+      const int m = l < L ? srow[l] : -1;
+      const bool valid = m >= 0 && m < L;
+      const unsigned mask = __match_any_sync(kFull, valid ? m : -1 - lane);
+      const int rank = __popc(mask & lt);
+      const int slot = valid ? start[m] + cnt[i * L + m] + rank : 0;
+      __syncwarp();
+      if (valid && rank == 0) cnt[i * L + m] += __popc(mask);
+      __syncwarp();
+      if (valid) list[slot] = make_int2(u * L + l, __float_as_int(drow[l]));
+    }
+  }
+  if constexpr (kStamps) {
+    st.mark(kPlace);
+    st.end_step(0);
+    st.close();
+  }
+}
+
+// Backward, second launch: rows [0, KS U L) of d_wc, then those of d_zs,
+// over the blocks; each row's group of 8 lanes adds d x row over its list.
+template <int kP, int kThreads, bool kStamps>
+__global__ void __launch_bounds__(kThreads, 1) select_sums_kernel(SumArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
+  float* tile = reinterpret_cast<float*>(smem + kBar);
+  const int U = a.u, N = a.n, L = a.l, Z = a.z, UL = U * L;
+  int2* ents = reinterpret_cast<int2*>(smem + kBar + (a.tile ? (size_t)UL * a.zp * 4 : 0));
+  constexpr int kGroups = kThreads / kGroup;
+  const int group = threadIdx.x / kGroup, g = threadIdx.x % kGroup;
+  PhaseStamps<kPhases> st;
+  if constexpr (kStamps) {
+    st.open(a.stamps, 1);
+    st.begin_step();
+  }
+  if (threadIdx.x == 0) mbar_init(bar);
+  __syncthreads();
+  uint32_t parity = 0;
+  const long long per_kind = (long long)a.ks * UL;
+  long long seg, end;
+  block_range(2 * per_kind, seg, end);
+  while (seg < end) {
+    const bool of_zs = seg >= per_kind;
+    const long long r = seg - (of_zs ? per_kind : 0);
+    const int ks = (int)(r / UL), t0 = (int)(r - (long long)ks * UL);
+    const int t1 = (int)min((long long)UL, end - (of_zs ? per_kind : 0) - (long long)ks * UL);
+    seg += t1 - t0;
+    // d_wc rows gather z_shift rows; d_zs rows gather wc rows.
+    const float* rows = (of_zs ? a.wc : a.zs) + (size_t)ks * UL * Z;
+    const int2* list = (of_zs ? a.zs_list : a.wc_list) + (size_t)ks * UL * (N + 1);
+    const int2* span = a.zs_span + (size_t)ks * UL;
+    float* out = (of_zs ? a.d_zs : a.d_wc) + (size_t)ks * UL * Z;
+    const int e0 = of_zs ? span[t0].x : t0 * (N + 1);
+    const int e1 = of_zs ? span[t1 - 1].x + span[t1 - 1].y : t1 * (N + 1);
+    int stride = Z, eoff = 0;
+    bool vec = Z % 4 == 0 && aligned16(rows);
+    const bool tiled = a.tile && (long long)(t1 - t0) * (N + 1) >= UL;
+    if (tiled || a.entries) {
+      __syncthreads();  // every thread is done with the last segment's tile and entries
+      if (a.entries)
+        for (int e = e0 + threadIdx.x; e < e1; e += blockDim.x) ents[e - e0] = list[e];
+      if (tiled) {
+        stage(tile, rows, UL, Z, a.zp, nullptr, nullptr, 0, bar, parity);
+        rows = tile;
+        stride = a.zp;
+        vec = true;
+      } else {
+        __syncthreads();
+      }
+      if (a.entries) {
+        list = ents;
+        eoff = e0;
+      }
+    }
+    if constexpr (kStamps) st.mark(kTile);
+    const bool vec_out = Z % 4 == 0 && aligned16(out);
+    int2 next = of_zs ? span[t0 + group < t1 ? t0 + group : t0] : make_int2(0, 0);
+    for (int t = t0 + group; t < t1; t += kGroups) {
+      const int2 sc = of_zs ? next : make_int2(t * (N + 1), N + 1);
+      if (of_zs && t + kGroups < t1) next = span[t + kGroups];
+      for (int z0 = 0; z0 < Z; z0 += 32 * kP) {
+        const int zc = min(32 * kP, Z - z0);
+        float4 acc[kP];
+#pragma unroll
+        for (int i = 0; i < kP; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int e = sc.x; e < sc.x + sc.y; ++e) {
+          const int2 en = list[e - eoff];
+          if constexpr (kStamps) {
+            settle((uint32_t)en.x);
+            st.mark(kLoads);
+          }
+          if (en.x < 0) continue;
+          const float d = __int_as_float(en.y);
+          const float* row = rows + (size_t)en.x * stride + z0;
+#pragma unroll
+          for (int i = 0; i < kP; ++i) {
+            const int z = 4 * (g + kGroup * i);
+            if (z < zc) {
+              const float4 x = load4(row + z, zc - z, vec);
+              acc[i].x = __fadd_rn(acc[i].x, __fmul_rn(d, x.x));
+              acc[i].y = __fadd_rn(acc[i].y, __fmul_rn(d, x.y));
+              acc[i].z = __fadd_rn(acc[i].z, __fmul_rn(d, x.z));
+              acc[i].w = __fadd_rn(acc[i].w, __fmul_rn(d, x.w));
+            }
+          }
+          if constexpr (kStamps) {
+            settle(acc[0].x);
+            st.mark(kSums);
+          }
+        }
+        float* o = out + (size_t)t * Z + z0;
+#pragma unroll
+        for (int i = 0; i < kP; ++i) {
+          const int z = 4 * (g + kGroup * i);
+          if (z < zc) store4(o + z, acc[i], zc - z, vec_out);
         }
         if constexpr (kStamps) st.mark(kStores);
       }
@@ -201,270 +623,186 @@ __global__ void __launch_bounds__(kThreads) cpc_select_kernel(SelectArgs a) {
   }
 }
 
-template <int kZL, bool kStamps>
-__global__ void __launch_bounds__(kThreads) cpc_select_bwd_kernel(SelectBwdArgs a) {
-  PhaseStamps<kPhases> st;
-  if constexpr (kStamps) {
-    st.open(a.stamps, 1);
-    st.begin_step();
+// ------------------------------------------------------------------ host
+
+struct DeviceInfo {
+  int sms = 0, smem = 0;
+};
+DeviceInfo g_device[kMaxDevices];
+
+// The card's SM count and shared memory per block, read once per device.
+const DeviceInfo* device_info(int dev) {
+  if (dev < 0 || dev >= kMaxDevices) return nullptr;
+  DeviceInfo& d = g_device[dev];
+  if (d.sms == 0) {
+    int sms = 0, smem = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess)
+      return nullptr;
+    d.smem = smem;
+    d.sms = sms;
   }
-  extern __shared__ __align__(16) float tile[];
-  const int U = a.u_count, N = a.n_count, L = a.l_count, Z = a.z_dim;
-  const bool gather = blockIdx.x < a.ks * a.groups;
-  const int ks = gather ? blockIdx.x / a.groups : blockIdx.x - a.ks * a.groups;
-  const int g = gather ? blockIdx.x % a.groups : 0, stride = gather ? a.groups : 1;
-  const int k = ks / a.s_count;
-  const int UL = U * L;
-  const size_t ULZ = (size_t)UL * Z;
-  const int lane = threadIdx.x % 32;
-  const float* zs = a.zs + ks * ULZ;
-  float* acc_zs = a.d_zs + ks * ULZ;
-  if (a.tile) {
-    if (gather) {
-      load_tile(tile, zs, ULZ);
-      zs = tile;
-    } else {
-      for (size_t i = threadIdx.x; i < ULZ; i += blockDim.x) tile[i] = 0.f;
-      acc_zs = tile;
-    }
-    __syncthreads();
-  }
-  if constexpr (kStamps) st.mark(kTile);
-  // Z in chunks of 32 kZL (one chunk when Z <= 32 kZL): each z is summed on
-  // its own, so the chunks change no sum.
-  for (int an = g * kWarps + threadIdx.x / 32; an < UL; an += stride * kWarps) {
-    for (int z0 = 0; z0 < Z; z0 += 32 * kZL) {
-      const int zc = min(32 * kZL, Z - z0);
-      const int u = an / L, l = an - u * L;
-      const float dp = a.d_fpos[(size_t)ks * UL + an];
-      float w[kZL];  // gather: z_shift row of the anchor; scatter: its wc row
-      load_row(w, (gather ? zs : a.wc + ks * ULZ) + (size_t)an * Z + z0, zc, lane);
-      if constexpr (kStamps) {
-        settle(w[0]);
-        settle(dp);
-        st.mark(kLoads);
-      }
-      float dw[kZL];
-#pragma unroll
-      for (int i = 0; i < kZL; ++i) {
-        dw[i] = dp * w[i];
-        const int z = lane + 32 * i;
-        if (!gather && z < zc) atomicAdd(acc_zs + (size_t)an * Z + z0 + z, dw[i]);
-      }
-      for (int n0 = 0; n0 < N; n0 += 32) {
-        const int n = n0 + lane;
-        const int my_row = negative_row(a.utt, a.seq, k, ks, U, N, L, u, l, n);
-        const float my_d = n < N ? a.d_fneg[(((size_t)ks * U + u) * N + n) * L + l] : 0.f;
-        const int count = min(32, N - n0);
-        if constexpr (kStamps) {
-          settle((uint32_t)my_row);
-          settle(my_d);
-          st.mark(kLoads);
-        }
-        for (int j = 0; j < count; ++j) {
-          const int row = __shfl_sync(0xffffffffu, my_row, j);
-          const float d = __shfl_sync(0xffffffffu, my_d, j);
-          if (row < 0) continue;
-          const float* at = zs + (size_t)row * Z + z0;
-          float* to = acc_zs + (size_t)row * Z + z0;
-#pragma unroll
-          for (int i = 0; i < kZL; ++i) {
-            const int z = lane + 32 * i;
-            if (z >= zc) continue;
-            if (gather) {
-              dw[i] = fmaf(d, at[z], dw[i]);
-            } else {
-              atomicAdd(to + z, d * w[i]);
-            }
-          }
-        }
-        if constexpr (kStamps) {
-          settle(dw[0]);
-          st.mark(kSums);
-        }
-      }
-      if (gather) {
-#pragma unroll
-        for (int i = 0; i < kZL; ++i) {
-          const int z = lane + 32 * i;
-          if (z < zc) a.d_wc[ks * ULZ + (size_t)an * Z + z0 + z] = dw[i];
-        }
-      }
-      if constexpr (kStamps) st.mark(kStores);
-    }
-  }
-  if (a.tile && !gather) {
-    __syncthreads();
-    float* out = a.d_zs + ks * ULZ;
-    for (size_t i = threadIdx.x; i < ULZ; i += blockDim.x) out[i] = tile[i];
-  }
-  if constexpr (kStamps) {
-    st.mark(kStores);
-    st.end_step(0);
-    st.close();
-  }
+  return &d;
 }
 
-// Shared memory of the tile, or 0 when it does not fit one block.
-size_t tile_bytes(int u_count, int l_count, int z_dim) {
-  const size_t bytes = sizeof(float) * (size_t)u_count * l_count * z_dim;
-  int dev, max_smem;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-          cudaSuccess)
-    return 0;
-  return bytes <= (size_t)max_smem ? bytes : 0;
+bool shape_ok(int ks, int s_count, int u, int n, int l, int z) {
+  return ks >= 1 && s_count >= 1 && ks % s_count == 0 && u >= 1 && n >= 0 && l >= 1 && z >= 1 &&
+         (long long)ks * u * l * (n + 1) < (1ll << 31);
 }
 
-// Blocks per (k, s): enough to fill the SMs left after ``reserved`` other
-// blocks once (a block with the tile holds one SM), and no more than there
-// are warps' worth of anchors.
-int group_count(int ks, int anchors, int reserved) {
-  int dev, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int by_sms = (sms - reserved) / ks > 1 ? (sms - reserved) / ks : 1;
-  const int by_work = (anchors + kWarps - 1) / kWarps;
-  return by_sms < by_work ? by_sms : by_work;
+Plan make_plan(int ks, int u, int n, int l, int z, int sms, int smem) {
+  Plan p;
+  p.pieces = z <= 64 ? 2 : (z <= 128 ? 4 : 8);
+  p.threads = p.pieces == 2 ? 1024 : 512;  // 64 registers a thread hold 2 pieces, not 4
+  const long long items = (long long)ks * u * l;
+  p.blocks = (int)(items < sms ? items : sms);
+  p.sum_blocks = (int)(2 * items < sms ? 2 * items : sms);
+  p.zp = (z + 3) / 4 * 4;
+  const long long ul = (long long)u * l, unl = (long long)u * n * l;
+  const long long tile = ul * p.zp * 4, entries = ul * (n + 1) * 8;
+  p.fwd_tile = kBar + tile + unl * 4 <= smem;
+  p.fwd_smem = (int)(p.fwd_tile ? kBar + tile + unl * 4 : kBar);
+  p.sum_tile = kBar + tile <= smem;
+  p.sum_entries = kBar + (p.sum_tile ? tile : 0) + entries <= smem;
+  p.sum_smem = (int)(kBar + (p.sum_tile ? tile : 0) + (p.sum_entries ? entries : 0));
+  const long long list = 4ll * (4 + (long long)u * n + 2 * l);
+  p.list_counts = list + unl * 4 <= smem;
+  p.list_smem = (int)(list + (p.list_counts ? unl * 4 : 0));
+  return p;
 }
 
-bool shape_ok(int ks, int s_count, int u_count, int n_count, int l_count, int z_dim) {
-  return ks >= 1 && s_count >= 1 && ks % s_count == 0 && u_count >= 1 && n_count >= 0 &&
-         l_count >= 1 && z_dim >= 1;
-}
-
-// Z values per lane in registers: 2, 4 or 8 (chunks of 256 above 256).
-int lanes_for(int z_dim) {
-  if (z_dim <= 64) return 2;
-  if (z_dim <= 128) return 4;
-  return kMaxZLane;
-}
-
-template <typename Kernel, typename Args>
-cudaError_t run(Kernel kernel, Args& a, int blocks, cudaStream_t stream) {
-  const size_t smem = tile_bytes(a.u_count, a.l_count, a.z_dim);
-  a.tile = smem > 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, kThreads, smem, stream>>>(a);
+// Launches ``kKernel``, raising its dynamic shared-memory limit to the
+// card's once per device where ``smem`` needs it.
+template <auto kKernel, typename Args>
+cudaError_t launch(int blocks, int threads, int smem, cudaStream_t stream, int dev, const Args& a) {
+  static unsigned long long raised = 0;  // one bit per device
+  if (smem > 48 * 1024 && !((raised >> dev) & 1ull)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, device_info(dev)->smem);
+    if (err != cudaSuccess) return err;
+    raised |= 1ull << dev;
+  }
+  kKernel<<<blocks, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The launches below run on ``stream``, allocate nothing and do not
-// synchronise; each returns cudaGetLastError() after the launch. The
-// stamped variants take ``stamps``, int64 (2, 4 + kPhases), zeroed.
-
-static int launch_fwd(const void* wc, const void* zs, const void* utt, const void* seq,
-                      void* f_neg, void* f_pos, int ks, int s_count, int u_count, int n_count,
-                      int l_count, int z_dim, void* stamps, void* stream) {
-  if (!shape_ok(ks, s_count, u_count, n_count, l_count, z_dim)) return cudaErrorInvalidValue;
-  SelectArgs a;
-  a.wc = static_cast<const float*>(wc);
-  a.zs = static_cast<const float*>(zs);
-  a.utt = static_cast<const int*>(utt);
-  a.seq = static_cast<const int*>(seq);
-  a.f_neg = static_cast<float*>(f_neg);
-  a.f_pos = static_cast<float*>(f_pos);
-  a.ks = ks;
-  a.s_count = s_count;
-  a.u_count = u_count;
-  a.n_count = n_count;
-  a.l_count = l_count;
-  a.z_dim = z_dim;
-  a.stamps = static_cast<long long*>(stamps);
-  a.groups = group_count(ks, u_count * l_count, 0);
-  const int blocks = ks * a.groups;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool st = stamps != nullptr;
-  switch (lanes_for(z_dim)) {
-    case 2: return (int)(st ? run(cpc_select_kernel<2, true>, a, blocks, s)
-                            : run(cpc_select_kernel<2, false>, a, blocks, s));
-    case 4: return (int)(st ? run(cpc_select_kernel<4, true>, a, blocks, s)
-                            : run(cpc_select_kernel<4, false>, a, blocks, s));
-    default: return (int)(st ? run(cpc_select_kernel<8, true>, a, blocks, s)
-                             : run(cpc_select_kernel<8, false>, a, blocks, s));
+template <bool kSt>
+cudaError_t launch_fwd(const Plan& p, const FwdArgs& a, cudaStream_t s, int dev) {
+  switch (p.pieces) {
+    case 2: return launch<select_fwd_kernel<2, 1024, kSt>>(p.blocks, 1024, p.fwd_smem, s, dev, a);
+    case 4: return launch<select_fwd_kernel<4, 512, kSt>>(p.blocks, 512, p.fwd_smem, s, dev, a);
+    default: return launch<select_fwd_kernel<8, 512, kSt>>(p.blocks, 512, p.fwd_smem, s, dev, a);
   }
 }
 
-static int launch_bwd(const void* d_fneg, const void* d_fpos, const void* wc, const void* zs,
-                      const void* utt, const void* seq, void* d_wc, void* d_zs, int ks,
-                      int s_count, int u_count, int n_count, int l_count, int z_dim,
-                      void* stamps, void* stream) {
-  if (!shape_ok(ks, s_count, u_count, n_count, l_count, z_dim)) return cudaErrorInvalidValue;
-  SelectBwdArgs a;
-  a.d_fneg = static_cast<const float*>(d_fneg);
-  a.d_fpos = static_cast<const float*>(d_fpos);
-  a.wc = static_cast<const float*>(wc);
-  a.zs = static_cast<const float*>(zs);
-  a.utt = static_cast<const int*>(utt);
-  a.seq = static_cast<const int*>(seq);
-  a.d_wc = static_cast<float*>(d_wc);
-  a.d_zs = static_cast<float*>(d_zs);
-  a.ks = ks;
-  a.s_count = s_count;
-  a.u_count = u_count;
-  a.n_count = n_count;
-  a.l_count = l_count;
-  a.z_dim = z_dim;
-  a.stamps = static_cast<long long*>(stamps);
-  a.groups = group_count(ks, u_count * l_count, ks);  // the ks scatter blocks
-  const int blocks = ks * (a.groups + 1);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool st = stamps != nullptr;
-  switch (lanes_for(z_dim)) {
-    case 2: return (int)(st ? run(cpc_select_bwd_kernel<2, true>, a, blocks, s)
-                            : run(cpc_select_bwd_kernel<2, false>, a, blocks, s));
-    case 4: return (int)(st ? run(cpc_select_bwd_kernel<4, true>, a, blocks, s)
-                            : run(cpc_select_bwd_kernel<4, false>, a, blocks, s));
-    default: return (int)(st ? run(cpc_select_bwd_kernel<8, true>, a, blocks, s)
-                             : run(cpc_select_bwd_kernel<8, false>, a, blocks, s));
+template <bool kSt>
+cudaError_t launch_sums(const Plan& p, const SumArgs& a, cudaStream_t s, int dev) {
+  switch (p.pieces) {
+    case 2: return launch<select_sums_kernel<2, 1024, kSt>>(p.sum_blocks, 1024, p.sum_smem, s, dev, a);
+    case 4: return launch<select_sums_kernel<4, 512, kSt>>(p.sum_blocks, 512, p.sum_smem, s, dev, a);
+    default: return launch<select_sums_kernel<8, 512, kSt>>(p.sum_blocks, 512, p.sum_smem, s, dev, a);
   }
+}
+
+int run_fwd(const void* wc, const void* zs, const void* utt, const void* seq, void* f_neg,
+            void* f_pos, int ks, int s_count, int u, int n, int l, int z, int dev, void* stamps,
+            void* stream) {
+  const DeviceInfo* info = device_info(dev);
+  if (!shape_ok(ks, s_count, u, n, l, z) || info == nullptr) return cudaErrorInvalidValue;
+  const Plan p = make_plan(ks, u, n, l, z, info->sms, info->smem);
+  FwdArgs a{static_cast<const float*>(wc), static_cast<const float*>(zs),
+            static_cast<const int*>(utt), static_cast<const int*>(seq),
+            static_cast<float*>(f_neg), static_cast<float*>(f_pos), ks, s_count, u, n, l, z, p.zp,
+            p.fwd_tile, static_cast<long long*>(stamps)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(stamps ? launch_fwd<true>(p, a, s, dev) : launch_fwd<false>(p, a, s, dev));
+}
+
+// The workspace: wc_list, zs_list, zs_span, counts (ints; the wrapper's
+// ops/cpc_select.py:workspace_words).
+int run_bwd(const void* d_fneg, const void* d_fpos, const void* wc, const void* zs,
+            const void* utt, const void* seq, void* d_wc, void* d_zs, void* workspace, int ks,
+            int s_count, int u, int n, int l, int z, int dev, void* stamps, void* stream) {
+  const DeviceInfo* info = device_info(dev);
+  if (!shape_ok(ks, s_count, u, n, l, z) || info == nullptr) return cudaErrorInvalidValue;
+  const Plan p = make_plan(ks, u, n, l, z, info->sms, info->smem);
+  const size_t list = (size_t)ks * u * l * (n + 1);
+  int2* wc_list = static_cast<int2*>(workspace);
+  int2* zs_list = wc_list + list;
+  int2* zs_span = zs_list + list;
+  int* counts = reinterpret_cast<int*>(zs_span + (size_t)ks * u * l);
+  long long* st = static_cast<long long*>(stamps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ListArgs la{static_cast<const float*>(d_fneg), static_cast<const float*>(d_fpos),
+              static_cast<const int*>(utt), static_cast<const int*>(seq), wc_list, zs_list,
+              zs_span, p.list_counts ? nullptr : counts, ks, s_count, u, n, l,
+              st ? st + 2 * (4 + kPhases) : nullptr};
+  cudaError_t err = st ? launch<select_lists_kernel<true>>(ks * u, kListThreads, p.list_smem, s, dev, la)
+                       : launch<select_lists_kernel<false>>(ks * u, kListThreads, p.list_smem, s, dev, la);
+  if (err != cudaSuccess) return (int)err;
+  SumArgs sa{static_cast<const float*>(wc), static_cast<const float*>(zs), wc_list, zs_list,
+             zs_span, static_cast<float*>(d_wc), static_cast<float*>(d_zs), ks, u, n, l, z, p.zp,
+             p.sum_tile, p.sum_entries, st};
+  return (int)(st ? launch_sums<true>(p, sa, s, dev) : launch_sums<false>(p, sa, s, dev));
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when the z_shift / d_zs tile of one (k, s) fits one block's shared
-// memory on the current card (else the kernels read and add in device memory).
-int vq_cpc_select_uses_tile(int u_count, int l_count, int z_dim) {
-  return tile_bytes(u_count, l_count, z_dim) > 0;
+// The launch plan at this shape on device ``dev``: kPlanFields ints into
+// ``out`` (Plan's fields in order); returns 0, or a CUDA error.
+int vq_cpc_select_plan(int ks, int s_count, int u_count, int n_count, int l_count, int z_dim,
+                       int dev, int* out) {
+  const DeviceInfo* info = device_info(dev);
+  if (!shape_ok(ks, s_count, u_count, n_count, l_count, z_dim) || info == nullptr)
+    return cudaErrorInvalidValue;
+  const Plan p = make_plan(ks, u_count, n_count, l_count, z_dim, info->sms, info->smem);
+  const int* f = reinterpret_cast<const int*>(&p);
+  for (int i = 0; i < kPlanFields; ++i) out[i] = f[i];
+  return 0;
 }
+
+// The launches below run on ``stream`` on device ``dev`` (the current
+// one), allocate nothing and do not synchronise; each returns
+// cudaGetLastError() after its launch. The stamped variants take
+// ``stamps`` before ``dev``, int64 zeroed: (2, 4 + kPhases) forward,
+// (4, 4 + kPhases) backward (the sum kernel's rows, then the list kernel's).
 
 int vq_cpc_select_launch(const void* wc, const void* zs, const void* utt, const void* seq,
                          void* f_neg, void* f_pos, int ks, int s_count, int u_count,
-                         int n_count, int l_count, int z_dim, void* stream) {
-  return launch_fwd(wc, zs, utt, seq, f_neg, f_pos, ks, s_count, u_count, n_count, l_count,
-                    z_dim, nullptr, stream);
+                         int n_count, int l_count, int z_dim, int dev, void* stream) {
+  return run_fwd(wc, zs, utt, seq, f_neg, f_pos, ks, s_count, u_count, n_count, l_count, z_dim,
+                 dev, nullptr, stream);
 }
 
 int vq_cpc_select_stamped_launch(const void* wc, const void* zs, const void* utt,
                                  const void* seq, void* f_neg, void* f_pos, int ks, int s_count,
                                  int u_count, int n_count, int l_count, int z_dim, void* stamps,
-                                 void* stream) {
+                                 int dev, void* stream) {
   if (stamps == nullptr) return cudaErrorInvalidValue;
-  return launch_fwd(wc, zs, utt, seq, f_neg, f_pos, ks, s_count, u_count, n_count, l_count,
-                    z_dim, stamps, stream);
+  return run_fwd(wc, zs, utt, seq, f_neg, f_pos, ks, s_count, u_count, n_count, l_count, z_dim,
+                 dev, stamps, stream);
 }
 
-// d_zs must hold zeros when vq_cpc_select_uses_tile() is 0.
+// ``workspace``: ops/cpc_select.py:workspace_words(...) ints, any contents.
 int vq_cpc_select_bwd_launch(const void* d_fneg, const void* d_fpos, const void* wc,
                              const void* zs, const void* utt, const void* seq, void* d_wc,
-                             void* d_zs, int ks, int s_count, int u_count, int n_count,
-                             int l_count, int z_dim, void* stream) {
-  return launch_bwd(d_fneg, d_fpos, wc, zs, utt, seq, d_wc, d_zs, ks, s_count, u_count, n_count,
-                    l_count, z_dim, nullptr, stream);
+                             void* d_zs, void* workspace, int ks, int s_count, int u_count,
+                             int n_count, int l_count, int z_dim, int dev, void* stream) {
+  return run_bwd(d_fneg, d_fpos, wc, zs, utt, seq, d_wc, d_zs, workspace, ks, s_count, u_count,
+                 n_count, l_count, z_dim, dev, nullptr, stream);
 }
 
 int vq_cpc_select_bwd_stamped_launch(const void* d_fneg, const void* d_fpos, const void* wc,
                                      const void* zs, const void* utt, const void* seq,
-                                     void* d_wc, void* d_zs, int ks, int s_count, int u_count,
-                                     int n_count, int l_count, int z_dim, void* stamps,
-                                     void* stream) {
+                                     void* d_wc, void* d_zs, void* workspace, int ks,
+                                     int s_count, int u_count, int n_count, int l_count,
+                                     int z_dim, void* stamps, int dev, void* stream) {
   if (stamps == nullptr) return cudaErrorInvalidValue;
-  return launch_bwd(d_fneg, d_fpos, wc, zs, utt, seq, d_wc, d_zs, ks, s_count, u_count, n_count,
-                    l_count, z_dim, stamps, stream);
+  return run_bwd(d_fneg, d_fpos, wc, zs, utt, seq, d_wc, d_zs, workspace, ks, s_count, u_count,
+                 n_count, l_count, z_dim, dev, stamps, stream);
 }
 
 }  // extern "C"
