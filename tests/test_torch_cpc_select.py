@@ -138,21 +138,21 @@ H100 = {"sms": 132, "smem": 232448}  # SMs and shared memory per block (opt-in) 
     [
         # The training shape: every kernel stages its (k, s) tile; the sums
         # also their entries (16 + 131,072 + 73,728 bytes).
-        ((6, 8, 8, 17, 64, 64), {"pieces": 2, "threads": 1024, "blocks": 132, "sum_blocks": 132,
+        ((6, 8, 8, 17, 64, 64), {"pieces": 2, "threads": 1024, "parts": 2, "sum_parts": 1,
                                  "zp": 64, "fwd_tile": 1, "fwd_smem": 165904, "sum_tile": 1,
-                                 "sum_entries": 1, "sum_smem": 204816, "list_counts": 1,
-                                 "list_smem": 35888}),
+                                 "sum_entries": 1, "sum_smem": 204816,
+                                 "list_smem": 1616 + 49152}),
         # A tile of 1,600 rows does not fit: rows through L1, entries staged.
-        ((1, 2, 8, 17, 200, 64), {"fwd_tile": 0, "fwd_smem": 16, "sum_tile": 0, "sum_entries": 1,
-                                  "sum_smem": 230416, "list_counts": 1, "list_smem": 110960}),
+        ((1, 2, 8, 17, 200, 64), {"parts": 13, "sum_parts": 13, "fwd_tile": 0, "fwd_smem": 16,
+                                  "sum_tile": 0, "sum_entries": 1, "sum_smem": 230416}),
         # Z 300: 8 pieces a lane, two passes, 512 threads; rows padded to 4.
         ((6, 8, 8, 17, 64, 300), {"pieces": 8, "threads": 512, "zp": 300, "fwd_tile": 0,
                                   "sum_tile": 0, "sum_entries": 1, "sum_smem": 73744}),
-        ((3, 2, 5, 7, 9, 33), {"pieces": 2, "zp": 36, "blocks": 132, "fwd_tile": 1,
+        ((3, 2, 5, 7, 9, 33), {"pieces": 2, "zp": 36, "parts": 1, "fwd_tile": 1,
                                "fwd_smem": 16 + 45 * 36 * 4 + 5 * 7 * 9 * 4}),
-        ((1, 1, 1, 1, 1, 1), {"blocks": 1, "sum_blocks": 2, "zp": 4, "fwd_smem": 16 + 16 + 4}),
-        # The counts of U 16, N 40, L 200 do not fit: the list blocks count in the workspace.
-        ((1, 1, 16, 40, 200, 64), {"list_counts": 0, "list_smem": 4 * (4 + 640 + 400)}),
+        ((1, 1, 1, 1, 1, 1), {"parts": 1, "sum_parts": 1, "zp": 4, "fwd_smem": 16 + 16 + 4}),
+        # The list blocks' index lists at U 16, N 40, L 200.
+        ((1, 1, 16, 40, 200, 64), {"list_smem": 4 * (4 + 1280 + 400) + 49152}),
     ],
 )
 def test_select_plan(shape, want):
@@ -165,42 +165,35 @@ def test_select_plan(shape, want):
 
 
 def test_workspace_words():
-    """Two lists of K S U L (N + 1) (row, d) pairs, a span per row, counts."""
+    """Room for K S U L (N + 1) (wc row, source) pairs, a span per row, and
+    a mask word pair and a place pair per (pair, row) (L 64: one mask word)."""
     k, s, u, n, l = 6, 8, 8, 17, 64
-    assert port.workspace_words(k, s, u, n, l) == 4 * 48 * 512 * 18 + 2 * 48 * 512 + 48 * 8704
+    assert port.workspace_words(k, s, u, n, l) == (2 * 48 * 512 * 18 + 2 * 48 * 512
+                                                   + 48 * 8704 * 4)
+    assert port.workspace_words(1, 2, 8, 17, 200) == 2 * 2 * 1600 * 18 + 2 * 2 * 1600 + 2 * 27200 * 10
 
 
-def _emulate_lists(utt, seq, d_neg, d_pos):
+def _emulate_lists(utt, seq):
     """csrc/cpc_select.cu:select_lists_kernel, block by block in numpy: the
-    d_wc lists, the d_zs lists and their spans of each (k, s)."""
+    d_zs lists ((wc row, source): the index in d_fneg, or -1 - the index in
+    d_fpos) and their spans of each (k, s)."""
     k_, s_, u_, n_, l_ = seq.shape
     ks_ = k_ * s_
     cap = u_ * l_ * (n_ + 1)
-    wc_list = np.full((ks_, cap, 2), -7, np.int64)
     zs_list = np.full((ks_, cap, 2), -7, np.int64)
     span = np.zeros((ks_, u_ * l_, 2), np.int64)
     seq_f = seq.reshape(ks_, u_ * n_, l_)
-    d_f = d_neg.reshape(ks_, u_ * n_, l_)
-    dp = d_pos.reshape(ks_, u_ * l_)
     for ks in range(ks_):
         uv_all = utt[ks // s_].reshape(-1)
         for v in range(u_):
             pairs = [p for p in range(u_ * n_) if uv_all[p] == v]
-            bad = [p for p in range(u_ * n_) if v == 0 and not 0 <= uv_all[p] < u_]
             nlt = sum(1 for p in range(u_ * n_) if 0 <= uv_all[p] < v)
             nfirst = sum(1 for p in pairs if p < v * n_)
             cnt = np.zeros((len(pairs), l_), np.int64)
-            for l in range(l_):
-                wc_list[ks, (v * l_ + l) * (n_ + 1)] = (v * l_ + l, d_pos.view(np.int32).reshape(
-                    ks_, -1)[ks, v * l_ + l])
-            for i, p in enumerate(pairs + bad):
-                u, n = divmod(p, n_)
+            for i, p in enumerate(pairs):
                 for l in range(l_):
                     m = seq_f[ks, p, l]
-                    valid = i < len(pairs) and 0 <= m < l_
-                    wc_list[ks, (u * l_ + l) * (n_ + 1) + 1 + n] = (
-                        v * l_ + m if valid else -1, d_f[ks, p, l:l + 1].view(np.int32)[0])
-                    if valid:
+                    if 0 <= m < l_:
                         cnt[i, m] += 1
             offpos, start = np.zeros(l_, np.int64), np.zeros(l_, np.int64)
             for m in range(l_):
@@ -218,17 +211,15 @@ def _emulate_lists(utt, seq, d_neg, d_pos):
             span[ks, v * l_:(v + 1) * l_] = np.stack([base + start, tot], -1)
             assert base + tot.sum() <= l_ * (v + 1 + nlt + len(pairs))  # inside v's room
             for m in range(l_):
-                zs_list[ks, base + start[m] + offpos[m]] = (
-                    v * l_ + m, dp[ks:ks + 1, v * l_ + m].view(np.int32)[0])
+                zs_list[ks, base + start[m] + offpos[m]] = (v * l_ + m, -1 - (ks * u_ * l_ + v * l_ + m))
             for i, p in enumerate(pairs):
                 u = p // n_
                 for l in range(l_):
                     m = seq_f[ks, p, l]
                     if 0 <= m < l_:
-                        zs_list[ks, base + start[m] + cnt[i, m]] = (
-                            u * l_ + l, d_f[ks, p, l:l + 1].view(np.int32)[0])
+                        zs_list[ks, base + start[m] + cnt[i, m]] = (u * l_ + l, (ks * u_ * n_ + p) * l_ + l)
                         cnt[i, m] += 1
-    return wc_list, zs_list, span
+    return zs_list, span
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 4, 5, 10), (1, 2, 3, 7, 6), (1, 2, 1, 3, 4), (1, 1, 2, 1, 2)])
@@ -238,7 +229,8 @@ def test_backward_lists_order_and_sums(rng, shape):
     negatives (index_add_'s order in the plain version), no source lost or
     repeated, out-of-range indices dropped; d x row summed over the lists in
     order, a product then a sum in f32 as the sum kernel does, gives the
-    plain version's d_zs bit for bit and its d_wc within 1e-5."""
+    plain version's d_zs bit for bit; d_wc in the sum kernel's order (the
+    positive, then n ascending) is within 1e-5 of it."""
     k, s, u, n, l = shape
     wc, zs, utt, seq = _case(rng, k=k, s=s, u=u, n=n, l=l, z=8)
     if u * n > 1:
@@ -246,7 +238,8 @@ def test_backward_lists_order_and_sums(rng, shape):
     seq[0, 0, 0, 0, min(1, l - 1)] = -1  # a time out of range
     d_neg = rng.normal(size=(k, s, u, n, l)).astype(np.float32)
     d_pos = rng.normal(size=(k, s, u, l)).astype(np.float32)
-    wc_list, zs_list, span = _emulate_lists(utt, seq, d_neg, d_pos)
+    zs_list, span = _emulate_lists(utt, seq)
+    d_src = np.concatenate([d_neg.reshape(-1), d_pos.reshape(-1)[::-1]])  # src >= 0, then -1 - i
     ks_, ul = k * s, u * l
     wcf, zsf = wc.reshape(ks_, ul, -1), zs.reshape(ks_, ul, -1)
     got_zs = np.zeros_like(zsf)
@@ -268,13 +261,16 @@ def test_backward_lists_order_and_sums(rng, shape):
             ents = zs_list[ks, first:first + count]
             assert ents[:, 0].tolist() == want[t]
             acc = np.zeros(zsf.shape[-1], np.float32)
-            for row, dbits in ents:
-                acc = acc + np.float32(np.int32(dbits).view(np.float32)) * wcf[ks, row]
+            for row, src in ents:
+                acc = acc + d_src[src] * wcf[ks, row]
             got_zs[ks, t] = acc
-            acc = np.zeros(zsf.shape[-1], np.float32)
-            for row, dbits in wc_list[ks, t * (n + 1):(t + 1) * (n + 1)]:
-                if row >= 0:
-                    acc = acc + np.float32(np.int32(dbits).view(np.float32)) * zsf[ks, row]
+            # d_wc: the anchor's positive, then its negatives in n order.
+            uu, ll = divmod(t, l)
+            acc = d_pos.reshape(ks_, ul)[ks, t] * zsf[ks, t]
+            for nn in range(n):
+                vv, mm = uv[uu, nn], seq[ks // s, ks % s, uu, nn, ll]
+                if 0 <= vv < u and 0 <= mm < l:
+                    acc = acc + d_neg[ks // s, ks % s, uu, nn, ll] * zsf[ks, vv * l + mm]
             got_wc[ks, t] = acc
     # The plain version takes no index out of range: point those sources at
     # row 0 with d = 0, which adds only zeros.

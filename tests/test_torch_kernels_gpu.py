@@ -749,6 +749,7 @@ def _select_case(rng, k, s, u, n, l, z, device):
         (3, 2, 4, 17, 10, 300),
         (2, 3, 8, 40, 64, 64),  # N past 32
         (2, 2, 16, 17, 64, 64),  # U 16: a (k, s) tile of 1,024 rows
+        (1, 1, 16, 40, 200, 8),  # the list blocks count in the workspace
     ],
 )
 def test_cpc_select_kernels_match_plain(cuda, k, s, u, n, l, z):

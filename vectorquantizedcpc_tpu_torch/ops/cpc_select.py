@@ -43,9 +43,10 @@ BWD_STAMP_PHASES = ("tile load", "list loads", "sums", "stores")
 LIST_STAMP_PHASES = ("pair lists", "counts", "offsets", "placement")
 
 # csrc/cpc_select.cu's Plan, field by field (vq_cpc_select_plan's order).
-PLAN_FIELDS = ("pieces", "threads", "blocks", "sum_blocks", "zp", "fwd_tile", "fwd_smem",
-               "sum_tile", "sum_entries", "sum_smem", "list_counts", "list_smem")
+PLAN_FIELDS = ("pieces", "threads", "parts", "sum_parts", "zp", "fwd_tile", "fwd_smem",
+               "sum_tile", "sum_entries", "sum_smem", "list_smem")
 _BAR = 16  # shared-memory bytes of a block's staging mbarrier
+_LIST_SCRATCH = 48 * 1024  # a list block's room for its masks and places
 
 
 def select_plan(k: int, s: int, u: int, n: int, l: int, z: int, sms: int,
@@ -53,38 +54,39 @@ def select_plan(k: int, s: int, u: int, n: int, l: int, z: int, sms: int,
     """The kernels' launch plan (``csrc/cpc_select.cu:make_plan``) on a card
     of ``sms`` SMs and ``smem`` bytes of shared memory per block: 16-byte
     pieces per lane per pass over Z and the block size; the forward's
-    blocks (one per SM, no more than anchors) and the sum kernel's (no more
-    than rows of d_wc and d_zs); the staged row stride; what each kernel
+    blocks per (k, s) and the sum kernel's per (k, s) and kind (d_wc, d_zs):
+    as many as fill the SMs once, no more than the rows take rounds of the
+    block's groups of 8 lanes; the staged row stride; what each kernel
     stages in shared memory, and its bytes (a tile of U L rows, the forward
     with its seq_index slice, the sums with the list entries of a (k, s));
-    whether the list blocks (one per (k, s, v), 256 threads) count in
-    shared memory."""
+    the list blocks' (one per (k, s, v), 256 threads): their index lists
+    and room for the bit masks and places of up to 48 KB of (pair, row)."""
     pieces = 2 if z <= 64 else (4 if z <= 128 else 8)
-    items = k * s * u * l
+    threads = 1024 if pieces == 2 else 512
+    rounds = -(-(u * l) // (threads // 8))
     zp = -(-z // 4) * 4
     ul, unl = u * l, u * n * l
     tile, entries = ul * zp * 4, ul * (n + 1) * 8
     fwd_tile = _BAR + tile + unl * 4 <= smem
     sum_tile = _BAR + tile <= smem
     sum_entries = _BAR + (tile if sum_tile else 0) + entries <= smem
-    lists = 4 * (4 + u * n + 2 * l)
-    list_counts = lists + unl * 4 <= smem
     return {
-        "pieces": pieces, "threads": 1024 if pieces == 2 else 512,
-        "blocks": min(items, sms), "sum_blocks": min(2 * items, sms), "zp": zp,
+        "pieces": pieces, "threads": threads, "parts": max(1, min(sms // (k * s), rounds)),
+        "sum_parts": max(1, min(sms // (2 * k * s), rounds)), "zp": zp,
         "fwd_tile": int(fwd_tile), "fwd_smem": _BAR + tile + unl * 4 if fwd_tile else _BAR,
         "sum_tile": int(sum_tile), "sum_entries": int(sum_entries),
         "sum_smem": _BAR + (tile if sum_tile else 0) + (entries if sum_entries else 0),
-        "list_counts": int(list_counts), "list_smem": lists + (unl * 4 if list_counts else 0),
+        "list_smem": -(-4 * (4 + 2 * u * n + 2 * l) // 16) * 16 + _LIST_SCRATCH,
     }
 
 
 def workspace_words(k: int, s: int, u: int, n: int, l: int) -> int:
-    """int32 words of the backward's workspace: the d_wc and d_zs lists
-    ((row, d) pairs, K S U L (N + 1) each), each d_zs row's (first entry,
-    count), and room for the list blocks' counts (K S U N L)."""
+    """int32 words of the backward's workspace: the d_zs rows' sources
+    ((wc row, source) pairs, room for K S U L (N + 1)), each row's (first
+    entry, count), and room for the list blocks' bit masks and places where
+    they do not fit shared memory (K S U N L of 2 ceil(L / 64) + 2)."""
     ks = k * s
-    return 4 * ks * u * l * (n + 1) + 2 * ks * u * l + ks * u * n * l
+    return 2 * ks * u * l * (n + 1) + 2 * ks * u * l + ks * u * n * l * (2 * (-(-l // 64)) + 2)
 
 
 def _expect(name: str, x, dtype, shape, device) -> None:

@@ -59,6 +59,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "grid_common.cuh"
 
 namespace {
@@ -68,6 +70,7 @@ using vq_grid::settle;
 
 constexpr int kGroup = 8;           // lanes that take one row
 constexpr int kListThreads = 256;   // threads of a list block
+constexpr int kListScratch = 48 * 1024;  // its masks and places, where they fit
 constexpr int kBar = 16;            // shared-memory bytes of the staging mbarrier
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
@@ -82,16 +85,15 @@ static_assert(kPlace + 1 == kPhases, "one stamp row layout for both kernels");
 struct Plan {
   int pieces;       // 16-byte pieces per lane per pass over Z (2, 4 or 8)
   int threads;      // of a forward or sum block
-  int blocks;       // forward blocks; the sum kernel has twice the items
-  int sum_blocks;
+  int parts;        // forward blocks per (k, s)
+  int sum_parts;    // sum blocks per (k, s) and kind (d_wc, d_zs)
   int zp;           // row stride of a staged tile: Z rounded up to 4 floats
   int fwd_tile;     // 1: the forward stages tiles and seq_index slices
   int fwd_smem;
   int sum_tile;     // 1: the sum kernel stages tiles
   int sum_entries;  // 1: ... and its segments' list entries
   int sum_smem;
-  int list_counts;  // 1: the list blocks count in shared memory (else in the workspace)
-  int list_smem;
+  int list_smem;    // a list block's: its index lists and room for its masks and places
 };
 constexpr int kPlanFields = sizeof(Plan) / sizeof(int);
 
@@ -103,31 +105,34 @@ struct FwdArgs {
   float* f_neg;     // (KS, U, N, L)
   float* f_pos;     // (KS, U, L)
   int ks, s_count, u, n, l, z, zp, tile;
+  int parts;          // blocks per (k, s)
   long long* stamps;  // kStamps: (2, 4 + kPhases)
 };
 
 struct ListArgs {
-  const float* d_fneg;  // (KS, U, N, L)
-  const float* d_fpos;  // (KS, U, L)
   const int* utt;
   const int* seq;
-  int2* wc_list;        // (KS, U L (N + 1)): per anchor, (row, d) of its positive, then negatives
-  int2* zs_list;        // (KS, U L (N + 1)): per d_zs row, its sources' (row, d) in order
+  int2* zs_list;        // (KS, U L (N + 1)): per d_zs row, its sources' (wc row, source) in order
   int2* zs_span;        // (KS, U L): (first entry, count) of each d_zs row's sources
-  int* counts;          // (KS, U N L) when the counts do not fit shared memory, else null
+  void* counts;         // (KS, U N L) x (8 W + 8) bytes: masks and places where they do not fit
   int ks, s_count, u, n, l;
+  int scratch;          // shared-memory bytes for a block's masks and places
   long long* stamps;    // kStamps: (2, 4 + kPhases)
 };
 
 struct SumArgs {
+  const float* d_fneg;
+  const float* d_fpos;
   const float* wc;
   const float* zs;
-  const int2* wc_list;
+  const int* utt;
+  const int* seq;
   const int2* zs_list;
   const int2* zs_span;
   float* d_wc;  // (KS, U, L, Z)
   float* d_zs;  // (KS, U, L, Z)
-  int ks, u, n, l, z, zp, tile, entries;
+  int ks, s_count, u, n, l, z, zp, tile, entries;
+  int parts;          // blocks per (kind, k, s)
   long long* stamps;  // kStamps: (2, 4 + kPhases)
 };
 
@@ -266,13 +271,60 @@ __device__ __forceinline__ float group_dot(const float4 (&w)[kP], const float* r
   return acc;
 }
 
-// The block's items [i0, i1) of ``total``, in equal contiguous ranges.
-__device__ __forceinline__ void block_range(long long total, long long& i0, long long& i1) {
-  i0 = total * blockIdx.x / gridDim.x;
-  i1 = total * (blockIdx.x + 1) / gridDim.x;
+// The 8 lanes of a group hold partial sums p[0..7] of 8 dots; returns, on
+// lane g, the full sum of dot g. Three xor steps that halve the dots a
+// lane keeps (4, 2, 1 shuffles): every dot's sum is the same tree of
+// additions over the 8 lanes' partials (each step adds the partials of
+// lanes 4, 2, then 1 apart; a + b and b + a are the same bits), so equal
+// inputs give equal sums wherever a dot sits. Called by the whole warp.
+__device__ __forceinline__ float reduce_scatter8(const float (&p)[kGroup], int g) {
+  const bool hi4 = g & 4, hi2 = g & 2, hi1 = g & 1;
+  float k4[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float keep = hi4 ? p[4 + q] : p[q], send = hi4 ? p[q] : p[4 + q];
+    k4[q] = keep + __shfl_xor_sync(kFull, send, 4);
+  }
+  float k2[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const float keep = hi2 ? k4[2 + q] : k4[q], send = hi2 ? k4[q] : k4[2 + q];
+    k2[q] = keep + __shfl_xor_sync(kFull, send, 2);
+  }
+  const float keep = hi1 ? k2[1] : k2[0], send = hi1 ? k2[0] : k2[1];
+  return keep + __shfl_xor_sync(kFull, send, 1);
 }
 
-// Forward: kP pieces per lane per pass, kThreads threads.
+// The lane's partial of w . row over the pass: its pieces by FMA in order.
+template <int kP>
+__device__ __forceinline__ float lane_dot(const float4 (&w)[kP], const float* row, int zc, int g,
+                                          bool vec) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const int z = 4 * (g + kGroup * i);
+    if (z < zc) {
+      const float4 x = load4(row + z, zc - z, vec);
+      acc = fmaf(w[i].x, x.x, acc);
+      acc = fmaf(w[i].y, x.y, acc);
+      acc = fmaf(w[i].z, x.z, acc);
+      acc = fmaf(w[i].w, x.w, acc);
+    }
+  }
+  return acc;
+}
+
+// Block b of ``parts`` x units takes part b % parts of unit b / parts: rows
+// [size part / parts, size (part + 1) / parts).
+__device__ __forceinline__ void block_part(int parts, int size, int& unit, int& t0, int& t1) {
+  unit = blockIdx.x / parts;
+  const int part = blockIdx.x - unit * parts;
+  t0 = (int)((long long)size * part / parts);
+  t1 = (int)((long long)size * (part + 1) / parts);
+}
+
+// Forward: block (ks, part) scores a part of the (k, s)'s anchors, a group
+// of 8 lanes per anchor; kP pieces per lane per pass over Z.
 template <int kP, int kThreads, bool kStamps>
 __global__ void __launch_bounds__(kThreads, 1) select_fwd_kernel(FwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -282,85 +334,85 @@ __global__ void __launch_bounds__(kThreads, 1) select_fwd_kernel(FwdArgs a) {
   int* seq_s = reinterpret_cast<int*>(tile + (size_t)UL * a.zp);
   constexpr int kGroups = kThreads / kGroup;
   const int group = threadIdx.x / kGroup, g = threadIdx.x % kGroup;
+  const int gbase = threadIdx.x % 32 - g;  // the group's first lane
+  const bool one_pass = Z <= 32 * kP;
   PhaseStamps<kPhases> st;
   if constexpr (kStamps) {
     st.open(a.stamps, 1);
     st.begin_step();
   }
-  if (threadIdx.x == 0) mbar_init(bar);
-  __syncthreads();
-  uint32_t parity = 0;
+  int ks, an0, an1;
+  block_part(a.parts, UL, ks, an0, an1);
+  const int k = ks / a.s_count;
+  const float* rows = a.zs + (size_t)ks * UL * Z;
+  const int* seq = a.seq + (size_t)ks * UNL;
+  const int* utt = a.utt + (size_t)k * U * N;
   const bool vec_wc = Z % 4 == 0 && aligned16(a.wc);
-  long long seg, end;
-  block_range((long long)a.ks * UL, seg, end);
-  while (seg < end) {
-    const int ks = (int)(seg / UL), an0 = (int)(seg - (long long)ks * UL);
-    const int an1 = (int)min((long long)UL, end - (long long)ks * UL);
-    seg = (long long)ks * UL + an1;
-    const int k = ks / a.s_count;
-    const float* rows = a.zs + (size_t)ks * UL * Z;
-    const int* seq = a.seq + (size_t)ks * UNL;
-    int stride = Z;
-    bool vec = Z % 4 == 0 && aligned16(a.zs);
-    // The tile pays where the segment's dots read at least as many rows as it holds.
-    if (a.tile && (long long)(an1 - an0) * (N + 1) >= UL) {
-      __syncthreads();  // every thread is done with the last segment's tile
-      stage(tile, rows, UL, Z, a.zp, seq_s, seq, (size_t)UNL, bar, parity);
-      rows = tile;
-      seq = seq_s;
-      stride = a.zp;
-      vec = true;
-    }
-    if constexpr (kStamps) st.mark(kTile);
-    // Runs of `per` dots: the same count for every group, so each warp
-    // reaches the shuffles together (a group past its run sums a dummy row).
-    const long long dots = (long long)(an1 - an0) * (N + 1);
-    const long long per = (dots + kGroups - 1) / kGroups;
-    const long long d0 = min(dots, per * group), d1 = min(dots, d0 + per);
-    for (int z0 = 0; z0 < Z; z0 += 32 * kP) {
-      const int zc = min(32 * kP, Z - z0);
-      float4 w[kP];
-      // Dot d is candidate j of anchor an0 + d / (N + 1), j = 0 the positive.
-      const long long dd = d0 < d1 ? d0 : 0;
-      int an = an0 + (int)(dd / (N + 1)), j = (int)(dd % (N + 1)), u = an / L, l = an - u * L;
-      bool fresh = true;
-      for (long long d = d0; d < d0 + per; ++d) {
-        const bool live = d < d1;
-        if (fresh) {
-          load_pieces(w, a.wc + ((size_t)ks * UL + an) * Z + z0, zc, g, vec_wc);
-          fresh = false;
-          if constexpr (kStamps) {
-            settle(w[0].x);
-            st.mark(kLoads);
-          }
-        }
-        int row = live ? an : -1;
-        float* out = a.f_pos + (size_t)ks * UL + an;
-        if (live && j > 0) {
-          const int v = a.utt[((size_t)k * U + u) * N + j - 1];
-          const int m = seq[((size_t)u * N + j - 1) * L + l];
-          row = (v >= 0 && v < U && m >= 0 && m < L) ? v * L + m : -1;
-          out = a.f_neg + (((size_t)ks * U + u) * N + j - 1) * L + l;
-          if constexpr (kStamps) {
-            settle((uint32_t)row);
-            st.mark(kLoads);
-          }
-        }
-        float f = group_dot(w, rows + (size_t)max(row, 0) * stride + z0, zc, g, vec);
-        if (row < 0) f = NAN;
-        if constexpr (kStamps) st.mark(kSums);
-        if (live && g == 0) *out = z0 == 0 ? f : *out + f;
-        if constexpr (kStamps) st.mark(kStores);
-        if (live && ++j > N) {
-          j = 0;
-          ++an;
-          fresh = d + 1 < d1;
-          if (++l == L) {
-            l = 0;
-            ++u;
-          }
-        }
+  int stride = Z;
+  bool vec = Z % 4 == 0 && aligned16(a.zs);
+  // The tile pays where the block's dots read at least as many rows as it holds.
+  if (a.tile && (long long)(an1 - an0) * (N + 1) >= UL) {
+    if (threadIdx.x == 0) mbar_init(bar);
+    __syncthreads();
+    uint32_t parity = 0;
+    stage(tile, rows, UL, Z, a.zp, seq_s, seq, (size_t)UNL, bar, parity);
+    rows = tile;
+    seq = seq_s;
+    stride = a.zp;
+    vec = true;
+  }
+  if constexpr (kStamps) st.mark(kTile);
+  // The same number of rounds for every group, so each warp reaches the
+  // shuffles together (a group past the block's anchors reads nothing).
+  const int rounds = (an1 - an0 + kGroups - 1) / kGroups;
+  for (int r = 0; r < rounds; ++r) {
+    const int an_r = an0 + group + r * kGroups;
+    const bool live = an_r < an1;
+    const int an = live ? an_r : an0, u = an / L, l = an - u * L;
+    const float* wrow = a.wc + ((size_t)ks * UL + an) * Z;
+    float4 w[kP];
+    if (one_pass && live) load_pieces(w, wrow, Z, g, vec_wc);
+    // Candidates j0 .. j0 + 7 (j = 0 the positive): lane g finds j0 + g's
+    // row, the next 8's while this 8's dots run.
+    auto row_of = [&](int j) {
+      if (j == 0) return an;
+      if (!live || j > N) return -1;
+      const int v = __ldg(utt + u * N + j - 1), m = seq[((size_t)u * N + j - 1) * L + l];
+      return v >= 0 && v < U && m >= 0 && m < L ? v * L + m : -1;
+    };
+    int next_row = row_of(g);
+    for (int j0 = 0; j0 <= N; j0 += kGroup) {
+      const int j = j0 + g, count = min(kGroup, N + 1 - j0);
+      const int my_row = next_row;
+      if (j0 + kGroup <= N) next_row = row_of(j + kGroup);
+      if constexpr (kStamps) {
+        if (one_pass) settle(w[0].x);
+        settle((uint32_t)my_row);
+        st.mark(kLoads);
       }
+      float mine = 0.f;
+      for (int z0 = 0; z0 < Z; z0 += 32 * kP) {
+        const int zc = min(32 * kP, Z - z0);
+        if (!one_pass && live) load_pieces(w, wrow + z0, zc, g, vec_wc);
+        float part[kGroup];
+#pragma unroll
+        for (int jj = 0; jj < kGroup; ++jj) {
+          const int row = __shfl_sync(kFull, my_row, gbase + jj);
+          part[jj] = live && jj < count && row >= 0
+                         ? lane_dot(w, rows + (size_t)row * stride + z0, zc, g, vec)
+                         : 0.f;
+        }
+        const float f = reduce_scatter8(part, g);
+        mine = z0 == 0 ? f : mine + f;
+      }
+      if constexpr (kStamps) {
+        settle(mine);
+        st.mark(kSums);
+      }
+      if (live && g < count)
+        *(j == 0 ? a.f_pos + (size_t)ks * UL + an
+                 : a.f_neg + (((size_t)ks * U + u) * N + j - 1) * L + l) = my_row < 0 ? NAN : mine;
+      if constexpr (kStamps) st.mark(kStores);
     }
   }
   if constexpr (kStamps) {
@@ -370,96 +422,84 @@ __global__ void __launch_bounds__(kThreads, 1) select_fwd_kernel(FwdArgs a) {
 }
 
 // Backward, first launch: block (ks, v) lists the sources of the d_zs rows
-// (v, m) of its (k, s) and the d_wc entries of the pairs (u, n) that select
-// utterance v (block v = 0 also those of pairs whose utt_index is out of
-// range). The rows of v own entries [L (v + p_v), L (v + 1 + p_v + P_v)) of
-// the (k, s) list, p_v the pairs selecting an utterance below v and P_v
-// those selecting v: room for every source.
+// (v, m) of its (k, s), in ascending (u, n, l) with the positive before
+// u = v's negatives, as (wc row, source): the source's index in d_fneg, or
+// -1 - its index in d_fpos for the positive. The rows of v own entries
+// [L (v + p_v), L (v + 1 + p_v + P_v)) of the (k, s) list, p_v the pairs
+// (u, n) selecting an utterance below v and P_v those selecting v: room for
+// every source. Each (pair i, row m) gets a bit mask of the times l that
+// select it (atomicOr: the same bits in any order) and its first place
+// among the row's sources; a source's place in its pair is the count of
+// lower bits. Those words are in shared memory where the block's pairs fit
+// ``a.scratch`` bytes, else in the workspace.
 template <bool kStamps>
 __global__ void __launch_bounds__(kListThreads) select_lists_kernel(ListArgs a) {
   extern __shared__ __align__(16) int lsm[];
-  const int U = a.u, N = a.n, L = a.l, UN = U * N, UL = U * L;
+  const int U = a.u, N = a.n, L = a.l, UN = U * N, UL = U * L, W = (L + 63) / 64;
   const int ks = blockIdx.x / U, v = blockIdx.x - ks * U, k = ks / a.s_count;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const unsigned lt = (1u << lane) - 1u;
-  int* info = lsm;             // P_v, p_v, pairs out of range (v = 0), pairs of v with u < v
-  int* pairs = lsm + 4;        // UN: the pairs (u N + n) of v ascending; out-of-range ones from the end
+  int* info = lsm;             // P_v, p_v, the pairs of v with u < v
+  int* utt = lsm + 4;          // UN: utt_index[k]
+  int* pairs = utt + UN;       // UN: the pairs (u N + n) of v, ascending
   int* offpos = pairs + UN;    // L: the positive's place among its row's sources
-  int* start = offpos + L;     // L: sources of each row, then their first entry in the block's room
+  int* start = offpos + L;     // L: sources of each row, then their first entry in the room
   PhaseStamps<kPhases> st;
   if constexpr (kStamps) {
     st.open(a.stamps, 1);
     st.begin_step();
   }
+  for (int p = threadIdx.x; p < UN; p += blockDim.x) utt[p] = __ldg(a.utt + (size_t)k * UN + p);
+  __syncthreads();
   if (warp == 0) {
-    int np = 0, nlt = 0, nbad = 0, nfirst = 0;
+    int np = 0, nlt = 0, nfirst = 0;
     for (int p0 = 0; p0 < UN; p0 += 32) {
       const int p = p0 + lane;
-      const int uv = p < UN ? a.utt[(size_t)k * UN + p] : -1;
+      const int uv = p < UN ? utt[p] : -1;
       const bool mine = p < UN && uv == v;
-      const bool bad = v == 0 && p < UN && (uv < 0 || uv >= U);
-      const unsigned bm = __ballot_sync(kFull, mine), bb = __ballot_sync(kFull, bad);
+      const unsigned bm = __ballot_sync(kFull, mine);
       if (mine) pairs[np + __popc(bm & lt)] = p;
-      if (bad) pairs[UN - 1 - nbad - __popc(bb & lt)] = p;
       np += __popc(bm);
-      nbad += __popc(bb);
       nlt += __popc(__ballot_sync(kFull, p < UN && uv >= 0 && uv < v));
       nfirst += __popc(__ballot_sync(kFull, mine && p < v * N));
     }
     if (lane == 0) {
       info[0] = np;
       info[1] = nlt;
-      info[2] = nbad;
-      info[3] = nfirst;
+      info[2] = nfirst;
     }
   }
   __syncthreads();
-  const int np = info[0], nlt = info[1], nbad = info[2], nfirst = info[3];
-  int* cnt = a.counts != nullptr ? a.counts + ((size_t)ks * UN + nlt) * L : start + L;
-  const size_t list0 = (size_t)ks * UL * (N + 1);
+  const int np = info[0], nlt = info[1], nfirst = info[2], elems = np * L;
+  // Per (pair i, row m): W mask words, then (after all of them) one place.
+  const size_t words = (size_t)elems * W;
+  unsigned long long* mask = reinterpret_cast<unsigned long long*>(
+      words * 8 + (size_t)elems * 4 <= (size_t)a.scratch
+          ? reinterpret_cast<char*>(lsm) + ((4 + 2 * UN + 2 * L) * 4 + 15) / 16 * 16
+          : reinterpret_cast<char*>(a.counts) + ((size_t)ks * UN + nlt) * L * (8 * W + 8));
+  int* off = reinterpret_cast<int*>(mask + words);
+  const size_t src0 = (size_t)ks * UN * L;
+  auto src = [&](int e) { return src0 + (size_t)pairs[e / L] * L + e % L; };
+  for (size_t i = threadIdx.x; i < words; i += blockDim.x) mask[i] = 0ull;
+  __syncthreads();
   if constexpr (kStamps) st.mark(kPairs);
 
-  // Counts: cnt[i L + m] sources of pair i at m; the d_wc entries.
-  for (int i = threadIdx.x; i < np * L; i += blockDim.x) cnt[i] = 0;
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    const int an = v * L + l;
-    a.wc_list[list0 + (size_t)an * (N + 1)] =
-        make_int2(an, __float_as_int(a.d_fpos[(size_t)ks * UL + an]));
-  }
-  __syncthreads();
-  for (int i = warp; i < np + nbad; i += warps) {
-    const bool own = i < np;
-    const int p = own ? pairs[i] : pairs[UN - 1 - (i - np)];
-    const int u = p / N, n = p - u * N;
-    const int* srow = a.seq + ((size_t)ks * UN + p) * L;
-    const float* drow = a.d_fneg + ((size_t)ks * UN + p) * L;
-    for (int l0 = 0; l0 < L; l0 += 32) {
-      const int l = l0 + lane;
-      const int m = l < L ? srow[l] : -1;
-      const bool valid = own && m >= 0 && m < L;
-      if (l < L)
-        a.wc_list[list0 + (size_t)(u * L + l) * (N + 1) + 1 + n] =
-            make_int2(valid ? v * L + m : -1, __float_as_int(drow[l]));
-      if (own) {
-        const unsigned mask = __match_any_sync(kFull, valid ? m : -1 - lane);
-        if (valid && (mask & lt) == 0) cnt[i * L + m] += __popc(mask);
-        __syncwarp();
-      }
-    }
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const int m = __ldg(a.seq + src(e)), l = e % L;
+    if (m >= 0 && m < L)
+      atomicOr(mask + (size_t)(e - l + m) * W + l / 64, 1ull << (l % 64));
   }
   __syncthreads();
   if constexpr (kStamps) st.mark(kCounts);
 
-  // Offsets: row m's sources run over the pairs in order, the positive
-  // before the first pair of an anchor utterance u >= v; cnt becomes each
-  // pair's first place among them.
+  // Places: row m's sources run over the pairs in order, the positive
+  // before the first pair of an anchor utterance u >= v.
   for (int m = threadIdx.x; m < L; m += blockDim.x) {
     int run = 0, pos = 0;
     for (int i = 0; i < np; ++i) {
       if (i == nfirst) pos = run++;
-      const int c = cnt[i * L + m];
-      cnt[i * L + m] = run;
-      run += c;
+      off[i * L + m] = run;
+      for (int w = 0; w < W; ++w) run += __popcll(mask[(size_t)(i * L + m) * W + w]);
     }
     if (nfirst == np) pos = run++;
     offpos[m] = pos;
@@ -468,7 +508,7 @@ __global__ void __launch_bounds__(kListThreads) select_lists_kernel(ListArgs a) 
   __syncthreads();
   if constexpr (kStamps) st.mark(kOffsets);
 
-  // The rows' first entries (an exclusive scan over m) and spans.
+  // The rows' first entries (an exclusive scan over m), spans and entries.
   const int base = L * (v + nlt);
   if (warp == 0) {
     int carry = 0;
@@ -488,26 +528,16 @@ __global__ void __launch_bounds__(kListThreads) select_lists_kernel(ListArgs a) 
     }
   }
   __syncthreads();
-  int2* list = a.zs_list + list0 + base;
+  int2* list = a.zs_list + (size_t)ks * UL * (N + 1) + base;
   for (int m = threadIdx.x; m < L; m += blockDim.x)
-    list[start[m] + offpos[m]] =
-        make_int2(v * L + m, __float_as_int(a.d_fpos[(size_t)ks * UL + v * L + m]));
-  for (int i = warp; i < np; i += warps) {
-    const int p = pairs[i], u = p / N;
-    const int* srow = a.seq + ((size_t)ks * UN + p) * L;
-    const float* drow = a.d_fneg + ((size_t)ks * UN + p) * L;
-    for (int l0 = 0; l0 < L; l0 += 32) {
-      const int l = l0 + lane;
-      const int m = l < L ? srow[l] : -1;
-      const bool valid = m >= 0 && m < L;
-      const unsigned mask = __match_any_sync(kFull, valid ? m : -1 - lane);
-      const int rank = __popc(mask & lt);
-      const int slot = valid ? start[m] + cnt[i * L + m] + rank : 0;
-      __syncwarp();
-      if (valid && rank == 0) cnt[i * L + m] += __popc(mask);
-      __syncwarp();
-      if (valid) list[slot] = make_int2(u * L + l, __float_as_int(drow[l]));
-    }
+    list[start[m] + offpos[m]] = make_int2(v * L + m, -1 - (int)((size_t)ks * UL + v * L + m));
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const int m = __ldg(a.seq + src(e)), l = e % L;
+    if (m < 0 || m >= L) continue;
+    const unsigned long long* mk = mask + (size_t)(e - l + m) * W;
+    int rank = __popcll(mk[l / 64] & ((1ull << (l % 64)) - 1ull));
+    for (int w = 0; w < l / 64; ++w) rank += __popcll(mk[w]);
+    list[start[m] + off[e - l + m] + rank] = make_int2(pairs[e / L] / N * L + l, (int)src(e));
   }
   if constexpr (kStamps) {
     st.mark(kPlace);
@@ -516,8 +546,51 @@ __global__ void __launch_bounds__(kListThreads) select_lists_kernel(ListArgs a) 
   }
 }
 
-// Backward, second launch: rows [0, KS U L) of d_wc, then those of d_zs,
-// over the blocks; each row's group of 8 lanes adds d x row over its list.
+// acc += d x (the lane's pieces of ``row``): a product then a sum where
+// kExact (the plain version's roundings), else one FMA.
+template <int kP, bool kExact>
+__device__ __forceinline__ void axpy_pieces(float4 (&acc)[kP], float d, const float* row, int zc,
+                                            int g, bool vec) {
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const int z = 4 * (g + kGroup * i);
+    if (z < zc) {
+      const float4 x = load4(row + z, zc - z, vec);
+      if constexpr (kExact) {
+        acc[i].x = __fadd_rn(acc[i].x, __fmul_rn(d, x.x));
+        acc[i].y = __fadd_rn(acc[i].y, __fmul_rn(d, x.y));
+        acc[i].z = __fadd_rn(acc[i].z, __fmul_rn(d, x.z));
+        acc[i].w = __fadd_rn(acc[i].w, __fmul_rn(d, x.w));
+      } else {
+        acc[i].x = fmaf(d, x.x, acc[i].x);
+        acc[i].y = fmaf(d, x.y, acc[i].y);
+        acc[i].z = fmaf(d, x.z, acc[i].z);
+        acc[i].w = fmaf(d, x.w, acc[i].w);
+      }
+    }
+  }
+}
+
+template <int kP>
+__device__ __forceinline__ void store_pieces(float* out, const float4 (&acc)[kP], int zc, int g,
+                                             bool vec) {
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const int z = 4 * (g + kGroup * i);
+    if (z < zc) store4(out + z, acc[i], zc - z, vec);
+  }
+}
+
+// The d value of a list entry's source.
+__device__ __forceinline__ float source_d(const SumArgs& a, int src) {
+  return src >= 0 ? __ldg(a.d_fneg + src) : __ldg(a.d_fpos + (-1 - src));
+}
+
+// Backward, second launch: block (kind, ks, part) sums a part of the rows
+// of d_wc (kind 0) or d_zs (kind 1) of a (k, s), a group of 8 lanes per
+// row. A d_wc row gathers its anchor's candidates as the forward does (the
+// positive, then n ascending; one FMA each); a d_zs row adds d x wc row
+// over its list, staged with the wc tile where it fits.
 template <int kP, int kThreads, bool kStamps>
 __global__ void __launch_bounds__(kThreads, 1) select_sums_kernel(SumArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -527,94 +600,133 @@ __global__ void __launch_bounds__(kThreads, 1) select_sums_kernel(SumArgs a) {
   int2* ents = reinterpret_cast<int2*>(smem + kBar + (a.tile ? (size_t)UL * a.zp * 4 : 0));
   constexpr int kGroups = kThreads / kGroup;
   const int group = threadIdx.x / kGroup, g = threadIdx.x % kGroup;
+  const int gbase = threadIdx.x % 32 - g;
   PhaseStamps<kPhases> st;
   if constexpr (kStamps) {
     st.open(a.stamps, 1);
     st.begin_step();
   }
-  if (threadIdx.x == 0) mbar_init(bar);
-  __syncthreads();
-  uint32_t parity = 0;
-  const long long per_kind = (long long)a.ks * UL;
-  long long seg, end;
-  block_range(2 * per_kind, seg, end);
-  while (seg < end) {
-    const bool of_zs = seg >= per_kind;
-    const long long r = seg - (of_zs ? per_kind : 0);
-    const int ks = (int)(r / UL), t0 = (int)(r - (long long)ks * UL);
-    const int t1 = (int)min((long long)UL, end - (of_zs ? per_kind : 0) - (long long)ks * UL);
-    seg += t1 - t0;
-    // d_wc rows gather z_shift rows; d_zs rows gather wc rows.
-    const float* rows = (of_zs ? a.wc : a.zs) + (size_t)ks * UL * Z;
-    const int2* list = (of_zs ? a.zs_list : a.wc_list) + (size_t)ks * UL * (N + 1);
-    const int2* span = a.zs_span + (size_t)ks * UL;
-    float* out = (of_zs ? a.d_zs : a.d_wc) + (size_t)ks * UL * Z;
-    const int e0 = of_zs ? span[t0].x : t0 * (N + 1);
-    const int e1 = of_zs ? span[t1 - 1].x + span[t1 - 1].y : t1 * (N + 1);
-    int stride = Z, eoff = 0;
-    bool vec = Z % 4 == 0 && aligned16(rows);
-    const bool tiled = a.tile && (long long)(t1 - t0) * (N + 1) >= UL;
-    if (tiled || a.entries) {
-      __syncthreads();  // every thread is done with the last segment's tile and entries
-      if (a.entries)
-        for (int e = e0 + threadIdx.x; e < e1; e += blockDim.x) ents[e - e0] = list[e];
-      if (tiled) {
-        stage(tile, rows, UL, Z, a.zp, nullptr, nullptr, 0, bar, parity);
-        rows = tile;
-        stride = a.zp;
-        vec = true;
-      } else {
-        __syncthreads();
-      }
-      if (a.entries) {
-        list = ents;
-        eoff = e0;
-      }
+  int unit, t0, t1;
+  block_part(a.parts, UL, unit, t0, t1);
+  const bool of_zs = unit >= a.ks;
+  const int ks = of_zs ? unit - a.ks : unit, k = ks / a.s_count;
+  // d_wc rows gather z_shift rows; d_zs rows gather wc rows.
+  const float* rows = (of_zs ? a.wc : a.zs) + (size_t)ks * UL * Z;
+  float* out = (of_zs ? a.d_zs : a.d_wc) + (size_t)ks * UL * Z;
+  const int2* list = a.zs_list + (size_t)ks * UL * (N + 1);
+  const int2* span = a.zs_span + (size_t)ks * UL;
+  int stride = Z, eoff = 0;
+  bool vec = Z % 4 == 0 && aligned16(rows);
+  const bool tiled = a.tile && (long long)(t1 - t0) * (N + 1) >= UL;
+  const bool staged = of_zs && a.entries;
+  if (staged) {  // the block's entries, each with its source's d
+    eoff = span[t0].x;
+    const int e1 = span[t1 - 1].x + span[t1 - 1].y;
+    for (int e = eoff + threadIdx.x; e < e1; e += blockDim.x) {
+      const int2 en = list[e];
+      ents[e - eoff] = make_int2(en.x, __float_as_int(source_d(a, en.y)));
     }
-    if constexpr (kStamps) st.mark(kTile);
-    const bool vec_out = Z % 4 == 0 && aligned16(out);
-    int2 next = of_zs ? span[t0 + group < t1 ? t0 + group : t0] : make_int2(0, 0);
-    for (int t = t0 + group; t < t1; t += kGroups) {
-      const int2 sc = of_zs ? next : make_int2(t * (N + 1), N + 1);
-      if (of_zs && t + kGroups < t1) next = span[t + kGroups];
-      for (int z0 = 0; z0 < Z; z0 += 32 * kP) {
-        const int zc = min(32 * kP, Z - z0);
-        float4 acc[kP];
+  }
+  if (tiled) {
+    if (threadIdx.x == 0) mbar_init(bar);
+    __syncthreads();
+    uint32_t parity = 0;
+    stage(tile, rows, UL, Z, a.zp, nullptr, nullptr, 0, bar, parity);
+    rows = tile;
+    stride = a.zp;
+    vec = true;
+  } else {
+    __syncthreads();
+  }
+  if constexpr (kStamps) st.mark(kTile);
+  const bool vec_out = Z % 4 == 0 && aligned16(out);
+  // d_wc: the same number of rounds for every group (the candidates'
+  // broadcasts are whole-warp shuffles); d_zs: each group on its own.
+  const int rounds = (t1 - t0 + kGroups - 1) / kGroups;
+  for (int r = 0; r < rounds; ++r) {
+    const int t_r = t0 + group + r * kGroups;
+    const bool live = t_r < t1;
+    const int t = live ? t_r : t0;
+    for (int z0 = 0; z0 < Z; z0 += 32 * kP) {
+      const int zc = min(32 * kP, Z - z0);
+      float4 acc[kP];
 #pragma unroll
-        for (int i = 0; i < kP; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int e = sc.x; e < sc.x + sc.y; ++e) {
-          const int2 en = list[e - eoff];
+      for (int i = 0; i < kP; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (!of_zs) {
+        const int u = t / L, l = t - u * L;
+        // Candidate j's (row, d), the next 8's loaded while this 8's add.
+        auto cand = [&](int j, int& row, float& d) {
+          row = -1;
+          d = 0.f;
+          if (!live || j > N) return;
+          if (j == 0) {
+            row = t;
+            d = __ldg(a.d_fpos + (size_t)ks * UL + t);
+            return;
+          }
+          const size_t at = (((size_t)ks * U + u) * N + j - 1) * L + l;
+          const int v = __ldg(a.utt + ((size_t)k * U + u) * N + j - 1), m = __ldg(a.seq + at);
+          d = __ldg(a.d_fneg + at);
+          if (v >= 0 && v < U && m >= 0 && m < L) row = v * L + m;
+        };
+        int next_row;
+        float next_d;
+        cand(g, next_row, next_d);
+        for (int j0 = 0; j0 <= N; j0 += kGroup) {
+          const int count = min(kGroup, N + 1 - j0);
+          const int my_row = next_row;
+          const float my_d = next_d;
+          if (j0 + kGroup <= N) cand(j0 + kGroup + g, next_row, next_d);
           if constexpr (kStamps) {
-            settle((uint32_t)en.x);
+            settle(my_d);
             st.mark(kLoads);
           }
-          if (en.x < 0) continue;
-          const float d = __int_as_float(en.y);
-          const float* row = rows + (size_t)en.x * stride + z0;
 #pragma unroll
-          for (int i = 0; i < kP; ++i) {
-            const int z = 4 * (g + kGroup * i);
-            if (z < zc) {
-              const float4 x = load4(row + z, zc - z, vec);
-              acc[i].x = __fadd_rn(acc[i].x, __fmul_rn(d, x.x));
-              acc[i].y = __fadd_rn(acc[i].y, __fmul_rn(d, x.y));
-              acc[i].z = __fadd_rn(acc[i].z, __fmul_rn(d, x.z));
-              acc[i].w = __fadd_rn(acc[i].w, __fmul_rn(d, x.w));
-            }
+          for (int jj = 0; jj < kGroup; ++jj) {
+            const int row = __shfl_sync(kFull, my_row, gbase + jj);
+            const float d = __shfl_sync(kFull, my_d, gbase + jj);
+            if (live && jj < count && row >= 0)
+              axpy_pieces<kP, false>(acc, d, rows + (size_t)row * stride + z0, zc, g, vec);
           }
           if constexpr (kStamps) {
             settle(acc[0].x);
             st.mark(kSums);
           }
         }
-        float* o = out + (size_t)t * Z + z0;
-#pragma unroll
-        for (int i = 0; i < kP; ++i) {
-          const int z = 4 * (g + kGroup * i);
-          if (z < zc) store4(o + z, acc[i], zc - z, vec_out);
+      } else if (live) {
+        const int2 sc = span[t];
+        auto entry = [&](int e, int& row, float& d) {
+          const int2 en = staged ? ents[e - eoff] : list[e];
+          row = en.x;
+          d = staged ? __int_as_float(en.y) : source_d(a, en.y);
+        };
+        // Two entries' loads in flight, added in order.
+        int e = sc.x;
+        for (; e + 1 < sc.x + sc.y; e += 2) {
+          int r0, r1;
+          float d0, d1;
+          entry(e, r0, d0);
+          entry(e + 1, r1, d1);
+          if constexpr (kStamps) {
+            settle(d1);
+            st.mark(kLoads);
+          }
+          axpy_pieces<kP, true>(acc, d0, rows + (size_t)r0 * stride + z0, zc, g, vec);
+          axpy_pieces<kP, true>(acc, d1, rows + (size_t)r1 * stride + z0, zc, g, vec);
+          if constexpr (kStamps) {
+            settle(acc[0].x);
+            st.mark(kSums);
+          }
         }
-        if constexpr (kStamps) st.mark(kStores);
+        if (e < sc.x + sc.y) {
+          int r0;
+          float d0;
+          entry(e, r0, d0);
+          axpy_pieces<kP, true>(acc, d0, rows + (size_t)r0 * stride + z0, zc, g, vec);
+        }
       }
+      if (live) store_pieces(out + (size_t)t * Z + z0, acc, zc, g, vec_out);
+      if constexpr (kStamps) st.mark(kStores);
     }
   }
   if constexpr (kStamps) {
@@ -655,20 +767,20 @@ Plan make_plan(int ks, int u, int n, int l, int z, int sms, int smem) {
   Plan p;
   p.pieces = z <= 64 ? 2 : (z <= 128 ? 4 : 8);
   p.threads = p.pieces == 2 ? 1024 : 512;  // 64 registers a thread hold 2 pieces, not 4
-  const long long items = (long long)ks * u * l;
-  p.blocks = (int)(items < sms ? items : sms);
-  p.sum_blocks = (int)(2 * items < sms ? 2 * items : sms);
-  p.zp = (z + 3) / 4 * 4;
+  // Blocks per (k, s): as many as fill the SMs once, and no more than the
+  // rows take rounds of the groups.
   const long long ul = (long long)u * l, unl = (long long)u * n * l;
+  const long long rounds = (ul + p.threads / kGroup - 1) / (p.threads / kGroup);
+  p.parts = (int)std::max(1ll, std::min((long long)sms / ks, rounds));
+  p.sum_parts = (int)std::max(1ll, std::min((long long)sms / (2ll * ks), rounds));
+  p.zp = (z + 3) / 4 * 4;
   const long long tile = ul * p.zp * 4, entries = ul * (n + 1) * 8;
   p.fwd_tile = kBar + tile + unl * 4 <= smem;
   p.fwd_smem = (int)(p.fwd_tile ? kBar + tile + unl * 4 : kBar);
   p.sum_tile = kBar + tile <= smem;
   p.sum_entries = kBar + (p.sum_tile ? tile : 0) + entries <= smem;
   p.sum_smem = (int)(kBar + (p.sum_tile ? tile : 0) + (p.sum_entries ? entries : 0));
-  const long long list = 4ll * (4 + (long long)u * n + 2 * l);
-  p.list_counts = list + unl * 4 <= smem;
-  p.list_smem = (int)(list + (p.list_counts ? unl * 4 : 0));
+  p.list_smem = (int)((4 * (4 + 2ll * u * n + 2 * l) + 15) / 16 * 16 + kListScratch);
   return p;
 }
 
@@ -690,18 +802,18 @@ cudaError_t launch(int blocks, int threads, int smem, cudaStream_t stream, int d
 template <bool kSt>
 cudaError_t launch_fwd(const Plan& p, const FwdArgs& a, cudaStream_t s, int dev) {
   switch (p.pieces) {
-    case 2: return launch<select_fwd_kernel<2, 1024, kSt>>(p.blocks, 1024, p.fwd_smem, s, dev, a);
-    case 4: return launch<select_fwd_kernel<4, 512, kSt>>(p.blocks, 512, p.fwd_smem, s, dev, a);
-    default: return launch<select_fwd_kernel<8, 512, kSt>>(p.blocks, 512, p.fwd_smem, s, dev, a);
+    case 2: return launch<select_fwd_kernel<2, 1024, kSt>>(p.parts * a.ks, 1024, p.fwd_smem, s, dev, a);
+    case 4: return launch<select_fwd_kernel<4, 512, kSt>>(p.parts * a.ks, 512, p.fwd_smem, s, dev, a);
+    default: return launch<select_fwd_kernel<8, 512, kSt>>(p.parts * a.ks, 512, p.fwd_smem, s, dev, a);
   }
 }
 
 template <bool kSt>
 cudaError_t launch_sums(const Plan& p, const SumArgs& a, cudaStream_t s, int dev) {
   switch (p.pieces) {
-    case 2: return launch<select_sums_kernel<2, 1024, kSt>>(p.sum_blocks, 1024, p.sum_smem, s, dev, a);
-    case 4: return launch<select_sums_kernel<4, 512, kSt>>(p.sum_blocks, 512, p.sum_smem, s, dev, a);
-    default: return launch<select_sums_kernel<8, 512, kSt>>(p.sum_blocks, 512, p.sum_smem, s, dev, a);
+    case 2: return launch<select_sums_kernel<2, 1024, kSt>>(2 * p.sum_parts * a.ks, 1024, p.sum_smem, s, dev, a);
+    case 4: return launch<select_sums_kernel<4, 512, kSt>>(2 * p.sum_parts * a.ks, 512, p.sum_smem, s, dev, a);
+    default: return launch<select_sums_kernel<8, 512, kSt>>(2 * p.sum_parts * a.ks, 512, p.sum_smem, s, dev, a);
   }
 }
 
@@ -714,12 +826,12 @@ int run_fwd(const void* wc, const void* zs, const void* utt, const void* seq, vo
   FwdArgs a{static_cast<const float*>(wc), static_cast<const float*>(zs),
             static_cast<const int*>(utt), static_cast<const int*>(seq),
             static_cast<float*>(f_neg), static_cast<float*>(f_pos), ks, s_count, u, n, l, z, p.zp,
-            p.fwd_tile, static_cast<long long*>(stamps)};
+            p.fwd_tile, p.parts, static_cast<long long*>(stamps)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(stamps ? launch_fwd<true>(p, a, s, dev) : launch_fwd<false>(p, a, s, dev));
 }
 
-// The workspace: wc_list, zs_list, zs_span, counts (ints; the wrapper's
+// The workspace: zs_list, zs_span, counts (ints; the wrapper's
 // ops/cpc_select.py:workspace_words).
 int run_bwd(const void* d_fneg, const void* d_fpos, const void* wc, const void* zs,
             const void* utt, const void* seq, void* d_wc, void* d_zs, void* workspace, int ks,
@@ -727,23 +839,23 @@ int run_bwd(const void* d_fneg, const void* d_fpos, const void* wc, const void* 
   const DeviceInfo* info = device_info(dev);
   if (!shape_ok(ks, s_count, u, n, l, z) || info == nullptr) return cudaErrorInvalidValue;
   const Plan p = make_plan(ks, u, n, l, z, info->sms, info->smem);
-  const size_t list = (size_t)ks * u * l * (n + 1);
-  int2* wc_list = static_cast<int2*>(workspace);
-  int2* zs_list = wc_list + list;
-  int2* zs_span = zs_list + list;
-  int* counts = reinterpret_cast<int*>(zs_span + (size_t)ks * u * l);
+  int2* zs_list = static_cast<int2*>(workspace);
+  int2* zs_span = zs_list + (size_t)ks * u * l * (n + 1);
+  void* counts = zs_span + (size_t)ks * u * l;
   long long* st = static_cast<long long*>(stamps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ListArgs la{static_cast<const float*>(d_fneg), static_cast<const float*>(d_fpos),
-              static_cast<const int*>(utt), static_cast<const int*>(seq), wc_list, zs_list,
-              zs_span, p.list_counts ? nullptr : counts, ks, s_count, u, n, l,
+  const float* dn = static_cast<const float*>(d_fneg);
+  const float* dp = static_cast<const float*>(d_fpos);
+  const int* ut = static_cast<const int*>(utt);
+  const int* sq = static_cast<const int*>(seq);
+  ListArgs la{ut, sq, zs_list, zs_span, counts, ks, s_count, u, n, l, kListScratch,
               st ? st + 2 * (4 + kPhases) : nullptr};
   cudaError_t err = st ? launch<select_lists_kernel<true>>(ks * u, kListThreads, p.list_smem, s, dev, la)
                        : launch<select_lists_kernel<false>>(ks * u, kListThreads, p.list_smem, s, dev, la);
   if (err != cudaSuccess) return (int)err;
-  SumArgs sa{static_cast<const float*>(wc), static_cast<const float*>(zs), wc_list, zs_list,
-             zs_span, static_cast<float*>(d_wc), static_cast<float*>(d_zs), ks, u, n, l, z, p.zp,
-             p.sum_tile, p.sum_entries, st};
+  SumArgs sa{dn, dp, static_cast<const float*>(wc), static_cast<const float*>(zs), ut, sq,
+             zs_list, zs_span, static_cast<float*>(d_wc), static_cast<float*>(d_zs), ks, s_count,
+             u, n, l, z, p.zp, p.sum_tile, p.sum_entries, p.sum_parts, st};
   return (int)(st ? launch_sums<true>(p, sa, s, dev) : launch_sums<false>(p, sa, s, dev));
 }
 
