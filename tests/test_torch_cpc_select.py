@@ -136,23 +136,30 @@ H100 = {"sms": 132, "smem": 232448}  # SMs and shared memory per block (opt-in) 
 @pytest.mark.parametrize(
     "shape, want",
     [
-        # The training shape: every kernel stages its (k, s) tile; the sums
-        # also their entries (16 + 131,072 + 73,728 bytes).
-        ((6, 8, 8, 17, 64, 64), {"pieces": 2, "threads": 1024, "parts": 2, "sum_parts": 1,
-                                 "zp": 64, "fwd_tile": 1, "fwd_smem": 165904, "sum_tile": 1,
-                                 "sum_entries": 1, "sum_smem": 204816,
-                                 "list_smem": 1616 + 49152}),
-        # A tile of 1,600 rows does not fit: rows through L1, entries staged.
-        ((1, 2, 8, 17, 200, 64), {"parts": 13, "sum_parts": 13, "fwd_tile": 0, "fwd_smem": 16,
-                                  "sum_tile": 0, "sum_entries": 1, "sum_smem": 230416}),
-        # Z 300: 8 pieces a lane, two passes, 512 threads; rows padded to 4.
+        # The training shape: the forward stages each (k, s)'s tile on 2
+        # blocks, each listing its 256 anchors' 18 candidate rows; the
+        # backward's d_zs blocks build their lists (bit masks and places,
+        # 107,008 bytes) in the tile's room.
+        ((6, 8, 8, 17, 64, 64), {"pieces": 2, "threads": 1024, "parts": 2, "bwd_parts": 1,
+                                 "zs_parts": 1, "zp": 64, "fwd_tile": 1,
+                                 "fwd_smem": 16 + 131072 + 256 * 18 * 4,
+                                 "bwd_tile": 1, "bwd_lists": 1, "scratch": 107008,
+                                 "room": 131072, "bwd_smem": 16 + 131072 + 73728 + 5808}),
+        # A tile of 1,600 rows does not fit: rows through L1, lists in the
+        # workspace, one d_zs block per (k, s).
+        ((1, 2, 8, 17, 200, 64), {"parts": 13, "bwd_parts": 13, "zs_parts": 1, "fwd_tile": 0,
+                                  "fwd_smem": 16 + 8928, "bwd_tile": 0, "bwd_lists": 0,
+                                  "room": 0}),
+        # Z 300: 8 pieces a lane, two passes, 512 threads; rows padded to 4;
+        # the lists fit without the tile.
         ((6, 8, 8, 17, 64, 300), {"pieces": 8, "threads": 512, "zp": 300, "fwd_tile": 0,
-                                  "sum_tile": 0, "sum_entries": 1, "sum_smem": 73744}),
+                                  "bwd_tile": 0, "bwd_lists": 1, "room": 107008}),
         ((3, 2, 5, 7, 9, 33), {"pieces": 2, "zp": 36, "parts": 1, "fwd_tile": 1,
-                               "fwd_smem": 16 + 45 * 36 * 4 + 5 * 7 * 9 * 4}),
-        ((1, 1, 1, 1, 1, 1), {"parts": 1, "sum_parts": 1, "zp": 4, "fwd_smem": 16 + 16 + 4}),
-        # The list blocks' index lists at U 16, N 40, L 200.
-        ((1, 1, 16, 40, 200, 64), {"list_smem": 4 * (4 + 1280 + 400) + 49152}),
+                               "fwd_smem": 16 + 45 * 36 * 4 + 45 * 8 * 4}),
+        ((1, 1, 1, 1, 1, 1), {"parts": 1, "bwd_parts": 1, "zp": 4, "fwd_smem": 16 + 16 + 16}),
+        # N 40: the tile fits, the tile's room and the lists do not.
+        ((2, 3, 8, 40, 64, 64), {"parts": 4, "fwd_tile": 1, "bwd_tile": 1, "bwd_lists": 0,
+                                 "scratch": 248320, "zs_parts": 1}),
     ],
 )
 def test_select_plan(shape, want):
@@ -161,76 +168,65 @@ def test_select_plan(shape, want):
     plan = port.select_plan(*shape, **H100)
     assert tuple(plan) == port.PLAN_FIELDS
     assert {k: plan[k] for k in want} == want
-    assert plan["fwd_smem"] <= H100["smem"] and plan["sum_smem"] <= H100["smem"]
+    assert plan["fwd_smem"] <= H100["smem"] and plan["bwd_smem"] <= H100["smem"]
 
 
-def test_workspace_words():
-    """Room for K S U L (N + 1) (wc row, source) pairs, a span per row, and
-    a mask word pair and a place pair per (pair, row) (L 64: one mask word)."""
-    k, s, u, n, l = 6, 8, 8, 17, 64
-    assert port.workspace_words(k, s, u, n, l) == (2 * 48 * 512 * 18 + 2 * 48 * 512
-                                                   + 48 * 8704 * 4)
-    assert port.workspace_words(1, 2, 8, 17, 200) == 2 * 2 * 1600 * 18 + 2 * 2 * 1600 + 2 * 27200 * 10
+def test_bwd_workspace_bytes():
+    """No workspace where the d_zs lists fit shared memory; else, per d_zs
+    block, the lists' bit masks and places, and room for U L (N + 1)
+    entries."""
+    plan = port.select_plan(6, 8, 8, 17, 64, 64, **H100)
+    assert port.bwd_workspace_bytes(plan, 6, 8, 8, 17, 64) == 0
+    plan = port.select_plan(2, 3, 8, 40, 64, 64, **H100)
+    assert port.bwd_workspace_bytes(plan, 2, 3, 8, 40, 64) == 6 * (248320 + 512 * 41 * 8)
 
 
 def _emulate_lists(utt, seq):
-    """csrc/cpc_select.cu:select_lists_kernel, block by block in numpy: the
-    d_zs lists ((wc row, source): the index in d_fneg, or -1 - the index in
-    d_fpos) and their spans of each (k, s)."""
+    """csrc/cpc_select.cu:build_lists, (k, s) by (k, s) in numpy: each d_zs
+    row's entries ((wc row, source): the index in d_fneg, or -1 - the index
+    in d_fpos) and its (first entry, count)."""
     k_, s_, u_, n_, l_ = seq.shape
     ks_ = k_ * s_
-    cap = u_ * l_ * (n_ + 1)
-    zs_list = np.full((ks_, cap, 2), -7, np.int64)
+    zs_list = np.full((ks_, u_ * l_ * (n_ + 1), 2), -7, np.int64)
     span = np.zeros((ks_, u_ * l_, 2), np.int64)
-    seq_f = seq.reshape(ks_, u_ * n_, l_)
     for ks in range(ks_):
-        uv_all = utt[ks // s_].reshape(-1)
-        for v in range(u_):
-            pairs = [p for p in range(u_ * n_) if uv_all[p] == v]
-            nlt = sum(1 for p in range(u_ * n_) if 0 <= uv_all[p] < v)
-            nfirst = sum(1 for p in pairs if p < v * n_)
-            cnt = np.zeros((len(pairs), l_), np.int64)
-            for i, p in enumerate(pairs):
-                for l in range(l_):
-                    m = seq_f[ks, p, l]
-                    if 0 <= m < l_:
-                        cnt[i, m] += 1
-            offpos, start = np.zeros(l_, np.int64), np.zeros(l_, np.int64)
-            for m in range(l_):
-                run = pos = 0
-                for i in range(len(pairs)):
-                    if i == nfirst:
-                        pos, run = run, run + 1
-                    cnt[i, m], run = run, run + cnt[i, m]
-                if nfirst == len(pairs):
-                    pos, run = run, run + 1
-                offpos[m], start[m] = pos, run
-            tot = start.copy()
-            start = np.concatenate([[0], np.cumsum(tot)[:-1]])
-            base = l_ * (v + nlt)
-            span[ks, v * l_:(v + 1) * l_] = np.stack([base + start, tot], -1)
-            assert base + tot.sum() <= l_ * (v + 1 + nlt + len(pairs))  # inside v's room
-            for m in range(l_):
-                zs_list[ks, base + start[m] + offpos[m]] = (v * l_ + m, -1 - (ks * u_ * l_ + v * l_ + m))
-            for i, p in enumerate(pairs):
-                u = p // n_
-                for l in range(l_):
-                    m = seq_f[ks, p, l]
-                    if 0 <= m < l_:
-                        zs_list[ks, base + start[m] + cnt[i, m]] = (u * l_ + l, (ks * u_ * n_ + p) * l_ + l)
-                        cnt[i, m] += 1
+        uv = utt[ks // s_].reshape(-1)
+        sq = seq.reshape(ks_, u_ * n_, l_)[ks]
+        pairs = {v: [p for p in range(u_ * n_) if uv[p] == v] for v in range(u_)}
+        nfirst = {v: sum(1 for p in pairs[v] if p < v * n_) for v in range(u_)}
+        mask = np.zeros((u_ * n_, l_), np.uint64)  # per (pair, row m): the times selecting m
+        for p in range(u_ * n_):
+            for l in range(l_):
+                if 0 <= uv[p] < u_ and 0 <= sq[p, l] < l_:
+                    mask[p, sq[p, l]] |= np.uint64(1) << np.uint64(l)
+        rows = []
+        for r in range(u_ * l_):
+            v, m = divmod(r, l_)
+            ents = []
+            for i, p in enumerate(pairs[v] + [None]):
+                if i == nfirst[v]:
+                    ents.append((r, -1 - (ks * u_ * l_ + r)))  # the positive
+                if p is None:
+                    break
+                ents += [(p // n_ * l_ + l, (ks * u_ * n_ + p) * l_ + l)
+                         for l in range(l_) if int(mask[p, m]) >> l & 1]
+            rows.append(ents)
+        at = 0
+        for r, ents in enumerate(rows):
+            span[ks, r] = (at, len(ents))
+            zs_list[ks, at:at + len(ents)] = ents
+            at += len(ents)
     return zs_list, span
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 4, 5, 10), (1, 2, 3, 7, 6), (1, 2, 1, 3, 4), (1, 1, 2, 1, 2)])
 def test_backward_lists_order_and_sums(rng, shape):
-    """The backward's list kernel emulated over its plan: every d_zs row's
-    sources in ascending (u, n, l), the positive before its own utterance's
-    negatives (index_add_'s order in the plain version), no source lost or
-    repeated, out-of-range indices dropped; d x row summed over the lists in
-    order, a product then a sum in f32 as the sum kernel does, gives the
-    plain version's d_zs bit for bit; d_wc in the sum kernel's order (the
-    positive, then n ascending) is within 1e-5 of it."""
+    """The backward's list build emulated: every d_zs row's sources in
+    ascending (u, n, l), the positive before its own utterance's negatives,
+    no source lost or repeated, out-of-range indices dropped. That is the
+    plain version's index_add_ order: d x row summed over the lists in
+    order, a product then a sum in f32, gives its d_zs bit for bit. d_wc in
+    the kernel's order (the positive, then n ascending) is within 1e-5."""
     k, s, u, n, l = shape
     wc, zs, utt, seq = _case(rng, k=k, s=s, u=u, n=n, l=l, z=8)
     if u * n > 1:

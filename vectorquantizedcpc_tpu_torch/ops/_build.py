@@ -149,6 +149,8 @@ def library() -> ctypes.CDLL:
         lib.vq_cpc_select_bwd_stamped_launch.restype = i
         lib.vq_cpc_select_plan.argtypes = [i] * 7 + [ctypes.POINTER(i)]
         lib.vq_cpc_select_plan.restype = i
+        lib.vq_cpc_select_bwd_workspace.argtypes = [i] * 7
+        lib.vq_cpc_select_bwd_workspace.restype = ctypes.c_longlong
         lib.vq_cuda_error_string.argtypes = [i]
         lib.vq_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

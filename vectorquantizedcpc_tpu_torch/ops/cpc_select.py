@@ -19,8 +19,8 @@ utterance's negatives, as the plain version's ``index_add_``), so both are
 the same bits on every launch. Any K, S, U, N, L and Z are taken.
 ``CpcNegativeScores`` is the autograd Function (the custom VJP's
 counterpart); the indices get no gradient. ``CPC_SELECT_LAUNCHES`` and
-``CPC_SELECT_BWD_LAUNCHES`` count launches (the backward's are two kernels,
-counted once). ``select_plan`` mirrors the kernels' launch plan; the
+``CPC_SELECT_BWD_LAUNCHES`` count launches. ``select_plan`` mirrors the
+kernels' launch plan; the
 stamped variants (``cpc_select_stamped``, ``cpc_select_bwd_stamped``) time
 each phase for ``summarize_select_stamps``; no entry point calls them.
 """
@@ -37,16 +37,15 @@ CPC_SELECT_BWD_LAUNCHES = 0
 CPC_SELECT_STAMPED_LAUNCHES = 0
 CPC_SELECT_BWD_STAMPED_LAUNCHES = 0
 # The phases the stamped kernels time, in csrc/cpc_select.cu's Phase and
-# ListPhase order: the forward, the backward's sum kernel, its list kernel.
+# BwdPhase order.
 FWD_STAMP_PHASES = ("tile load", "row and index loads", "dots", "stores")
-BWD_STAMP_PHASES = ("tile load", "list loads", "sums", "stores")
-LIST_STAMP_PHASES = ("pair lists", "counts", "offsets", "placement")
+BWD_STAMP_PHASES = ("list pairs", "list masks", "list counts", "list places", "tile load",
+                    "row and list loads", "sums", "stores")
 
 # csrc/cpc_select.cu's Plan, field by field (vq_cpc_select_plan's order).
-PLAN_FIELDS = ("pieces", "threads", "parts", "sum_parts", "zp", "fwd_tile", "fwd_smem",
-               "sum_tile", "sum_entries", "sum_smem", "list_smem")
+PLAN_FIELDS = ("pieces", "threads", "parts", "bwd_parts", "zp", "fwd_tile", "fwd_smem",
+               "bwd_tile", "bwd_lists", "scratch", "room", "bwd_smem", "zs_parts")
 _BAR = 16  # shared-memory bytes of a block's staging mbarrier
-_LIST_SCRATCH = 48 * 1024  # a list block's room for its masks and places
 
 
 def select_plan(k: int, s: int, u: int, n: int, l: int, z: int, sms: int,
@@ -54,39 +53,51 @@ def select_plan(k: int, s: int, u: int, n: int, l: int, z: int, sms: int,
     """The kernels' launch plan (``csrc/cpc_select.cu:make_plan``) on a card
     of ``sms`` SMs and ``smem`` bytes of shared memory per block: 16-byte
     pieces per lane per pass over Z and the block size; the forward's
-    blocks per (k, s) and the sum kernel's per (k, s) and kind (d_wc, d_zs):
-    as many as fill the SMs once, no more than the rows take rounds of the
-    block's groups of 8 lanes; the staged row stride; what each kernel
-    stages in shared memory, and its bytes (a tile of U L rows, the forward
-    with its seq_index slice, the sums with the list entries of a (k, s));
-    the list blocks' (one per (k, s, v), 256 threads): their index lists
-    and room for the bit masks and places of up to 48 KB of (pair, row)."""
+    blocks per (k, s) and the backward's per (k, s) and kind (d_wc, d_zs;
+    one d_zs block per (k, s) where its lists do not fit shared memory): as
+    many as fill the SMs once, no more than the rows take rounds of the
+    block's groups of 8 lanes, and enough forward blocks that each lists
+    its anchors' candidate rows in shared memory; the staged row stride;
+    whether the forward stages the (k, s) tile, and its bytes (the tile,
+    then the candidate lists); whether
+    the backward stages its tile and builds the d_zs lists in shared
+    memory (their bit masks and places, ``scratch`` bytes, in the tile's
+    room; the entries after it; the index lists last), and its bytes."""
     pieces = 2 if z <= 64 else (4 if z <= 128 else 8)
     threads = 1024 if pieces == 2 else 512
-    rounds = -(-(u * l) // (threads // 8))
+    ul, unl, ks = u * l, u * n * l, k * s
+    rounds = -(-ul // (threads // 8))
+    per_anchor = 4 * (n + 1)
+    parts = max(1, min(sms // ks, rounds), -(-ul // ((smem - _BAR - 16) // per_anchor)))
     zp = -(-z // 4) * 4
-    ul, unl = u * l, u * n * l
     tile, entries = ul * zp * 4, ul * (n + 1) * 8
-    fwd_tile = _BAR + tile + unl * 4 <= smem
-    sum_tile = _BAR + tile <= smem
-    sum_entries = _BAR + (tile if sum_tile else 0) + entries <= smem
+    idx = -(-(-(-ul // parts) * per_anchor) // 16) * 16
+    fwd_tile = _BAR + tile + idx <= smem
+    small = -(-4 * (2 * ul + 3 * u * n + 2 * u + 1) // 16) * 16
+    un = u * n
+    scratch = -(-(4 * l * (((un * -(-l // 32)) | 1) + (un | 1)) + ul * 4) // 16) * 16
+    bwd_limit = smem - 4 * 32  # the backward's static shared words (block_scan)
+    bwd_tile = _BAR + tile + small <= bwd_limit
+    tile_room = tile if bwd_tile else 0
+    bwd_lists = _BAR + max(tile_room, scratch) + entries + small <= bwd_limit
+    room = max(tile_room, scratch) if bwd_lists else tile_room
     return {
-        "pieces": pieces, "threads": threads, "parts": max(1, min(sms // (k * s), rounds)),
-        "sum_parts": max(1, min(sms // (2 * k * s), rounds)), "zp": zp,
-        "fwd_tile": int(fwd_tile), "fwd_smem": _BAR + tile + unl * 4 if fwd_tile else _BAR,
-        "sum_tile": int(sum_tile), "sum_entries": int(sum_entries),
-        "sum_smem": _BAR + (tile if sum_tile else 0) + (entries if sum_entries else 0),
-        "list_smem": -(-4 * (4 + 2 * u * n + 2 * l) // 16) * 16 + _LIST_SCRATCH,
+        "pieces": pieces, "threads": threads, "parts": parts,
+        "bwd_parts": max(1, min(sms // (2 * ks), rounds)), "zp": zp,
+        "fwd_tile": int(fwd_tile), "fwd_smem": _BAR + (tile if fwd_tile else 0) + idx,
+        "bwd_tile": int(bwd_tile), "bwd_lists": int(bwd_lists), "scratch": scratch,
+        "room": room, "bwd_smem": _BAR + room + (entries if bwd_lists else 0) + small,
+        "zs_parts": max(1, min(sms // (2 * ks), rounds)) if bwd_lists else 1,
     }
 
 
-def workspace_words(k: int, s: int, u: int, n: int, l: int) -> int:
-    """int32 words of the backward's workspace: the d_zs rows' sources
-    ((wc row, source) pairs, room for K S U L (N + 1)), each row's (first
-    entry, count), and room for the list blocks' bit masks and places where
-    they do not fit shared memory (K S U N L of 2 ceil(L / 64) + 2)."""
-    ks = k * s
-    return 2 * ks * u * l * (n + 1) + 2 * ks * u * l + ks * u * n * l * (2 * (-(-l // 64)) + 2)
+def bwd_workspace_bytes(plan: Dict[str, int], k: int, s: int, u: int, n: int, l: int) -> int:
+    """The backward's workspace (``csrc/cpc_select.cu:work_block`` per d_zs
+    block): none where the d_zs lists fit shared memory, else a region of
+    scratch and entries for each of the K S d_zs blocks."""
+    if plan["bwd_lists"]:
+        return 0
+    return (plan["scratch"] + u * l * (n + 1) * 8) * k * s
 
 
 def _expect(name: str, x, dtype, shape, device) -> None:
@@ -187,10 +198,13 @@ def _fwd(wc, zs, utt_index, seq_index, stamps=None):
 
 
 def _bwd(d_fneg, d_fpos, wc, zs, utt_index, seq_index, stamps=None):
+    from . import _build
+
     k, s, u, l, z = wc.shape
     n = utt_index.shape[-1]
     d_wc, d_zs = torch.empty_like(wc), torch.empty_like(zs)
-    work = torch.empty(workspace_words(k, s, u, n, l), dtype=torch.int32, device=wc.device)
+    nbytes = _build.library().vq_cpc_select_bwd_workspace(k * s, s, u, n, l, z, wc.device.index)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=wc.device) if nbytes > 0 else None
     args = (d_fneg, d_fpos, wc, zs, utt_index, seq_index, d_wc, d_zs, work, k * s, s, u, n, l, z)
     if stamps is None:
         _launch("vq_cpc_select_bwd_launch", "cpc_select_bwd kernel launch", wc, *args)
@@ -220,9 +234,8 @@ def _check_cotangents(d_fneg, d_fpos, wc, n: int) -> None:
 
 
 def cpc_select_bwd(d_fneg, d_fpos, wc, zs, utt_index, seq_index):
-    """(d_wc, d_zs), both (K, S, U, L, Z) f32. On the card: two launches (the
-    selection inverted into per-row lists, then one writer per row), no
-    atomics: the same bits on every launch."""
+    """(d_wc, d_zs), both (K, S, U, L, Z) f32. On the card one launch, one
+    writer per output row and no atomics: the same bits on every launch."""
     global CPC_SELECT_BWD_LAUNCHES
     on_card = _on_card(wc, "cpc_select_bwd")
     check_select_inputs(wc, zs, utt_index, seq_index)
@@ -234,10 +247,10 @@ def cpc_select_bwd(d_fneg, d_fpos, wc, zs, utt_index, seq_index):
     return out
 
 
-def _stamps(wc, rows: int, what: str) -> torch.Tensor:
+def _stamps(wc, phases: int, what: str) -> torch.Tensor:
     if wc.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda only, not {wc.device}")
-    return torch.zeros(rows, 4 + len(FWD_STAMP_PHASES), dtype=torch.int64, device=wc.device)
+    return torch.zeros(2, 4 + phases, dtype=torch.int64, device=wc.device)
 
 
 def cpc_select_stamped(wc, zs, utt_index, seq_index):
@@ -247,21 +260,21 @@ def cpc_select_stamped(wc, zs, utt_index, seq_index):
     outputs the plain launch's bits."""
     global CPC_SELECT_STAMPED_LAUNCHES
     check_select_inputs(wc, zs, utt_index, seq_index)
-    stamps = _stamps(wc, 2, "cpc_select_stamped")
+    stamps = _stamps(wc, len(FWD_STAMP_PHASES), "cpc_select_stamped")
     out = _fwd(wc, zs, utt_index, seq_index, stamps)
     CPC_SELECT_STAMPED_LAUNCHES += 1
     return (*out, stamps)
 
 
 def cpc_select_bwd_stamped(d_fneg, d_fpos, wc, zs, utt_index, seq_index):
-    """``cpc_select_bwd`` through the kernels' stamped variants, on a CUDA
-    tensor only: (d_wc, d_zs, stamps (4, 4 + len(BWD_STAMP_PHASES)) int64:
-    the sum kernel's two rows, then the list kernel's), the outputs the
+    """``cpc_select_bwd`` through the kernel's stamped variant, on a CUDA
+    tensor only: (d_wc, d_zs, stamps (2, 4 + len(BWD_STAMP_PHASES)) int64;
+    block 0 sums d_zs rows, the last block d_wc rows), the outputs the
     plain launch's bits."""
     global CPC_SELECT_BWD_STAMPED_LAUNCHES
     check_select_inputs(wc, zs, utt_index, seq_index)
     _check_cotangents(d_fneg, d_fpos, wc, utt_index.shape[-1])
-    stamps = _stamps(wc, 4, "cpc_select_bwd_stamped")
+    stamps = _stamps(wc, len(BWD_STAMP_PHASES), "cpc_select_bwd_stamped")
     out = _bwd(d_fneg, d_fpos, wc, zs, utt_index, seq_index, stamps)
     CPC_SELECT_BWD_STAMPED_LAUNCHES += 1
     return (*out, stamps)
@@ -271,15 +284,12 @@ def summarize_select_stamps(stamps, backward: bool = False) -> Dict[str, Dict[st
     """A stamped selection buffer -> {kernel: {block: {phase: us, ...,
     "total", "wall"}}}: the microseconds thread 0 of block 0 and of the last
     block spent in each phase over the launch (``ar_decode.summarize_stamps``
-    with one step). Forward: {"forward": ...}; backward: {"sums": ...,
-    "lists": ...}."""
+    with one step), kernel "forward" or "backward"."""
     from .ar_decode import summarize_stamps
 
-    rows = [list(r) for r in stamps]
-    if not backward:
-        return {"forward": summarize_stamps(rows, 1, 0, FWD_STAMP_PHASES)}
-    return {"sums": summarize_stamps(rows[:2], 1, 0, BWD_STAMP_PHASES),
-            "lists": summarize_stamps(rows[2:], 1, 0, LIST_STAMP_PHASES)}
+    if backward:
+        return {"backward": summarize_stamps(stamps, 1, 0, BWD_STAMP_PHASES)}
+    return {"forward": summarize_stamps(stamps, 1, 0, FWD_STAMP_PHASES)}
 
 
 class CpcNegativeScores(torch.autograd.Function):
