@@ -207,6 +207,12 @@ EARLIER_MS = {"lstm_scan": 1.7029, "lstm_scan_train": 0.5012, "lstm_scan_bwd": 0
               "gru_scan_bwd": 21.835, "gru_scan_masked_grid": 0.5025, "cpc_step": 13.614,
               "cpc_device_busy": 2.797}
 EARLIER_EXPORT_FRAMES_S = 2998.8
+# The selection pair before its redesign at SELECT_SHAPES["training"] (H100
+# 80GB HBM3 at 700 W, PERF.md section 5): ms by the host loop (PERF.md
+# section 6's earlier rows) and device only; and the limits asked of the
+# redesign (required, goal: half the bound), ms device only.
+EARLIER_SELECT_MS = {"cpc_select": (0.0589, 0.0615, 0.020, 0.0096),
+                     "cpc_select_bwd": (0.1928, 0.1873, 0.040, 0.0171)}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -2200,11 +2206,15 @@ def phase_time_select(seed: int, card: str) -> dict:
         res = {"ms": time_cuda(kernel, reps=50), "device_ms": device_ms, "host_us": host_us,
                "plain_ms": time_cuda(plain, reps=5), "bound_ms": bound, "bound_by": by,
                "library_ms": None, "dense_route_ms": dense_ms}
+        loop_ms, dev_ms, required, goal = EARLIER_SELECT_MS[name]
         print(f"timing {name} K={k} S={s} U={u} N={n} L={l} Z={z}: host loop "
               f"{res['ms']:.4f} ms, device only {device_ms:.4f} ms (bound / device = "
               f"{bound / device_ms * 100:.2f} %), host {host_us:.2f} us per call; dense route "
               f"(a composite of {calls} PyTorch calls, f32, TF32 off) {dense_ms:.4f} ms device "
-              f"only  [{card}]")
+              f"only; before the redesign {loop_ms} ms host loop, {dev_ms} ms device only "
+              f"({dev_ms / device_ms:.2f}x); required <= {required} ms "
+              f"{'met' if device_ms <= required else 'missed'}, goal <= {goal} ms "
+              f"{'met' if device_ms <= goal else 'missed'}  [{card}]")
         out[name] = res
     return out
 

@@ -138,16 +138,17 @@ H100 = {"sms": 132, "smem": 232448}  # SMs and shared memory per block (opt-in) 
     [
         # The training shape: the forward stages each (k, s)'s tile on 2
         # blocks, each listing its 256 anchors' 18 candidate rows; the
-        # backward's d_zs blocks build their lists (bit masks and places,
-        # 107,008 bytes) in the tile's room.
-        ((6, 8, 8, 17, 64, 64), {"pieces": 2, "threads": 1024, "parts": 2, "bwd_parts": 1,
-                                 "zs_parts": 1, "zp": 64, "fwd_tile": 1,
+        # backward's 2 d_zs blocks per (k, s) build their lists (bit masks
+        # and places, 107,008 bytes) in the tile's room, the 36 SMs left
+        # take 683 or 684 d_wc rows each.
+        ((6, 8, 8, 17, 64, 64), {"pieces": 2, "threads": 1024, "parts": 2, "wc_blocks": 36,
+                                 "zs_parts": 2, "zp": 64, "fwd_tile": 1,
                                  "fwd_smem": 16 + 131072 + 256 * 18 * 4,
                                  "bwd_tile": 1, "bwd_lists": 1, "scratch": 107008,
                                  "room": 131072, "bwd_smem": 16 + 131072 + 73728 + 5808}),
         # A tile of 1,600 rows does not fit: rows through L1, lists in the
         # workspace, one d_zs block per (k, s).
-        ((1, 2, 8, 17, 200, 64), {"parts": 13, "bwd_parts": 13, "zs_parts": 1, "fwd_tile": 0,
+        ((1, 2, 8, 17, 200, 64), {"parts": 13, "wc_blocks": 26, "zs_parts": 1, "fwd_tile": 0,
                                   "fwd_smem": 16 + 8928, "bwd_tile": 0, "bwd_lists": 0,
                                   "room": 0}),
         # Z 300: 8 pieces a lane, two passes, 512 threads; rows padded to 4;
@@ -156,7 +157,7 @@ H100 = {"sms": 132, "smem": 232448}  # SMs and shared memory per block (opt-in) 
                                   "bwd_tile": 0, "bwd_lists": 1, "room": 107008}),
         ((3, 2, 5, 7, 9, 33), {"pieces": 2, "zp": 36, "parts": 1, "fwd_tile": 1,
                                "fwd_smem": 16 + 45 * 36 * 4 + 45 * 8 * 4}),
-        ((1, 1, 1, 1, 1, 1), {"parts": 1, "bwd_parts": 1, "zp": 4, "fwd_smem": 16 + 16 + 16}),
+        ((1, 1, 1, 1, 1, 1), {"parts": 1, "wc_blocks": 1, "zp": 4, "fwd_smem": 16 + 16 + 16}),
         # N 40: the tile fits, the tile's room and the lists do not.
         ((2, 3, 8, 40, 64, 64), {"parts": 4, "fwd_tile": 1, "bwd_tile": 1, "bwd_lists": 0,
                                  "scratch": 248320, "zs_parts": 1}),

@@ -43,7 +43,7 @@ BWD_STAMP_PHASES = ("list pairs", "list masks", "list counts", "list places", "t
                     "row and list loads", "sums", "stores")
 
 # csrc/cpc_select.cu's Plan, field by field (vq_cpc_select_plan's order).
-PLAN_FIELDS = ("pieces", "threads", "parts", "bwd_parts", "zp", "fwd_tile", "fwd_smem",
+PLAN_FIELDS = ("pieces", "threads", "parts", "wc_blocks", "zp", "fwd_tile", "fwd_smem",
                "bwd_tile", "bwd_lists", "scratch", "room", "bwd_smem", "zs_parts")
 _BAR = 16  # shared-memory bytes of a block's staging mbarrier
 
@@ -53,11 +53,12 @@ def select_plan(k: int, s: int, u: int, n: int, l: int, z: int, sms: int,
     """The kernels' launch plan (``csrc/cpc_select.cu:make_plan``) on a card
     of ``sms`` SMs and ``smem`` bytes of shared memory per block: 16-byte
     pieces per lane per pass over Z and the block size; the forward's
-    blocks per (k, s) and the backward's per (k, s) and kind (d_wc, d_zs;
-    one d_zs block per (k, s) where its lists do not fit shared memory): as
-    many as fill the SMs once, no more than the rows take rounds of the
-    block's groups of 8 lanes, and enough forward blocks that each lists
-    its anchors' candidate rows in shared memory; the staged row stride;
+    blocks per (k, s) (as many as fill the SMs once, no more than the rows
+    take rounds of the block's groups of 8 lanes, and enough that each
+    lists its anchors' candidate rows in shared memory); the backward's d_zs
+    blocks per (k, s) (2 where 2.5 blocks per (k, s) fit the SMs and the
+    lists fit shared memory, else 1) and its d_wc blocks (the SMs left, or
+    max(KS, SMs - KS), each a range of the K S U L rows); the staged row stride;
     whether the forward stages the (k, s) tile, and its bytes (the tile,
     then the candidate lists); whether
     the backward stages its tile and builds the d_zs lists in shared
@@ -81,20 +82,22 @@ def select_plan(k: int, s: int, u: int, n: int, l: int, z: int, sms: int,
     tile_room = tile if bwd_tile else 0
     bwd_lists = _BAR + max(tile_room, scratch) + entries + small <= bwd_limit
     room = max(tile_room, scratch) if bwd_lists else tile_room
+    zs_parts = 2 if bwd_lists and rounds >= 2 and 5 * ks <= 2 * sms else 1
     return {
         "pieces": pieces, "threads": threads, "parts": parts,
-        "bwd_parts": max(1, min(sms // (2 * ks), rounds)), "zp": zp,
+        "wc_blocks": max(1, min(sms - 2 * ks if zs_parts == 2 else max(ks, sms - ks), ks * rounds)),
+        "zp": zp,
         "fwd_tile": int(fwd_tile), "fwd_smem": _BAR + (tile if fwd_tile else 0) + idx,
         "bwd_tile": int(bwd_tile), "bwd_lists": int(bwd_lists), "scratch": scratch,
         "room": room, "bwd_smem": _BAR + room + (entries if bwd_lists else 0) + small,
-        "zs_parts": max(1, min(sms // (2 * ks), rounds)) if bwd_lists else 1,
+        "zs_parts": zs_parts,
     }
 
 
 def bwd_workspace_bytes(plan: Dict[str, int], k: int, s: int, u: int, n: int, l: int) -> int:
     """The backward's workspace (``csrc/cpc_select.cu:work_block`` per d_zs
     block): none where the d_zs lists fit shared memory, else a region of
-    scratch and entries for each of the K S d_zs blocks."""
+    scratch and entries for each of the K S d_zs blocks (one per (k, s))."""
     if plan["bwd_lists"]:
         return 0
     return (plan["scratch"] + u * l * (n + 1) * 8) * k * s

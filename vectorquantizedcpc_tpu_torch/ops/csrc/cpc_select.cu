@@ -86,7 +86,7 @@ struct Plan {
   int pieces;     // 16-byte pieces per lane per pass over Z (2, 4 or 8)
   int threads;    // of a block
   int parts;      // forward blocks per (k, s)
-  int bwd_parts;  // backward d_wc blocks per (k, s)
+  int wc_blocks;  // backward d_wc blocks, each a range of the K S U L rows
   int zp;         // row stride of a staged tile: Z rounded up to 4 floats
   int fwd_tile;   // 1: the forward stages the tile of its (k, s)
   int fwd_smem;
@@ -95,7 +95,7 @@ struct Plan {
   int scratch;    // bytes of the lists' bit masks and places (in the room, or the workspace)
   int room;       // shared-memory bytes before the entries: the tile, or the lists' scratch
   int bwd_smem;
-  int zs_parts;   // backward d_zs blocks per (k, s): bwd_parts, or 1 where the lists do not fit
+  int zs_parts;   // backward d_zs blocks per (k, s): 2 where the SMs and rows allow, else 1
 };
 constexpr int kPlanFields = sizeof(Plan) / sizeof(int);
 
@@ -123,8 +123,8 @@ struct BwdArgs {
   char* work;           // a region per d_zs block: scratch, then entries, where not in shared memory
   long long work_block; // bytes of a region
   int ks, s_count, u, n, l, z, zp;
-  int parts;            // d_wc blocks per (k, s)
-  int zs_parts;         // d_zs blocks per (k, s): 1 where the lists do not fit shared memory
+  int wc_blocks;        // d_wc blocks, each a range of the K S U L rows
+  int zs_parts;         // d_zs blocks per (k, s)
   int tile, lists, scratch, room;  // Plan's bwd_tile, bwd_lists, scratch, room
   long long* stamps;    // kStamps: (2, 4 + kBwdPhases)
 };
@@ -189,11 +189,6 @@ __device__ __forceinline__ float4 lds128(uint32_t at) {
                : "r"(at));
   return v;
 }
-__device__ __forceinline__ int lds32(uint32_t at) {
-  int v;
-  asm volatile("ld.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(at));
-  return v;
-}
 __device__ __forceinline__ int2 lds64(uint32_t at) {
   int2 v;
   asm volatile("ld.shared.v2.s32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(at));
@@ -207,7 +202,7 @@ __device__ __forceinline__ int2 lds64(uint32_t at) {
 // whole block, ``bar`` initialised; returns once the data is there.
 template <typename F>
 __device__ void stage(float* tile, const float* src, int rows, int z, int zp,
-                      unsigned long long* bar, F meanwhile) {
+                      unsigned long long* bar, uint32_t& parity, F meanwhile) {
   const size_t tile_bytes = (size_t)rows * zp * sizeof(float);
   const bool bulk = z == zp && aligned16(src);
   if (threadIdx.x == 0) {
@@ -221,7 +216,8 @@ __device__ void stage(float* tile, const float* src, int rows, int z, int zp,
     }
   }
   meanwhile();
-  mbar_wait(bar, 0);
+  mbar_wait(bar, parity);
+  parity ^= 1u;
   __syncthreads();
 }
 
@@ -254,30 +250,6 @@ __device__ __forceinline__ void load_pieces(float4 (&w)[kP], const float* row, i
     const int z = 4 * (g + kGroup * i);
     w[i] = z < zc ? load4(row + z, zc - z, vec) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-}
-
-// w . row over the pass, on each group of 8 lanes: each lane sums its
-// pieces by FMA in order, then a fixed xor butterfly within the group;
-// every lane of the group ends with the same value. Called by the whole warp.
-template <int kP>
-__device__ __forceinline__ float group_dot(const float4 (&w)[kP], const float* row, int zc, int g,
-                                           bool vec) {
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < kP; ++i) {
-    const int z = 4 * (g + kGroup * i);
-    if (z < zc) {
-      const float4 x = load4(row + z, zc - z, vec);
-      acc = fmaf(w[i].x, x.x, acc);
-      acc = fmaf(w[i].y, x.y, acc);
-      acc = fmaf(w[i].z, x.z, acc);
-      acc = fmaf(w[i].w, x.w, acc);
-    }
-  }
-  acc += __shfl_xor_sync(kFull, acc, 1);
-  acc += __shfl_xor_sync(kFull, acc, 2);
-  acc += __shfl_xor_sync(kFull, acc, 4);
-  return acc;
 }
 
 // The 8 lanes of a group hold partial sums p[0..7] of 8 dots; returns, on
@@ -398,7 +370,8 @@ __global__ void __launch_bounds__(kThreads, 1) select_fwd_kernel(FwdArgs a) {
   if (tiled) {
     if (threadIdx.x == 0) mbar_init(bar);
     __syncthreads();
-    stage(tile, rows, UL, Z, a.zp, bar, list_rows);
+    uint32_t parity = 0;
+    stage(tile, rows, UL, Z, a.zp, bar, parity, list_rows);
   } else {
     list_rows();
     __syncthreads();
@@ -710,13 +683,23 @@ __global__ void __launch_bounds__(kThreads, 1) select_bwd_kernel(BwdArgs a) {
     st.open(a.stamps, 1);
     st.begin_step();
   }
-  // Blocks [0, KS zs_parts) sum d_zs rows (the longer work: first in the
-  // grid), the KS parts after them d_wc rows.
+  // Blocks [0, KS zs_parts) sum d_zs rows, a part of one (k, s) each; the
+  // wc_blocks after them split the K S U L rows of d_wc in equal ranges,
+  // one or a few (k, s) segments each.
   const int wc0 = a.ks * a.zs_parts;
   const bool of_zs = (int)blockIdx.x < wc0;
   int ks, t0, t1;
-  block_part(of_zs ? blockIdx.x : blockIdx.x - wc0, of_zs ? a.zs_parts : a.parts, UL, ks, t0, t1);
-  const int k = ks / a.s_count;
+  long long seg = 0, end = 0;
+  if (of_zs) {
+    block_part(blockIdx.x, a.zs_parts, UL, ks, t0, t1);
+  } else {
+    const long long total = (long long)a.ks * UL;
+    seg = total * (blockIdx.x - wc0) / a.wc_blocks;
+    end = total * (blockIdx.x - wc0 + 1) / a.wc_blocks;
+  }
+  if (threadIdx.x == 0) mbar_init(bar);
+  __syncthreads();
+  uint32_t parity = 0;
   // The small lists after the room and the entries.
   int* small = reinterpret_cast<int*>(smem + kBar + a.room +
                                       (a.lists ? (size_t)UL * (N + 1) * sizeof(int2) : 0));
@@ -747,6 +730,16 @@ __global__ void __launch_bounds__(kThreads, 1) select_bwd_kernel(BwdArgs a) {
       build_lists<kStamps>(a, ks, t, st);
     }
   }
+  // A d_zs block's one segment, or a d_wc block's (k, s) segments in turn.
+  for (bool first = true; of_zs ? first : seg < end; first = false) {
+  if (!of_zs) {
+    ks = (int)(seg / UL);
+    t0 = (int)(seg - (long long)ks * UL);
+    t1 = (int)min((long long)UL, end - (long long)ks * UL);
+    seg += t1 - t0;
+    if (!first) __syncthreads();  // every thread is done with the last segment's tile and list
+  }
+  const int k = ks / a.s_count;
   // d_wc rows gather z_shift rows; d_zs rows gather wc rows.
   const float* rows = (of_zs ? a.wc : a.zs) + (size_t)ks * UL * Z;
   float* out = (of_zs ? a.d_zs : a.d_wc) + (size_t)ks * UL * Z;
@@ -776,9 +769,7 @@ __global__ void __launch_bounds__(kThreads, 1) select_bwd_kernel(BwdArgs a) {
   };
   const bool tiled = a.tile && (long long)cnt * (N + 1) >= UL;
   if (tiled) {
-    if (threadIdx.x == 0) mbar_init(bar);
-    __syncthreads();  // and every thread is done with the lists' scratch
-    stage(tile, rows, UL, Z, a.zp, bar, list_wc);
+    stage(tile, rows, UL, Z, a.zp, bar, parity, list_wc);
   } else {
     list_wc();
     __syncthreads();
@@ -902,6 +893,7 @@ __global__ void __launch_bounds__(kThreads, 1) select_bwd_kernel(BwdArgs a) {
       if constexpr (kStamps) st.mark(kBwdStores);
     }
   }
+  }
   if constexpr (kStamps) {
     st.end_step(0);
     st.close();
@@ -948,7 +940,6 @@ Plan make_plan(int ks, int u, int n, int l, int z, int sms, int smem) {
   // enough blocks that those lists fit.
   const long long per_anchor = 4ll * (n + 1), fit = (smem - kBar - 16) / per_anchor;
   p.parts = (int)std::max({1ll, std::min((long long)sms / ks, rounds), (ul + fit - 1) / fit});
-  p.bwd_parts = (int)std::max(1ll, std::min((long long)sms / (2ll * ks), rounds));
   p.zp = (z + 3) / 4 * 4;
   const long long tile = ul * p.zp * 4, entries = ul * (n + 1) * 8;
   const long long idx = ((ul + p.parts - 1) / p.parts * per_anchor + 15) / 16 * 16;
@@ -965,7 +956,12 @@ Plan make_plan(int ks, int u, int n, int l, int z, int sms, int smem) {
   p.bwd_lists = kBar + std::max(tile_room, scratch) + entries + small <= bwd_limit;
   p.room = (int)(p.bwd_lists ? std::max(tile_room, scratch) : tile_room);
   p.bwd_smem = (int)(kBar + p.room + (p.bwd_lists ? entries : 0) + small);
-  p.zs_parts = p.bwd_lists ? p.bwd_parts : 1;
+  // Each d_zs block builds its (k, s)'s lists, then sums a part of its
+  // rows: two parts where 2.5 blocks per (k, s) fit the SMs once, the d_wc
+  // blocks (the SMs left) then taking a range of rows each; else one.
+  p.zs_parts = p.bwd_lists && rounds >= 2 && 5ll * ks <= 2ll * sms ? 2 : 1;
+  const long long wc = p.zs_parts == 2 ? sms - 2ll * ks : std::max((long long)ks, sms - (long long)ks);
+  p.wc_blocks = (int)std::max(1ll, std::min(wc, ks * rounds));
   return p;
 }
 
@@ -1004,7 +1000,7 @@ cudaError_t launch_fwd(const Plan& p, const FwdArgs& a, cudaStream_t s, int dev)
 
 template <bool kSt>
 cudaError_t launch_bwd(const Plan& p, const BwdArgs& a, cudaStream_t s, int dev) {
-  const int blocks = (p.bwd_parts + p.zs_parts) * a.ks;
+  const int blocks = p.zs_parts * a.ks + p.wc_blocks;
   switch (p.pieces) {
     case 2: return launch<select_bwd_kernel<2, 1024, kSt>>(blocks, 1024, p.bwd_smem, s, dev, a);
     case 4: return launch<select_bwd_kernel<4, 512, kSt>>(blocks, 512, p.bwd_smem, s, dev, a);
@@ -1039,7 +1035,7 @@ int run_bwd(const void* d_fneg, const void* d_fpos, const void* wc, const void* 
             static_cast<const float*>(wc), static_cast<const float*>(zs),
             static_cast<const int*>(utt), static_cast<const int*>(seq), static_cast<float*>(d_wc),
             static_cast<float*>(d_zs), static_cast<char*>(workspace), work_block(p, u, n, l), ks,
-            s_count, u, n, l, z, p.zp, p.bwd_parts, p.zs_parts, p.bwd_tile, p.bwd_lists, p.scratch,
+            s_count, u, n, l, z, p.zp, p.wc_blocks, p.zs_parts, p.bwd_tile, p.bwd_lists, p.scratch,
             p.room,
             static_cast<long long*>(stamps)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
