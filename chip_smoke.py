@@ -2158,9 +2158,10 @@ def _nbytes(*tensors) -> int:
 
 
 def phase_time_select(seed: int, card: str) -> dict:
-    """The selection pair at the training shape: the host loop's time per
-    call (``time_cuda``, as earlier PRs read it), the device's own time and
-    the host's cost per call (``time_device``), the plain versions, the
+    """The selection pair at the training shape: the device's own time
+    (``ms``) and the host's cost per call (``time_device``), the host loop's
+    time per call (``host_loop_ms``, ``time_cuda``, as PRs 4-9 read it), the
+    plain versions, the
     bound, and the dense route as a yardstick: a composite of PyTorch calls,
     not a library kernel for the function (forward: bmm of wc against the
     (k, s) tile, then gather; backward: the scores' cotangents scattered
@@ -2203,12 +2204,12 @@ def phase_time_select(seed: int, card: str) -> dict:
         bound, by = _bound(n_bytes, ops, PEAK_F32_FLOPS)
         device_ms, host_us = time_device(kernel, reps=200)
         dense_ms, _ = time_device(dense, reps=50)
-        res = {"ms": time_cuda(kernel, reps=50), "device_ms": device_ms, "host_us": host_us,
+        res = {"ms": device_ms, "host_loop_ms": time_cuda(kernel, reps=50), "host_us": host_us,
                "plain_ms": time_cuda(plain, reps=5), "bound_ms": bound, "bound_by": by,
                "library_ms": None, "dense_route_ms": dense_ms}
         loop_ms, dev_ms, required, goal = EARLIER_SELECT_MS[name]
         print(f"timing {name} K={k} S={s} U={u} N={n} L={l} Z={z}: host loop "
-              f"{res['ms']:.4f} ms, device only {device_ms:.4f} ms (bound / device = "
+              f"{res['host_loop_ms']:.4f} ms, device only {device_ms:.4f} ms (bound / device = "
               f"{bound / device_ms * 100:.2f} %), host {host_us:.2f} us per call; dense route "
               f"(a composite of {calls} PyTorch calls, f32, TF32 off) {dense_ms:.4f} ms device "
               f"only; before the redesign {loop_ms} ms host loop, {dev_ms} ms device only "
