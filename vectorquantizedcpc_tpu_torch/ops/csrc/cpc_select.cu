@@ -674,7 +674,6 @@ __global__ void __launch_bounds__(kThreads, 1) select_bwd_kernel(BwdArgs a) {
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
   float* tile = reinterpret_cast<float*>(smem + kBar);
   const int U = a.u, N = a.n, L = a.l, Z = a.z, UL = U * L, UN = U * N;
-  const size_t unl = (size_t)UN * L;
   constexpr int kGroups = kThreads / kGroup;
   const int group = threadIdx.x / kGroup, g = threadIdx.x % kGroup;
   const int gbase = threadIdx.x % 32 - g;
