@@ -2160,7 +2160,7 @@ def _nbytes(*tensors) -> int:
 def phase_time_select(seed: int, card: str) -> dict:
     """The selection pair at the training shape: the device's own time
     (``ms``) and the host's cost per call (``time_device``), the host loop's
-    time per call (``host_loop_ms``, ``time_cuda``, as PRs 4-9 read it), the
+    time per call (``host_loop_ms``, ``time_cuda``, as earlier runs read it), the
     plain versions, the
     bound, and the dense route as a yardstick: a composite of PyTorch calls,
     not a library kernel for the function (forward: bmm of wc against the
