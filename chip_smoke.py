@@ -36,22 +36,33 @@ Phases (any failure ends the run with a non-zero exit):
    through its kernel once per batch, and that the codes agree with an f32
    export; score the dumps with the ABX CLI;
 4d. train the CPC encoder through the preprocess and train_cpc CLIs at
-   full width in bf16 on a 16-speaker synthetic corpus, 20 steps, check the
-   losses, one launch per step of each training kernel and none of the
-   inference scan, load the checkpoint into ``Encoder`` and export through
-   the encode CLI; hold one train step against the plain route on the card;
-   30 steps on one batch must lower the loss;
+   full width in bf16 on a 16-speaker synthetic corpus, 20 steps through
+   the step graph (``training/step_graph.py``) with ``runtime.profile_dir``
+   set, check the losses, that the graph holds one launch of each training
+   kernel a step and no other kernel, that its replays and eager warm-up
+   steps add up to the steps, the one trace, load the checkpoint into
+   ``Encoder`` and export through the encode CLI; hold one train step
+   against the plain route on the card; 30 steps on one batch must lower
+   the loss;
 4e. train the vocoder on 4d's corpus and CPC checkpoint through the
-   train_vocoder CLI at full width in bf16, B 32, 4 epochs x 3 steps with
-   validation every 2, check the losses, one launch per step of each GRU
-   training kernel, the validation wavs and their AR decode launches; load
-   the checkpoint into ``Vocoder`` and convert through the convert CLI;
-   hold one train step against the plain route; 10 steps on one batch must
-   lower the loss; resume the CLI at ``runtime.precision=int8`` for one
-   more validation, which decodes through the int8 kernel;
-4f. the grid kernels on the main paths: train_cpc and the encode CLI at
-   ``dim_cpc_context=512`` (the grid LSTM forward and backward), a server
-   whose PreNet is 256 wide per direction (the masked grid forward);
+   train_vocoder CLI at full width in bf16, B 32, 4 epochs x 3 steps in
+   groups of 3 through the step graph with validation every 2, check the
+   losses, the graph's launches as in 4d, the one trace, the validation
+   wavs and their AR decode launches, the graph's pool beside the
+   validation decodes' peak memory; load the checkpoint into ``Vocoder``
+   and convert through the convert CLI; hold one train step against the
+   plain route; 10 steps on one batch must lower the loss; resume the CLI
+   at ``runtime.precision=int8`` for one more validation, which decodes
+   through the int8 kernel;
+4f. the grid kernels on the main paths: train_cpc at ``dim_cpc_context=512``
+   through a step graph holding the grid LSTM forward and backward, the
+   encode CLI at that width, a server whose PreNet is 256 wide per
+   direction (the masked grid forward);
+4g. the step graph against the eager step on the card, from the same
+   weights on the same batches, negatives and learning rates: 10 CPC steps
+   and 4 vocoder steps at B 32 x 5,120 samples, losses, weights, buffers
+   and Adam's state the same bits in two eager runs and the graph; and
+   the card's Adam (capturable, fused) against the plain Adam on one step;
 5. time each kernel, its plain version and, where one exists, the PyTorch
    library call for the same function at the main paths' shapes, beside
    the least time the card could take; the AR step in both modes at B in
@@ -71,10 +82,14 @@ Phases (any failure ends the run with a non-zero exit):
    cuDNN's LSTM forward and backward beside the training pair; the CPC
    train step in steps/s to the device with the kernels' share; the GRU
    training pair and GruScan's dwh product beside cuDNN's GRU, their
-   bounds and the one-group kernels' times, and the vocoder train step in
-   samples/s to the device, its kernels' and the device's busy share, its
-   peak memory; last, the LSTM pair, the kernels that must not move, the
-   CPC step and the export beside their earlier figures.
+   bounds and the one-group kernels' times; both train steps on both paths,
+   eager and the step graph, in turns: wall ms per step (median and spread
+   of 3 runs), host us per step, the device's busy ms, idle share and
+   operations per step from a trace read by ``utils/profiling``, the
+   capture's time and the graph's pool, the eager vocoder step's peak
+   memory; the train_cpc CLI's logged steps/s; last, the LSTM pair, the
+   kernels that must not move, the CPC step and the export beside their
+   earlier figures.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -84,7 +99,9 @@ script exits with code 2 and prints no result. It imports nothing of JAX.
 import argparse
 import contextlib
 import heapq
+import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -170,6 +187,8 @@ MAX_LSTM_GRAD_REL = 2e-2
 # largest value.
 MAX_SELECT_REL = 1e-5
 TRAIN_SPEAKERS, TRAIN_UTTS, TRAIN_EPOCHS = 16, 8, 10  # 2 steps per epoch at S = 8
+TRAIN_KERNELS = ("lstm_scan_train", "lstm_scan_bwd", "cpc_select", "cpc_select_bwd")
+VOC_KERNELS = ("gru_scan_train", "gru_scan_bwd")
 # One bf16 train step, kernels against the plain route on the card: they
 # differ only where the kernels sum in another order (an h or da one bf16
 # ulp apart): loss within 1e-3 relative, every gradient within 5e-2 of its
@@ -183,6 +202,12 @@ GRU_TRAIN_SHAPES = {"training": (VOC_T, VOC_B, VOC_H), "partial tile": (9, 3, VO
                     "one step": (1, VOC_B, VOC_H), "H 200": (640, VOC_B, 200),
                     "K chunks": (48, 8, 2500)}
 VOC_EPOCHS, VOC_VAL_EVERY = 4, 2  # 125 training utterances at B 32: 3 steps an epoch
+VOC_DISPATCH = 3  # phase 4e's steps_per_dispatch: one group an epoch
+# Phase 4g, the step graph against the eager step: the same bits; the
+# card's Adam within 1e-6 of the largest element of each of the plain
+# Adam's weights after one step.
+GRAPH_CPC_STEPS, GRAPH_VOC_STEPS = 10, 4
+MAX_ADAM_REL = 1e-6
 # The GRU training pair before row groups (every block reading all rows)
 # and GruScan's dwh as an f32 product, at VOC_T, VOC_B, VOC_H (PERF.md
 # section 6; H100 80GB HBM3 at 700 W).
@@ -1202,8 +1227,9 @@ def report_lstm(stamps: dict, timing_lstm: dict, timing_train: dict, grid_h256: 
         f"{busy:.3f} ms of device work (earlier {EARLIER_MS['cpc_device_busy']}), idle "
         f"{(1 - busy / step['ms']) * 100:.2f} %")
     fps = exported["frames"] / exported["seconds"]
-    print(f"end to end: CPC train step {step['ms']:.3f} ms = {step['steps_per_s']:.2f} steps/s "
-          f"(earlier {EARLIER_MS['cpc_step']} ms), {busy_text}; export {fps:.1f} latent frames/s "
+    print(f"end to end: CPC train step (the graph path) {step['ms']:.3f} ms = "
+          f"{step['steps_per_s']:.2f} steps/s (earlier, eager: {EARLIER_MS['cpc_step']} ms; this "
+          f"run's eager path {step['eager']['ms']:.3f} ms), {busy_text}; export {fps:.1f} latent frames/s "
           f"(earlier {EARLIER_EXPORT_FRAMES_S})  [{card}]")
 
 
@@ -1714,6 +1740,27 @@ def _train_counts(reset: bool = False) -> dict:
     }
 
 
+def check_graph(graph, kernels, steps: int, launches: dict, what: str) -> dict:
+    """A trainer's step graph after a main path of ``steps`` steps: one
+    capture holding each training kernel of ``kernels`` once a step and no
+    other kernel (no inference or stamped kernel), replays plus eager
+    warm-up steps equal to the steps, and each wrapper's count in
+    ``launches`` its warm-up launches plus the capture's."""
+    captured = {k: v for k, v in graph.captured.items() if v}
+    check(graph.captures == 1, f"{what}: {graph.captures} captures")
+    check(captured == {k: 1 for k in kernels},
+          f"{what}: captured per step {captured}, expected each of {kernels} once")
+    check(graph.replays + graph.eager_steps == steps,
+          f"{what}: {graph.replays} replays + {graph.eager_steps} eager steps for {steps} steps")
+    for name in kernels:
+        check(launches[name] == graph.eager_steps + graph.captures,
+              f"{what}: {launches[name]} {name} launches counted for {graph.eager_steps} eager "
+              f"steps and {graph.captures} capture")
+    return {"captured_per_step": captured, "replays": graph.replays,
+            "eager_steps": graph.eager_steps, "capture_s": graph.capture_s,
+            "pool_bytes": graph.pool_bytes}
+
+
 def _corpus_args(d: Path) -> list:
     return ["data.dataset.name=synthetic", f"data.corpus.root={d / 'corpus'}",
             f"data.dataset.adress_data_root={d / 'features'}", "data.loader.num_workers=4"]
@@ -1742,19 +1789,27 @@ def phase_train(seed: int, card: str, d: Path) -> dict:
           and len(manifest["utterances"]) == TRAIN_SPEAKERS * TRAIN_UTTS, "preprocess manifest")
     argv = data + [f"checkpoint_dir={d / 'ckpt'}", f"training.cpc.n_epochs={TRAIN_EPOCHS}",
                    "training.cpc.checkpoint_interval=5", "training.cpc.log_interval=5",
-                   f"seed={seed}"]
+                   f"runtime.profile_dir={d / 'prof_cpc'}", f"seed={seed}"]
     torch.cuda.synchronize()
     _train_counts(reset=True)
     start = time.perf_counter()
-    trainer = train_cpc.main(argv)
+    log = io.StringIO()  # the CLI's output, kept to read its logged steps/s
+    try:
+        with contextlib.redirect_stdout(log):
+            trainer = train_cpc.main(argv)
+    finally:
+        print(log.getvalue(), end="")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = _train_counts()
     steps = trainer.global_step
     check(steps == TRAIN_EPOCHS * TRAIN_SPEAKERS // 8 >= 20, f"{steps} train steps")
-    for name in ("lstm_scan_train", "lstm_scan_bwd", "cpc_select", "cpc_select_bwd"):
-        check(launches[name] == steps, f"{launches[name]} {name} launches for {steps} steps")
+    graph = check_graph(trainer.graph, TRAIN_KERNELS, steps, launches, "train_cpc")
     check(launches["lstm_scan"] == 0, "the inference scan ran during training")
+    traces = list((d / "prof_cpc").iterdir())
+    check(len(traces) == 1, f"runtime.profile_dir holds {traces}, expected one trace")
+    logged = [float(x) for x in re.findall(r"([0-9.]+) steps/s", log.getvalue())]
+    check(len(logged) == TRAIN_EPOCHS // 5, f"logged steps/s {logged}")
     losses = [float(m["loss"]) for m in trainer.history]
     check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
     ckpts = sorted(p.name for p in (d / "ckpt").glob("*.pt"))
@@ -1772,10 +1827,14 @@ def phase_train(seed: int, card: str, d: Path) -> dict:
     print(f"train: preprocess of {len(manifest['utterances'])} utterances {pre_s:.3f} s; "
           f"train_cpc CLI {steps} steps ({TRAIN_EPOCHS} epochs x {steps // TRAIN_EPOCHS}) in "
           f"{seconds:.3f} s wall = {steps / seconds:.3f} steps/s incl. set-up and first-step "
-          f"warm-up; losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite; launches "
-          f"{json.dumps(launches)}; checkpoints {ckpts} load strict into Encoder; the encode CLI "
-          f"exported {n} mels from model.ckpt-10.pt  [{card}]")
-    return {"launches": launches, "seconds": seconds, "steps": steps}
+          f"warm-up; losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite; launches counted "
+          f"{json.dumps(launches)}; step graph: {graph['eager_steps']} eager warm-up steps, one "
+          f"capture ({graph['capture_s']:.3f} s, pool {graph['pool_bytes'] / 2**20:.1f} MiB) holding "
+          f"{json.dumps(graph['captured_per_step'])} a step, {graph['replays']} replays; logged "
+          f"{logged} steps/s; one trace in runtime.profile_dir; checkpoints {ckpts} load strict "
+          f"into Encoder; the encode CLI exported {n} mels from model.ckpt-10.pt  [{card}]")
+    return {"launches": launches, "seconds": seconds, "steps": steps, "graph": graph,
+            "logged_steps_per_s": logged}
 
 
 @contextlib.contextmanager
@@ -1886,6 +1945,7 @@ def phase_train_vocoder(seed: int, card: str, d: Path) -> dict:
     from vectorquantizedcpc_tpu_torch.configs import load_conf
     from vectorquantizedcpc_tpu_torch.dsp.audio_io import read_wav
     from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
+    from vectorquantizedcpc_tpu_torch.training import vocoder as train_voc_module
 
     cpc = d / "ckpt" / "model.ckpt-10.pt"
 
@@ -1894,24 +1954,42 @@ def phase_train_vocoder(seed: int, card: str, d: Path) -> dict:
             f"cpc_checkpoint={cpc}", f"training_vocoder.ckpt_log.dir_root={d / 'voc'}",
             f"training_vocoder.trainer.max_epochs={epochs}",
             f"training_vocoder.trainer.val_interval_epoch={VOC_VAL_EVERY}",
+            f"training_vocoder.trainer.steps_per_dispatch={VOC_DISPATCH}",
             "training_vocoder.trainer.profiler=simple", f"seed={seed}",
-            f"runtime.precision={precision}",
+            f"runtime.precision={precision}", f"runtime.profile_dir={d / f'prof_{precision}'}",
         ]
+
+    # The validation decodes' peak memory, beside the step graph's pool.
+    validate, peaks = train_voc_module.validate, []
+
+    def measured_validate(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        validate(*a, **k)
+        torch.cuda.synchronize()
+        peaks.append((base, torch.cuda.max_memory_allocated()))
 
     argv = argv_for(VOC_EPOCHS)
     torch.cuda.synchronize()
     _voc_counts(reset=True)
     start = time.perf_counter()
-    trainer = train_vocoder.main(argv)
+    train_voc_module.validate = measured_validate
+    try:
+        trainer = train_vocoder.main(argv)
+    finally:
+        train_voc_module.validate = validate
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = _voc_counts()
     steps = trainer.step
     per_epoch = (TRAIN_SPEAKERS * TRAIN_UTTS - 3) // VOC_B
     check(steps == VOC_EPOCHS * per_epoch == 12, f"{steps} vocoder train steps")
-    for name in ("gru_scan_train", "gru_scan_bwd"):
-        check(launches[name] == steps, f"{launches[name]} {name} launches for {steps} steps")
+    graph = check_graph(trainer.graph, VOC_KERNELS, steps, launches, "train_vocoder")
     check(launches["gru_scan"] == 0, "the no-grad GRU scan ran during training")
+    traces = list((d / "prof_bfloat16").iterdir())
+    check(len(traces) == 1, f"runtime.profile_dir holds {traces}, expected one trace")
+    check(len(peaks) == VOC_EPOCHS // VOC_VAL_EVERY, f"{len(peaks)} validations")
     n_decodes = VOC_EPOCHS // VOC_VAL_EVERY * 3 * 2  # 3 utterances, reconstructed and converted
     check(launches["ar_decode"] == n_decodes and launches["ar_decode_int8"] == 0,
           f"{launches} AR decode launches in validation, expected {n_decodes} bf16")
@@ -1948,9 +2026,18 @@ def phase_train_vocoder(seed: int, card: str, d: Path) -> dict:
     print(f"train vocoder: train_vocoder CLI {steps} steps ({VOC_EPOCHS} epochs x {per_epoch}, "
           f"B {VOC_B} x {VOC_T} samples, bf16) with validation every {VOC_VAL_EVERY} epochs in "
           f"{seconds:.3f} s wall incl. set-up, validation and the final save; losses "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite; launches {json.dumps(launches)}; "
-          f"{len(wavs)} validation wavs in [-1, 1]; {final.name} loads strict into Vocoder and "
-          f"the convert CLI converted {n} utterances with it  [{card}]")
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite; launches counted "
+          f"{json.dumps(launches)}; step graph in groups of {VOC_DISPATCH}: "
+          f"{graph['eager_steps']} eager warm-up steps, one capture ({graph['capture_s']:.3f} s) "
+          f"holding {json.dumps(graph['captured_per_step'])} a step, {graph['replays']} replays; "
+          f"one trace in runtime.profile_dir; {len(wavs)} validation wavs in [-1, 1]; "
+          f"{final.name} loads strict into Vocoder and the convert CLI converted {n} utterances "
+          f"with it  [{card}]")
+    base, peak = max(peaks, key=lambda p: p[1])
+    print(f"train vocoder memory: the step graph's pool {graph['pool_bytes'] / 2**30:.3f} GiB, "
+          f"held for the run; the validation decodes' peak {peak / 2**30:.3f} GiB allocated "
+          f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held when they "
+          f"start)  [{card}]")
 
     # runtime.precision=int8: the CLI resumes from the checkpoint, trains
     # VOC_VAL_EVERY more epochs (in bf16) and validates through the int8 kernel.
@@ -1961,6 +2048,7 @@ def phase_train_vocoder(seed: int, card: str, d: Path) -> dict:
     launches_int8 = _voc_counts()
     last = (VOC_EPOCHS + VOC_VAL_EVERY) * per_epoch
     check(again.step == last, f"{again.step} steps after the int8 resume, expected {last}")
+    check_graph(again.graph, VOC_KERNELS, last - steps, launches_int8, "train_vocoder resumed")
     check(launches_int8["ar_decode_int8"] == 6 and launches_int8["ar_decode"] == 0,
           f"{launches_int8}: int8 validation should launch the int8 kernel 6 times, bf16 none")
     got = [w for w in (ckpt_dir.parent / "samples").glob(f"*_step{last}.wav")]
@@ -1973,7 +2061,7 @@ def phase_train_vocoder(seed: int, card: str, d: Path) -> dict:
     print(f"train vocoder runtime.precision=int8: resumed to step {last}, validation wrote "
           f"{len(got)} wavs in [-1, 1]; launches {json.dumps(launches_int8)}  [{card}]")
     return {"launches": launches, "launches_int8": launches_int8, "seconds": seconds,
-            "steps": steps}
+            "steps": steps, "graph": graph, "validation_peak_bytes": peak}
 
 
 def _grid_counts(reset: bool = False) -> dict:
@@ -2026,8 +2114,8 @@ def phase_wide(seed: int, card: str, d: Path) -> dict:
     counts = _grid_counts()
     steps = trainer.global_step
     check(steps == 2 * TRAIN_SPEAKERS // 8, f"{steps} train steps at dim_cpc_context=512")
-    check(counts["lstm_scan_grid_train"] == counts["lstm_scan_grid_bwd"] == steps
-          and counts["cpc_select"] == counts["cpc_select_bwd"] == steps, f"launches {counts}")
+    graph = check_graph(trainer.graph, ("lstm_scan_grid_train", "lstm_scan_grid_bwd", "cpc_select",
+                                        "cpc_select_bwd"), steps, counts, "train_cpc at 512")
     check(counts["lstm_scan_train"] == counts["lstm_scan_bwd"] == counts["lstm_scan"] == 0
           and counts["lstm_scan_grid"] == 0, f"the cluster or inference kernels ran: {counts}")
     losses = [float(m["loss"]) for m in trainer.history]
@@ -2054,7 +2142,10 @@ def phase_wide(seed: int, card: str, d: Path) -> dict:
               f"export at 512 of {m.name}: {rows.shape}")
     export_counts = counts
     print(f"wide: train_cpc CLI at dim_cpc_context=512 {steps} steps in {train_s:.3f} s wall, "
-          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, launches {json.dumps(train_counts)}; the "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, launches counted "
+          f"{json.dumps(train_counts)}, the step graph holding "
+          f"{json.dumps(graph['captured_per_step'])} a step ({graph['eager_steps']} eager warm-up "
+          f"steps, {graph['replays']} replays); the "
           f"encode CLI exported {n} mels in {n_batches} batches, launches "
           f"{json.dumps(export_counts)}  [{card}]")
 
@@ -2082,7 +2173,7 @@ def phase_wide(seed: int, card: str, d: Path) -> dict:
           f"wide server launches {counts}")
     print(f"wide: served 8 requests with a PreNet of {net.rnnms.dim_voc_latent // 2} per "
           f"direction, launches {json.dumps(counts)}  [{card}]")
-    return {"train": train_counts, "export": export_counts, "serve": counts}
+    return {"train": train_counts, "export": export_counts, "serve": counts, "graph": graph}
 
 
 def _voc_trainer(seed: int, conf):
@@ -2146,6 +2237,119 @@ def phase_train_vocoder_step(seed: int, card: str) -> None:
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"fixed-batch losses {losses}")
     print(f"train vocoder fixed batch: 10 steps at lr {lr:g}, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; phase wall {time.perf_counter() - start:.3f} s  [{card}]")
+
+
+def _train_state(trainer, modules: dict) -> dict:
+    """Every weight, buffer and Adam state tensor of a trainer, by name."""
+    out, names = {}, {}
+    for prefix, module in modules.items():
+        out.update({f"{prefix}.{k}": v for k, v in module.state_dict().items()})
+        names.update({id(p): f"{prefix}.{k}" for k, p in module.named_parameters()})
+    for p, st in trainer.optimizer.state.items():
+        out.update({f"adam.{names[id(p)]}.{k}": v for k, v in st.items()
+                    if isinstance(v, torch.Tensor)})
+    return out
+
+
+def _bit_diffs(a: dict, b: dict) -> dict:
+    """Name -> max abs difference of the tensors whose bits differ."""
+    return {k: float((a[k].float() - b[k].float()).abs().max())
+            for k in a if not torch.equal(a[k], b[k])}
+
+
+def _graph_against_eager(what: str, make, eager_run, graph_run, modules, lrs, card) -> None:
+    """Three trainers from ``make()`` (the same weights): two run the
+    batches eagerly, one through the step graph. The two eager runs must
+    give the same bits (the step is deterministic) and the graph the eager
+    bits: losses, weights, buffers, Adam's state."""
+    runs = [make() for _ in range(3)]
+    losses = [eager_run(runs[0]), eager_run(runs[1]), graph_run(runs[2])]
+    torch.cuda.synchronize()
+    states = [_train_state(tr, modules(tr)) for tr in runs]
+    for other, label in ((1, "a second eager run"), (2, "the graph")):
+        diffs = _bit_diffs(states[0], states[other])
+        if not torch.equal(losses[0], losses[other]):
+            diffs["loss"] = float((losses[0] - losses[other]).abs().max())
+        check(not diffs, f"graph vs eager {what}: {label} differs from the eager run: "
+                         f"{dict(list(diffs.items())[:6])}")
+    graph = runs[2].graph
+    print(f"graph vs eager {what}: {len(lrs)} steps, losses, weights, buffers and Adam's state "
+          f"the same bits ({len(states[0])} tensors) in two eager runs and the graph; "
+          f"{graph.eager_steps} eager warm-up steps, {graph.replays} replays  [{card}]")
+
+
+def phase_graph_vs_eager(seed: int, card: str) -> None:
+    """Phase 4g: the step graph against the eager step on the card, from
+    the same weights on the same batches, negatives and learning rates:
+    GRAPH_CPC_STEPS CPC steps and GRAPH_VOC_STEPS vocoder steps at B 32 x
+    5,120 samples; then the card's Adam (capturable, fused) against the
+    plain Adam on one step."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.models.cpc import sample_negative_indices
+    from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
+
+    start = time.perf_counter()
+    conf = load_conf([f"seed={seed}"])
+    cc = conf.model.cpc
+    t = conf.data.dataset.cpc.clip_length_mel
+    rng = np.random.default_rng(seed + 20)
+    n = GRAPH_CPC_STEPS
+    mels = torch.from_numpy(rng.normal(size=(n, cc.n_speakers_per_batch,
+                                             cc.n_utterances_per_speaker, 80, t)).astype(
+        np.float32)).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 20)
+    negs = [sample_negative_indices(cc, t // 2 - cc.n_prediction_steps // 2, gen)
+            for _ in range(n)]
+    stacked = (torch.stack([u for u, _ in negs]), torch.stack([q for _, q in negs]))
+    lrs = [4e-4 * (i + 1) / n for i in range(n)]
+    _graph_against_eager(
+        "CPC", lambda: CPCTrainer(conf, DEVICE),
+        lambda tr: torch.stack([tr.train_step(mels[i], *negs[i], lrs[i])["loss"]
+                                for i in range(n)]),
+        lambda tr: tr.train_steps(mels, stacked, lrs)["loss"],
+        lambda tr: {"encoder": tr.encoder, "cpc": tr.cpc}, lrs, card)
+
+    k = GRAPH_VOC_STEPS
+    batches = [_voc_batch(seed + i, conf) for i in range(k)]
+    audio, vmels, spk = (torch.stack([b[j] for b in batches]) for j in range(3))
+    vlrs = [conf.training_vocoder.model.optim.learning_rate] * k
+    _graph_against_eager(
+        "vocoder", lambda: _voc_trainer(seed, conf),
+        lambda tr: torch.stack([tr.train_step(audio[i], vmels[i], spk[i], vlrs[i])["loss"]
+                                for i in range(k)]),
+        lambda tr: tr.train_steps(audio, vmels, spk, vlrs)["loss"],
+        lambda tr: {"vocoder": tr.vocoder}, vlrs, card)
+
+    # The card's Adam (capturable and fused: the device's own step count,
+    # bias corrections in double) against the plain one (the host's), one
+    # step from the same gradients; the capturable multi-tensor form beside
+    # it, printed only.
+    def one_step(optimizer=None):
+        tr = CPCTrainer(conf, DEVICE)
+        if optimizer is not None:
+            tr.optimizer = optimizer(tr.optimizer.param_groups[0]["params"])
+        tr.train_step(mels[0], *negs[0], 1e-3)
+        return {k: v for k, v in _train_state(tr, {"encoder": tr.encoder, "cpc": tr.cpc}).items()
+                if not k.startswith("adam.") and v.is_floating_point()}
+
+    plain = one_step(lambda ps: torch.optim.Adam(ps, lr=0.0, betas=(0.9, 0.999), eps=1e-8))
+    worst = {}
+    for label, optimizer in (("capturable fused", None), ("capturable multi-tensor", lambda ps: (
+            torch.optim.Adam(ps, lr=torch.zeros((), device=DEVICE), betas=(0.9, 0.999),
+                             eps=1e-8, capturable=True)))):
+        worst[label] = ("", 0.0)
+        for name, a in one_step(optimizer).items():
+            e, m = _rel_err(a, plain[name])
+            if label == "capturable fused":
+                check(e <= MAX_ADAM_REL * m, f"{label} Adam vs plain Adam, {name}: {e} of {m}")
+            if m > 0 and e / m >= worst[label][1]:
+                worst[label] = (name, e / m)
+    (fused_name, fused), (multi_name, multi) = worst["capturable fused"], worst[
+        "capturable multi-tensor"]
+    print(f"Adam on the card vs plain Adam, one CPC step at lr 1e-3, the worst weight's error "
+          f"over its largest element: capturable fused (the trainers') {fused:.3e} ({fused_name}; "
+          f"bound {MAX_ADAM_REL}); capturable multi-tensor {multi:.3e} ({multi_name}; not used); "
+          f"phase 4g wall {time.perf_counter() - start:.3f} s  [{card}]")
 
 
 def _bound(n_bytes: float, flops: float, peak_flops: float):
@@ -2309,32 +2513,39 @@ def phase_time_train(seed: int, card: str) -> dict:
               f"library {lib}; bound {res['bound_ms'] * 1e3:.3f} us by {res['bound_by']}; "
               f"bound / kernel = {res['bound_ms'] / res['ms'] * 100:.3f} %  [{card}]")
 
-    # The train step to the device: negatives drawn and one optimizer step,
-    # as train_model runs them, after 5 steps of warm-up.
+    # The train step to the device on both paths: negatives drawn and one
+    # optimizer step, as train_model runs them.
     conf = load_conf([f"seed={seed}"])
-    trainer = CPCTrainer(conf, DEVICE)
+    trainers = {"eager": CPCTrainer(conf, DEVICE), "graph": CPCTrainer(conf, DEVICE)}
     mels, _, _ = _train_batch(seed, conf)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     length = conf.data.dataset.cpc.clip_length_mel // 2 - conf.model.cpc.n_prediction_steps // 2
 
-    def step():
-        trainer.train_step(mels, *sample_negative_indices(conf.model.cpc, length, gen), 1e-4)
+    def negatives():
+        return sample_negative_indices(conf.model.cpc, length, gen)
 
-    for _ in range(5):
-        step()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(50):
-        step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - start) / 50 * 1e3
+    def eager(k: int):
+        for _ in range(k):
+            trainers["eager"].train_step(mels, *negatives(), 1e-4)
+
+    def graphed(k: int):
+        negs = [negatives() for _ in range(k)]
+        trainers["graph"].train_steps(mels.expand(k, *mels.shape),
+                                      (torch.stack([u for u, _ in negs]),
+                                       torch.stack([q for _, q in negs])), [1e-4] * k)
+
+    paths = _time_step_paths("CPC train step (S 8 x U 8 x 140 frames, bf16)",
+                             {"eager": eager, "graph": graphed}, trainers["graph"].graph,
+                             warmup=5, n=50, reps=3, profile_n=10, card=card)
+    step_ms = paths["graph"]["ms"]
     kernels_ms = sum(res["ms"] for res in out.values())
-    print(f"timing train step (S 8 x U 8 x 140 frames, bf16): {step_ms:.3f} ms = "
-          f"{1e3 / step_ms:.2f} steps/s to the device over 50 steps; the four training kernels "
-          f"{kernels_ms:.4f} ms = {kernels_ms / step_ms * 100:.2f} % of the step (their times "
-          f"alone, above)  [{card}]")
-    out["step"] = {"ms": step_ms, "steps_per_s": 1e3 / step_ms, "kernels_share": kernels_ms / step_ms,
-                   **_profile_steps(step, 10, step_ms, card)}
+    print(f"timing train step: the graph path {step_ms:.3f} ms = {1e3 / step_ms:.2f} steps/s to "
+          f"the device, the eager path {paths['eager']['ms']:.3f} ms "
+          f"({paths['eager']['ms'] / step_ms:.2f}x); the four training kernels {kernels_ms:.4f} ms "
+          f"= {kernels_ms / step_ms * 100:.2f} % of the graph step (their times alone, above)  "
+          f"[{card}]")
+    out["step"] = {**paths["graph"], "steps_per_s": 1e3 / step_ms,
+                   "kernels_share": kernels_ms / step_ms, "eager": paths["eager"]}
     return out
 
 
@@ -2396,64 +2607,93 @@ def phase_time_vocoder(seed: int, card: str) -> dict:
               f"shape and card type): {ms:.3f} ms, {ONE_GROUP_MS[name] / ms:.2f}x  [{card}]")
 
     conf = load_conf([f"seed={seed}"])
-    trainer = _voc_trainer(seed, conf)
+    trainers = {"eager": _voc_trainer(seed, conf), "graph": _voc_trainer(seed, conf)}
     batch_t = _voc_batch(seed, conf)
 
-    def step():
-        trainer.train_step(*batch_t, 1e-4)
+    def eager(k: int):
+        for _ in range(k):
+            trainers["eager"].train_step(*batch_t, 1e-4)
 
-    for _ in range(2):
-        step()
+    def graphed(k: int):
+        trainers["graph"].train_steps(*(x.expand(k, *x.shape) for x in batch_t), [1e-4] * k)
+
+    eager(1)  # the eager step's own peak, before the graph's pool exists
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        step()
+    base = torch.cuda.memory_allocated()
+    eager(1)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / 5 * 1e3
     peak = torch.cuda.max_memory_allocated()
+    paths = _time_step_paths(f"vocoder train step (B {VOC_B} x {VOC_T} samples, bf16)",
+                             {"eager": eager, "graph": graphed}, trainers["graph"].graph,
+                             warmup=2, n=5, reps=3, profile_n=3, card=card)
+    step_ms = paths["graph"]["ms"]
     kernels_ms = out["gru_scan_train"]["ms"] + out["gru_scan_bwd"]["ms"]
     samples_s = VOC_B * VOC_T / (step_ms / 1e3)
-    print(f"timing vocoder train step (B {VOC_B} x {VOC_T} samples, bf16): {step_ms:.3f} ms = "
-          f"{1e3 / step_ms:.3f} steps/s = {samples_s:.1f} samples/s to the device over 5 steps; "
-          f"the two GRU kernels {kernels_ms:.3f} ms = {kernels_ms / step_ms * 100:.2f} % of the "
-          f"step (their times alone, above); peak memory {peak / 2**30:.3f} GiB  [{card}]")
-    out["step"] = {"ms": step_ms, "steps_per_s": 1e3 / step_ms, "samples_per_s": samples_s,
+    print(f"timing vocoder train step: the graph path {step_ms:.3f} ms = {1e3 / step_ms:.3f} "
+          f"steps/s = {samples_s:.1f} samples/s to the device, the eager path "
+          f"{paths['eager']['ms']:.3f} ms ({paths['eager']['ms'] / step_ms:.2f}x); the two GRU "
+          f"kernels {kernels_ms:.3f} ms = {kernels_ms / step_ms * 100:.2f} % of the graph step "
+          f"(their times alone, above); the eager step's peak memory {peak / 2**30:.3f} GiB "
+          f"({(peak - base) / 2**30:.3f} GiB above the trainers' state)  [{card}]")
+    out["step"] = {**paths["graph"], "steps_per_s": 1e3 / step_ms, "samples_per_s": samples_s,
                    "kernels_share": kernels_ms / step_ms, "peak_bytes": peak, "dwh_ms": dwh_ms,
-                   **_profile_steps(step, 3, step_ms, card)}
+                   "eager": paths["eager"]}
     print(f"phase 5 vocoder timing: {time.perf_counter() - start:.3f} s wall")
     return out
 
 
-def _profile_steps(step, n: int, step_ms: float, card: str) -> dict:
-    """The device's own time per step from a profiler trace of ``n`` steps,
-    read against the untraced ``step_ms``: busy ms, idle share, device
-    operations per step and the largest of them."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _time_step_paths(what: str, run: dict, graph, warmup: int, n: int, reps: int,
+                     profile_n: int, card: str) -> dict:
+    """Both paths of a train step on the card: ``run["eager"](k)`` queues k
+    eager steps, ``run["graph"](k)`` k steps through the step graph
+    (``graph``). Each path warms up (the graph path also through its own
+    eager steps and its capture), then ``reps`` runs of ``n`` steps in turns
+    (eager, graph, graph, eager, ...) give the wall ms per step to the device
+    (median and spread) and the host's us per step (until the last step is
+    queued); a trace of ``profile_n`` more steps through ``utils/profiling``
+    gives the device's busy ms per step, read against the median wall, and
+    its operations per step."""
+    from vectorquantizedcpc_tpu_torch.training.step_graph import WARMUP_STEPS
+    from vectorquantizedcpc_tpu_torch.utils.profiling import device_time, trace
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    # Device operations only: a user annotation (Adam's step range) spans
-    # kernels that are counted on their own.
-    ops = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3 / n
-    if busy_ms <= 0:
-        print(f"timing train step on the device: not measured (the profiler recorded no device "
-              f"time)  [{card}]")
-        return {"device_busy_ms": None}
-    count = sum(e.count for e in ops) / n
-    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:8]
-    largest = "; ".join(f"{e.key[:48]} x{e.count / n:g} {e.self_device_time_total / 1e3 / n:.4f} ms"
-                        for e in top)
-    print(f"timing train step on the device (profiler, {n} steps): {busy_ms:.3f} ms of device work "
-          f"per step = {busy_ms / step_ms * 100:.2f} % of the {step_ms:.3f} ms step (idle "
-          f"{(1 - busy_ms / step_ms) * 100:.2f} %); {count:.0f} device operations per step; "
-          f"largest per step: {largest}  [{card}]")
-    return {"device_busy_ms": busy_ms, "device_ops_per_step": count}
+    run["eager"](warmup)
+    run["graph"](WARMUP_STEPS + 1 + warmup)
+    torch.cuda.synchronize()
+    walls, hosts = {p: [] for p in run}, {p: [] for p in run}
+    for rep in range(reps):
+        for path in (("eager", "graph") if rep % 2 == 0 else ("graph", "eager")):
+            start = time.perf_counter()
+            run[path](n)
+            hosts[path].append((time.perf_counter() - start) / n * 1e6)
+            torch.cuda.synchronize()
+            walls[path].append((time.perf_counter() - start) / n * 1e3)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for path in ("eager", "graph"):
+            with trace(Path(tmp) / path, DEVICE) as prof:
+                run[path](profile_n)
+            dev = device_time(prof, profile_n)
+            ms, busy = float(np.median(walls[path])), dev["device_busy_ms"]
+            out[path] = {"ms": ms, "spread_ms": max(walls[path]) - min(walls[path]),
+                         "wall_ms": walls[path], "host_us": float(np.median(hosts[path])),
+                         "device_busy_ms": busy,
+                         "idle_share": None if busy is None else 1 - busy / ms,
+                         "device_ops_per_step": dev["device_ops_per_step"]}
+            device = "device time not measured (the trace holds none)" if busy is None else (
+                f"device busy {busy:.3f} ms per step (trace of {profile_n} steps), idle "
+                f"{(1 - busy / ms) * 100:.2f} %, {dev['device_ops_per_step']:.1f} device "
+                f"operations per step; largest per step: " + "; ".join(
+                    f"{key[:48]} x{count:g} {t_ms:.4f} ms" for key, count, t_ms in dev["largest"]))
+            print(f"timing {what}, {path} path: wall {ms:.3f} ms per step (median of {reps} runs "
+                  f"of {n}: {', '.join(f'{w:.3f}' for w in walls[path])}; spread "
+                  f"{out[path]['spread_ms']:.3f} ms), host {out[path]['host_us']:.1f} us per step "
+                  f"queued; {device}  [{card}]")
+    out["graph"].update(capture_s=graph.capture_s, pool_bytes=graph.pool_bytes)
+    print(f"timing {what}, graph: {graph.captures} capture in {graph.capture_s:.3f} s, its pool "
+          f"{graph.pool_bytes / 2**20:.1f} MiB; {graph.eager_steps} eager warm-up steps and "
+          f"{graph.replays} replays in this phase  [{card}]")
+    return out
 
 
 def main() -> int:
@@ -2506,6 +2746,7 @@ def main() -> int:
         print(f"phase 4e vocoder training: {time.perf_counter() - mid:.3f} s wall")
         wide = phase_wide(args.seed, card, Path(tmp))
     phase_train_vocoder_step(args.seed, card)
+    phase_graph_vs_eager(args.seed, card)
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
 
     from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
@@ -2533,6 +2774,9 @@ def main() -> int:
     phase_time_serve(serve, ar_ms_by_batch["bf16"], card)
     select_stamps = phase_select_stamps(args.seed, card)
     timing_train = phase_time_train(args.seed, card)
+    print(f"timing train_cpc CLI (phase 4d, 2 steps an epoch, through the step graph): logged "
+          f"{trained['logged_steps_per_s']} steps/s over each 5 epochs, data loading and the "
+          f"group's copy included; the first group holds the warm-up and the capture  [{card}]")
     timing_voc = phase_time_vocoder(args.seed, card)
     report_lstm(lstm_stamps, timing_lstm, timing_train, timing_lstm_h256, timing_lstm_grid,
                 timing_voc, timing_masked_grid, exported, card)
@@ -2615,6 +2859,8 @@ def main() -> int:
             "source": source + src,
             "replaces": f"vectorquantizedcpc_tpu/ops/{line}",
             "launches": trained["launches"][name],
+            "captured_per_step": trained["graph"]["captured_per_step"][name],
+            "graph_replays": trained["graph"]["replays"],
             "max_abs_err": compared_train[name],
             **timing_train[name],
             **({"stamps_us_per_step": lstm_stamps["training"][kernel],
@@ -2634,6 +2880,8 @@ def main() -> int:
             "source": source + "gru_train.cu",
             "replaces": f"vectorquantizedcpc_tpu/ops/gru_train.py:{line}",
             "launches": trained_voc["launches"][name],
+            "captured_per_step": trained_voc["graph"]["captured_per_step"][name],
+            "graph_replays": trained_voc["graph"]["replays"],
             "max_abs_err": compared_gru_train[name],
             **timing_voc[name],
             "stamps_us_per_step": gru_stamps[kernel],
@@ -2649,6 +2897,8 @@ def main() -> int:
             "launches": wide["train"]["lstm_scan_grid_train"] + wide["export"]["lstm_scan_grid"],
             "launches_by_path": {"train_cpc_512": wide["train"]["lstm_scan_grid_train"],
                                  "export_512": wide["export"]["lstm_scan_grid"]},
+            "captured_per_step": wide["graph"]["captured_per_step"]["lstm_scan_grid_train"],
+            "graph_replays": wide["graph"]["replays"],
             "max_abs_err": compared_lstm_grid["lstm_scan_grid"],
             **timing_lstm_grid["lstm_scan_grid"],
         },
@@ -2658,6 +2908,8 @@ def main() -> int:
             "source": source + "lstm_grid.cu",
             "replaces": "vectorquantizedcpc_tpu/ops/lstm_scan.py:105",
             "launches": wide["train"]["lstm_scan_grid_bwd"],
+            "captured_per_step": wide["graph"]["captured_per_step"]["lstm_scan_grid_bwd"],
+            "graph_replays": wide["graph"]["replays"],
             "max_abs_err": compared_lstm_grid["lstm_scan_grid_bwd"],
             **timing_lstm_grid["lstm_scan_grid_bwd"],
         },

@@ -24,7 +24,9 @@ its Python mirror, and through autograd; the grid kernels at H 37, 360,
 backward: odd L, tiles that do not fit shared memory, Z not a multiple of
 32 and Z past 256 (257, 300), N 40, U 16, collision ties, out-of-range
 indices, 10 launches and the stamped variants giving the same bits, the
-plan and the backward's workspace against their Python mirrors.
+plan and the backward's workspace against their Python mirrors. The step
+graph (``training/step_graph.py``): both trainers' steps captured and
+replayed give the eager steps' bits, and a capture that fails raises.
 Skipped without a card. This file imports no JAX, so it also runs on a
 machine without it:
 
@@ -823,3 +825,115 @@ def test_cpc_select_refuses_bad_input(cuda):
     f_neg, _ = cs.cpc_select(wc, zs, utt, seq)
     torch.cuda.synchronize()
     assert torch.isnan(f_neg[0, 0, 0, 0, 0]) and not torch.isnan(f_neg[0, 0, 0, 0, 1:]).any()
+
+
+def _trainer_state(trainer, modules) -> dict:
+    out = {}
+    for prefix, module in modules.items():
+        out.update({f"{prefix}.{k}": v for k, v in module.state_dict().items()})
+    for i, st in enumerate(trainer.optimizer.state.values()):
+        out.update({f"adam{i}.{k}": v for k, v in st.items() if isinstance(v, torch.Tensor)})
+    return out
+
+
+def _hold_graph_to_eager(make, eager, graphed, modules, lrs):
+    """Two trainers step eagerly, one through its step graph, from the same
+    weights on the same batches. The two eager runs give the same bits (the
+    step is deterministic) and the graph gives the eager bits: losses,
+    weights, buffers, Adam's state."""
+    runs = [make() for _ in range(3)]
+    losses = [eager(runs[0]), eager(runs[1]), graphed(runs[2])]
+    torch.cuda.synchronize()
+    states = [_trainer_state(tr, modules(tr)) for tr in runs]
+    graph = runs[2].graph
+    assert graph.captures == 1 and graph.eager_steps + graph.replays == len(lrs)
+    assert graph.replays >= 2  # the capture's own step and at least one more
+    for other in (1, 2):
+        assert torch.equal(losses[0], losses[other]), other
+        assert [k for k in states[0] if not torch.equal(states[0][k], states[other][k])] == [], other
+    return graph
+
+
+def test_step_graph_gives_the_eager_bits_cpc(cuda):
+    """5 CPC steps at the default widths: 2 eager warm-up steps, the capture
+    and 2 replays give the bits of 5 eager steps. The graph holds each
+    training kernel once a step and nothing else."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.models.cpc import sample_negative_indices
+    from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
+
+    conf = load_conf(["runtime.platform=cuda"])
+    cc = conf.model.cpc
+    t = conf.data.dataset.cpc.clip_length_mel
+    rng = np.random.default_rng(0)
+    mels = torch.from_numpy(rng.normal(size=(5, 8, 8, 80, t)).astype(np.float32)).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    negs = [sample_negative_indices(cc, t // 2 - cc.n_prediction_steps // 2, gen) for _ in range(5)]
+    lrs = [1e-4 * (i + 1) for i in range(5)]
+    graph = _hold_graph_to_eager(
+        lambda: CPCTrainer(conf, cuda),
+        lambda tr: torch.stack([tr.train_step(mels[i], *negs[i], lrs[i])["loss"]
+                                for i in range(5)]),
+        lambda tr: tr.train_steps(mels, (torch.stack([u for u, _ in negs]),
+                                         torch.stack([q for _, q in negs])), lrs)["loss"],
+        lambda tr: {"encoder": tr.encoder, "cpc": tr.cpc}, lrs)
+    assert {k: v for k, v in graph.captured.items() if v} == {
+        "lstm_scan_train": 1, "lstm_scan_bwd": 1, "cpc_select": 1, "cpc_select_bwd": 1}
+
+
+def test_step_graph_gives_the_eager_bits_vocoder(cuda):
+    """5 vocoder steps at the default widths, B 4 clips of 4 frames: the
+    graph path against the eager path, as above; the graph holds the GRU
+    training pair once a step and nothing else."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.models.encoder import Encoder
+    from vectorquantizedcpc_tpu_torch.training.vocoder import VocoderTrainer
+
+    conf = load_conf(["runtime.platform=cuda", "data.dataset.clip_length_mel=4"])
+    rng = np.random.default_rng(1)
+    k, b, hop = 5, 4, conf.data.dataset.mel_stft_stride
+
+    def to(x):
+        return torch.from_numpy(x).to(cuda)
+
+    audio = to(rng.integers(0, 256, size=(k, b, 4 * hop + 1)).astype(np.int32))
+    mels = to(rng.normal(size=(k, b, 80, 4)).astype(np.float32))
+    spk = to(rng.integers(0, 8, size=(k, b)).astype(np.int32))
+    lrs = [4e-4] * k
+
+    def make():
+        torch.manual_seed(2)
+        return VocoderTrainer(conf, Encoder(conf.model.encoder), cuda)
+
+    graph = _hold_graph_to_eager(
+        make,
+        lambda tr: torch.stack([tr.train_step(audio[i], mels[i], spk[i], lrs[i])["loss"]
+                                for i in range(k)]),
+        lambda tr: tr.train_steps(audio, mels, spk, lrs)["loss"],
+        lambda tr: {"vocoder": tr.vocoder}, lrs)
+    assert {n: v for n, v in graph.captured.items() if v} == {"gru_scan_train": 1,
+                                                               "gru_scan_bwd": 1}
+
+
+def test_step_graph_capture_failure_raises(cuda):
+    """A step that reads the device on the host cannot be captured: the step
+    raises, and nothing falls back to the eager step."""
+    from vectorquantizedcpc_tpu_torch.training.step_graph import WARMUP_STEPS, StepGraph, make_adam
+
+    w = torch.zeros(4, device=cuda, requires_grad=True)
+    optimizer = make_adam([w], cuda)
+
+    def step(x):
+        loss = (w * x).sum() * float(x.sum())  # waits for the device
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach()}
+
+    graph = StepGraph(step, optimizer, cuda)
+    x = torch.ones(4, device=cuda)
+    for _ in range(WARMUP_STEPS):
+        graph.step((x,), 1e-3)
+    with pytest.raises(RuntimeError):
+        graph.step((x,), 1e-3)
+    assert graph.eager_steps == WARMUP_STEPS and graph.replays == 0 and graph.captures == 0

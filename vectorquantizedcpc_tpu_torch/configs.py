@@ -145,7 +145,7 @@ def conf_default_tree() -> Dict[str, Any]:
             },
             "loader": {"batch_size": 32, "num_workers": 1, "pin_memory": None},
         },
-        "runtime": {"precision": "bfloat16", "platform": None},
+        "runtime": {"precision": "bfloat16", "platform": None, "profile_dir": None},
     }
 
 
@@ -195,8 +195,9 @@ class ConfTrainCPC:
     scheduler: ConfTrainCPCSched = field(default_factory=ConfTrainCPCSched)
     checkpoint_interval: int = MISSING
     log_interval: int = MISSING
-    # Epochs per group: logs and checkpoints quantize to it, as in the JAX
-    # trainer's dispatch groups (the port runs every step eagerly).
+    # Epochs per group: staged on the device in one copy and stepped through
+    # the step graph (training/step_graph.py) on a card; logs and
+    # checkpoints quantize to it, as in the JAX trainer's dispatch groups.
     epochs_per_dispatch: int = 1
 
 
@@ -256,8 +257,9 @@ class ConfTrainer:
     max_epochs: int = MISSING
     val_interval_epoch: int = MISSING
     gradient_clip_val: float = 1.0
-    # Steps per group: checkpoint and preemption checks quantize to it, as in
-    # the JAX trainer's dispatch groups (the port runs every step eagerly).
+    # Steps per group: staged on the device in one copy and stepped through
+    # the step graph on a card; checkpoint and preemption checks quantize to
+    # it, as in the JAX trainer's dispatch groups.
     steps_per_dispatch: int = 1
     # Any value ("simple", "advanced") prints the data-wait / train-dispatch
     # report at the end of training.
@@ -326,6 +328,9 @@ class ConfRuntime:
     precision: str = "bfloat16"
     # "cpu" runs on the CPU; null or "cuda" needs a CUDA card.
     platform: Optional[str] = None
+    # A directory: both trainers write one profiler trace of a few steps
+    # after the first dispatch group there (utils/profiling.trace).
+    profile_dir: Optional[str] = None
 
 
 @dataclass

@@ -22,6 +22,7 @@ from torch import nn
 from ..configs import ConfVocoderNetwork
 from ..dsp.mulaw import mulaw_decode
 from ..ops.gru_train import GruScan, gru_scan
+from ..ops.matmul import bf16_product
 from .rnn import bigru_apply, gru_apply, gru_apply_masked_reverse, gru_scan_loop, gru_step
 
 
@@ -54,10 +55,12 @@ class Vocoder(nn.Module):
 
 
 class _TableGather(torch.autograd.Function):
-    """``table[index]`` whose backward sums each row's gradient in f32 and
-    rounds it once to the table's dtype, as the product of a one-hot matrix
-    with the table does (the JAX package's route). Summing 163,840 sample
-    gradients into 256 bf16 rows one add at a time would round each add."""
+    """``table[index]`` whose backward is the product of the one-hot
+    matrix's transpose with the gradient (the JAX package's route): each
+    row's gradient summed in f32 and rounded once to bf16. Summing 163,840
+    sample gradients into 256 bf16 rows one add at a time would round each
+    add, and ``index_add_``'s float atomics on a card give other bits from
+    run to run; the product gives the same bits on every run."""
 
     @staticmethod
     def forward(ctx, table, index):
@@ -68,9 +71,11 @@ class _TableGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (index,) = ctx.saved_tensors
-        d_table = torch.zeros(ctx.table_shape, dtype=torch.float32, device=grad.device)
-        d_table.index_add_(0, index.reshape(-1), grad.reshape(-1, grad.shape[-1]).float())
-        return d_table.to(grad.dtype), None
+        flat = grad.reshape(-1, grad.shape[-1])
+        onehot = torch.zeros(flat.shape[0], ctx.table_shape[0], dtype=grad.dtype,
+                             device=grad.device)
+        onehot.scatter_(1, index.reshape(-1, 1), 1.0)
+        return bf16_product(onehot.t(), flat), None
 
 
 @torch.no_grad()

@@ -1,18 +1,25 @@
-"""CPC encoder training: the train step and the epoch loop.
+"""CPC encoder training: the train step, grouped steps and the epoch loop.
 
-The JAX package's ``training/cpc.py`` on PyTorch, one eager step at a time:
-encoder forward (frontend, VQ-EMA step, context LSTM), InfoNCE over K
-steps, backward, Adam. On a card the step runs the CUDA kernels of the
-slice: the LSTM scan's training forward and backward (``LstmScan``) and the
-CPC selection's forward and backward (``CpcNegativeScores``).
+The JAX package's ``training/cpc.py`` on PyTorch: encoder forward
+(frontend, VQ-EMA step, context LSTM), InfoNCE over K steps, backward,
+Adam. On a card the step runs the CUDA kernels of the slice: the LSTM
+scan's training forward and backward (``LstmScan``) and the CPC
+selection's forward and backward (``CpcNegativeScores``).
 
-- The train step takes injected ``(utt_index, seq_index)``, the counterpart
-  of ``make_train_step(inject_negatives=True)``; ``train_model`` draws them
-  from a ``torch.Generator`` on the step's device seeded by (seed, epoch),
-  so a resumed epoch re-draws the same negatives.
+- ``train_step`` is one eager step on injected ``(utt_index, seq_index)``,
+  the counterpart of ``make_train_step(inject_negatives=True)``.
+  ``train_steps`` runs a group of them through the step graph
+  (``training/step_graph.py``): on a card one CUDA graph of the whole step,
+  replayed per batch; on the CPU the same eager step per batch. It is the
+  counterpart of ``make_train_epochs``.
+- ``train_model`` stages each group of ``epochs_per_dispatch`` epochs on
+  the device in one copy and draws each step's negatives, in the eager
+  order, from a ``torch.Generator`` on the step's device seeded by (seed,
+  epoch), so a resumed epoch re-draws the same negatives and a group draws
+  the bits of one step at a time.
 - Adam is ``torch.optim.Adam`` with betas (0.9, 0.999) and eps 1e-8, as
-  optax's defaults; the learning rate is set per epoch from
-  ``WarmupSchedule(epoch - 1)``.
+  optax's defaults, capturable on a card (``step_graph.make_adam``); the
+  learning rate is set per epoch from ``WarmupSchedule(epoch - 1)``.
 - The JAX package trains ONE fused LSTM bias, while ``nn.LSTM`` keeps two,
   and Adam would move their sum twice as far. So training folds
   ``bias_hh_l0`` into ``bias_ih_l0``, keeps it at zero and leaves it out of
@@ -21,14 +28,15 @@ CPC selection's forward and backward (``CpcNegativeScores``).
 - ``train_model`` keeps the JAX trainer's cadence: steps per epoch = usable
   speakers // S; logs and checkpoints are quantized to groups of
   ``epochs_per_dispatch`` epochs; ``resume`` re-runs the checkpointed epoch
-  and does not save it again. Checkpoints are ``model.ckpt-{epoch}.pt`` in
-  the reference layout (``training/checkpoint.py``).
+  and does not save it again; ``runtime.profile_dir`` traces the second
+  group. Checkpoints are ``model.ckpt-{epoch}.pt`` in the reference layout
+  (``training/checkpoint.py``).
 """
 
 import collections
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,9 +49,11 @@ from ..data.preprocess import preprocess_corpus
 from ..device import resolve_device
 from ..models.cpc import CPCLoss, cpc_apply_with_indices, sample_negative_indices
 from ..models.encoder import Encoder
+from ..utils.profiling import device_time, trace
 from .checkpoint import load_checkpoint, save_checkpoint
 from .preemption import install_preemption_handler, preemption_requested
 from .schedule import WarmupSchedule
+from .step_graph import StepGraph, load_optimizer_state, make_adam, optimizer_state, set_lr, stage
 
 FOLDED_BIAS = "rnn.bias_hh_l0"
 HISTORY_STEPS = 10_000  # per-step host metrics kept on the trainer
@@ -68,6 +78,7 @@ class CPCTrainer:
 
     Weights are torch's default inits drawn on the CPU from ``conf.seed``
     (the reference's distributions, as the JAX package's inits), then moved.
+    ``graph`` steps ``train_steps``.
     """
 
     def __init__(self, conf: ConfGlobal, device: Union[str, torch.device]):
@@ -81,9 +92,8 @@ class CPCTrainer:
         self.encoder.to(self.device).train()
         self.cpc.to(self.device).train()
         params = [p for n, p in self.encoder.named_parameters() if n != FOLDED_BIAS]
-        self.optimizer = torch.optim.Adam(
-            params + list(self.cpc.parameters()), lr=0.0, betas=(0.9, 0.999), eps=1e-8
-        )
+        self.optimizer = make_adam(params + list(self.cpc.parameters()), self.device)
+        self.graph = StepGraph(self._step, self.optimizer, self.device)
 
     def train_step(
         self,
@@ -92,8 +102,29 @@ class CPCTrainer:
         seq_index: torch.Tensor,
         lr: float,
     ) -> Dict[str, torch.Tensor]:
-        """One optimizer step on mels (S, U, Freq, T); returns the metrics as
-        tensors on the device, without waiting for them."""
+        """One eager optimizer step on mels (S, U, Freq, T); returns the
+        metrics as tensors on the device, without waiting for them."""
+        set_lr(self.optimizer, lr)
+        return self._step(mels, utt_index, seq_index)
+
+    def train_steps(
+        self,
+        mels: torch.Tensor,
+        negatives: Tuple[torch.Tensor, torch.Tensor],
+        lrs: Sequence[float],
+    ) -> Dict[str, torch.Tensor]:
+        """G optimizer steps through ``graph``: mels (G, S, U, Freq, T) and
+        negatives (utt_index (G, K, U, N), seq_index (G, K, S, U, N, L)) on
+        the device, one learning rate per step. Returns the metrics stacked
+        (G, ...) on the device, without waiting for them: G sequential
+        ``train_step`` calls' bits."""
+        utt, seq = negatives
+        steps = [self.graph.step((mels[i], utt[i], seq[i]), lr) for i, lr in enumerate(lrs)]
+        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+
+    def _step(self, mels, utt_index, seq_index) -> Dict[str, torch.Tensor]:
+        """The step at the optimizer's learning rate: nothing in it waits
+        for the device or reads the host, so a CUDA graph can hold it."""
         cc = self.conf.model.cpc
         s, u = cc.n_speakers_per_batch, cc.n_utterances_per_speaker
         mels = mels.reshape(s * u, mels.shape[2], mels.shape[3])
@@ -105,8 +136,6 @@ class CPCTrainer:
         loss = cpc_loss + vq_loss
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
         self.optimizer.step()
         return {
             "loss": loss.detach(),
@@ -121,7 +150,7 @@ class CPCTrainer:
         return {
             "encoder": self.encoder.state_dict(),
             "cpc": self.cpc.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": optimizer_state(self.optimizer),
             "scheduler": {
                 "last_epoch": epoch,
                 "warmup_epochs": schedule.warmup_epochs,
@@ -141,7 +170,7 @@ class CPCTrainer:
         if "cpc" in ckpt:
             self.cpc.load_state_dict(ckpt["cpc"], strict=True)
         if "optimizer" in ckpt:
-            self.optimizer.load_state_dict(ckpt["optimizer"])
+            load_optimizer_state(self.optimizer, ckpt["optimizer"])
         return int(ckpt.get("epoch", 0))
 
 
@@ -163,13 +192,13 @@ class RunningMean:
         return self.values[k]
 
 
-def _fetch(groups: List[List[Dict[str, torch.Tensor]]]) -> List[Dict[str, np.ndarray]]:
-    """Per-step metrics of the groups, on the host (one transfer per key)."""
-    steps = [m for g in groups for m in g]
-    if not steps:
+def _fetch(groups: List[Dict[str, torch.Tensor]]) -> List[Dict[str, np.ndarray]]:
+    """Per-step metrics of the groups' stacked metrics, on the host (one
+    transfer per key)."""
+    if not groups:
         return []
-    stacked = {k: torch.stack([m[k] for m in steps]).cpu().numpy() for k in steps[0]}
-    return [{k: v[i] for k, v in stacked.items()} for i in range(len(steps))]
+    stacked = {k: torch.cat([g[k] for g in groups]).cpu().numpy() for k in groups[0]}
+    return [{k: v[i] for k, v in stacked.items()} for i in range(len(stacked["loss"]))]
 
 
 def train_model(
@@ -229,7 +258,7 @@ def train_model(
     epd = max(1, int(tc.epochs_per_dispatch))
     epochs = list(range(start_epoch, tc.n_epochs + 1))
     trainer.history = collections.deque(maxlen=HISTORY_STEPS)  # appended at each log
-    pending: List[List[Dict[str, torch.Tensor]]] = []  # per group; fetched at log time
+    pending: List[Dict[str, torch.Tensor]] = []  # per group; fetched at log time
     global_step = 0
     t0 = time.time()
     install_preemption_handler()
@@ -245,17 +274,28 @@ def train_model(
     for g0 in range(0, len(epochs), epd):
         group = epochs[g0 : g0 + epd]
         epoch = group[-1]
-        metrics = []
+        batches, utts, seqs, lrs = [], [], [], []
         for e in group:
-            lr = schedule(e - 1)
             loader.set_epoch(e)
             generator = negatives_generator(conf.seed, e, device)
             for mels, _spk in loader:
                 utt_index, seq_index = sample_negative_indices(
                     conf.model.cpc, length, generator, device
                 )
-                mels = torch.from_numpy(mels).to(device)
-                metrics.append(trainer.train_step(mels, utt_index, seq_index, lr))
+                batches.append(mels)
+                utts.append(utt_index)
+                seqs.append(seq_index)
+                lrs.append(schedule(e - 1))
+        # One traced group after the first (which holds the warm-up and
+        # the capture), once per run, as the JAX trainer's window.
+        with trace(conf.runtime.profile_dir if g0 == epd else None, device) as prof:
+            metrics = trainer.train_steps(
+                stage(batches, device), (torch.stack(utts), torch.stack(seqs)), lrs
+            )
+        if prof is not None:
+            busy = device_time(prof, len(lrs))["device_busy_ms"]
+            print(f"Wrote profiler trace to {conf.runtime.profile_dir}"
+                  + ("" if busy is None else f" ({busy:.3f} ms of device work per step)"))
         global_step += steps_per_epoch * len(group)
         pending.append(metrics)
 

@@ -1,7 +1,6 @@
 """Vocoder training: teacher-forced next-sample cross-entropy with a frozen encoder.
 
-The JAX package's ``training/vocoder.py`` on PyTorch, one eager step at a
-time:
+The JAX package's ``training/vocoder.py`` on PyTorch:
 
 - the frozen encoder gives the code indices of each batch's mels (no
   gradient, at the compute dtype); the vocoder's teacher-forced forward on
@@ -11,9 +10,14 @@ time:
   training forward and the backward);
 - the gradient is clipped to a global norm of ``gradient_clip_val`` in
   optax's form (scaled by max / norm only when norm >= max, no epsilon),
-  then ``torch.optim.Adam`` with betas (0.9, 0.999) and eps 1e-8, its
-  learning rate set per step from ``MultiStepSchedule``. Both GRU biases
-  are trained, as JAX's ``GRUParams`` has both;
+  then ``torch.optim.Adam`` with betas (0.9, 0.999) and eps 1e-8
+  (capturable on a card, ``step_graph.make_adam``), its learning rate set
+  per step from ``MultiStepSchedule``. Both GRU biases are trained, as
+  JAX's ``GRUParams`` has both;
+- ``train_step`` is one eager step; ``train_steps`` runs K of them through
+  the step graph (``training/step_graph.py``): on a card one CUDA graph of
+  the whole step, replayed per batch, on the CPU the same eager step per
+  batch; the counterpart of ``make_train_multi_step``;
 - validation every ``val_interval_epoch`` epochs on the three whole held-out
   utterances: reconstruction and conversion to speaker (spk + 5) %
   n_speakers, decoded with a seed of the global step through the AR decode
@@ -24,15 +28,19 @@ time:
 - checkpoints every ``checkpoint_minutes`` of wall time and at the end,
   auto-resume from the latest, a final save on preemption.
 
-``steps_per_dispatch`` keeps the JAX trainer's cadence only: checkpoint and
-preemption checks after each group of that many steps; ``max_steps`` stops
-at exactly that step.
+``train_vocoder`` stages each group of ``steps_per_dispatch`` batches on the
+device in one copy, with one learning rate per step; checkpoint and
+preemption checks follow each group, as the JAX trainer's dispatch groups;
+``max_steps`` stops at exactly that step; ``runtime.profile_dir`` traces the
+groups from 3 steps after the start to 6 steps after it, once. Validation
+decodes run outside the graph.
 """
 
 import collections
+import contextlib
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -44,9 +52,11 @@ from ..dsp.audio_io import write_wav
 from ..models.encoder import Encoder
 from ..models.vocoder import Vocoder, vocoder_forward, vocoder_generate
 from ..ops.ar_decode import fused_ar_decode, resolve_precision
+from ..utils.profiling import device_time, trace
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .preemption import install_preemption_handler, preemption_requested
 from .schedule import MultiStepSchedule
+from .step_graph import StepGraph, load_optimizer_state, make_adam, optimizer_state, set_lr, stage
 
 HISTORY_STEPS = 10_000  # per-step losses kept on the trainer
 SPEAKER_INCREMENT = 5  # validation converts speaker s to (s + 5) % n_speakers
@@ -67,7 +77,8 @@ class VocoderTrainer:
     """The vocoder and Adam on one device beside a frozen encoder.
 
     Weights are torch's default inits drawn on the CPU from ``conf.seed``,
-    then moved. ``step`` counts optimizer steps, ``epoch`` finished epochs.
+    then moved. ``step`` counts optimizer steps, ``epoch`` finished epochs;
+    ``graph`` steps ``train_steps``.
     """
 
     def __init__(self, conf: ConfGlobal, encoder: Encoder, device: Union[str, torch.device]):
@@ -78,9 +89,8 @@ class VocoderTrainer:
         torch.manual_seed(conf.seed)
         self.vocoder = Vocoder(tv.model.network).to(self.device).train()
         self.encoder = encoder.to(self.device).eval().requires_grad_(False)
-        self.optimizer = torch.optim.Adam(
-            self.vocoder.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8
-        )
+        self.optimizer = make_adam(self.vocoder.parameters(), self.device)
+        self.graph = StepGraph(self._step, self.optimizer, self.device)
         self.clip = tv.trainer.gradient_clip_val
         self.step = 0
         self.epoch = 0
@@ -102,22 +112,42 @@ class VocoderTrainer:
     def train_step(
         self, audio: torch.Tensor, mels: torch.Tensor, speakers: torch.Tensor, lr: float
     ) -> Dict[str, torch.Tensor]:
-        """One optimizer step; returns the loss as a tensor on the device,
-        without waiting for it."""
+        """One eager optimizer step; returns the loss as a tensor on the
+        device, without waiting for it."""
+        set_lr(self.optimizer, lr)
+        out = self._step(audio, mels, speakers)
+        self.step += 1
+        return out
+
+    def train_steps(
+        self, audio: torch.Tensor, mels: torch.Tensor, speakers: torch.Tensor,
+        lrs: Sequence[float],
+    ) -> Dict[str, torch.Tensor]:
+        """K optimizer steps through ``graph`` on audio (K, B, L + 1), mels
+        (K, B, n_mels, F) and speakers (K, B) on the device, one learning
+        rate per step. Returns the losses (K,) on the device, without
+        waiting for them: K sequential ``train_step`` calls' bits."""
+        losses = []
+        for i, lr in enumerate(lrs):
+            losses.append(self.graph.step((audio[i], mels[i], speakers[i]), lr)["loss"])
+            self.step += 1
+        return {"loss": torch.stack(losses)}
+
+    def _step(self, audio, mels, speakers) -> Dict[str, torch.Tensor]:
+        """The step at the optimizer's learning rate, without the host's
+        step count: nothing in it waits for the device or reads the host,
+        so a CUDA graph can hold it."""
         loss = self.loss(audio, mels, speakers)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         clip_by_global_norm_([p.grad for p in self.vocoder.parameters()], self.clip)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
         self.optimizer.step()
-        self.step += 1
         return {"loss": loss.detach()}
 
     def checkpoint(self) -> dict:
         return {
             "vocoder": self.vocoder.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": optimizer_state(self.optimizer),
             "step": self.step,
             "epoch": self.epoch,
         }
@@ -125,7 +155,7 @@ class VocoderTrainer:
     def load(self, path: Union[str, Path]) -> None:
         ckpt = load_checkpoint(path)
         self.vocoder.load_state_dict(ckpt["vocoder"], strict=True)
-        self.optimizer.load_state_dict(ckpt["optimizer"])
+        load_optimizer_state(self.optimizer, ckpt["optimizer"])
         self.step, self.epoch = int(ckpt["step"]), int(ckpt["epoch"])
 
 
@@ -186,7 +216,7 @@ def _grouped(items: Iterable, k: int):
 
 
 def _fetch(trainer: VocoderTrainer, pending: List[torch.Tensor]) -> List[float]:
-    losses = torch.stack(pending).cpu().tolist() if pending else []
+    losses = torch.cat(pending).cpu().tolist() if pending else []
     trainer.history.extend(losses)
     return losses
 
@@ -235,13 +265,27 @@ def train_vocoder(
 
     spd = max(1, int(tv.trainer.steps_per_dispatch))
     last_ckpt_time = t_log = time.time()
-    pending: List[torch.Tensor] = []  # device losses since the last log
+    pending: List[torch.Tensor] = []  # device losses (K,) per group since the last log
+    n_pending = 0
     install_preemption_handler()
     preempted = False
     prof = {"data_wait_s": 0.0, "train_dispatch_s": 0.0, "n_steps": 0}
+    # One traced window of groups, from 3 steps after the start (past the
+    # warm-up and the capture) to 6 after it, as JAX's.
+    profile_dir = conf.runtime.profile_dir
+    profile_start = trainer.step + 3
+    window = contextlib.ExitStack()
+    window_prof, window_steps, profiled = None, 0, False
 
     def done() -> bool:
         return max_steps is not None and trainer.step >= max_steps
+
+    def close_window() -> None:
+        if window_prof is not None:
+            window.close()
+            busy = device_time(window_prof, window_steps)["device_busy_ms"]
+            print(f"Wrote profiler trace to {profile_dir}"
+                  + ("" if busy is None else f" ({busy:.3f} ms of device work per step)"))
 
     for epoch in range(trainer.epoch + 1, tv.trainer.max_epochs + 1):
         if done():
@@ -250,18 +294,26 @@ def train_vocoder(
         t_iter = time.time()
         for group in _grouped(loader, spd):
             prof["data_wait_s"] += time.time() - t_iter
+            if max_steps is not None:
+                group = group[: max_steps - trainer.step]
+            if profile_dir and not profiled and trainer.step >= profile_start:
+                window_prof = window.enter_context(trace(profile_dir, device))
+                profiled = True
             t_step = time.time()
-            for audio, mel, spk in group:
-                if done():
-                    break
-                audio, mel, spk = (torch.from_numpy(x).to(device) for x in (audio, mel, spk))
-                m = trainer.train_step(audio, mel, spk, schedule(trainer.step))
-                pending.append(m["loss"])
-                prof["n_steps"] += 1
+            lrs = [schedule(trainer.step + j) for j in range(len(group))]
+            audio, mel, spk = (stage([b[i] for b in group], device) for i in range(3))
+            pending.append(trainer.train_steps(audio, mel, spk, lrs)["loss"])
+            n_pending += len(group)
+            prof["n_steps"] += len(group)
             prof["train_dispatch_s"] += time.time() - t_step
-            if len(pending) >= 100:
+            if window_prof is not None:
+                window_steps += len(group)
+                if trainer.step >= profile_start + 3:
+                    close_window()
+                    window_prof = None
+            if n_pending >= 100:
                 losses = _fetch(trainer, pending)
-                pending = []
+                pending, n_pending = [], 0
                 rate = len(losses) / (time.time() - t_log)
                 t_log = time.time()
                 loss_mean = sum(losses) / len(losses)
@@ -285,6 +337,7 @@ def train_vocoder(
             break
         if epoch % tv.trainer.val_interval_epoch == 0:
             validate(conf, trainer, val_items, sample_dir, trainer.step, writer)
+    close_window()  # a run that ended inside the window
 
     _fetch(trainer, pending)
     if tv.trainer.profiler is not None and prof["n_steps"]:
