@@ -63,6 +63,17 @@ Phases (any failure ends the run with a non-zero exit):
    and 4 vocoder steps at B 32 x 5,120 samples, losses, weights, buffers
    and Adam's state the same bits in two eager runs and the graph; and
    the card's Adam (capturable, fused) against the plain Adam on one step;
+4h. checkpoints: the JAX package's own checkpoints (the committed fixtures
+   of ``tests/torch_port_jax_fixtures.py``, small widths) through the
+   encode and convert CLIs, a server on their weights, train_cpc
+   ``resume=`` for 2 epochs through the step graph and train_vocoder's
+   auto-resume of a JAX run directory for 2 steps: the weights and Adam
+   state on the card the fixture's bits after each load, each resume at the
+   checkpoint's epoch or step, the kernels' launches; then both trainers at
+   their default widths: the host ms the loop is blocked per save, sync and
+   ``AsyncCheckpointer``, the step wall time with and without a save in
+   flight, the snapshot's device memory, the async file loading to the sync
+   file's tensors and a resume from it giving an uninterrupted run's bits;
 5. time each kernel, its plain version and, where one exists, the PyTorch
    library call for the same function at the main paths' shapes, beside
    the least time the card could take; the AR step in both modes at B in
@@ -102,6 +113,7 @@ import heapq
 import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2352,6 +2364,442 @@ def phase_graph_vs_eager(seed: int, card: str) -> None:
           f"phase 4g wall {time.perf_counter() - start:.3f} s  [{card}]")
 
 
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_ckpt"
+FIXTURE_RUN = Path("default") / "version_-1" / "checkpoints"
+CKPT_SAVES = 3  # saves of each kind a median is taken over (phase 4h)
+CKPT_WALL_STEPS = {"cpc": 20, "vocoder": 3}  # steps timed with and without a save in flight
+
+
+def _reset_counts() -> None:
+    """Every kernel wrapper's launch counter to 0."""
+    import importlib
+
+    from vectorquantizedcpc_tpu_torch.training.step_graph import COUNTED_MODULES
+
+    for name in COUNTED_MODULES:
+        module = importlib.import_module(f"vectorquantizedcpc_tpu_torch.ops.{name}")
+        for attr in list(vars(module)):
+            if attr.endswith("_LAUNCHES"):
+                setattr(module, attr, 0)
+
+
+def _nonzero_counts() -> dict:
+    from vectorquantizedcpc_tpu_torch.training.step_graph import launch_counts
+
+    return {k: v for k, v in launch_counts().items() if v}
+
+
+def _check_bits(what: str, got: dict, want: dict) -> int:
+    """Every tensor of ``got`` (on the card) equals ``want`` (CPU) bit for bit."""
+    check(set(got) == set(want), f"{what}: names {sorted(set(got) ^ set(want))[:6]} differ")
+    for name, value in got.items():
+        check(value.device.type == torch.device(DEVICE).type, f"{what}: {name} is on {value.device}")
+        check(torch.equal(value.cpu(), want[name]), f"{what}: {name} differs from the fixture")
+    return len(got)
+
+
+def _adam_bits(what: str, trainer, names: list, want: dict) -> int:
+    """The optimizer's state on the card equals ``want`` (a state_dict over
+    ``names`` in the optimizer's order) bit for bit; step = optax's count."""
+    params = trainer.optimizer.param_groups[0]["params"]
+    check(len(params) == len(names) == len(want["state"]), f"{what}: {len(params)} parameters")
+    for i, (name, p) in enumerate(zip(names, params)):
+        st = trainer.optimizer.state[p]
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            check(st[key].device == p.device and torch.equal(st[key].cpu().float(),
+                                                                 want["state"][i][key].float()),
+                  f"{what}: Adam {key} of {name} differs from the fixture")
+    return 3 * len(names)
+
+
+def phase_jax_checkpoints(seed: int, card: str, d: Path) -> dict:
+    """Phase 4h, first part: the JAX package's own checkpoints (committed
+    fixtures, ``tests/torch_port_jax_fixtures.py``) through the port's entry
+    points on the card, at the fixtures' small widths: export, convert and
+    a server on their weights, train_cpc resumed from the CPC checkpoint
+    for 2 epochs through the step graph, train_vocoder auto-resumed from the
+    JAX run directory for 2 steps. Weights and Adam state on the card equal
+    the fixture's bit for bit after each load; the first step or epoch after
+    a resume is the checkpoint's; counts zeroed before and read after each
+    path."""
+    from vectorquantizedcpc_tpu_torch.cli import convert as convert_cli
+    from vectorquantizedcpc_tpu_torch.cli import encode as encode_cli
+    from vectorquantizedcpc_tpu_torch.cli import preprocess as preprocess_cli
+    from vectorquantizedcpc_tpu_torch.cli import train_cpc, train_vocoder
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.data.corpus import SyntheticCorpus
+    from vectorquantizedcpc_tpu_torch.dsp.audio_io import read_wav, write_wav
+    from vectorquantizedcpc_tpu_torch.dsp.mel import wave_to_mel
+    from vectorquantizedcpc_tpu_torch.infer.convert import load_models
+    from vectorquantizedcpc_tpu_torch.infer.serving import ContinuousBatcher
+    from vectorquantizedcpc_tpu_torch.models.encoder import Encoder
+    from vectorquantizedcpc_tpu_torch.training.checkpoint import (checkpoint_format,
+                                                                  latest_checkpoint,
+                                                                  read_jax_checkpoint)
+    from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
+    from vectorquantizedcpc_tpu_torch.training.vocoder import VocoderTrainer
+    from vectorquantizedcpc_tpu_torch.weights import (cpc_train_state_from_jax, flatten,
+                                                      vocoder_from_jax_params,
+                                                      vocoder_train_state_from_jax)
+
+    start = time.perf_counter()
+    argv = json.loads((FIXTURES / "argv.json").read_text())
+    cpc_ckpt = FIXTURES / "cpc" / f"model.ckpt-{argv['cpc_epochs']}"
+    voc_ckpt = FIXTURES / "vocoder" / FIXTURE_RUN / f"model.ckpt-{argv['vocoder_steps']}"
+    check(checkpoint_format(cpc_ckpt) == checkpoint_format(voc_ckpt) == "jax", "fixture formats")
+    decode_s = {}
+    for name, path in (("cpc", cpc_ckpt), ("vocoder", voc_ckpt)):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            read_jax_checkpoint(path)
+            times.append(time.perf_counter() - t0)
+        decode_s[name] = (float(np.median(times)), path.stat().st_size)
+    cpc_tree, voc_tree = read_jax_checkpoint(cpc_ckpt), read_jax_checkpoint(voc_ckpt)
+    cpc_conf, voc_conf = load_conf(argv["cpc"]), load_conf(argv["vocoder"])
+    out = {"decode_s": decode_s}
+
+    # Export: the encode CLI at the default bf16, one batch (both mels pad to 64 frames).
+    _reset_counts()
+    n = encode_cli.main(argv["cpc"] + [f"cpc_checkpoint={cpc_ckpt}", f"in_dir={FIXTURES / 'mels'}",
+                                       f"out_dir={d / 'codes'}"])
+    torch.cuda.synchronize()
+    out["export"] = _nonzero_counts()
+    check(n == 2 and out["export"] == {"lstm_scan": 1},
+          f"export of {n} mels launched {out['export']}, expected lstm_scan once")
+    for mel in sorted((FIXTURES / "mels").glob("*.mel.npy")):
+        rows = np.loadtxt(d / "codes" / mel.name.replace(".mel.npy", ".txt"), ndmin=2)
+        check(rows.shape == (np.load(mel).shape[1] // 2, cpc_conf.dim_latent)
+              and bool(np.isfinite(rows).all()), f"export of {mel.name}: {rows.shape}")
+
+    # Convert 2 wavs, the second cut to 0.3 s (unequal lengths), bf16; then
+    # a server on the same weights (the ragged PreNet's kernels).
+    (d / "vc_in").mkdir()
+    frames = []
+    for i, wav in enumerate(sorted((FIXTURES / "wavs").glob("*.wav"))):
+        wave, sr = read_wav(wav)
+        wave = wave[: int(0.3 * sr)] if i else wave
+        write_wav(d / "vc_in" / wav.name, wave, sr)
+        frames.append(1 + len(wave) // voc_conf.data.dataset.mel_stft_stride)
+    batches = len({max(32, -(-f // 32) * 32) for f in frames})  # convert's 32-frame buckets
+    shutil.copy(FIXTURES / "wavs" / "speakers.json", d / "vc_in")
+    _reset_counts()
+    n = convert_cli.main(argv["vocoder"] + [
+        f"cpc_checkpoint={cpc_ckpt}", f"vocoder_checkpoint={voc_ckpt}", f"in_dir={d / 'vc_in'}",
+        f"out_dir={d / 'vc_out'}", f"synthesis_list={FIXTURES / 'synthesis.json'}"])
+    torch.cuda.synchronize()
+    out["convert"] = _nonzero_counts()
+    check(n == 2 and out["convert"] == {"ar_decode": batches},
+          f"convert of {n} wavs launched {out['convert']}, expected ar_decode {batches} times")
+    for i in range(2):
+        wave, _ = read_wav(d / "vc_out" / f"vc{i}.wav")
+        check(wave.size > 0 and bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) <= 1.0,
+              f"converted vc{i}")
+    encoder, vocoder = load_models(load_conf(argv["vocoder"] + [
+        f"cpc_checkpoint={cpc_ckpt}", f"vocoder_checkpoint={voc_ckpt}"]), torch.device(DEVICE))
+    from vectorquantizedcpc_tpu_torch.weights import encoder_from_jax_params
+
+    bits = _check_bits("convert encoder", encoder.state_dict(), encoder_from_jax_params(
+        flatten(cpc_tree["enc"]), flatten(cpc_tree["vq"])))
+    bits += _check_bits("convert vocoder", vocoder.state_dict(),
+                        vocoder_from_jax_params(flatten(voc_tree["params"])))
+    # Independent of the mapping: the LSTM's and AR GRU's kernels are the
+    # fixture's arrays transposed, the codebook the fixture's.
+    check(torch.equal(encoder.rnn.weight_hh_l0.cpu(),
+                      torch.from_numpy(np.ascontiguousarray(cpc_tree["enc"]["rnn"]["wh"].T)))
+          and torch.equal(vocoder.rnnms.rnn.weight_hh_l0.cpu(), torch.from_numpy(
+              np.ascontiguousarray(voc_tree["params"]["ar_gru"]["wh"].T)))
+          and torch.equal(encoder.codebook.embedding.cpu(),
+                          torch.from_numpy(cpc_tree["vq"]["embedding"].copy())),
+          "the card's LSTM / AR GRU kernels or codebook differ from the fixture's arrays")
+    pp = voc_conf.data.dataset.preprocess
+    requests = []
+    for i, wav in enumerate(sorted((d / "vc_in").glob("*.wav"))):
+        mel = wave_to_mel(read_wav(wav, sr=pp.sr)[0], pp)[None]
+        _, codes = encoder.encode(torch.from_numpy(mel).to(DEVICE), return_context=False)
+        requests.append((codes[0].cpu().numpy(), i))
+    net = voc_conf.training_vocoder.model.network
+    srv = ContinuousBatcher(vocoder, slots=2, segment_frames=4,
+                            max_frames=2 * max(len(z) for z, _ in requests) + 8, seed=seed,
+                            device=DEVICE)
+    _reset_counts()
+    rids = [srv.submit(z, spk) for z, spk in requests]
+    waves = srv.run()
+    torch.cuda.synchronize()
+    out["serve"] = _nonzero_counts()
+    steps = int(srv.stats["steps"])
+    check(out["serve"] == {"ar_decode": steps, "gru_scan": net.rnnms.prenet.num_layers,
+                           "gru_scan_masked": net.rnnms.prenet.num_layers},
+          f"server launched {out['serve']} for {steps} steps")
+    for (z, _), r in zip(requests, rids):
+        check(waves[r].shape == (2 * len(z) * net.rnnms.upsampling_t,)
+              and bool(np.isfinite(waves[r]).all()), f"served wave {waves[r].shape}")
+
+    # train_cpc resume= the JAX checkpoint: epochs 2 (re-run) and 3, 2 steps each.
+    SyntheticCorpus(d / "corpus", **argv["corpus"]).utterances()
+    data = _corpus_args(d)
+    preprocess_cli.main(data + [f"out_dir={d / 'features'}"])
+    fresh = CPCTrainer(cpc_conf, DEVICE)
+    fresh.load(cpc_ckpt)
+    want = cpc_train_state_from_jax(cpc_tree, fresh.param_names)
+    bits += _check_bits("train_cpc encoder", fresh.encoder.state_dict(), want["encoder"])
+    bits += _check_bits("train_cpc predictors", fresh.cpc.state_dict(), want["cpc"])
+    bits += _adam_bits("train_cpc", fresh, fresh.param_names, want["optimizer"])
+    del fresh
+    epoch = int(cpc_tree["epoch"])
+    _reset_counts()
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            trainer = train_cpc.main(argv["cpc"] + data + [
+                f"checkpoint_dir={d / 'ckpt_cpc'}", f"resume={cpc_ckpt}",
+                f"training.cpc.n_epochs={epoch + 1}", "training.cpc.log_interval=1",
+                "training.cpc.checkpoint_interval=1", f"seed={seed}"])
+    finally:
+        print(log.getvalue(), end="")
+    torch.cuda.synchronize()
+    launches = _nonzero_counts()
+    per_epoch = argv["corpus"]["n_speakers"] // cpc_conf.training.cpc.n_speakers_per_batch
+    check(f"Resume checkpoint from: {cpc_ckpt}: epoch {epoch}" in log.getvalue(),
+          "train_cpc did not resume at the checkpoint's epoch")
+    logged = [int(e) for e in re.findall(r"^epoch:(\d+),", log.getvalue(), re.M)]
+    check(logged == [epoch + 1] and trainer.global_step == 2 * per_epoch,
+          f"resumed train_cpc logged epochs {logged}, {trainer.global_step} steps")
+    graph = check_graph(trainer.graph, TRAIN_KERNELS, trainer.global_step,
+                        {**dict.fromkeys(TRAIN_KERNELS, 0), **launches}, "train_cpc resumed from JAX")
+    check(set(launches) == set(TRAIN_KERNELS), f"resumed train_cpc launched {launches}")
+    losses = [float(m["loss"]) for m in trainer.history]
+    check(len(losses) == trainer.global_step and all(np.isfinite(losses)), f"losses {losses}")
+    saved = sorted(p.name for p in (d / "ckpt_cpc").glob("*.pt"))
+    check(saved == [f"model.ckpt-{epoch + 1}.pt"], f"resumed train_cpc saved {saved}")
+    out["train_cpc"] = launches
+
+    # train_vocoder auto-resume from a copy of the JAX run directory: steps 4 and 5.
+    shutil.copytree(FIXTURES / "vocoder", d / "voc_run")
+    ckpt_dir = d / "voc_run" / FIXTURE_RUN
+    check(latest_checkpoint(ckpt_dir) == ckpt_dir / voc_ckpt.name, "latest of the JAX run")
+    fresh = VocoderTrainer(voc_conf, Encoder(voc_conf.model.encoder), DEVICE)
+    fresh.load(voc_ckpt)
+    names = [n for n, _ in fresh.vocoder.named_parameters()]
+    want = vocoder_train_state_from_jax(voc_tree, names)
+    bits += _check_bits("train_vocoder", fresh.vocoder.state_dict(), want["vocoder"])
+    bits += _adam_bits("train_vocoder", fresh, names, want["optimizer"])
+    del fresh
+    step = int(voc_tree["step"])
+    _reset_counts()
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            vtrainer = train_vocoder.main(argv["vocoder"] + data + [
+                f"cpc_checkpoint={cpc_ckpt}", f"training_vocoder.ckpt_log.dir_root={d / 'voc_run'}",
+                "data.loader.batch_size=4", "training_vocoder.trainer.max_epochs=3",
+                "training_vocoder.trainer.val_interval_epoch=10", f"seed={seed}"],
+                max_steps=step + 2)
+    finally:
+        print(log.getvalue(), end="")
+    torch.cuda.synchronize()
+    launches = _nonzero_counts()
+    check(f"Auto-resume from: {ckpt_dir / voc_ckpt.name}: step {step}, epoch "
+          f"{int(voc_tree['epoch'])}" in log.getvalue(), "train_vocoder did not resume the JAX run")
+    vg = vtrainer.graph
+    check(vtrainer.step == step + 2 and len(vtrainer.history) == 2
+          and all(np.isfinite(list(vtrainer.history))), f"resumed vocoder at {vtrainer.step}")
+    check(vg.eager_steps == 2 and vg.captures == 0
+          and launches == {k: vg.eager_steps for k in VOC_KERNELS},
+          f"resumed train_vocoder launched {launches} in {vg.eager_steps} eager steps")
+    saved = sorted(p.name for p in ckpt_dir.iterdir())
+    check(saved == [voc_ckpt.name, f"model.ckpt-{step + 2}.pt"], f"vocoder run holds {saved}")
+    out["train_vocoder"] = launches
+    print(f"JAX checkpoints (phase 4h): decoded the fixtures' CPC train state "
+          f"({decode_s['cpc'][1]:,} B) in {decode_s['cpc'][0] * 1e3:.3f} ms and the vocoder's "
+          f"({decode_s['vocoder'][1]:,} B) in {decode_s['vocoder'][0] * 1e3:.3f} ms (host, median "
+          f"of 3); {bits} tensors on the card the fixture's bits after the loads; export "
+          f"{json.dumps(out['export'])}; convert {json.dumps(out['convert'])}; server "
+          f"{json.dumps(out['serve'])} ({steps} steps); train_cpc resumed at epoch {epoch}, "
+          f"logged {logged}, {trainer.global_step} steps, {json.dumps(out['train_cpc'])}, graph "
+          f"{graph['eager_steps']} eager + {graph['replays']} replays; train_vocoder auto-resumed "
+          f"at step {step}: steps {step + 1}-{vtrainer.step}, {json.dumps(launches)}; "
+          f"phase wall {time.perf_counter() - start:.3f} s  [{card}]")
+    return out
+
+
+def _state_bytes(tree) -> int:
+    """Bytes of a checkpoint state's tensors on the card."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size() if tree.device.type == "cuda" else 0
+    if isinstance(tree, dict):
+        return sum(_state_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_state_bytes(v) for v in tree)
+    return 0
+
+
+def _loaded_bits(a, b, path="") -> list:
+    """Where two loaded checkpoints differ (names), tensors bit for bit."""
+    if isinstance(b, torch.Tensor):
+        return [] if isinstance(a, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b) \
+            else [path]
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or a.keys() != b.keys():
+            return [path]
+        return [p for k in b for p in _loaded_bits(a[k], b[k], f"{path}/{k}")]
+    if isinstance(b, (list, tuple)):
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in _loaded_bits(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+def _async_at_width(what: str, card: str, d: Path, make, run, state, modules) -> dict:
+    """One trainer at its default width through the step graph: host ms the
+    loop is blocked per save (sync ``save_checkpoint`` and
+    ``AsyncCheckpointer.save``, median of CKPT_SAVES each, in turns, one
+    step queued before each), step wall ms with and without a save in
+    flight (median of 3 runs each, in turns), the snapshot's extra device
+    memory; then a sync and an async save of one step, the async one
+    written while 3 more steps run: both files load to the same tensors;
+    a new trainer loads the async file and its next 3 steps (2 eager, then
+    the capture) give the uninterrupted run's losses and state bit for bit."""
+    from vectorquantizedcpc_tpu_torch.training.checkpoint import (AsyncCheckpointer,
+                                                                  load_checkpoint,
+                                                                  save_checkpoint)
+
+    trainer = make()
+    writer = AsyncCheckpointer()
+    run(trainer, 3)  # 2 eager warm-up steps, then the capture
+    torch.cuda.synchronize()
+    blocked = {"sync": [], "async": []}
+    for i in range(CKPT_SAVES):
+        for kind in ("sync", "async"):
+            run(trainer, 1)
+            t0 = time.perf_counter()
+            if kind == "sync":
+                save_checkpoint(d / f"{what}_sync", i, state(trainer))
+            else:
+                writer.save(d / f"{what}_async", i, state(trainer))
+            blocked[kind].append((time.perf_counter() - t0) * 1e3)
+            writer.wait()
+            torch.cuda.synchronize()
+    w = CKPT_WALL_STEPS[what]
+    wall = {"without": [], "with": []}
+    for _ in range(3):
+        for kind in ("without", "with"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "with":
+                writer.save(d / f"{what}_wall", 0, state(trainer))
+            run(trainer, w)
+            torch.cuda.synchronize()
+            wall[kind].append((time.perf_counter() - t0) * 1e3 / w)
+            writer.wait()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    writer.save(d / f"{what}_mem", 0, state(trainer))
+    extra = torch.cuda.max_memory_allocated() - base
+    writer.wait()
+    nbytes = _state_bytes(state(trainer))
+
+    # The same step saved both ways; 3 steps run while the async file is written.
+    torch.cuda.synchronize()
+    sync_path = save_checkpoint(d / f"{what}_eq_sync", 1, state(trainer))
+    writer.save(d / f"{what}_eq_async", 1, state(trainer))
+    first = trainer.graph.replays
+    losses = run(trainer, 3)
+    async_path = writer.wait()
+    torch.cuda.synchronize()
+    check(trainer.graph.replays == first + 3, f"{what}: the uninterrupted run left the graph")
+    diffs = _loaded_bits(load_checkpoint(async_path), load_checkpoint(sync_path))
+    check(not diffs, f"{what}: the async file differs from the sync one at {diffs[:6]}")
+    uninterrupted = _train_state(trainer, modules(trainer))
+    resumed = make()
+    resumed.load(async_path)
+    losses_resumed = run(resumed, 3, rewind=True)
+    torch.cuda.synchronize()
+    check(resumed.graph.eager_steps == 2 and resumed.graph.captures == 1,
+          f"{what}: the resumed trainer took {resumed.graph.eager_steps} eager steps")
+    diffs = _bit_diffs(uninterrupted, _train_state(resumed, modules(resumed)))
+    if not torch.equal(torch.stack(losses), torch.stack(losses_resumed)):
+        diffs["loss"] = float((torch.stack(losses) - torch.stack(losses_resumed)).abs().max())
+    check(not diffs, f"{what}: resumed from the async file, 3 steps differ from the "
+                     f"uninterrupted run: {dict(list(diffs.items())[:6])}")
+    med = {k: float(np.median(v)) for k, v in {**blocked, **{f"wall_{k}": v
+                                                             for k, v in wall.items()}}.items()}
+    print(f"checkpoint {what} (phase 4h, default widths, {nbytes / 2**20:.1f} MiB on the card): "
+          f"loop blocked per save {med['sync']:.3f} ms sync (saves {['%.3f' % x for x in blocked['sync']]}) "
+          f"vs {med['async']:.3f} ms async ({['%.3f' % x for x in blocked['async']]}), median of "
+          f"{CKPT_SAVES}; step wall {med['wall_without']:.3f} ms without a save in flight "
+          f"({['%.3f' % x for x in wall['without']]}) vs {med['wall_with']:.3f} ms with one "
+          f"({['%.3f' % x for x in wall['with']]}), {w} steps a run, median of 3; snapshot "
+          f"{extra / 2**20:.1f} MiB of extra device memory; the async file (written under 3 "
+          f"in-place graph steps) loads to the sync file's tensors; a trainer resumed from it "
+          f"gives the uninterrupted run's 3 losses and {len(uninterrupted)} state tensors bit "
+          f"for bit  [{card}]")
+    del trainer, resumed
+    torch.cuda.empty_cache()
+    return {**med, "blocked_ms": blocked, "wall_ms": wall, "snapshot_bytes": extra,
+            "state_bytes": nbytes}
+
+
+def phase_async_checkpoints(seed: int, card: str, d: Path) -> dict:
+    """Phase 4h, second part: ``AsyncCheckpointer`` against the synchronous
+    save for both trainers at their default widths (``_async_at_width``)."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.models.cpc import sample_negative_indices
+    from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
+    from vectorquantizedcpc_tpu_torch.training.schedule import WarmupSchedule
+
+    start = time.perf_counter()
+    conf = load_conf([f"seed={seed}"])
+    cc = conf.model.cpc
+    t = conf.data.dataset.cpc.clip_length_mel
+    rng = np.random.default_rng(seed + 30)
+    pool = 4
+    mels = torch.from_numpy(rng.normal(size=(pool, cc.n_speakers_per_batch,
+                                             cc.n_utterances_per_speaker, 80, t)).astype(
+        np.float32)).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 30)
+    negs = [sample_negative_indices(cc, t // 2 - cc.n_prediction_steps // 2, gen)
+            for _ in range(pool)]
+    schedule = WarmupSchedule(150, 1e-5, 4e-4, [20000], 0.25)
+    cursor = {}
+
+    def cpc_run(trainer, k, rewind=False):
+        """k graph steps on the pool's next batches (``rewind``: the 3
+        batches the last 3 steps of the other trainer took)."""
+        i = cursor.get("cpc", 0) - (3 if rewind else 0)
+        losses = []
+        for j in range(i, i + k):
+            b = j % pool
+            losses.append(trainer.train_steps(mels[b:b + 1], (negs[b][0][None], negs[b][1][None]),
+                                              [schedule(j)])["loss"][0])
+        if not rewind:
+            cursor["cpc"] = i + k
+        return losses
+
+    out = {"cpc": _async_at_width(
+        "cpc", card, d, lambda: CPCTrainer(conf, DEVICE), cpc_run,
+        lambda tr: tr.checkpoint(cursor["cpc"], schedule),
+        lambda tr: {"encoder": tr.encoder, "cpc": tr.cpc})}
+
+    batches = [_voc_batch(seed + 40 + i, conf) for i in range(pool)]
+    lr = conf.training_vocoder.model.optim.learning_rate
+
+    def voc_run(trainer, k, rewind=False):
+        i = cursor.get("vocoder", 0) - (3 if rewind else 0)
+        losses = []
+        for j in range(i, i + k):
+            a, m, s = batches[j % pool]
+            losses.append(trainer.train_steps(a[None], m[None], s[None], [lr])["loss"][0])
+        if not rewind:
+            cursor["vocoder"] = i + k
+        return losses
+
+    out["vocoder"] = _async_at_width(
+        "vocoder", card, d, lambda: _voc_trainer(seed, conf), voc_run,
+        lambda tr: tr.checkpoint(), lambda tr: {"vocoder": tr.vocoder})
+    print(f"phase 4h async checkpoints: {time.perf_counter() - start:.3f} s wall  [{card}]")
+    return out
+
+
 def _bound(n_bytes: float, flops: float, peak_flops: float):
     ops_ms, bytes_ms = flops / peak_flops * 1e3, n_bytes / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
@@ -2747,6 +3195,9 @@ def main() -> int:
         wide = phase_wide(args.seed, card, Path(tmp))
     phase_train_vocoder_step(args.seed, card)
     phase_graph_vs_eager(args.seed, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        jax_ckpt = phase_jax_checkpoints(args.seed, card, Path(tmp))
+        phase_async_checkpoints(args.seed, card, Path(tmp))
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
 
     from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
@@ -2793,6 +3244,8 @@ def main() -> int:
             "launches_by_path": {
                 "convert": converted["ar_decode"],
                 **{f"serve_{k}_slots": v["ar_decode"] for k, v in launches.items()},
+                "convert_jax_checkpoints": jax_ckpt["convert"]["ar_decode"],
+                "serve_jax_checkpoints": jax_ckpt["serve"]["ar_decode"],
             },
             "max_abs_err": compared["max_abs_err"],
             **timing["bf16"],
@@ -2825,6 +3278,8 @@ def main() -> int:
             "source": source + "gru_scan.cu",
             "replaces": f"vectorquantizedcpc_tpu/ops/gru_train.py:{line}",
             "launches": launches[8][name],
+            "launches_by_path": {"serve_8_slots": launches[8][name],
+                                 "serve_jax_checkpoints": jax_ckpt["serve"][name]},
             "max_abs_err": compared_gru[name],
             **timing_gru[name],
         }
@@ -2846,6 +3301,8 @@ def main() -> int:
             "source": source + "lstm_scan.cu",
             "replaces": "vectorquantizedcpc_tpu/ops/lstm_scan.py:48",
             "launches": exported["launches"],
+            "launches_by_path": {"export": exported["launches"],
+                                 "export_jax_checkpoint": jax_ckpt["export"]["lstm_scan"]},
             "max_abs_err": compared_lstm,
             **timing_lstm["export"],
             "training_shape": timing_lstm["training"],
@@ -2859,6 +3316,8 @@ def main() -> int:
             "source": source + src,
             "replaces": f"vectorquantizedcpc_tpu/ops/{line}",
             "launches": trained["launches"][name],
+            "launches_by_path": {"train_cpc": trained["launches"][name],
+                                 "train_cpc_jax_resume": jax_ckpt["train_cpc"][name]},
             "captured_per_step": trained["graph"]["captured_per_step"][name],
             "graph_replays": trained["graph"]["replays"],
             "max_abs_err": compared_train[name],
@@ -2880,6 +3339,8 @@ def main() -> int:
             "source": source + "gru_train.cu",
             "replaces": f"vectorquantizedcpc_tpu/ops/gru_train.py:{line}",
             "launches": trained_voc["launches"][name],
+            "launches_by_path": {"train_vocoder": trained_voc["launches"][name],
+                                 "train_vocoder_jax_resume": jax_ckpt["train_vocoder"][name]},
             "captured_per_step": trained_voc["graph"]["captured_per_step"][name],
             "graph_replays": trained_voc["graph"]["replays"],
             "max_abs_err": compared_gru_train[name],

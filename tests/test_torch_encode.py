@@ -4,12 +4,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from torch_port_util import SMALL, jax_models, port_models
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.infer.encode import encode_dataset as jax_encode_dataset
 from vectorquantizedcpc_tpu.models.encoder import encoder_encode
+from vectorquantizedcpc_tpu.training.checkpoint import save_checkpoint as jax_save_checkpoint
+from vectorquantizedcpc_tpu.training.cpc import init_train_state
 from vectorquantizedcpc_tpu_torch.cli import encode as cli
 from vectorquantizedcpc_tpu_torch.configs import load_conf
 from vectorquantizedcpc_tpu_torch.infer.encode import encode_dataset, load_encoder_checkpoint
@@ -140,7 +143,17 @@ def test_test_json_inputs_and_checkpoint_formats(models, rng, tmp_path):
     conf = load_conf(_overrides(tmp_path, "meta", "runtime.precision=float32"))
     assert encode_dataset(conf, device="cpu") == 1
     assert np.loadtxt(tmp_path / "meta" / "codes" / "u1.txt").shape[0] == LENGTHS[1] // 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    # The JAX package's checkpoint of a CPC train state holding the same
+    # weights: told from the .pt by its bytes, its enc and vq read bit for bit.
+    enc, vq, _ = models
+    state = init_train_state(jax_load_conf(SMALL), jax.random.key(0)).replace(enc=enc, vq=vq)
+    jax_save_checkpoint(tmp_path / "jax", 6, state)
+    loaded = load_encoder_checkpoint(tmp_path / "jax" / "model.ckpt-6", conf)
+    want = encoder.state_dict()
+    for name, value in loaded.state_dict().items():
+        assert torch.equal(value, want[name]), name
+    (tmp_path / "model.ckpt-6").write_bytes(b"not a checkpoint")
+    with pytest.raises(ValueError, match="neither a torch.save checkpoint"):
         load_encoder_checkpoint(tmp_path / "model.ckpt-6", conf)
 
 

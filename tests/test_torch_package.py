@@ -42,6 +42,32 @@ def test_imports_without_jax_or_the_jax_package():
     assert res.stdout.strip() == "ok"
 
 
+def test_imports_without_msgpack_or_yaml():
+    """The card's machine has neither: the port decodes checkpoints and
+    reads YAML itself (utils/msgpack.py, utils/yaml_subset.py)."""
+    code = (
+        "import sys, importlib\n"
+        "for name in ('msgpack', 'yaml', 'jax', 'flax', 'vectorquantizedcpc_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=PKG.parent,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_source_names_no_msgpack_or_yaml_import():
+    bad = re.compile(r"^\s*(import|from)\s+(msgpack|yaml|flax|jax)(\.|\s|$)", re.M)
+    for path in list(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]:
+        hits = bad.findall(path.read_text())
+        assert not hits, f"{path.name} imports {hits}"
+
+
 def test_source_names_no_jax_import():
     bad = re.compile(
         r"^\s*(import|from)\s+(jax|flax|vectorquantizedcpc_tpu)(\.|\s|$)", re.M

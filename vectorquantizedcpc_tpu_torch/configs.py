@@ -5,8 +5,12 @@ JAX package's config tree, under the same key paths, so a ``key=value``
 override written for one CLI works for the other
 (``training_vocoder.model.network.rnnms.wave_ar.size_h_rnn=32``,
 ``training.cpc.scheduler.milestones=[4]``). The defaults are a Python
-literal and overrides are parsed without yaml (scalars and flat lists). An
-unknown key raises ``ValueError``, as in the JAX CLI.
+literal. ``path_extend_conf=<yaml>`` merges a file over them and the
+``key=value`` overrides over both (CLI > file > defaults, the JAX
+package's order); files and values are read by ``utils/yaml_subset.py``,
+as ``yaml.safe_load`` reads them. An unknown key raises ``ValueError``, as
+in the JAX CLI, and a key of the JAX package's config that the port lacks
+says so.
 """
 
 import dataclasses
@@ -18,6 +22,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from .dsp.mel import ConfPreprocessing
+from .utils import yaml_subset
 
 MISSING = "???"
 
@@ -380,24 +385,20 @@ def resolve_compute_dtype(precision: str):
 
 _INTERP_RE = re.compile(r"^\$\{([A-Za-z0-9_.]+)\}$")
 
-
-def _parse_value(raw: str) -> Any:
-    """A value as yaml reads it: null, bool, int, float, a flat ``[a, b]``
-    list of those, else the string."""
-    raw = raw.strip()
-    if raw.startswith("[") and raw.endswith("]"):
-        inner = raw[1:-1].strip()
-        return [_parse_value(x) for x in inner.split(",")] if inner else []
-    if raw == "" or raw in ("null", "~"):
-        return None
-    if raw in ("true", "false"):
-        return raw == "true"
-    for cast in (int, float):
-        try:
-            return cast(raw)
-        except ValueError:
-            pass
-    return raw
+# Keys of the JAX package's config (its configs.py CONF_DEFAULT_STR) that the
+# port does not have: a file or override naming one raises, saying so.
+JAX_ONLY_KEYS = frozenset({
+    "dataset_name",
+    "training_vocoder.model.network.rnnms.prenet.bidirectional",
+    "runtime.mesh_data",
+    "runtime.mesh_model",
+    "runtime.use_pallas",
+    "runtime.prng_impl",
+    "runtime.num_cpu_devices",
+    "runtime.coordinator_address",
+    "runtime.num_processes",
+    "runtime.process_id",
+})
 
 
 def parse_cli_overrides(argv: List[str]) -> Dict[str, Any]:
@@ -413,7 +414,7 @@ def parse_cli_overrides(argv: List[str]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
             if not isinstance(node, dict):
                 raise ValueError(f"Cannot override through non-dict key: {key}")
-        node[parts[-1]] = _parse_value(raw)
+        node[parts[-1]] = yaml_subset.load_value(raw)
     return tree
 
 
@@ -475,8 +476,12 @@ def _instantiate(cls: type, tree: Dict[str, Any], path: str = "") -> Any:
     hints = typing.get_type_hints(cls)
     unknown = set(tree) - {f.name for f in dataclasses.fields(cls)}
     if unknown:
+        jax_only = sorted(k for k in (f"{path}.{u}" if path else u for u in unknown)
+                          if k in JAX_ONLY_KEYS)
         raise ValueError(
             f"Unknown config key(s) at '{path or '<root>'}': {sorted(unknown)}"
+            + (f"; {jax_only} belong to the JAX package's config and are not ported"
+               if jax_only else "")
         )
     kwargs = {}
     for f in dataclasses.fields(cls):
@@ -507,9 +512,20 @@ def conf_programatic(conf: ConfGlobal) -> ConfGlobal:
 
 
 def load_conf(argv: Optional[List[str]] = None) -> ConfGlobal:
-    """Defaults merged with ``key=value`` overrides (``sys.argv`` by default),
-    links resolved, every key validated, derived fields set."""
+    """Defaults, then the ``path_extend_conf`` yaml file if one is given,
+    then the ``key=value`` overrides (``sys.argv`` by default), as the JAX
+    package's ``load_conf``; links resolved after both, every key
+    validated, derived fields set."""
     if argv is None:
         argv = sys.argv[1:]
-    tree = _deep_merge(conf_default_tree(), parse_cli_overrides(list(argv)))
+    cli = parse_cli_overrides(list(argv))
+    tree = conf_default_tree()
+    extend = cli.pop("path_extend_conf", None)
+    if extend:
+        with open(extend) as f:
+            extension = yaml_subset.safe_load(f.read()) or {}
+        if not isinstance(extension, dict):
+            raise ValueError(f"path_extend_conf={extend}: the document is not a mapping")
+        tree = _deep_merge(tree, extension)
+    tree = _deep_merge(tree, cli)
     return conf_programatic(_instantiate(ConfGlobal, _resolve_interpolations(tree)))

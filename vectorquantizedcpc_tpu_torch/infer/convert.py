@@ -30,7 +30,8 @@ from ..dsp.mel import wave_to_mel
 from ..models.encoder import Encoder
 from ..models.vocoder import Vocoder
 from ..ops.ar_decode import fused_ar_decode, resolve_precision
-from ..weights import load_cpc_checkpoint, load_vocoder_checkpoint
+from ..weights import load_vocoder_checkpoint
+from .encode import load_encoder_checkpoint
 
 QUANTUM = 32  # mel frames per length bucket
 WINDOW = 3  # batches in flight
@@ -50,9 +51,10 @@ def _load_speakers(in_dir: Path) -> List[str]:
 
 
 def load_models(conf: ConfGlobal, device: torch.device) -> Tuple[Encoder, Vocoder]:
-    """Both models from reference ``.pt`` checkpoints, on ``device``."""
-    encoder = Encoder(conf.model.encoder)
-    encoder.load_state_dict(load_cpc_checkpoint(conf.cpc_checkpoint), strict=True)
+    """Both models, on ``device``, from reference ``.pt`` checkpoints or the
+    JAX package's ``model.ckpt-{n}`` (of a vocoder train state its
+    ``params``), each told apart by its contents."""
+    encoder = load_encoder_checkpoint(conf.cpc_checkpoint, conf)
     vocoder = Vocoder(conf.training_vocoder.model.network)
     vocoder.load_state_dict(
         load_vocoder_checkpoint(conf.vocoder_checkpoint), strict=True

@@ -5,7 +5,8 @@ The counterpart of the JAX package's ``infer/encode.py``:
 - inputs: a ``test.json`` metadata file whose entries end with a relative
   path (the reference datasets layout), or any directory tree of
   ``*.mel.npy`` files;
-- checkpoint: a reference ``.pt`` file (``{"encoder": state_dict, ...}``);
+- checkpoint: a reference ``.pt`` file (``{"encoder": state_dict, ...}``)
+  or the JAX package's ``model.ckpt-{n}``, told apart by their contents;
 - outputs: ``<out_dir>/<stem>.txt`` with ``%.16f`` rows of z, plus the
   ``auxiliary_embedding1`` (context c) and ``auxiliary_embedding2`` (pre-VQ
   SegFC output) dumps beside ``out_dir`` when ``save_auxiliary``.
@@ -38,14 +39,8 @@ WINDOW = 4  # batches in flight
 
 
 def load_encoder_checkpoint(path: Union[str, Path], conf: ConfGlobal) -> Encoder:
-    """The encoder of a reference ``.pt`` checkpoint, on the CPU, in eval mode."""
-    path = Path(path)
-    if path.suffix != ".pt":
-        raise NotImplementedError(
-            f"{path}: the port reads reference .pt checkpoints only; the JAX "
-            "package's msgpack trees are not ported yet (ROADMAP.md, queue 1 "
-            "item 6: native checkpoints)"
-        )
+    """The encoder of a reference ``.pt`` checkpoint or of the JAX package's
+    CPC train state (its ``enc`` and ``vq``), on the CPU, in eval mode."""
     encoder = Encoder(conf.model.encoder)
     encoder.load_state_dict(load_cpc_checkpoint(path), strict=True)
     return encoder.eval()

@@ -30,7 +30,8 @@ selection's forward and backward (``CpcNegativeScores``).
   ``epochs_per_dispatch`` epochs; ``resume`` re-runs the checkpointed epoch
   and does not save it again; ``runtime.profile_dir`` traces the second
   group. Checkpoints are ``model.ckpt-{epoch}.pt`` in the reference layout
-  (``training/checkpoint.py``).
+  (``training/checkpoint.py``), written off the loop by ``AsyncCheckpointer``;
+  ``resume`` takes such a file or the JAX package's ``model.ckpt-{epoch}``.
 """
 
 import collections
@@ -50,10 +51,12 @@ from ..device import resolve_device
 from ..models.cpc import CPCLoss, cpc_apply_with_indices, sample_negative_indices
 from ..models.encoder import Encoder
 from ..utils.profiling import device_time, trace
-from .checkpoint import load_checkpoint, save_checkpoint
+from ..weights import cpc_train_state_from_jax
+from .checkpoint import (AsyncCheckpointer, checkpoint_format, load_checkpoint,
+                         read_jax_checkpoint, save_checkpoint)
 from .preemption import install_preemption_handler, preemption_requested
 from .schedule import WarmupSchedule
-from .step_graph import StepGraph, load_optimizer_state, make_adam, optimizer_state, set_lr, stage
+from .step_graph import StepGraph, load_optimizer_state, make_adam, set_lr, stage
 
 FOLDED_BIAS = "rnn.bias_hh_l0"
 HISTORY_STEPS = 10_000  # per-step host metrics kept on the trainer
@@ -91,8 +94,10 @@ class CPCTrainer:
         fold_lstm_bias(self.encoder)
         self.encoder.to(self.device).train()
         self.cpc.to(self.device).train()
-        params = [p for n, p in self.encoder.named_parameters() if n != FOLDED_BIAS]
-        self.optimizer = make_adam(params + list(self.cpc.parameters()), self.device)
+        named = [(f"encoder.{n}", p) for n, p in self.encoder.named_parameters()
+                 if n != FOLDED_BIAS] + [(f"cpc.{n}", p) for n, p in self.cpc.named_parameters()]
+        self.param_names = [n for n, _ in named]  # the optimizer's order
+        self.optimizer = make_adam([p for _, p in named], self.device)
         self.graph = StepGraph(self._step, self.optimizer, self.device)
 
     def train_step(
@@ -150,7 +155,7 @@ class CPCTrainer:
         return {
             "encoder": self.encoder.state_dict(),
             "cpc": self.cpc.state_dict(),
-            "optimizer": optimizer_state(self.optimizer),
+            "optimizer": self.optimizer.state_dict(),
             "scheduler": {
                 "last_epoch": epoch,
                 "warmup_epochs": schedule.warmup_epochs,
@@ -163,8 +168,13 @@ class CPCTrainer:
         }
 
     def load(self, path: Union[str, Path]) -> int:
-        """Restore a checkpoint of this layout; returns its epoch."""
-        ckpt = load_checkpoint(path)
+        """Restore a checkpoint of this layout, or the JAX package's CPC train
+        state (parameters, VQ-EMA state, Adam's moments and count, epoch);
+        returns its epoch. Load before the step graph's capture."""
+        if checkpoint_format(path) == "jax":
+            ckpt = cpc_train_state_from_jax(read_jax_checkpoint(path), self.param_names)
+        else:
+            ckpt = load_checkpoint(path)
         self.encoder.load_state_dict(ckpt["encoder"], strict=True)
         fold_lstm_bias(self.encoder)  # a reference checkpoint may hold two biases
         if "cpc" in ckpt:
@@ -227,9 +237,9 @@ def train_model(
     start_epoch = 1
     resumed_epoch = None  # suppresses an immediate re-save of this epoch
     if conf.resume != "scratch":
-        print(f"Resume checkpoint from: {conf.resume}:")
         # Reference semantics re-run the checkpointed epoch (train_cpc.py:73,97).
         start_epoch = resumed_epoch = trainer.load(conf.resume)
+        print(f"Resume checkpoint from: {conf.resume}: epoch {start_epoch}")
 
     # Data: corpus -> preprocessed features -> per-speaker clips.
     corpus = get_corpus(conf.data.dataset.name, conf.data.corpus)
@@ -261,6 +271,7 @@ def train_model(
     pending: List[Dict[str, torch.Tensor]] = []  # per group; fetched at log time
     global_step = 0
     t0 = time.time()
+    ckpt_writer = AsyncCheckpointer()
     install_preemption_handler()
     # TensorBoard scalars when tensorboardX is there (optional, as in JAX).
     tb_writer = None
@@ -329,10 +340,11 @@ def train_model(
             pending = pending[-tc.log_interval :]
 
         if any(e % tc.checkpoint_interval == 0 and e != resumed_epoch for e in group):
-            path = save_checkpoint(checkpoint_dir, epoch, trainer.checkpoint(epoch, schedule))
-            print(f"Saving checkpoint: {path.name}")
+            ckpt_writer.save(checkpoint_dir, epoch, trainer.checkpoint(epoch, schedule))
+            print(f"Saving checkpoint (async): model.ckpt-{epoch}.pt")
 
         if preemption_requested():
+            ckpt_writer.wait()
             path = save_checkpoint(checkpoint_dir, epoch, trainer.checkpoint(epoch, schedule))
             print(f"Preempted: saved {path.name}; resume with resume={path}.")
             break
@@ -340,6 +352,7 @@ def train_model(
         if max_steps is not None and global_step >= max_steps:
             break
 
+    ckpt_writer.wait()
     trainer.epoch = epoch if epochs else start_epoch
     trainer.global_step = global_step
     if tb_writer is not None:

@@ -75,15 +75,6 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
             group["lr"] = lr
 
 
-def optimizer_state(optimizer: torch.optim.Optimizer) -> dict:
-    """``state_dict()`` with each learning rate as a float, the reference layout."""
-    state = optimizer.state_dict()
-    for group in state["param_groups"]:
-        if isinstance(group["lr"], torch.Tensor):
-            group["lr"] = float(group["lr"])
-    return state
-
-
 def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
     """``load_state_dict`` that keeps this optimizer's learning-rate tensor
     and its capturable and fused flags, and moves the step counts where

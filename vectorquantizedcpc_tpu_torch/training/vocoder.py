@@ -25,8 +25,11 @@ The JAX package's ``training/vocoder.py`` on PyTorch:
   bf16 otherwise; on the CPU the plain f32 ``vocoder_generate`` in every
   mode, as JAX ``training/vocoder.py:234-249`` keeps its scan path off the
   TPU; written as wavs;
-- checkpoints every ``checkpoint_minutes`` of wall time and at the end,
-  auto-resume from the latest, a final save on preemption.
+- checkpoints every ``checkpoint_minutes`` of wall time, written off the
+  loop by ``AsyncCheckpointer``, and at the end; auto-resume from the
+  latest of the port's ``model.ckpt-{step}.pt`` and the JAX package's
+  ``model.ckpt-{step}`` in the run's directory; a final save on
+  preemption.
 
 ``train_vocoder`` stages each group of ``steps_per_dispatch`` batches on the
 device in one copy, with one learning rate per step; checkpoint and
@@ -53,10 +56,12 @@ from ..models.encoder import Encoder
 from ..models.vocoder import Vocoder, vocoder_forward, vocoder_generate
 from ..ops.ar_decode import fused_ar_decode, resolve_precision
 from ..utils.profiling import device_time, trace
-from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from ..weights import vocoder_train_state_from_jax
+from .checkpoint import (AsyncCheckpointer, checkpoint_format, latest_checkpoint,
+                         load_checkpoint, read_jax_checkpoint, save_checkpoint)
 from .preemption import install_preemption_handler, preemption_requested
 from .schedule import MultiStepSchedule
-from .step_graph import StepGraph, load_optimizer_state, make_adam, optimizer_state, set_lr, stage
+from .step_graph import StepGraph, load_optimizer_state, make_adam, set_lr, stage
 
 HISTORY_STEPS = 10_000  # per-step losses kept on the trainer
 SPEAKER_INCREMENT = 5  # validation converts speaker s to (s + 5) % n_speakers
@@ -147,13 +152,20 @@ class VocoderTrainer:
     def checkpoint(self) -> dict:
         return {
             "vocoder": self.vocoder.state_dict(),
-            "optimizer": optimizer_state(self.optimizer),
+            "optimizer": self.optimizer.state_dict(),
             "step": self.step,
             "epoch": self.epoch,
         }
 
     def load(self, path: Union[str, Path]) -> None:
-        ckpt = load_checkpoint(path)
+        """Restore a checkpoint of this layout, or the JAX package's vocoder
+        train state (parameters, Adam's moments and count, step, epoch).
+        Load before the step graph's capture."""
+        if checkpoint_format(path) == "jax":
+            names = [n for n, _ in self.vocoder.named_parameters()]
+            ckpt = vocoder_train_state_from_jax(read_jax_checkpoint(path), names)
+        else:
+            ckpt = load_checkpoint(path)
         self.vocoder.load_state_dict(ckpt["vocoder"], strict=True)
         load_optimizer_state(self.optimizer, ckpt["optimizer"])
         self.step, self.epoch = int(ckpt["step"]), int(ckpt["epoch"])
@@ -240,19 +252,11 @@ def train_vocoder(
     ckpt_dir = (Path(tv.ckpt_log.dir_root) / tv.ckpt_log.name_exp / tv.ckpt_log.name_version
                 / "checkpoints")
     sample_dir = ckpt_dir.parent / "samples"
-    writer = None
-    try:  # TensorBoard when tensorboardX is there (optional, as in JAX)
-        from tensorboardX import SummaryWriter
-
-        writer = SummaryWriter(str(ckpt_dir.parent))
-    except Exception:
-        pass
-
     trainer = VocoderTrainer(conf, encoder, device)
     last = latest_checkpoint(ckpt_dir)
     if last is not None:
-        print(f"Auto-resume from: {last}")
         trainer.load(last)
+        print(f"Auto-resume from: {last}: step {trainer.step}, epoch {trainer.epoch}")
     schedule = MultiStepSchedule(base_lr=tv.model.optim.learning_rate,
                                  milestones=tv.model.optim.sched_milestones,
                                  gamma=tv.model.optim.sched_gamma)
@@ -262,11 +266,22 @@ def train_vocoder(
     if len(loader) == 0:
         raise ValueError(f"Not enough utterances for batch size {conf.data.loader.batch_size}.")
     val_items = dm.val_items()
+    # TensorBoard when tensorboardX is there (optional, as in JAX); opened
+    # after the resume and the data, whose failures then leave no writer
+    # thread behind.
+    writer = None
+    try:
+        from tensorboardX import SummaryWriter
+
+        writer = SummaryWriter(str(ckpt_dir.parent))
+    except Exception:
+        pass
 
     spd = max(1, int(tv.trainer.steps_per_dispatch))
     last_ckpt_time = t_log = time.time()
     pending: List[torch.Tensor] = []  # device losses (K,) per group since the last log
     n_pending = 0
+    ckpt_writer = AsyncCheckpointer()
     install_preemption_handler()
     preempted = False
     prof = {"data_wait_s": 0.0, "train_dispatch_s": 0.0, "n_steps": 0}
@@ -322,7 +337,7 @@ def train_vocoder(
                 if writer is not None:
                     writer.add_scalar("loss", loss_mean, trainer.step)
             if (time.time() - last_ckpt_time) / 60.0 >= checkpoint_minutes:
-                save_checkpoint(ckpt_dir, trainer.step, trainer.checkpoint())
+                ckpt_writer.save(ckpt_dir, trainer.step, trainer.checkpoint())
                 last_ckpt_time = time.time()
             if preemption_requested():
                 preempted = True
@@ -352,6 +367,7 @@ def train_vocoder(
                 prof["train_dispatch_s"], 1e3 * prof["train_dispatch_s"] / n, n,
             )
         )
+    ckpt_writer.wait()
     save_checkpoint(ckpt_dir, trainer.step, trainer.checkpoint())
     if writer is not None:
         writer.close()
