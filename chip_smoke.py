@@ -14,13 +14,13 @@ Phases (any failure ends the run with a non-zero exit):
    masked) at the serving PreNet's shape, and the masked grid forward at a
    PreNet of 256 and of 2,500 (wh staged in K chunks); the LSTM scan at
    the export's shape and the CPC training shape; the LSTM scan's training forward and backward (and autograd
-   through them) at B 64 / 3, T 70 / 1, and the CPC selection forward and
-   backward at the training shape, at an L that is not a multiple of 8 and
-   at Z 300, with every collision tied bit for bit; the grid LSTM kernels
+   through them) at B 64 / 32 (a rank's share at mesh_data 2) / 3, T 70 /
+   1, and the CPC selection forward and backward at the training shape, at
+   a rank's S 4, at an L that is not a multiple of 8 and at Z 300, with every collision tied bit for bit; the grid LSTM kernels
    at H 512 and 37, export and training shapes, and at H 1,600 (K chunks),
    with autograd; the GRU scan's grid kernels (training forward, backward,
-   and autograd through them) at the vocoder's T 5,120, B 32, H 896, and at
-   B 3, T 1, H 200 and H 2,500 (K chunks), the no-grad forward's bits equal
+   and autograd through them) at the vocoder's T 5,120, B 32 and 16 (a
+   rank's share at mesh_data 2), H 896, and at B 3, T 1, H 200 and H 2,500 (K chunks), the no-grad forward's bits equal
    to the training forward's;
 4. convert 8 synthetic wavs end to end through the CLI entry point, on
    full-width random weights saved as reference-format checkpoints, at
@@ -74,6 +74,23 @@ Phases (any failure ends the run with a non-zero exit):
    ``AsyncCheckpointer``, the step wall time with and without a save in
    flight, the snapshot's device memory, the async file loading to the sync
    file's tensors and a resume from it giving an uninterrupted run's bits;
+4i. data parallelism at world size 1 on NCCL: 10 CPC and 4 vocoder steps
+   through the step graph with the all_reduce inside the capture, the same
+   bits as the trainers without a process group, each training kernel once
+   a step in the graph, both step times in turns;
+4j. two ranks on card 0 over gloo (``--dp-rank``: two processes of this
+   script, started by torchrun), eager ``train_step``: 3 CPC steps (S 8, 4
+   a rank) and 2 vocoder steps (B 32, 16 a rank) at bf16 through the
+   kernels; both ranks the same bits, the result against one process on
+   the global batches (losses, EMA buffers, shares of the weights), each
+   rank's launches;
+4k. phase 4b's requests through a 2-shard server on card 0 against a
+   1-shard one, 8 slots, greedy bf16: the same classes, both served
+   samples/s; then sampled twice with 2 shards: the same waves, the ragged
+   PreNet's kernels once a drain and a decode launch per shard and step;
+4l. the train_cpc CLI at ``runtime.mesh_data=2`` over NCCL on phase 4d's
+   corpus, where two cards are (a printed line says it did not run
+   otherwise);
 5. time each kernel, its plain version and, where one exists, the PyTorch
    library call for the same function at the main paths' shapes, beside
    the least time the card could take; the AR step in both modes at B in
@@ -119,6 +136,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -179,9 +197,11 @@ MAX_PRE_VQ_ERR = 5e-2
 CUDNN_DTYPE = torch.float16  # the library yardstick's type: cuDNN's RNN takes fp16
 # CPC training at the default config: S 8 x U 8 clips of 140 mel frames give
 # T' = 70 latent frames; K = 6 steps, N = 17 negatives, L = 64 anchors, Z 64.
-TRAIN_LSTM_SHAPES = {"training": (64, 70), "partial cluster": (3, 70), "one step": (64, 1)}
-SELECT_SHAPES = {"training": (6, 8, 8, 17, 64, 64), "odd L": (6, 8, 8, 17, 61, 64),
-                 "Z 300": (6, 8, 8, 17, 64, 300)}
+# "data parallel": a rank's share at runtime.mesh_data=2 (S 4, phase 4j).
+TRAIN_LSTM_SHAPES = {"training": (64, 70), "data parallel": (32, 70),
+                     "partial cluster": (3, 70), "one step": (64, 1)}
+SELECT_SHAPES = {"training": (6, 8, 8, 17, 64, 64), "data parallel": (6, 4, 8, 17, 64, 64),
+                 "odd L": (6, 8, 8, 17, 61, 64), "Z 300": (6, 8, 8, 17, 64, 300)}
 # LSTM backward, kernel against plain version: bf16(da) one ulp apart where
 # the f32 da sits on a rounding boundary (2^-8 relative), carried on by the
 # gates: 1e-2 of the largest value plus 1e-3. Autograd's dwh and dxproj
@@ -210,7 +230,9 @@ MAX_STEP_GRAD_REL = 5e-2
 PEAK_F32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 # The vocoder's AR GRU in training: B 32 clips of 32 mel frames x hop 160.
 VOC_T, VOC_B, VOC_H = 5120, 32, 896
-GRU_TRAIN_SHAPES = {"training": (VOC_T, VOC_B, VOC_H), "partial tile": (9, 3, VOC_H),
+GRU_TRAIN_SHAPES = {"training": (VOC_T, VOC_B, VOC_H),
+                    "data parallel": (VOC_T, VOC_B // 2, VOC_H),  # B 16 a rank, phase 4j
+                    "partial tile": (9, 3, VOC_H),
                     "one step": (1, VOC_B, VOC_H), "H 200": (640, VOC_B, 200),
                     "K chunks": (48, 8, 2500)}
 VOC_EPOCHS, VOC_VAL_EVERY = 4, 2  # 125 training utterances at B 32: 3 steps an epoch
@@ -2188,14 +2210,15 @@ def phase_wide(seed: int, card: str, d: Path) -> dict:
     return {"train": train_counts, "export": export_counts, "serve": counts, "graph": graph}
 
 
-def _voc_trainer(seed: int, conf):
-    """A vocoder trainer at ``conf``'s widths beside a random encoder from ``seed``."""
+def _voc_trainer(seed: int, conf, group=None):
+    """A vocoder trainer at ``conf``'s widths beside a random encoder from
+    ``seed`` (a data-parallel rank of ``group``, if given)."""
     from vectorquantizedcpc_tpu_torch.models.encoder import Encoder
     from vectorquantizedcpc_tpu_torch.training.vocoder import VocoderTrainer
 
     encoder = Encoder(conf.model.encoder)
     randomize(encoder, np.random.default_rng(seed + 15))
-    return VocoderTrainer(conf, encoder, DEVICE)
+    return VocoderTrainer(conf, encoder, DEVICE, group)
 
 
 def _voc_batch(seed: int, conf):
@@ -3144,13 +3167,419 @@ def _time_step_paths(what: str, run: dict, graph, warmup: int, n: int, reps: int
     return out
 
 
+# Data parallelism and sharded serving (phases 4i-4l).
+DP_CPC_STEPS, DP_VOC_STEPS = 3, 2  # phase 4j's eager steps on two ranks
+DP_RANK_LIMIT_S = 300  # phase 4j's two rank processes, start-up and build cache included
+DP_PRECISIONS = ("bfloat16", "float32")
+DP_EMA_REL = 1e-2  # of the buffer's largest element, bf16
+# Phase 4j's bounds against one process on the global batches. float32 (the
+# CPC step only): tests/test_torch_parallel.py's (later-step losses 1e-4,
+# 99 % of the weights within 0.1 lr, EMA 1e-3). bfloat16, both steps: the
+# train step's loss bound (MAX_STEP_LOSS_REL), DP_EMA_REL, and shares of the
+# weights within 0.1 lr set below the H100's readings at seed 0 (CPC 97.9 %,
+# vocoder 98.07 % and 98.56 %); every weight within 2 lr a step. A rank
+# that trained on half the batch, or a wrong B 16 backward, moves most
+# weights by a whole lr step.
+DP_TOLERANCES = {
+    "float32": {"cpc_loss": 1e-4, "cpc_share": 0.99, "ema": 1e-3},
+    "bfloat16": {"cpc_loss": MAX_STEP_LOSS_REL, "voc_loss": MAX_STEP_LOSS_REL,
+                 "cpc_share": 0.95, "voc_share": 0.97, "ema": DP_EMA_REL},
+}
+SHARDED_SLOTS = 8  # phase 4k: 2 shards of 4 slots on one card against 1 of 8
+
+
+def _cpc_group(seed: int, conf, n: int):
+    """``n`` CPC steps' inputs on the card: mels (n, S, U, 80, T), the
+    stacked negatives and learning rates."""
+    from vectorquantizedcpc_tpu_torch.models.cpc import sample_negative_indices
+
+    cc = conf.model.cpc
+    t = conf.data.dataset.cpc.clip_length_mel
+    rng = np.random.default_rng(seed + 20)
+    mels = torch.from_numpy(rng.normal(size=(n, cc.n_speakers_per_batch,
+                                             cc.n_utterances_per_speaker, 80, t)).astype(
+        np.float32)).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 20)
+    negs = [sample_negative_indices(cc, t // 2 - cc.n_prediction_steps // 2, gen)
+            for _ in range(n)]
+    stacked = (torch.stack([u for u, _ in negs]), torch.stack([q for _, q in negs]))
+    return mels, stacked, [4e-4 * (i + 1) / n for i in range(n)]
+
+
+def _voc_group(seed: int, conf, k: int):
+    batches = [_voc_batch(seed + i, conf) for i in range(k)]
+    return tuple(torch.stack([b[j] for b in batches]) for j in range(3))
+
+
+def phase_world_one(seed: int, card: str) -> dict:
+    """Phase 4i: a process group of one rank on NCCL, through the step graph:
+    GRAPH_CPC_STEPS CPC and GRAPH_VOC_STEPS vocoder steps with the gradient
+    and metric all_reduce (and the VQ statistics') inside the CUDA graph, the
+    same bits as the trainers without a group; the graph holds each training
+    kernel once a step; both step times in turns."""
+    import torch.distributed as dist
+
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
+
+    start = time.perf_counter()
+    conf = load_conf([f"seed={seed}"])
+    mels, negs, lrs = _cpc_group(seed, conf, GRAPH_CPC_STEPS)
+    audio, vmels, spk = _voc_group(seed, conf, GRAPH_VOC_STEPS)
+    vlrs = [conf.training_vocoder.model.optim.learning_rate] * GRAPH_VOC_STEPS
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    out = {}
+    try:
+        group = dist.group.WORLD
+        paths = (
+            ("CPC", lambda g: CPCTrainer(conf, DEVICE, g),
+             lambda tr: tr.train_steps(mels, negs, lrs)["loss"],
+             lambda tr: {"encoder": tr.encoder, "cpc": tr.cpc}, TRAIN_KERNELS, _train_counts,
+             GRAPH_CPC_STEPS),
+            ("vocoder", lambda g: _voc_trainer(seed, conf, g),
+             lambda tr: tr.train_steps(audio, vmels, spk, vlrs)["loss"],
+             lambda tr: {"vocoder": tr.vocoder}, VOC_KERNELS, _voc_counts, GRAPH_VOC_STEPS),
+        )
+        for what, make, run, modules, kernels, counts, n in paths:
+            plain = make(None)
+            loss_plain = run(plain)
+            grouped = make(group)
+            torch.cuda.synchronize()
+            counts(reset=True)
+            loss_group = run(grouped)
+            torch.cuda.synchronize()
+            launches = counts()
+            graph = check_graph(grouped.graph, kernels, n, launches, f"world 1 NCCL {what}")
+            a, b = _train_state(plain, modules(plain)), _train_state(grouped, modules(grouped))
+            check(set(a) == set(b), f"world 1 {what}: state names differ")
+            diffs = _bit_diffs(a, b)
+            if not torch.equal(loss_plain, loss_group):
+                diffs["loss"] = float((loss_plain - loss_group).abs().max())
+            check(not diffs, f"world 1 NCCL {what}: differs from no group: "
+                             f"{dict(list(diffs.items())[:6])}")
+            ms = {"no group": [], "NCCL world 1": []}
+            for label, tr in (("no group", plain), ("NCCL world 1", grouped)) * 3:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(tr)
+                torch.cuda.synchronize()
+                ms[label].append(1e3 * (time.perf_counter() - t0) / n)
+            med = {k: float(np.median(v)) for k, v in ms.items()}
+            out[what] = {"launches": launches, "graph": graph, "ms": med}
+            print(f"world 1 NCCL {what}: {n} steps through the step graph, the all_reduce "
+                  f"inside the capture: losses, weights, buffers and Adam's state the same "
+                  f"bits as without a group ({len(a)} tensors); captured a step "
+                  f"{json.dumps(graph['captured_per_step'])}; step wall ms, median of 3 runs "
+                  f"in turns: no group {med['no group']:.3f} "
+                  f"({', '.join(f'{x:.3f}' for x in ms['no group'])}), NCCL world 1 "
+                  f"{med['NCCL world 1']:.3f} ({', '.join(f'{x:.3f}' for x in ms['NCCL world 1'])})"
+                  f"  [{card}]")
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 4i wall {time.perf_counter() - start:.3f} s  [{card}]")
+    return out
+
+
+def _agreement(got: dict, ref: dict, lr: float, steps: int, slice_of=None) -> tuple:
+    """Shares of the weights within 0.1 lr of ``ref`` (all; and those
+    ``slice_of`` picks) and the 4 tensors with the lowest shares; raises if
+    one is more than 2 lr a step off."""
+    close = total = close_s = total_s = 0
+    shares = {}
+    for key, r in ref.items():
+        d = (got[key].double() - r.double()).abs()
+        check(float(d.max()) <= 2 * lr * steps * 1.01, f"2 ranks vs one process: {key} "
+                                                       f"{float(d.max())} off")
+        c = int((d <= 0.1 * lr).sum())
+        shares[key] = round(c / d.numel(), 4)
+        close, total = close + c, total + d.numel()
+        if slice_of is not None and slice_of(key):
+            close_s, total_s = close_s + c, total_s + d.numel()
+    worst = dict(sorted(shares.items(), key=lambda kv: kv[1])[:4])
+    return close / total, (close_s / total_s if total_s else 1.0), worst
+
+
+def _dp_steps(conf, inputs: dict, seed: int, group=None, mesh=None) -> dict:
+    """Phase 4j's eager steps from ``inputs``' weights, on this rank's share
+    of each global batch (the whole batch without ``mesh``): the losses,
+    every state tensor and the kernels' launches; the vocoder's only where
+    DP_TOLERANCES has them (at bf16: its float32 step's plain GRU loop over
+    5,120 samples takes seconds)."""
+    from vectorquantizedcpc_tpu_torch.models.cpc import shard_negatives
+    from vectorquantizedcpc_tpu_torch.parallel.sharding import shard_batch
+    from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
+
+    to = lambda x: x.to(DEVICE)
+    share = lambda x: shard_batch(to(x), mesh)
+    _train_counts(reset=True)
+    tr = CPCTrainer(conf, DEVICE, group)
+    tr.encoder.load_state_dict(inputs["encoder"], strict=True)
+    tr.cpc.load_state_dict(inputs["cpc"], strict=True)
+    cpc_losses = [tr.train_step(share(m), to(u), to(q) if mesh is None else
+                                shard_negatives(to(q), mesh.rank, mesh.world), lr)["loss"]
+                  for m, u, q, lr in zip(inputs["mels"], inputs["utt"], inputs["seq"],
+                                         inputs["lrs"])]
+    torch.cuda.synchronize()
+    out = {"cpc_losses": torch.stack(cpc_losses).cpu(), "cpc_counts": _train_counts(),
+           "cpc_state": {k: v.cpu() for k, v in _train_state(
+               tr, {"encoder": tr.encoder, "cpc": tr.cpc}).items()}}
+    if "voc_loss" not in DP_TOLERANCES[conf.runtime.precision]:
+        return out
+    _voc_counts(reset=True)
+    vt = _voc_trainer(seed, conf, group)
+    vt.vocoder.load_state_dict(inputs["vocoder"], strict=True)
+    voc_losses = [vt.train_step(*(share(x) for x in b), lr)["loss"]
+                  for b, lr in zip(inputs["voc"], inputs["vlrs"])]
+    torch.cuda.synchronize()
+    out.update({"voc_losses": torch.stack(voc_losses).cpu(), "voc_counts": _voc_counts(),
+                "voc_state": {k: v.cpu() for k, v in _train_state(
+                    vt, {"vocoder": vt.vocoder}).items()}})
+    return out
+
+
+def dp_rank(d: Path, seed: int) -> None:
+    """One of phase 4j's two ranks (``--dp-rank``): eager steps of both
+    trainers at each of DP_PRECISIONS on this rank's share of the global
+    batches, on card 0 over gloo; writes the results."""
+    global DEVICE
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.parallel.mesh import mesh_from_conf
+
+    argv = [f"seed={seed}", "runtime.platform=cuda:0", "runtime.mesh_data=2"]
+    mesh = mesh_from_conf(load_conf(argv).runtime)
+    check(mesh is not None and mesh.world == 2 and mesh.device == torch.device("cuda", 0),
+          f"rank mesh {mesh}")
+    DEVICE = str(mesh.device)
+    inputs = torch.load(d / "inputs.pt", weights_only=False)
+    torch.save({p: _dp_steps(load_conf(argv + [f"runtime.precision={p}"]), inputs, seed,
+                             mesh.group, mesh) for p in DP_PRECISIONS},
+               d / f"rank{mesh.rank}.pt")
+
+
+def phase_two_ranks(seed: int, card: str, d: Path) -> dict:
+    """Phase 4j: two ranks on card 0 over gloo (NCCL refuses two ranks on
+    one device), eager train_step, in two processes that time-slice the
+    card: DP_CPC_STEPS CPC steps (S 8, 4 a rank) and DP_VOC_STEPS vocoder
+    steps (B 32, 16 a rank). Both ranks end with the same bits. Against one
+    process on the global batches: the CPC step at float32 within the
+    tolerances of tests/test_torch_parallel.py (where only the selection
+    pair of the kernels runs); both steps at bf16, through every training
+    kernel, the losses within MAX_STEP_LOSS_REL, the EMA buffers within
+    DP_EMA_REL, every weight within 2 lr a step and the shares of the
+    weights within 0.1 lr at DP_TOLERANCES' bounds, below f32's: Adam turns
+    the bf16 rounding of each rank's weight-gradient products (rounded once
+    for the whole batch in one process) into whole lr steps wherever a
+    gradient is near zero. torchrun starts the two rank processes.
+    The weights are ``randomize``'s, whose codebook spreads the latents over
+    many codes: at torch's inits every latent takes one code, positives and
+    negatives score alike and the predictors' gradients are rounding noise."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer, fold_lstm_bias
+
+    start = time.perf_counter()
+    conf = load_conf([f"seed={seed}"])
+    tr = CPCTrainer(conf, DEVICE)
+    randomize(tr.encoder, np.random.default_rng(seed + 31))
+    randomize(tr.cpc, np.random.default_rng(seed + 32))
+    fold_lstm_bias(tr.encoder)
+    vt = _voc_trainer(seed, conf)
+    randomize(vt.vocoder, np.random.default_rng(seed + 41))
+    mels, (utt, seq), lrs = _cpc_group(seed + 30, conf, DP_CPC_STEPS)
+    cpu = lambda xs: [x.cpu() for x in xs]
+    inputs = {"encoder": {k: v.cpu() for k, v in tr.encoder.state_dict().items()},
+              "cpc": {k: v.cpu() for k, v in tr.cpc.state_dict().items()},
+              "vocoder": {k: v.cpu() for k, v in vt.vocoder.state_dict().items()},
+              "mels": cpu(mels), "utt": cpu(utt), "seq": cpu(seq), "lrs": lrs,
+              "voc": [cpu(_voc_batch(seed + 40 + i, conf)) for i in range(DP_VOC_STEPS)],
+              "vlrs": [conf.training_vocoder.model.optim.learning_rate] * DP_VOC_STEPS}
+    del tr, vt
+    torch.save(inputs, d / "inputs.pt")
+    torchrun = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc-per-node=2", str(Path(__file__).resolve()),
+                                 "--dp-rank", str(d), "--seed", str(seed)])
+    try:
+        code = torchrun.wait(timeout=DP_RANK_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        torchrun.terminate()  # torchrun stops its ranks
+        try:
+            code = torchrun.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            torchrun.kill()
+            code = torchrun.wait()
+    check(code == 0, f"phase 4j's ranks exited with {code} (or outlasted {DP_RANK_LIMIT_S} s)")
+    ranks = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    ranks_s = time.perf_counter() - start
+    weights = lambda st: {k: v for k, v in st.items()
+                          if not k.startswith(("adam.", "encoder.codebook.")) and
+                          v.is_floating_point() and k != "encoder.rnn.bias_hh_l0"}
+    results = {}
+    for precision in DP_PRECISIONS:
+        got, other = ranks[0][precision], ranks[1][precision]
+        parts = ("cpc", "voc") if "voc_losses" in got else ("cpc",)
+        for key in (f"{p}_losses" for p in parts):
+            check(torch.equal(got[key], other[key]), f"two ranks {precision}: {key} differ")
+        for key in (f"{p}_state" for p in parts):
+            diffs = _bit_diffs(got[key], other[key])
+            check(not diffs, f"two ranks {precision} end with other {key}: "
+                             f"{dict(list(diffs.items())[:6])}")
+        kernels = precision == "bfloat16"
+        for r, rank in enumerate(ranks):
+            c = rank[precision]["cpc_counts"]
+            v = rank[precision].get("voc_counts", {k: 0 for k in VOC_KERNELS})
+            # float32 runs the recurrences' plain loops; the selection pair always.
+            want = {**{k: DP_CPC_STEPS if kernels or k.startswith("cpc_select") else 0
+                       for k in TRAIN_KERNELS},
+                    **{k: DP_VOC_STEPS if kernels else 0 for k in VOC_KERNELS}}
+            check(all({**c, **v}[k] == n for k, n in want.items()),
+                  f"rank {r} {precision} launches {c} {v}, expected {want}")
+            print(f"two ranks on one card (gloo) {precision}, rank {r}: launches CPC "
+                  f"{json.dumps(c)}, vocoder {json.dumps(v)}  [{card}]")
+        one = _dp_steps(load_conf([f"seed={seed}", f"runtime.precision={precision}"]),
+                        inputs, seed)
+        tol = DP_TOLERANCES[precision]
+        res = {}
+        for what, lr, steps in (("cpc", max(lrs), DP_CPC_STEPS),
+                                ("voc", max(inputs["vlrs"]), DP_VOC_STEPS))[:len(parts)]:
+            losses = got[f"{what}_losses"].double()
+            ref = one[f"{what}_losses"].double()
+            res[f"{what}_loss_rel"] = rel = float(((losses - ref).abs() / ref.abs()).max())
+            check(rel <= tol[f"{what}_loss"], f"two ranks {precision} vs one process, {what} "
+                                              f"losses {losses.tolist()} vs {ref.tolist()}")
+            share, _, worst = _agreement(weights(got[f"{what}_state"]),
+                                         weights(one[f"{what}_state"]), lr, steps)
+            res[f"{what}_share"], res[f"{what}_worst"] = share, worst
+            if tol.get(f"{what}_share") is not None:
+                check(share >= tol[f"{what}_share"], f"two ranks {precision} vs one process, "
+                                                     f"{what} weights within 0.1 lr: {share}")
+        ema_err = 0.0
+        for key in ("encoder.codebook.ema_count", "encoder.codebook.ema_weight"):
+            a, r = got["cpc_state"][key].double(), one["cpc_state"][key].double()
+            ema_err = max(ema_err, float(((a - r).abs() / (r.abs() + r.abs().max())).max()))
+        check(ema_err <= tol["ema"], f"two ranks {precision} vs one process, EMA {ema_err}")
+        res["ema_rel"] = ema_err
+        results[precision] = res
+        voc_steps = (f" and {DP_VOC_STEPS} vocoder steps (B 32, 16 a rank)"
+                     if len(parts) == 2 else "")
+        print(f"two ranks on one card (gloo) {precision}: {DP_CPC_STEPS} CPC steps (S 8, 4 a "
+              f"rank){voc_steps}, eager; both ranks the same bits; against one process on the global batches: {json.dumps(res)}; "
+              f"bounds {json.dumps(tol)}  [{card}]")
+    print(f"two ranks on one card (gloo): the ranks' processes {ranks_s:.3f} s wall incl. "
+          f"start-up; phase 4j wall {time.perf_counter() - start:.3f} s  [{card}]")
+    return {"ranks": [{"cpc": r["bfloat16"]["cpc_counts"], "vocoder": r["bfloat16"]["voc_counts"]}
+                      for r in ranks], "results": results}
+
+
+def phase_serve_sharded(seed: int, card: str, serve: dict) -> dict:
+    """Phase 4k: phase 4b's 48 requests, greedy bf16, through a server of
+    SHARDED_SLOTS slots in 2 shards on card 0 (one decode launch per shard
+    and segment, each on its shard's stream) against one shard: the same
+    classes; both servers' served samples/s, second drains."""
+    from vectorquantizedcpc_tpu_torch.infer.serving import ContinuousBatcher
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    start = time.perf_counter()
+    vocoder, requests, valid = serve["vocoder"], serve["requests"], serve["valid"]
+    out = {}
+    card0 = f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE
+    for label, kwargs in (("1 shard", dict(device=card0)),
+                          ("2 shards", dict(devices=[card0, card0]))):
+        rates = []
+        for drain in range(2):
+            srv = ContinuousBatcher(vocoder, slots=SHARDED_SLOTS, segment_frames=4,
+                                    max_frames=2 * max(MIX_CODES) + 32, greedy=True,
+                                    precision="bf16", seed=seed, **kwargs)
+            torch.cuda.synchronize()
+            ar.AR_DECODE_LAUNCHES = ar.AR_DECODE_INT8_LAUNCHES = 0
+            g.GRU_SCAN_LAUNCHES = g.GRU_SCAN_MASKED_LAUNCHES = 0
+            t0 = time.perf_counter()
+            rids = [srv.submit(z, spk) for z, spk in requests]
+            waves = srv.run()
+            rates.append(valid / (time.perf_counter() - t0))
+            launches = {"ar_decode": ar.AR_DECODE_LAUNCHES, "gru_scan": g.GRU_SCAN_LAUNCHES,
+                        "gru_scan_masked": g.GRU_SCAN_MASKED_LAUNCHES,
+                        "ar_decode_int8": ar.AR_DECODE_INT8_LAUNCHES}
+            shards = len(kwargs.get("devices", [0]))
+            steps = int(srv.stats["steps"])
+            check(launches["ar_decode"] == shards * steps and launches["ar_decode_int8"] == 0,
+                  f"{label}: AR launches {launches} for {steps} steps")
+            check(srv.stats["samples_out"] == valid, f"{label}: samples_out")
+            if drain == 0:
+                out[label] = {"waves": [waves[r] for r in rids], "launches": launches,
+                              "steps": steps}
+        out[label]["samples_per_s"] = rates
+    same = sum(np.array_equal(a, b) for a, b in zip(out["1 shard"]["waves"],
+                                                     out["2 shards"]["waves"]))
+    check(same == len(requests), f"2 shards vs 1 shard, greedy: {same} of {len(requests)} "
+                                 "requests the same classes")
+    # Sampled: the ragged PreNet's kernels once a drain (the conditioning is
+    # computed on the first shard's device and copied), a decode launch per
+    # shard and segment, the same waves from one seed twice.
+    sampled = []
+    for _ in range(2):
+        srv = ContinuousBatcher(vocoder, slots=SHARDED_SLOTS, segment_frames=4,
+                                max_frames=2 * max(MIX_CODES) + 32, precision="bf16",
+                                seed=seed, devices=[card0, card0])
+        torch.cuda.synchronize()
+        ar.AR_DECODE_LAUNCHES = g.GRU_SCAN_LAUNCHES = g.GRU_SCAN_MASKED_LAUNCHES = 0
+        rids = [srv.submit(z, spk) for z, spk in requests]
+        waves = srv.run()
+        sampled.append([waves[r] for r in rids])
+        steps = int(srv.stats["steps"])
+        launches = {"ar_decode": ar.AR_DECODE_LAUNCHES, "gru_scan": g.GRU_SCAN_LAUNCHES,
+                    "gru_scan_masked": g.GRU_SCAN_MASKED_LAUNCHES}
+        check(launches == {"ar_decode": 2 * steps, "gru_scan": 2, "gru_scan_masked": 2},
+              f"2 shards sampled: launches {launches} for {steps} steps")
+    check(all(np.array_equal(a, b) for a, b in zip(*sampled)),
+          "2 shards sampled: two drains with one seed gave other waves")
+    out["2 shards sampled"] = {"launches": launches, "steps": steps}
+    for label in ("1 shard", "2 shards"):
+        o = out[label]
+        print(f"serve sharded, {label} on card 0, {SHARDED_SLOTS} slots, greedy bf16: "
+              f"{len(requests)} requests, {valid} samples in {o['steps']} segment steps; "
+              f"launches {json.dumps(o['launches'])}; served samples/s, first and second drain "
+              f"{o['samples_per_s'][0]:.1f}, {o['samples_per_s'][1]:.1f}  [{card}]")
+    print(f"serve sharded: 2 shards gave 1 shard's classes for {same} of {len(requests)} "
+          f"requests; sampled, 2 shards launched {json.dumps(launches)} in {steps} steps and "
+          f"gave the same waves twice from seed {seed}; phase 4k wall {time.perf_counter() - start:.3f} s  [{card}]")
+    return {label: {k: v for k, v in o.items() if k != "waves"} for label, o in out.items()}
+
+
+def phase_cli_two_cards(seed: int, card: str, d: Path) -> Optional[dict]:
+    """Phase 4l: the train_cpc CLI at runtime.mesh_data=2, NCCL, one rank a
+    card, on phase 4d's corpus; only where two cards are."""
+    from vectorquantizedcpc_tpu_torch.cli import train_cpc
+
+    if torch.cuda.device_count() < 2:
+        print(f"phase 4l (train_cpc CLI at runtime.mesh_data=2 over NCCL) did not run: "
+              f"{torch.cuda.device_count()} card on this machine, it needs 2  [{card}]")
+        return None
+    start = time.perf_counter()
+    argv = _corpus_args(d) + [f"checkpoint_dir={d / 'ckpt_dp'}", "training.cpc.n_epochs=4",
+                              "training.cpc.checkpoint_interval=4",
+                              "training.cpc.log_interval=2", f"seed={seed}",
+                              "runtime.mesh_data=2"]
+    check(train_cpc.main(argv) is None, "the launching CLI returned a trainer")
+    ckpts = sorted(p.name for p in (d / "ckpt_dp").glob("*.pt"))
+    check(ckpts == ["model.ckpt-4.pt"], f"2-card checkpoints {ckpts}")
+    seconds = time.perf_counter() - start
+    print(f"train_cpc CLI on 2 cards (NCCL): 4 epochs x 2 steps, {ckpts}; {seconds:.3f} s "
+          f"wall incl. both ranks' start-up  [{card}]")
+    return {"seconds": seconds}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--dp-rank", type=Path, help="run one of phase 4j's ranks (internal)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if args.dp_rank is not None:
+        dp_rank(args.dp_rank, args.seed)
+        return 0
 
     # Phase 1: the card.
     card = card_line()
@@ -3185,9 +3614,11 @@ def main() -> int:
     converted_auto = phase_convert(args.seed, card, "auto")
     serve = phase_serve(args.seed, card)
     launches, launches_int8 = serve["launches"], serve["launches_int8"]
+    sharded = phase_serve_sharded(args.seed, card, serve)
     exported = phase_export(args.seed, card)
     with tempfile.TemporaryDirectory() as tmp:
         trained = phase_train(args.seed, card, Path(tmp))
+        phase_cli_two_cards(args.seed, card, Path(tmp))
         phase_train_step(args.seed, card)
         mid = time.perf_counter()
         trained_voc = phase_train_vocoder(args.seed, card, Path(tmp))
@@ -3195,6 +3626,9 @@ def main() -> int:
         wide = phase_wide(args.seed, card, Path(tmp))
     phase_train_vocoder_step(args.seed, card)
     phase_graph_vs_eager(args.seed, card)
+    world_one = phase_world_one(args.seed, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        two_ranks = phase_two_ranks(args.seed, card, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         jax_ckpt = phase_jax_checkpoints(args.seed, card, Path(tmp))
         phase_async_checkpoints(args.seed, card, Path(tmp))
@@ -3246,6 +3680,7 @@ def main() -> int:
                 **{f"serve_{k}_slots": v["ar_decode"] for k, v in launches.items()},
                 "convert_jax_checkpoints": jax_ckpt["convert"]["ar_decode"],
                 "serve_jax_checkpoints": jax_ckpt["serve"]["ar_decode"],
+                "serve_8_slots_2_shards": sharded["2 shards"]["launches"]["ar_decode"],
             },
             "max_abs_err": compared["max_abs_err"],
             **timing["bf16"],
@@ -3279,7 +3714,10 @@ def main() -> int:
             "replaces": f"vectorquantizedcpc_tpu/ops/gru_train.py:{line}",
             "launches": launches[8][name],
             "launches_by_path": {"serve_8_slots": launches[8][name],
-                                 "serve_jax_checkpoints": jax_ckpt["serve"][name]},
+                                 "serve_jax_checkpoints": jax_ckpt["serve"][name],
+                                 "serve_8_slots_2_shards": sharded["2 shards"]["launches"][name],
+                                 "serve_8_slots_2_shards_sampled":
+                                     sharded["2 shards sampled"]["launches"][name]},
             "max_abs_err": compared_gru[name],
             **timing_gru[name],
         }
@@ -3317,7 +3755,9 @@ def main() -> int:
             "replaces": f"vectorquantizedcpc_tpu/ops/{line}",
             "launches": trained["launches"][name],
             "launches_by_path": {"train_cpc": trained["launches"][name],
-                                 "train_cpc_jax_resume": jax_ckpt["train_cpc"][name]},
+                                 "train_cpc_jax_resume": jax_ckpt["train_cpc"][name],
+                                 "nccl_world_1": world_one["CPC"]["launches"][name],
+                                 "two_ranks_gloo": [r["cpc"][name] for r in two_ranks["ranks"]]},
             "captured_per_step": trained["graph"]["captured_per_step"][name],
             "graph_replays": trained["graph"]["replays"],
             "max_abs_err": compared_train[name],
@@ -3340,7 +3780,10 @@ def main() -> int:
             "replaces": f"vectorquantizedcpc_tpu/ops/gru_train.py:{line}",
             "launches": trained_voc["launches"][name],
             "launches_by_path": {"train_vocoder": trained_voc["launches"][name],
-                                 "train_vocoder_jax_resume": jax_ckpt["train_vocoder"][name]},
+                                 "train_vocoder_jax_resume": jax_ckpt["train_vocoder"][name],
+                                 "nccl_world_1": world_one["vocoder"]["launches"][name],
+                                 "two_ranks_gloo": [r["vocoder"][name]
+                                                    for r in two_ranks["ranks"]]},
             "captured_per_step": trained_voc["graph"]["captured_per_step"][name],
             "graph_replays": trained_voc["graph"]["replays"],
             "max_abs_err": compared_gru_train[name],

@@ -208,9 +208,9 @@ def test_jax_only_keys_are_the_jax_config_keys_the_port_lacks():
 
 
 @pytest.mark.parametrize("text, match", [
-    ("runtime:\n    mesh_data: 4\n",
-     r"Unknown config key\(s\) at 'runtime': \['mesh_data'\]; \['runtime.mesh_data'\] belong "
-     r"to the JAX package's config and are not ported"),
+    ("runtime:\n    num_cpu_devices: 4\n",
+     r"Unknown config key\(s\) at 'runtime': \['num_cpu_devices'\]; "
+     r"\['runtime.num_cpu_devices'\] belong to the JAX package's config and are not ported"),
     ("runtime:\n    use_pallas: false\n", r"\['runtime.use_pallas'\] belong to the JAX"),
     ("dataset_name: ZR19\n", r"\['dataset_name'\] belong to the JAX package's config"),
     ("model:\n    encoder:\n        chanels: 5\n",
@@ -227,8 +227,8 @@ def test_extend_file_errors_name_the_key_or_line(tmp_path, text, match):
 
 
 def test_jax_only_key_on_the_cli_says_so():
-    with pytest.raises(ValueError, match=r"\['runtime.mesh_data'\] belong to the JAX"):
-        configs.load_conf(["runtime.mesh_data=4"])
+    with pytest.raises(ValueError, match=r"\['runtime.num_cpu_devices'\] belong to the JAX"):
+        configs.load_conf(["runtime.num_cpu_devices=4"])
 
 
 def test_an_empty_extend_file_changes_nothing(tmp_path):

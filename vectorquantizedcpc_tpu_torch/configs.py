@@ -150,7 +150,16 @@ def conf_default_tree() -> Dict[str, Any]:
             },
             "loader": {"batch_size": 32, "num_workers": 1, "pin_memory": None},
         },
-        "runtime": {"precision": "bfloat16", "platform": None, "profile_dir": None},
+        "runtime": {
+            "precision": "bfloat16",
+            "platform": None,
+            "profile_dir": None,
+            "mesh_data": 1,
+            "mesh_model": 1,
+            "coordinator_address": None,
+            "num_processes": None,
+            "process_id": None,
+        },
     }
 
 
@@ -336,6 +345,18 @@ class ConfRuntime:
     # A directory: both trainers write one profiler trace of a few steps
     # after the first dispatch group there (utils/profiling.trace).
     profile_dir: Optional[str] = None
+    # Data parallelism (parallel/mesh.py), the JAX package's keys: the
+    # trainers' batches split over mesh_data ranks, one process per card.
+    # The CLIs start the ranks: mesh_data local workers, or, with all three
+    # cluster keys, mesh_data / num_processes on each of num_processes
+    # hosts, the rendezvous at coordinator_address ("host:port"); under
+    # torchrun its RANK / WORLD_SIZE / LOCAL_RANK. mesh_model > 1 (tensor
+    # parallelism) is not ported and raises.
+    mesh_data: int = 1
+    mesh_model: int = 1
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
 
 
 @dataclass
@@ -390,14 +411,9 @@ _INTERP_RE = re.compile(r"^\$\{([A-Za-z0-9_.]+)\}$")
 JAX_ONLY_KEYS = frozenset({
     "dataset_name",
     "training_vocoder.model.network.rnnms.prenet.bidirectional",
-    "runtime.mesh_data",
-    "runtime.mesh_model",
     "runtime.use_pallas",
     "runtime.prng_impl",
     "runtime.num_cpu_devices",
-    "runtime.coordinator_address",
-    "runtime.num_processes",
-    "runtime.process_id",
 })
 
 

@@ -42,9 +42,19 @@ def preprocess_corpus(
     conf: ConfPreprocessing,
     num_workers: int = 2,
     force: bool = False,
+    mesh=None,
 ) -> Dict:
     """Preprocess every utterance; returns (and writes) the manifest. An
-    existing manifest is returned as it is unless ``force``."""
+    existing manifest is returned as it is unless ``force``. With a
+    data-parallel ``mesh`` only rank 0 writes; the other ranks wait for it
+    at a barrier, then read the manifest."""
+    if mesh is not None:
+        from ..parallel.mesh import barrier
+
+        manifest = (preprocess_corpus(corpus, out_dir, conf, num_workers, force)
+                    if mesh.rank == 0 else None)
+        barrier(mesh)
+        return manifest if manifest is not None else load_manifest(out_dir)
     out_dir = Path(out_dir)
     manifest_path = out_dir / "index.json"
     if manifest_path.exists() and not force:

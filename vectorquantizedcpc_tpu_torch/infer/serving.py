@@ -24,14 +24,18 @@ stream's samples: chaining segments reproduces a single-shot decode.
 
 Sampling noise differs from segment to segment: the launch of global
 segment k gets the seed ``segment_seed(seed, k)``.
+
+``devices=[...]`` shards the slots over several devices, one decode launch
+per shard and segment (the JAX server's ``mesh=``; ``ContinuousBatcher``).
 """
 
+import contextlib
 import functools
 import heapq
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Deque, Dict, List, Optional, Union
+from typing import Deque, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -46,6 +50,7 @@ from ..models.vocoder import (
 from ..ops.ar_decode import (
     MAX_BATCH,
     DecodeState,
+    DecodeWeights,
     fused_ar_decode_segment,
     init_decode_state,
     prep_decode_weights,
@@ -123,17 +128,56 @@ def _to_host(classes: torch.Tensor) -> np.ndarray:
 
 
 class _Timeline:
-    """One drain's classes (steps, slots, sf * hop), fetched to the host once."""
+    """One drain's classes (steps, slots, sf * hop), fetched to the host
+    once: the shards' (steps, slots of the shard, sf * hop) side by side."""
 
-    def __init__(self, classes: torch.Tensor):
+    def __init__(self, classes: List[torch.Tensor]):
         self._dev = classes
         self._host: Optional[np.ndarray] = None
 
     def request(self, slot, s0, nseg, n, prefix: Optional[torch.Tensor]) -> np.ndarray:
         if self._host is None:
-            self._host = _to_host(self._dev)
+            self._host = np.concatenate([_to_host(c) for c in self._dev], axis=1)
         out = self._host[s0 : s0 + nseg, slot].reshape(-1)[:n]
         return out if prefix is None else np.concatenate([_to_host(prefix), out])
+
+
+class _Shard:
+    """One device's slots ``[first, first + n)``: its decode weights, pool of
+    conditioning rows, output buffer and decode state, and (on a card,
+    when there are several shards) its own stream."""
+
+    def __init__(self, index: int, device: torch.device, first: int, n: int,
+                 weights, max_frames: int, hop: int, n_classes: int, own_stream: bool):
+        self.index, self.device, self.first, self.n = index, device, first, n
+        self.weights = weights
+        hidden, proj3h = weights.wh.shape
+        self.pool = torch.zeros(n, max_frames, proj3h, dtype=torch.bfloat16, device=device)
+        self.out_buf = torch.zeros(n, max_frames * hop, dtype=torch.int32, device=device)
+        self.state = DecodeState(*init_decode_state(n, hidden, n_classes, device))
+        self.stream = (torch.cuda.Stream(device) if own_stream and device.type == "cuda"
+                       else None)
+
+    @contextlib.contextmanager
+    def launching(self):
+        """Work queued inside runs on this shard's stream, after everything
+        queued before on its device."""
+        if self.stream is None:
+            yield
+            return
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            yield
+
+    def join(self) -> None:
+        """The device's stream waits for this shard's queued work (so that
+        what it frees is never reused under a pending read)."""
+        if self.stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+
+def _weights_on(weights: DecodeWeights, device: torch.device) -> DecodeWeights:
+    return DecodeWeights(*(t.to(device) if isinstance(t, torch.Tensor) else t for t in weights))
 
 
 class ContinuousBatcher:
@@ -146,7 +190,19 @@ class ContinuousBatcher:
     Runs on ``device``, else on the CUDA card; raises without a card unless
     ``device="cpu"`` (the kernels' plain versions). The vocoder is moved
     there. ``greedy=True`` decodes by argmax, deterministically.
-    ``precision`` "auto" resolves at ``slots``, every launch's batch.
+    ``precision`` "auto" resolves at every launch's batch: the slots of a
+    shard.
+
+    Sharded (``devices=[...]``, the JAX server's ``mesh=``): the slots
+    divide over the devices, shard j holding slots ``[j slots / D, (j + 1)
+    slots / D)`` with its own pool, decode state and output buffer on
+    device j. A segment step queues every shard's decode launch, each on
+    its shard's own stream, before anything waits; no collective runs in
+    the loop. The schedule and the conditioning rows are computed once, on
+    the first device (copied to the others), so greedy output is the
+    one-device server's. Sampling folds the shard index into each
+    segment's seed, as JAX folds the axis index into its key: shards draw
+    other noise for the same request, from the same seed.
     """
 
     def __init__(
@@ -159,19 +215,28 @@ class ContinuousBatcher:
         greedy: bool = False,
         seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
+        devices: Optional[Sequence[Union[str, torch.device]]] = None,
     ):
-        precision = resolve_precision(precision, slots)
-        self._device = resolve_device(device)
+        if devices is not None and device is not None:
+            raise ValueError("give device or devices, not both")
+        devices = [resolve_device(d) for d in (devices if devices else [device])]
+        n_shards = len(devices)
+        if slots % n_shards:
+            raise ValueError(f"slots={slots} must divide over the {n_shards} devices")
+        per = slots // n_shards
+        precision = resolve_precision(precision, per)
+        self._device = devices[0]
         # The plain version (CPU) takes any slot count, as the JAX server does.
-        if slots < 1 or (self._device.type == "cuda" and slots > MAX_BATCH):
+        if per < 1 or any(d.type == "cuda" for d in devices) and per > MAX_BATCH:
             raise ValueError(
                 f"slots={slots}: a server needs at least one slot, and on the card "
-                f"the AR decode kernel takes at most {MAX_BATCH} rows "
+                f"the AR decode kernel takes at most {MAX_BATCH} rows a shard "
                 "(kMaxBatch in ops/csrc/ar_decode.cu)"
             )
         self._vocoder = vocoder.to(self._device).eval()
         conf = vocoder.conf.rnnms
         self._slots = slots
+        self._per_shard = per
         self._segment_frames = segment_frames
         self._max_frames = max_frames + segment_frames  # slack for the last segment
         self._hop = conf.upsampling_t
@@ -179,14 +244,13 @@ class ContinuousBatcher:
         self._greedy = greedy
         self._seed = seed
         self._weights = prep_decode_weights(self._vocoder, precision)
-        hidden, proj3h = self._weights.wh.shape
-        self._pool = torch.zeros(
-            slots, self._max_frames, proj3h, dtype=torch.bfloat16, device=self._device
-        )
-        self._out_buf = torch.zeros(
-            slots, self._max_frames * self._hop, dtype=torch.int32, device=self._device
-        )
-        self._state = DecodeState(*init_decode_state(slots, hidden, self._n_classes, self._device))
+        by_device: Dict[torch.device, DecodeWeights] = {self._device: self._weights}
+        self._shards = []
+        for j, d in enumerate(devices):
+            if d not in by_device:
+                by_device[d] = _weights_on(self._weights, d)
+            self._shards.append(_Shard(j, d, j * per, per, by_device[d], self._max_frames,
+                                       self._hop, self._n_classes, n_shards > 1))
         self._slot_meta = [_Slot() for _ in range(slots)]
         self._queue: Deque[tuple] = deque()
         self._pending: Dict[int, functools.partial] = {}  # rid -> fetch of its classes
@@ -230,26 +294,33 @@ class ContinuousBatcher:
             return []
         start = time.perf_counter()
         sf, hop = self._segment_frames, self._hop
-        seg = self._gather(
-            [(self._pool, i) for i in range(self._slots)],
-            [s.pos_frames for s in self._slot_meta],
-        )
-        classes, self._state = fused_ar_decode_segment(
-            self._weights, seg, self._state,
-            segment_seed(self._seed, self._step_count), hop, self._greedy,
-        )
+        classes = []
+        for shard in self._shards:
+            with shard.launching():
+                seg = self._gather(
+                    [(shard.pool, i) for i in range(shard.n)],
+                    [s.pos_frames for s in self._slot_meta[shard.first: shard.first + shard.n]],
+                )
+                out, shard.state = fused_ar_decode_segment(
+                    shard.weights, seg, shard.state, self._launch_seed(self._step_count, shard),
+                    hop, self._greedy,
+                )
+                classes.append(out)
+        for shard in self._shards:
+            shard.join()
         self._step_count += 1
         finished: List[int] = []
         for i in live:
             slot = self._slot_meta[i]
+            shard, row = self._shard_of(i)
             p = slot.pos_frames * hop
-            self._out_buf[i, p : p + sf * hop] = classes[i]
+            shard.out_buf[row, p : p + sf * hop] = classes[shard.index][row]
             self._samples_out += min(slot.total_frames - slot.pos_frames, sf) * hop
             slot.pos_frames += sf
             if slot.pos_frames >= slot.total_frames:
                 n = slot.total_frames * hop
                 self._pending[slot.rid] = functools.partial(
-                    _to_host, self._out_buf[i, :n].clone()
+                    _to_host, shard.out_buf[row, :n].clone()
                 )
                 finished.append(slot.rid)
                 self._slot_meta[i] = _Slot()
@@ -286,14 +357,25 @@ class ContinuousBatcher:
 
     # ------------------------------------------------------------ internals
 
+    def _shard_of(self, slot: int):
+        """(the shard holding ``slot``, the slot's row in that shard)."""
+        return self._shards[slot // self._per_shard], slot % self._per_shard
+
+    def _launch_seed(self, segment: int, shard: _Shard) -> int:
+        """The seed of a shard's launch of global segment ``segment``: the
+        shard index folded in when there are several."""
+        seed = segment_seed(self._seed, segment)
+        return seed if len(self._shards) == 1 else segment_seed(seed, shard.index)
+
     def _gather(self, rows, positions) -> torch.Tensor:
         """Every slot's (sf, 3H) window: rows[i] = (buffer, row), at positions[i]."""
         sf = self._segment_frames
         return torch.stack([buf[r, p : p + sf] for (buf, r), p in zip(rows, positions)])
 
     def _condition(self, zs: np.ndarray, speakers: np.ndarray, n_frames=None) -> torch.Tensor:
-        """Codes -> staging rows (G, 2 max_codes + pad, 3H) bf16; the width is
-        a multiple of the segment, so every window of a valid row fits."""
+        """Codes -> staging rows (G, 2 max_codes + pad, 3H) bf16 on the first
+        device; the width is a multiple of the segment, so every window of a
+        valid row fits."""
         z = torch.from_numpy(zs).to(self._device)
         spk = torch.from_numpy(speakers).to(self._device)
         if n_frames is None:
@@ -313,11 +395,12 @@ class ContinuousBatcher:
             if slot.rid is not None or not self._queue:
                 continue
             rid, z, speaker = self._queue.popleft()
+            shard, row = self._shard_of(i)
             cond = self._condition(z[None], np.asarray([speaker]))[0, : 2 * z.shape[0]]
-            self._pool[i].zero_()
-            self._pool[i, : cond.shape[0]] = cond
-            self._state.h[i] = 0.0
-            self._state.prev[i] = n_mid
+            shard.pool[row].zero_()
+            shard.pool[row, : cond.shape[0]] = cond.to(shard.device)
+            shard.state.h[row] = 0.0
+            shard.state.prev[row] = n_mid
             self._slot_meta[i] = _Slot(rid=rid, pos_frames=0, total_frames=2 * z.shape[0])
 
     @torch.no_grad()
@@ -332,13 +415,15 @@ class ContinuousBatcher:
         new_reqs = list(self._queue)
         self._queue.clear()
 
-        # Staging rows: the slots in flight (rows 0..slots-1), then the
-        # conditioning of every new request.
+        # Staging rows: the slots in flight (rows 0..slots-1, in their
+        # shards' pools), then the conditioning of every new request.
         row_loc = []  # global row -> (buffer, row in buffer)
         rid_row: Dict[int, int] = {}
         rid_total: Dict[int, int] = {}
         if inflight:
-            row_loc += [(self._pool, i) for i in range(s_count)]
+            for i in range(s_count):
+                shard, row = self._shard_of(i)
+                row_loc.append((shard.pool, row))
 
         def add_rows(items, buf):
             for j, (rid, z, _spk) in enumerate(items):
@@ -384,33 +469,52 @@ class ContinuousBatcher:
         )
         rid_pos0.update(pos0_map)
 
-        n_mid = self._n_classes // 2
-        h, prev = self._state
-        outs = []
-        for k in range(rows_t.shape[0]):
-            for i in np.flatnonzero(fresh_t[k]):
-                h[i] = 0.0
-                prev[i] = n_mid
-            # Idle slots (row -1) decode row 0; nothing reads their samples.
-            seg = self._gather([row_loc[max(r, 0)] for r in rows_t[k]], pos_t[k].tolist())
-            classes, (h, prev) = fused_ar_decode_segment(
-                self._weights, seg, DecodeState(h, prev),
-                segment_seed(self._seed, self._step_count + k), hop, self._greedy,
-            )
-            outs.append(classes)
+        copies: Dict[tuple, torch.Tensor] = {}  # staging rows copied to another shard's device
 
-        if outs:
-            timeline = _Timeline(torch.stack(outs))
+        def on(buf: torch.Tensor, device: torch.device) -> torch.Tensor:
+            if buf.device == device:
+                return buf
+            key = (id(buf), device)
+            if key not in copies:
+                copies[key] = buf.to(device)
+            return copies[key]
+
+        n_mid = self._n_classes // 2
+        outs: List[List[torch.Tensor]] = [[] for _ in self._shards]
+        for k in range(rows_t.shape[0]):
+            for shard in self._shards:
+                cols = slice(shard.first, shard.first + shard.n)
+                with shard.launching():
+                    h, prev = shard.state
+                    for row in np.flatnonzero(fresh_t[k, cols]):
+                        h[row] = 0.0
+                        prev[row] = n_mid
+                    # Idle slots (row -1) decode their own pool's row 0;
+                    # nothing reads their samples.
+                    rows = [(on(row_loc[r][0], shard.device), row_loc[r][1]) if r >= 0
+                            else (shard.pool, 0) for r in rows_t[k, cols]]
+                    seg = self._gather(rows, pos_t[k, cols].tolist())
+                    classes, shard.state = fused_ar_decode_segment(
+                        shard.weights, seg, DecodeState(h, prev),
+                        self._launch_seed(self._step_count + k, shard), hop, self._greedy,
+                    )
+                    outs[shard.index].append(classes)
+        for shard in self._shards:
+            shard.join()
+
+        if rows_t.shape[0]:
+            timeline = _Timeline([torch.stack(o) for o in outs])
             for rid, (slot, s0, nseg) in rid_sched.items():
                 pos0 = rid_pos0[rid]
-                prefix = self._out_buf[slot, : pos0 * hop].clone() if pos0 else None
+                shard, row = self._shard_of(slot)
+                prefix = shard.out_buf[row, : pos0 * hop].clone() if pos0 else None
                 self._pending[rid] = functools.partial(
                     timeline.request, slot, s0, nseg, (rid_total[rid] - pos0) * hop, prefix
                 )
-        if wait and self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+        if wait:
+            for d in {shard.device for shard in self._shards if shard.device.type == "cuda"}:
+                torch.cuda.synchronize(d)
         self._step_count += rows_t.shape[0]
         self._samples_out += valid
         self._dispatch_wall += time.perf_counter() - start
         self._slot_meta = [_Slot() for _ in range(s_count)]
-        self._state = DecodeState(h, prev)

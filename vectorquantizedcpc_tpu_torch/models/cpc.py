@@ -57,6 +57,22 @@ def sample_negative_indices(
     return utt.to(torch.int32), seq.to(torch.int32)
 
 
+def shard_negatives(
+    seq_index: torch.Tensor, rank: int, world: int, axis: int = 1
+) -> torch.Tensor:
+    """A rank's speakers ``[r S / W, (r + 1) S / W)`` of a step's global
+    ``seq_index`` (K, S, U, N, L) (``axis`` 2 for a group's stack). The
+    ``utt_index`` (K, U, N) is shared by every speaker and stays whole: the
+    JAX package's in-specs ``P()`` and S on the data axis
+    (its ``models/cpc.py:222-232``)."""
+    n = seq_index.shape[axis]
+    if n % world:
+        raise ValueError(f"n_speakers_per_batch={n} does not divide over "
+                         f"runtime.mesh_data={world} ranks")
+    share = n // world
+    return seq_index.narrow(axis, rank * share, share)
+
+
 def cpc_apply_with_indices(
     cpc: CPCLoss,
     conf: ConfCPC,
@@ -71,9 +87,12 @@ def cpc_apply_with_indices(
     the scaled logits ``f`` (K, S U, 1 + N, L) (positive at class 0) with
     ``return_scores``.
 
-    z (S U, T, Z) quantized latents and c (S U, T, C) context, both f32.
+    z (S U, T, Z) quantized latents and c (S U, T, C) context, both f32. S
+    is z's: a data-parallel rank's share of the speakers, with its share of
+    ``seq_index`` (``shard_negatives``).
     """
-    s, u = conf.n_speakers_per_batch, conf.n_utterances_per_speaker
+    u = conf.n_utterances_per_speaker
+    s = z.shape[0] // u
     k_steps, n_neg, z_dim = conf.n_prediction_steps // 2, conf.n_negatives, conf.z_dim
     t = z.shape[1]
     length = t - k_steps

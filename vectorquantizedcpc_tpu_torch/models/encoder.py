@@ -89,12 +89,13 @@ class Encoder(nn.Module):
         )
 
     def forward(
-        self, mels: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+        self, mels: torch.Tensor, compute_dtype: torch.dtype = torch.float32, group=None
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """Training path: (B, Freq, T) -> (z_st (B, T', z_dim) f32, c (B, T',
-        c_dim) f32, vq_loss, perplexity), one EMA step of the codebook."""
+        c_dim) f32, vq_loss, perplexity), one EMA step of the codebook (on
+        the statistics of every rank of the process ``group``, if given)."""
         z_pre = self.frontend(mels, compute_dtype)
-        z, vq_loss, perplexity = vq_apply_train(self.codebook, z_pre.float())
+        z, vq_loss, perplexity = vq_apply_train(self.codebook, z_pre.float(), group=group)
         c, _ = self.context(z, compute_dtype)
         return z, c.float(), vq_loss, perplexity
 

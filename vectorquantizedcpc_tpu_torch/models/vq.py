@@ -12,13 +12,19 @@ the JAX order (count EMA, Laplace smoothing, weight EMA, ``embedding =
 ema_weight / ema_count``) on the buffers in place, outside autograd. The
 loss is the commitment term ``0.25 mse(x, sg q)`` and the output the
 straight-through ``x + sg(q - x)``.
+
+Data parallel (``group``): the batch's code counts and code sums are summed
+over the ranks before the EMA, as the JAX package's sharded step computes
+them on the global batch, so every rank's codebook takes the same step;
+the perplexity is that of the global code frequencies.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..parallel.sharding import all_reduce_sum, world_of
 from .matmul import rows_matmul
 
 
@@ -64,17 +70,24 @@ def ema_update(
     x_flat: torch.Tensor,
     decay: float = 0.999,
     epsilon: float = 1e-5,
-) -> None:
+    group: Optional["torch.distributed.ProcessGroup"] = None,
+) -> torch.Tensor:
     """The EMA state transition, in place: ``encodings`` (N, M) one-hot,
-    ``x_flat`` (N, D) f32."""
+    ``x_flat`` (N, D) f32. With ``group`` the batch statistics are summed
+    over its ranks first (one ``all_reduce``). Returns the batch's code
+    counts (M,), the ranks' sum with ``group``."""
     m = embedding.shape[0]
-    count = decay * ema_count + (1.0 - decay) * encodings.sum(dim=0)
+    counts, sums = encodings.sum(dim=0), encodings.t() @ x_flat
+    if group is not None:
+        counts, sums = all_reduce_sum([counts, sums], group)
+    count = decay * ema_count + (1.0 - decay) * counts
     n = count.sum()
     count = (count + epsilon) / (n + m * epsilon) * n
-    weight = decay * ema_weight + (1.0 - decay) * (encodings.t() @ x_flat)
+    weight = decay * ema_weight + (1.0 - decay) * sums
     ema_count.copy_(count)
     ema_weight.copy_(weight)
     embedding.copy_(weight / count[:, None])
+    return counts
 
 
 def vq_apply_train(
@@ -83,21 +96,23 @@ def vq_apply_train(
     commitment_cost: float = 0.25,
     decay: float = 0.999,
     epsilon: float = 1e-5,
+    group: Optional["torch.distributed.ProcessGroup"] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, T, D) -> (straight-through quantized, commitment loss, perplexity).
 
-    Updates ``codebook``'s buffers by one EMA step. Gradients reach ``x``
-    through the loss and the straight-through estimator only.
+    Updates ``codebook``'s buffers by one EMA step (on the statistics of
+    every rank of ``group``). Gradients reach ``x`` through the loss and
+    the straight-through estimator only.
     """
     m, d = codebook.embedding.shape
     x_flat = x.detach().reshape(-1, d).float()
     indices = nearest_code_indices(codebook.embedding, x_flat)
     encodings = torch.nn.functional.one_hot(indices, m).float()  # (N, M)
     quantized = codebook.embedding[indices].reshape(x.shape).to(x.dtype)
-    ema_update(codebook.embedding, codebook.ema_count, codebook.ema_weight,
-               encodings, x_flat, decay, epsilon)
+    counts = ema_update(codebook.embedding, codebook.ema_count, codebook.ema_weight,
+                        encodings, x_flat, decay, epsilon, group)
     loss = commitment_cost * torch.mean((x.float() - quantized.float()) ** 2)
     quantized_st = x + (quantized - x).detach()
-    avg_probs = encodings.mean(dim=0)
+    avg_probs = counts / (x_flat.shape[0] * world_of(group))
     perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
     return quantized_st, loss, perplexity

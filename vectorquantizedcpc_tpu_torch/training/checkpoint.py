@@ -157,9 +157,13 @@ class AsyncCheckpointer:
     snapshot's memory at most, on the card and the host. A writer's error
     is raised by the next :meth:`save` or :meth:`wait`. On the CPU the same
     class runs with no streams (the snapshot is a clone).
+
+    Data parallel, only rank 0 writes: the other ranks hold one made with
+    ``active=False``, whose :meth:`save` does nothing. Every rank reads.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, active: bool = True) -> None:
+        self.active = active
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
         self._last_path: Optional[Path] = None
@@ -168,6 +172,8 @@ class AsyncCheckpointer:
     def save(self, checkpoint_dir: Union[str, Path], n: int, state: Dict[str, Any]) -> None:
         """Write ``state`` as ``model.ckpt-{n}.pt`` in the background."""
         self.wait()
+        if not self.active:
+            return
         device = next((t.device for t in _tensors(state) if t.device.type == "cuda"), None)
         if device is not None and self._side is None:
             self._side = torch.cuda.Stream(device)

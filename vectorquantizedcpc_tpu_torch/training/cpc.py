@@ -32,6 +32,16 @@ selection's forward and backward (``CpcNegativeScores``).
   group. Checkpoints are ``model.ckpt-{epoch}.pt`` in the reference layout
   (``training/checkpoint.py``), written off the loop by ``AsyncCheckpointer``;
   ``resume`` takes such a file or the JAX package's ``model.ckpt-{epoch}``.
+- Data parallel (``runtime.mesh_data`` ranks, ``parallel/``): the step is
+  the same function as one process's on the global batch. Every rank
+  builds the same global batch and draws the same global negatives, then
+  keeps its share of the speakers (the mels and ``seq_index`` along S;
+  ``utt_index`` whole); the VQ statistics are summed over the ranks before
+  the EMA; the gradients and the logged metrics are their means over the
+  ranks, by one ``all_reduce`` of one flat buffer a step. Only rank 0
+  preprocesses, logs and writes checkpoints and TensorBoard; every rank
+  reads the same ``resume`` checkpoint; the ranks agree on a preemption
+  request at each group boundary and stop together.
 """
 
 import collections
@@ -48,8 +58,11 @@ from ..data.datasets import CPCMelSpkDataset
 from ..data.loader import PrefetchLoader
 from ..data.preprocess import preprocess_corpus
 from ..device import resolve_device
-from ..models.cpc import CPCLoss, cpc_apply_with_indices, sample_negative_indices
+from ..models.cpc import (CPCLoss, cpc_apply_with_indices, sample_negative_indices,
+                          shard_negatives)
 from ..models.encoder import Encoder
+from ..parallel.mesh import is_main, mesh_from_conf
+from ..parallel.sharding import FlatGrads, agree, local_share, shard_batch, world_of
 from ..utils.profiling import device_time, trace
 from ..weights import cpc_train_state_from_jax
 from .checkpoint import (AsyncCheckpointer, checkpoint_format, load_checkpoint,
@@ -81,12 +94,18 @@ class CPCTrainer:
 
     Weights are torch's default inits drawn on the CPU from ``conf.seed``
     (the reference's distributions, as the JAX package's inits), then moved.
-    ``graph`` steps ``train_steps``.
+    ``graph`` steps ``train_steps``. With a process ``group`` the trainer is
+    one data-parallel rank: its steps take its share of the speakers
+    (``n_speakers``) and reduce across the group; every rank starts from
+    the same weights.
     """
 
-    def __init__(self, conf: ConfGlobal, device: Union[str, torch.device]):
+    def __init__(self, conf: ConfGlobal, device: Union[str, torch.device], group=None):
         self.conf = conf
         self.device = torch.device(device)
+        self.group = group
+        self.n_speakers = local_share(conf.model.cpc.n_speakers_per_batch, world_of(group),
+                                      "training.cpc.n_speakers_per_batch")
         self.compute_dtype = resolve_compute_dtype(conf.runtime.precision)
         torch.manual_seed(conf.seed)
         self.encoder = Encoder(conf.model.encoder)
@@ -98,7 +117,9 @@ class CPCTrainer:
                  if n != FOLDED_BIAS] + [(f"cpc.{n}", p) for n, p in self.cpc.named_parameters()]
         self.param_names = [n for n, _ in named]  # the optimizer's order
         self.optimizer = make_adam([p for _, p in named], self.device)
-        self.graph = StepGraph(self._step, self.optimizer, self.device)
+        k_steps = conf.model.cpc.n_prediction_steps // 2
+        self.grads = FlatGrads([p for _, p in named], 3 + k_steps, group)
+        self.graph = StepGraph(self._step, self.optimizer, self.device, group)
 
     def train_step(
         self,
@@ -107,8 +128,9 @@ class CPCTrainer:
         seq_index: torch.Tensor,
         lr: float,
     ) -> Dict[str, torch.Tensor]:
-        """One eager optimizer step on mels (S, U, Freq, T); returns the
-        metrics as tensors on the device, without waiting for them."""
+        """One eager optimizer step on mels (S, U, Freq, T) and this rank's
+        negatives (``seq_index`` of its S); returns the metrics as tensors
+        on the device, without waiting for them."""
         set_lr(self.optimizer, lr)
         return self._step(mels, utt_index, seq_index)
 
@@ -131,16 +153,16 @@ class CPCTrainer:
         """The step at the optimizer's learning rate: nothing in it waits
         for the device or reads the host, so a CUDA graph can hold it."""
         cc = self.conf.model.cpc
-        s, u = cc.n_speakers_per_batch, cc.n_utterances_per_speaker
+        s, u = self.n_speakers, cc.n_utterances_per_speaker
         mels = mels.reshape(s * u, mels.shape[2], mels.shape[3])
-        z, c, vq_loss, perplexity = self.encoder(mels, self.compute_dtype)
+        z, c, vq_loss, perplexity = self.encoder(mels, self.compute_dtype, self.group)
         cpc_loss, accuracies = cpc_apply_with_indices(
             self.cpc, cc, z, c, utt_index, seq_index,
             exclude_self_negatives=self.conf.training.cpc.exclude_self_negatives,
         )
         loss = cpc_loss + vq_loss
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        means = self.grads.backward(loss, [loss, cpc_loss, vq_loss, accuracies])
+        loss, cpc_loss, vq_loss, accuracies = means[0], means[1], means[2], means[3:]
         self.optimizer.step()
         return {
             "loss": loss.detach(),
@@ -219,13 +241,20 @@ def train_model(
     """The CPC training loop (reference train_model, train_cpc.py:37-155).
 
     Runs on ``device``, else on ``runtime.platform``, else on the CUDA card;
-    raises when no card is there and the CPU was not asked for.
+    raises when no card is there and the CPU was not asked for. In a
+    data-parallel rank (``parallel/mesh.py:mesh_from_conf``) it runs on the
+    rank's card with its process group.
     ``max_steps`` caps the optimizer steps, checked after each epoch group.
     """
+    mesh = mesh_from_conf(conf.runtime)
+    if mesh is not None:
+        device = mesh.device
     device = resolve_device(device if device is not None else conf.runtime.platform)
+    main = is_main(mesh)
+    log = print if main else (lambda *args, **kwargs: None)
     checkpoint_dir = Path(conf.checkpoint_dir)
     tc = conf.training.cpc
-    trainer = CPCTrainer(conf, device)
+    trainer = CPCTrainer(conf, device, None if mesh is None else mesh.group)
     schedule = WarmupSchedule(
         warmup_epochs=tc.scheduler.warmup_epochs,
         initial_lr=tc.scheduler.initial_lr,
@@ -239,7 +268,7 @@ def train_model(
     if conf.resume != "scratch":
         # Reference semantics re-run the checkpointed epoch (train_cpc.py:73,97).
         start_epoch = resumed_epoch = trainer.load(conf.resume)
-        print(f"Resume checkpoint from: {conf.resume}: epoch {start_epoch}")
+        log(f"Resume checkpoint from: {conf.resume}: epoch {start_epoch}")
 
     # Data: corpus -> preprocessed features -> per-speaker clips.
     corpus = get_corpus(conf.data.dataset.name, conf.data.corpus)
@@ -249,9 +278,9 @@ def train_model(
         or (checkpoint_dir / "features")
     )
     preprocess_corpus(corpus, data_dir, conf.data.dataset.preprocess,
-                      num_workers=conf.data.loader.num_workers or 2)
+                      num_workers=conf.data.loader.num_workers or 2, mesh=mesh)
     dataset = CPCMelSpkDataset(True, conf.data.dataset, data_dir, seed=conf.seed)
-    print(f"Loaded dataset: CPCMelSpkDataset w/ {conf.data.dataset.name} "
+    log(f"Loaded dataset: CPCMelSpkDataset w/ {conf.data.dataset.name} "
           f"({len(dataset)} speakers)")
     loader = PrefetchLoader(dataset, batch_size=tc.n_speakers_per_batch, shuffle=True,
                             drop_last=True, seed=conf.seed)
@@ -271,14 +300,15 @@ def train_model(
     pending: List[Dict[str, torch.Tensor]] = []  # per group; fetched at log time
     global_step = 0
     t0 = time.time()
-    ckpt_writer = AsyncCheckpointer()
+    ckpt_writer = AsyncCheckpointer(active=main)
     install_preemption_handler()
     # TensorBoard scalars when tensorboardX is there (optional, as in JAX).
     tb_writer = None
     try:
         from tensorboardX import SummaryWriter
 
-        tb_writer = SummaryWriter(str(checkpoint_dir / "tb"))
+        if main:
+            tb_writer = SummaryWriter(str(checkpoint_dir / "tb"))
     except Exception:
         pass
 
@@ -293,9 +323,10 @@ def train_model(
                 utt_index, seq_index = sample_negative_indices(
                     conf.model.cpc, length, generator, device
                 )
-                batches.append(mels)
+                batches.append(shard_batch(mels, mesh))
                 utts.append(utt_index)
-                seqs.append(seq_index)
+                seqs.append(seq_index if mesh is None else
+                            shard_negatives(seq_index, mesh.rank, mesh.world))
                 lrs.append(schedule(e - 1))
         # One traced group after the first (which holds the warm-up and
         # the capture), once per run, as the JAX trainer's window.
@@ -305,7 +336,7 @@ def train_model(
             )
         if prof is not None:
             busy = device_time(prof, len(lrs))["device_busy_ms"]
-            print(f"Wrote profiler trace to {conf.runtime.profile_dir}"
+            log(f"Wrote profiler trace to {conf.runtime.profile_dir}"
                   + ("" if busy is None else f" ({busy:.3f} ms of device work per step)"))
         global_step += steps_per_epoch * len(group)
         pending.append(metrics)
@@ -318,7 +349,7 @@ def train_model(
             pending = []
             steps_per_sec = meter.count / (time.time() - t0)
             t0 = time.time()
-            print(
+            log(
                 "epoch:{}, cpc loss:{:.2E}, vq loss:{:.2E}, perplexity:{:.3f}, "
                 "{:.2f} steps/s".format(
                     epoch,
@@ -328,7 +359,7 @@ def train_model(
                     steps_per_sec,
                 )
             )
-            print(100 * meter["accuracies"])
+            log(100 * meter["accuracies"])
             if tb_writer is not None:
                 tb_writer.add_scalar("loss/cpc", float(meter["cpc_loss"]), epoch)
                 tb_writer.add_scalar("loss/vq", float(meter["vq_loss"]), epoch)
@@ -341,12 +372,15 @@ def train_model(
 
         if any(e % tc.checkpoint_interval == 0 and e != resumed_epoch for e in group):
             ckpt_writer.save(checkpoint_dir, epoch, trainer.checkpoint(epoch, schedule))
-            print(f"Saving checkpoint (async): model.ckpt-{epoch}.pt")
+            log(f"Saving checkpoint (async): model.ckpt-{epoch}.pt")
 
-        if preemption_requested():
+        # Every rank stops at the same group: one stopping alone would
+        # leave the others waiting in their next collective.
+        if agree(preemption_requested(), mesh):
             ckpt_writer.wait()
-            path = save_checkpoint(checkpoint_dir, epoch, trainer.checkpoint(epoch, schedule))
-            print(f"Preempted: saved {path.name}; resume with resume={path}.")
+            if main:
+                path = save_checkpoint(checkpoint_dir, epoch, trainer.checkpoint(epoch, schedule))
+                print(f"Preempted: saved {path.name}; resume with resume={path}.")
             break
 
         if max_steps is not None and global_step >= max_steps:

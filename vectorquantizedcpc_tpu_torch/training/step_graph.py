@@ -24,6 +24,16 @@ step's few hundred kernels.
   ``replays`` the replays and ``eager_steps`` the warm-up steps.
 - On the CPU there is no graph: every step runs eagerly, the plain version
   of the graph path, with the learning rate set as a float.
+- The capture is thread-local: other threads may use the card meanwhile
+  (a process group's watchdog querying its events, a checkpoint writer
+  waiting on its copy), with a process group or without one in the step.
+- Data parallel (``group``): the step's collectives (the VQ statistics',
+  the gradients' and metrics' ``all_reduce``) go inside the graph under
+  NCCL. The warm-up steps run them eagerly first, which makes the NCCL
+  communicator before the capture. A gloo
+  group's collectives run on the host and cannot be captured: on a card
+  ``step`` raises, and a caller that wants eager steps calls the trainer's
+  ``train_step``.
 """
 
 import time
@@ -31,6 +41,7 @@ from typing import Callable, Dict, List, NamedTuple, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 WARMUP_STEPS = 2  # eager steps of each input shape before its capture
 COUNTED_MODULES = ("ar_decode", "cpc_select", "gru_train", "lstm_scan")
@@ -117,10 +128,12 @@ class StepGraph:
     per input shape on a card and eagerly on the CPU."""
 
     def __init__(self, step_fn: Callable[..., Dict[str, torch.Tensor]],
-                 optimizer: torch.optim.Optimizer, device: Union[str, torch.device]):
+                 optimizer: torch.optim.Optimizer, device: Union[str, torch.device],
+                 group=None):
         self.step_fn = step_fn
         self.optimizer = optimizer
         self.device = torch.device(device)
+        self.group = group
         self._graphs: Dict[tuple, _Graph] = {}
         self._warm: Dict[tuple, int] = {}
         self._stream = None
@@ -138,6 +151,12 @@ class StepGraph:
         if self.device.type != "cuda":
             self.eager_steps += 1
             return self.step_fn(*inputs)
+        if self.group is not None and dist.get_backend(self.group) != "nccl":
+            raise RuntimeError(
+                f"a {dist.get_backend(self.group)} process group's collectives cannot be "
+                "captured in a CUDA graph; use NCCL, or call the trainer's train_step for "
+                "eager steps"
+            )
         key = tuple((tuple(x.shape), x.dtype) for x in inputs)
         graph = self._graphs.get(key)
         if graph is None:
@@ -174,7 +193,7 @@ class StepGraph:
         before = launch_counts()
         start = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             outputs = self.step_fn(*static)
         torch.cuda.synchronize(self.device)
         self.capture_s += time.perf_counter() - start

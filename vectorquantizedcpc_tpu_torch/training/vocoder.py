@@ -37,6 +37,14 @@ preemption checks follow each group, as the JAX trainer's dispatch groups;
 ``max_steps`` stops at exactly that step; ``runtime.profile_dir`` traces the
 groups from 3 steps after the start to 6 steps after it, once. Validation
 decodes run outside the graph.
+
+Data parallel (``runtime.mesh_data`` ranks, ``parallel/``): every rank
+builds the same global batch and keeps its rows ``[r B / W, (r + 1) B /
+W)``; the gradients and the loss are the ranks' means by one
+``all_reduce`` of one flat buffer a step, and the clip runs after it, on
+the global gradient, as JAX clips it. Only rank 0 validates and writes
+checkpoints and TensorBoard; every rank auto-resumes from the same file;
+the ranks agree on a preemption request at each group boundary.
 """
 
 import collections
@@ -55,6 +63,8 @@ from ..dsp.audio_io import write_wav
 from ..models.encoder import Encoder
 from ..models.vocoder import Vocoder, vocoder_forward, vocoder_generate
 from ..ops.ar_decode import fused_ar_decode, resolve_precision
+from ..parallel.mesh import is_main, mesh_from_conf
+from ..parallel.sharding import FlatGrads, agree, local_share, shard_batch, world_of
 from ..utils.profiling import device_time, trace
 from ..weights import vocoder_train_state_from_jax
 from .checkpoint import (AsyncCheckpointer, checkpoint_format, latest_checkpoint,
@@ -83,19 +93,25 @@ class VocoderTrainer:
 
     Weights are torch's default inits drawn on the CPU from ``conf.seed``,
     then moved. ``step`` counts optimizer steps, ``epoch`` finished epochs;
-    ``graph`` steps ``train_steps``.
+    ``graph`` steps ``train_steps``. With a process ``group`` the trainer is
+    one data-parallel rank: its steps take its share of the batch and
+    reduce across the group; every rank starts from the same weights.
     """
 
-    def __init__(self, conf: ConfGlobal, encoder: Encoder, device: Union[str, torch.device]):
+    def __init__(self, conf: ConfGlobal, encoder: Encoder, device: Union[str, torch.device],
+                 group=None):
         self.conf = conf
         self.device = torch.device(device)
+        self.group = group
+        local_share(conf.data.loader.batch_size, world_of(group), "data.loader.batch_size")
         self.compute_dtype = resolve_compute_dtype(conf.runtime.precision)
         tv = conf.training_vocoder
         torch.manual_seed(conf.seed)
         self.vocoder = Vocoder(tv.model.network).to(self.device).train()
         self.encoder = encoder.to(self.device).eval().requires_grad_(False)
         self.optimizer = make_adam(self.vocoder.parameters(), self.device)
-        self.graph = StepGraph(self._step, self.optimizer, self.device)
+        self.grads = FlatGrads(list(self.vocoder.parameters()), 1, group)
+        self.graph = StepGraph(self._step, self.optimizer, self.device, group)
         self.clip = tv.trainer.gradient_clip_val
         self.step = 0
         self.epoch = 0
@@ -143,8 +159,7 @@ class VocoderTrainer:
         step count: nothing in it waits for the device or reads the host,
         so a CUDA graph can hold it."""
         loss = self.loss(audio, mels, speakers)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        loss = self.grads.backward(loss, [loss])[0]
         clip_by_global_norm_([p.grad for p in self.vocoder.parameters()], self.clip)
         self.optimizer.step()
         return {"loss": loss.detach()}
@@ -244,19 +259,26 @@ def train_vocoder(
     """The vocoder training loop over preprocessed features in ``data_dir``.
 
     Runs on ``device``, else on ``runtime.platform``, else on the CUDA card;
-    raises when no card is there and the CPU was not asked for.
+    raises when no card is there and the CPU was not asked for. In a
+    data-parallel rank (``parallel/mesh.py:mesh_from_conf``) it runs on the
+    rank's card with its process group.
     """
+    mesh = mesh_from_conf(conf.runtime)
+    if mesh is not None:
+        device = mesh.device
     device = resolve_device(device if device is not None else conf.runtime.platform)
+    main = is_main(mesh)
+    log = print if main else (lambda *args, **kwargs: None)
     validation_precision(conf.runtime.precision)  # an unknown mode fails before any work
     tv = conf.training_vocoder
     ckpt_dir = (Path(tv.ckpt_log.dir_root) / tv.ckpt_log.name_exp / tv.ckpt_log.name_version
                 / "checkpoints")
     sample_dir = ckpt_dir.parent / "samples"
-    trainer = VocoderTrainer(conf, encoder, device)
+    trainer = VocoderTrainer(conf, encoder, device, None if mesh is None else mesh.group)
     last = latest_checkpoint(ckpt_dir)
     if last is not None:
         trainer.load(last)
-        print(f"Auto-resume from: {last}: step {trainer.step}, epoch {trainer.epoch}")
+        log(f"Auto-resume from: {last}: step {trainer.step}, epoch {trainer.epoch}")
     schedule = MultiStepSchedule(base_lr=tv.model.optim.learning_rate,
                                  milestones=tv.model.optim.sched_milestones,
                                  gamma=tv.model.optim.sched_gamma)
@@ -273,7 +295,8 @@ def train_vocoder(
     try:
         from tensorboardX import SummaryWriter
 
-        writer = SummaryWriter(str(ckpt_dir.parent))
+        if main:
+            writer = SummaryWriter(str(ckpt_dir.parent))
     except Exception:
         pass
 
@@ -281,7 +304,7 @@ def train_vocoder(
     last_ckpt_time = t_log = time.time()
     pending: List[torch.Tensor] = []  # device losses (K,) per group since the last log
     n_pending = 0
-    ckpt_writer = AsyncCheckpointer()
+    ckpt_writer = AsyncCheckpointer(active=main)
     install_preemption_handler()
     preempted = False
     prof = {"data_wait_s": 0.0, "train_dispatch_s": 0.0, "n_steps": 0}
@@ -299,7 +322,7 @@ def train_vocoder(
         if window_prof is not None:
             window.close()
             busy = device_time(window_prof, window_steps)["device_busy_ms"]
-            print(f"Wrote profiler trace to {profile_dir}"
+            log(f"Wrote profiler trace to {profile_dir}"
                   + ("" if busy is None else f" ({busy:.3f} ms of device work per step)"))
 
     for epoch in range(trainer.epoch + 1, tv.trainer.max_epochs + 1):
@@ -316,7 +339,8 @@ def train_vocoder(
                 profiled = True
             t_step = time.time()
             lrs = [schedule(trainer.step + j) for j in range(len(group))]
-            audio, mel, spk = (stage([b[i] for b in group], device) for i in range(3))
+            audio, mel, spk = (stage([shard_batch(b[i], mesh) for b in group], device)
+                               for i in range(3))
             pending.append(trainer.train_steps(audio, mel, spk, lrs)["loss"])
             n_pending += len(group)
             prof["n_steps"] += len(group)
@@ -332,14 +356,16 @@ def train_vocoder(
                 rate = len(losses) / (time.time() - t_log)
                 t_log = time.time()
                 loss_mean = sum(losses) / len(losses)
-                print(f"step:{trainer.step} epoch:{epoch} loss:{loss_mean:.4f} "
+                log(f"step:{trainer.step} epoch:{epoch} loss:{loss_mean:.4f} "
                       f"{rate:.2f} steps/s")
                 if writer is not None:
                     writer.add_scalar("loss", loss_mean, trainer.step)
             if (time.time() - last_ckpt_time) / 60.0 >= checkpoint_minutes:
                 ckpt_writer.save(ckpt_dir, trainer.step, trainer.checkpoint())
                 last_ckpt_time = time.time()
-            if preemption_requested():
+            # Every rank stops at the same group: one stopping alone would
+            # leave the others waiting in their next collective.
+            if agree(preemption_requested(), mesh):
                 preempted = True
                 break
             if done():
@@ -347,17 +373,17 @@ def train_vocoder(
             t_iter = time.time()
         trainer.epoch = epoch
         if preempted:
-            print(f"Preempted: saving model.ckpt-{trainer.step}.pt; rerun the same command "
+            log(f"Preempted: saving model.ckpt-{trainer.step}.pt; rerun the same command "
                   "to auto-resume.")
             break
-        if epoch % tv.trainer.val_interval_epoch == 0:
+        if epoch % tv.trainer.val_interval_epoch == 0 and main:
             validate(conf, trainer, val_items, sample_dir, trainer.step, writer)
     close_window()  # a run that ended inside the window
 
     _fetch(trainer, pending)
     if tv.trainer.profiler is not None and prof["n_steps"]:
         n = prof["n_steps"]
-        print(
+        log(
             "Profiler report ({}):\n"
             "  action           total_s    mean_ms    steps\n"
             "  data_wait      {:9.3f}  {:9.3f}  {:7d}\n"
@@ -368,7 +394,8 @@ def train_vocoder(
             )
         )
     ckpt_writer.wait()
-    save_checkpoint(ckpt_dir, trainer.step, trainer.checkpoint())
+    if main:
+        save_checkpoint(ckpt_dir, trainer.step, trainer.checkpoint())
     if writer is not None:
         writer.close()
     return trainer
