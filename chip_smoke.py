@@ -91,6 +91,19 @@ Phases (any failure ends the run with a non-zero exit):
 4l. the train_cpc CLI at ``runtime.mesh_data=2`` over NCCL on phase 4d's
    corpus, where two cards are (a printed line says it did not run
    otherwise);
+4m. tensor parallelism: one model group of two ranks on card 0 over gloo
+   (``--tp-rank``: two processes of this script, started by torchrun),
+   eager bf16 ``train_step`` at full width: 3 CPC steps (S 8) and 2
+   vocoder steps (B 32 x 5,120, the clip active), each rank on the whole
+   batch with its shards; the replicated tensors the same bits on both
+   ranks, the gathered states against one process (4j's bounds), each
+   rank's launches and its bytes beside one process's;
+4n. the tensor-parallel path at M 1, a model group of one rank on NCCL:
+   10 CPC and 4 vocoder steps through the step graph with the model
+   group's collectives inside the capture, the same bits as no group, each
+   training kernel once a step in the graph, both step times in turns;
+4o. the train_cpc CLI at ``runtime.mesh_model=2`` over NCCL, where two
+   cards are (a printed line says it did not run otherwise);
 5. time each kernel, its plain version and, where one exists, the PyTorch
    library call for the same function at the main paths' shapes, beside
    the least time the card could take; the AR step in both modes at B in
@@ -2210,15 +2223,15 @@ def phase_wide(seed: int, card: str, d: Path) -> dict:
     return {"train": train_counts, "export": export_counts, "serve": counts, "graph": graph}
 
 
-def _voc_trainer(seed: int, conf, group=None):
+def _voc_trainer(seed: int, conf, group=None, model=None):
     """A vocoder trainer at ``conf``'s widths beside a random encoder from
-    ``seed`` (a data-parallel rank of ``group``, if given)."""
+    ``seed`` (a rank of the data ``group`` and ``model`` group, if given)."""
     from vectorquantizedcpc_tpu_torch.models.encoder import Encoder
     from vectorquantizedcpc_tpu_torch.training.vocoder import VocoderTrainer
 
     encoder = Encoder(conf.model.encoder)
     randomize(encoder, np.random.default_rng(seed + 15))
-    return VocoderTrainer(conf, encoder, DEVICE, group)
+    return VocoderTrainer(conf, encoder, DEVICE, group, model)
 
 
 def _voc_batch(seed: int, conf):
@@ -2275,15 +2288,47 @@ def phase_train_vocoder_step(seed: int, card: str) -> None:
 
 
 def _train_state(trainer, modules: dict) -> dict:
-    """Every weight, buffer and Adam state tensor of a trainer, by name."""
+    """Every weight, buffer and Adam state tensor of a trainer, by name, the
+    shards of a tensor-parallel rank gathered over its model group."""
+    from vectorquantizedcpc_tpu_torch.parallel.tensor import (gather_module_state,
+                                                              gather_optimizer_state)
+
+    model = getattr(trainer, "model", None)
     out, names = {}, {}
     for prefix, module in modules.items():
-        out.update({f"{prefix}.{k}": v for k, v in module.state_dict().items()})
+        out.update({f"{prefix}.{k}": v for k, v in gather_module_state(module, model).items()})
         names.update({id(p): f"{prefix}.{k}" for k, p in module.named_parameters()})
-    for p, st in trainer.optimizer.state.items():
-        out.update({f"adam.{names[id(p)]}.{k}": v for k, v in st.items()
+    params = [p for g in trainer.optimizer.param_groups for p in g["params"]]
+    for i, st in gather_optimizer_state(trainer.optimizer, model)["state"].items():
+        out.update({f"adam.{names[id(params[i])]}.{k}": v for k, v in st.items()
                     if isinstance(v, torch.Tensor)})
     return out
+
+
+def _own_tensors(trainer, modules: dict) -> tuple:
+    """A rank's own weights, buffers and Adam moments: the replicated ones
+    by name (copied to the host), the names of the shards, and the bytes of
+    all of them."""
+    from vectorquantizedcpc_tpu_torch.parallel.tensor import model_dim
+
+    replicated, sharded, nbytes, names = {}, [], 0, {}
+    for prefix, module in modules.items():
+        for k, t in module.state_dict(keep_vars=True).items():
+            names[id(t)] = f"{prefix}.{k}"
+            nbytes += t.numel() * t.element_size()
+            if model_dim(t) is None:
+                replicated[f"{prefix}.{k}"] = t.detach().cpu()
+            else:
+                sharded.append(f"{prefix}.{k}")
+    for p, st in trainer.optimizer.state.items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            nbytes += st[k].numel() * st[k].element_size()
+            key = f"adam.{names[id(p)]}.{k}"
+            if model_dim(p) is None:
+                replicated[key] = st[k].cpu()
+            else:
+                sharded.append(key)
+    return replicated, sharded, nbytes
 
 
 def _bit_diffs(a: dict, b: dict) -> dict:
@@ -3300,41 +3345,47 @@ def _agreement(got: dict, ref: dict, lr: float, steps: int, slice_of=None) -> tu
     return close / total, (close_s / total_s if total_s else 1.0), worst
 
 
-def _dp_steps(conf, inputs: dict, seed: int, group=None, mesh=None) -> dict:
-    """Phase 4j's eager steps from ``inputs``' weights, on this rank's share
-    of each global batch (the whole batch without ``mesh``): the losses,
-    every state tensor and the kernels' launches; the vocoder's only where
-    DP_TOLERANCES has them (at bf16: its float32 step's plain GRU loop over
-    5,120 samples takes seconds)."""
+def _dp_steps(conf, inputs: dict, seed: int, group=None, mesh=None, model=None) -> dict:
+    """Phase 4j's and 4m's eager steps from ``inputs``' weights, on this
+    rank's share of each global batch (the whole batch without ``mesh``),
+    with its shards of the weights under a ``model`` group: the losses,
+    every state tensor (gathered), the rank's own tensors and the kernels'
+    launches; the vocoder's only where DP_TOLERANCES has them (at bf16: its
+    float32 step's plain GRU loop over 5,120 samples takes seconds)."""
     from vectorquantizedcpc_tpu_torch.models.cpc import shard_negatives
     from vectorquantizedcpc_tpu_torch.parallel.sharding import shard_batch
+    from vectorquantizedcpc_tpu_torch.parallel.tensor import shard_state
     from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
 
     to = lambda x: x.to(DEVICE)
     share = lambda x: shard_batch(to(x), mesh)
+    mine = lambda sd, dims: sd if model is None else shard_state(sd, dims, model)
     _train_counts(reset=True)
-    tr = CPCTrainer(conf, DEVICE, group)
-    tr.encoder.load_state_dict(inputs["encoder"], strict=True)
+    tr = CPCTrainer(conf, DEVICE, group, model)
+    tr.encoder.load_state_dict(mine(inputs["encoder"], tr.encoder_dims), strict=True)
     tr.cpc.load_state_dict(inputs["cpc"], strict=True)
     cpc_losses = [tr.train_step(share(m), to(u), to(q) if mesh is None else
                                 shard_negatives(to(q), mesh.rank, mesh.world), lr)["loss"]
                   for m, u, q, lr in zip(inputs["mels"], inputs["utt"], inputs["seq"],
                                          inputs["lrs"])]
     torch.cuda.synchronize()
+    modules = {"encoder": tr.encoder, "cpc": tr.cpc}
     out = {"cpc_losses": torch.stack(cpc_losses).cpu(), "cpc_counts": _train_counts(),
-           "cpc_state": {k: v.cpu() for k, v in _train_state(
-               tr, {"encoder": tr.encoder, "cpc": tr.cpc}).items()}}
+           "cpc_state": {k: v.cpu() for k, v in _train_state(tr, modules).items()},
+           "cpc_own": _own_tensors(tr, modules)}
     if "voc_loss" not in DP_TOLERANCES[conf.runtime.precision]:
         return out
+    del tr
     _voc_counts(reset=True)
-    vt = _voc_trainer(seed, conf, group)
-    vt.vocoder.load_state_dict(inputs["vocoder"], strict=True)
+    vt = _voc_trainer(seed, conf, group, model)
+    vt.vocoder.load_state_dict(mine(inputs["vocoder"], vt.vocoder_dims), strict=True)
     voc_losses = [vt.train_step(*(share(x) for x in b), lr)["loss"]
                   for b, lr in zip(inputs["voc"], inputs["vlrs"])]
     torch.cuda.synchronize()
     out.update({"voc_losses": torch.stack(voc_losses).cpu(), "voc_counts": _voc_counts(),
                 "voc_state": {k: v.cpu() for k, v in _train_state(
-                    vt, {"vocoder": vt.vocoder}).items()}})
+                    vt, {"vocoder": vt.vocoder}).items()},
+                "voc_own": _own_tensors(vt, {"vocoder": vt.vocoder})})
     return out
 
 
@@ -3470,6 +3521,259 @@ def phase_two_ranks(seed: int, card: str, d: Path) -> dict:
                       for r in ranks], "results": results}
 
 
+TP_CPC_STEPS, TP_VOC_STEPS = DP_CPC_STEPS, DP_VOC_STEPS  # phase 4m's eager steps
+TP_CLIP = 1e-2  # phase 4m's gradient_clip_val: far below the first step's norm, checked
+# Phase 4m's bounds against one process: phase 4j's, f32 the CPU test's,
+# but the bf16 CPC share of the weights within 0.1 lr set below the H100's
+# reading at seed 0 (91.65 %, f32 99.985 %; its lowest tensors the CPC
+# predictors, as in 4j): the row-parallel output projection sums two bf16
+# partial products where one process rounds one (the JAX package's
+# rounding; its own bf16 tensor-parallel test bounds the loss at rel 2e-3
+# for it), and Adam turns the predictors' noise-level gradients into whole
+# lr steps. The f32 run holds the collectives to the CPU test's bounds.
+TP_TOLERANCES = {"float32": DP_TOLERANCES["float32"],
+                 "bfloat16": {**DP_TOLERANCES["bfloat16"], "cpc_share": 0.90}}
+
+
+def _tp_argv(seed: int) -> list:
+    return [f"seed={seed}", f"training_vocoder.trainer.gradient_clip_val={TP_CLIP}"]
+
+
+def tp_rank(d: Path, seed: int) -> None:
+    """One of phase 4m's two ranks (``--tp-rank``): one model group of 2 on
+    card 0 over gloo, eager steps of both trainers at each of DP_PRECISIONS
+    on the whole global batches with this rank's shards; writes the
+    results."""
+    global DEVICE
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.parallel.mesh import mesh_from_conf
+
+    argv = _tp_argv(seed) + ["runtime.platform=cuda:0", "runtime.mesh_model=2"]
+    mesh = mesh_from_conf(load_conf(argv).runtime)
+    check(mesh is not None and mesh.world == 1 and mesh.model is not None
+          and mesh.model.size == 2 and mesh.device == torch.device("cuda", 0),
+          f"rank mesh {mesh}")
+    DEVICE = str(mesh.device)
+    inputs = torch.load(d / "inputs.pt", weights_only=False)
+    torch.save({p: _dp_steps(load_conf(argv + [f"runtime.precision={p}"]), inputs, seed,
+                             mesh.group, mesh, mesh.model) for p in DP_PRECISIONS},
+               d / f"rank{mesh.model.rank}.pt")
+
+
+def _tp_compare(ranks: list, one: dict, lrs, vlrs, tol: dict) -> tuple:
+    """Phase 4m's readings of one precision: the checks between the two
+    model ranks (raising), then against one process (returned with the
+    failures, which the caller raises after printing them)."""
+    weights = lambda st: {k: v for k, v in st.items()
+                          if not k.startswith(("adam.", "encoder.codebook.")) and
+                          v.is_floating_point() and k != "encoder.rnn.bias_hh_l0"}
+    parts = ("cpc", "voc") if "voc_losses" in ranks[0] else ("cpc",)
+    res, own, failed = {}, {}, []
+    for what, lr, steps in (("cpc", max(lrs), TP_CPC_STEPS),
+                            ("voc", max(vlrs), TP_VOC_STEPS))[:len(parts)]:
+        a, b = ranks
+        check(torch.equal(a[f"{what}_losses"], b[f"{what}_losses"]), f"4m: {what} losses differ")
+        diffs = _bit_diffs(a[f"{what}_state"], b[f"{what}_state"])
+        check(not diffs, f"4m: the ranks gathered other {what} states: "
+                         f"{dict(list(diffs.items())[:6])}")
+        (rep_a, sharded, bytes_a), (rep_b, _, bytes_b) = a[f"{what}_own"], b[f"{what}_own"]
+        diffs = _bit_diffs(rep_a, rep_b)
+        check(not diffs and set(rep_a) == set(rep_b),
+              f"4m: {what} replicated tensors differ between the model ranks: "
+              f"{dict(list(diffs.items())[:6])}")
+        full = one[f"{what}_state"]
+        want = sum(v.numel() * v.element_size() // (2 if k in sharded else 1)
+                   for k, v in full.items() if k.endswith(("exp_avg", "exp_avg_sq"))
+                   or not k.startswith("adam."))
+        one_bytes = one[f"{what}_own"][2]
+        check(bytes_a == bytes_b == want, f"4m: {what} rank bytes {bytes_a}, {bytes_b}, "
+                                          f"expected {want} of one process's {one_bytes}")
+        own[what] = {"rank_bytes": bytes_a, "one_process_bytes": one_bytes,
+                     "sharded_tensors": len(sharded), "replicated_tensors": len(rep_a)}
+        losses, ref = a[f"{what}_losses"].double(), one[f"{what}_losses"].double()
+        res[f"{what}_loss_rel"] = rel = float(((losses - ref).abs() / ref.abs()).max())
+        if rel > tol[f"{what}_loss"]:
+            failed.append(f"{what} losses {losses.tolist()} vs {ref.tolist()}")
+        share, _, worst = _agreement(weights(a[f"{what}_state"]), weights(full), lr, steps)
+        res[f"{what}_share"], res[f"{what}_worst"] = share, worst
+        if share < tol[f"{what}_share"]:
+            failed.append(f"{what} weights within 0.1 lr: {share}")
+    ema_err = 0.0
+    for key in ("encoder.codebook.ema_count", "encoder.codebook.ema_weight"):
+        a, r = ranks[0]["cpc_state"][key].double(), one["cpc_state"][key].double()
+        ema_err = max(ema_err, float(((a - r).abs() / (r.abs() + r.abs().max())).max()))
+    res["ema_rel"] = ema_err
+    if ema_err > tol["ema"]:
+        failed.append(f"EMA {ema_err}")
+    return res, own, failed
+
+
+def phase_two_model_ranks(seed: int, card: str, d: Path) -> dict:
+    """Phase 4m: one model group of two ranks on card 0 over gloo, eager
+    ``train_step`` at full width, in two processes of this script
+    (``--tp-rank``, through torchrun) that time-slice the card, each rank on
+    the whole batch with its shards: TP_CPC_STEPS CPC steps at S 8 (bf16
+    and f32) and TP_VOC_STEPS vocoder steps at B 32 x 5,120 (bf16) with the
+    clip active (TP_CLIP). The ranks' replicated tensors the same bits,
+    their gathered states the same; every training kernel launched once a
+    step on each rank at bf16; against one process on the same batches,
+    TP_TOLERANCES (losses, EMA buffers, the shares of the weights within
+    0.1 lr, every weight within 2 lr a step); each rank's bytes of weights,
+    VQ buffers and Adam moments beside one process's."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer, fold_lstm_bias
+
+    start = time.perf_counter()
+    conf = load_conf(_tp_argv(seed))
+    tr = CPCTrainer(conf, DEVICE)
+    randomize(tr.encoder, np.random.default_rng(seed + 31))
+    randomize(tr.cpc, np.random.default_rng(seed + 32))
+    fold_lstm_bias(tr.encoder)
+    vt = _voc_trainer(seed, conf)
+    randomize(vt.vocoder, np.random.default_rng(seed + 41))
+    mels, (utt, seq), lrs = _cpc_group(seed + 30, conf, TP_CPC_STEPS)
+    cpu = lambda xs: [x.cpu() for x in xs]
+    voc = [_voc_batch(seed + 40 + i, conf) for i in range(TP_VOC_STEPS)]
+    grads = torch.autograd.grad(vt.loss(*voc[0]), list(vt.vocoder.parameters()))
+    norm = float(torch.stack([g.float().square().sum() for g in grads]).sum().sqrt())
+    check(norm > 10 * TP_CLIP, f"4m: the first vocoder step's gradient norm {norm} does not "
+                               f"clip at {TP_CLIP}")
+    inputs = {"encoder": {k: v.cpu() for k, v in tr.encoder.state_dict().items()},
+              "cpc": {k: v.cpu() for k, v in tr.cpc.state_dict().items()},
+              "vocoder": {k: v.cpu() for k, v in vt.vocoder.state_dict().items()},
+              "mels": cpu(mels), "utt": cpu(utt), "seq": cpu(seq), "lrs": lrs,
+              "voc": [cpu(b) for b in voc],
+              "vlrs": [conf.training_vocoder.model.optim.learning_rate] * TP_VOC_STEPS}
+    del tr, vt, grads
+    torch.cuda.empty_cache()
+    torch.save(inputs, d / "inputs.pt")
+    torchrun = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc-per-node=2", str(Path(__file__).resolve()),
+                                 "--tp-rank", str(d), "--seed", str(seed)])
+    try:
+        code = torchrun.wait(timeout=DP_RANK_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        torchrun.terminate()  # torchrun stops its ranks
+        try:
+            code = torchrun.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            torchrun.kill()
+            code = torchrun.wait()
+    check(code == 0, f"phase 4m's ranks exited with {code} (or outlasted {DP_RANK_LIMIT_S} s)")
+    ranks = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    ranks_s = time.perf_counter() - start
+    results, failed = {}, []
+    for precision in DP_PRECISIONS:
+        got = [r[precision] for r in ranks]
+        one = _dp_steps(load_conf(_tp_argv(seed) + [f"runtime.precision={precision}"]),
+                        inputs, seed)
+        tol = TP_TOLERANCES[precision]
+        res, own, bad = _tp_compare(got, one, lrs, inputs["vlrs"], tol)
+        results[precision] = {**res, "bytes": own}
+        failed += [f"{precision} {b}" for b in bad]
+        kernels = precision == "bfloat16"
+        want = {**{k: TP_CPC_STEPS if kernels or k.startswith("cpc_select") else 0
+                   for k in TRAIN_KERNELS},
+                **{k: TP_VOC_STEPS if kernels else 0 for k in VOC_KERNELS}}
+        for r, rank in enumerate(got):
+            c = rank["cpc_counts"]
+            v = rank.get("voc_counts", {k: 0 for k in VOC_KERNELS})
+            check(all({**c, **v}[k] == n for k, n in want.items()),
+                  f"4m rank {r} {precision} launches {c} {v}, expected {want}")
+            print(f"two model ranks on one card (gloo) {precision}, rank {r}: launches CPC "
+                  f"{json.dumps(c)}, vocoder {json.dumps(v)}  [{card}]")
+        voc_steps = (f" and {TP_VOC_STEPS} vocoder steps (B 32 x 5,120, clip {TP_CLIP}, "
+                     f"first-step norm {norm:.4f})" if "voc_losses" in got[0] else "")
+        print(f"two model ranks on one card (gloo) {precision}: {TP_CPC_STEPS} CPC steps (S 8)"
+              f"{voc_steps}, eager, each rank on the whole batch with its shards; replicated "
+              f"tensors and gathered states the same bits on both ranks; against one process: "
+              f"{json.dumps(res)}; bounds {json.dumps(tol)}  [{card}]")
+        print(f"two model ranks {precision}: bytes of weights, VQ buffers and Adam moments a "
+              f"rank against one process {json.dumps(own)}  [{card}]")
+    print(f"two model ranks: the ranks' processes {ranks_s:.3f} s wall incl. start-up; phase 4m "
+          f"wall {time.perf_counter() - start:.3f} s  [{card}]")
+    check(not failed, f"4m against one process: {failed}")
+    return {"ranks": [{"cpc": r["bfloat16"]["cpc_counts"], "vocoder": r["bfloat16"]["voc_counts"]}
+                      for r in ranks], "results": results}
+
+
+def phase_model_one(seed: int, card: str) -> dict:
+    """Phase 4n: the tensor-parallel code path at M 1, a model group of one
+    rank on NCCL, through the step graph: GRAPH_CPC_STEPS CPC and
+    GRAPH_VOC_STEPS vocoder steps whose model-group collectives (the
+    gathers and sums of the partitioned products, the VQ argmin's gather,
+    the clip's norm) are captured in the CUDA graph, the same bits as the
+    trainers without a group; the graph holds each training kernel once a
+    step; both step times in turns."""
+    import torch.distributed as dist
+
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.parallel.tensor import ModelGroup
+    from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
+
+    start = time.perf_counter()
+    conf = load_conf([f"seed={seed}"])
+    mels, negs, lrs = _cpc_group(seed, conf, GRAPH_CPC_STEPS)
+    audio, vmels, spk = _voc_group(seed, conf, GRAPH_VOC_STEPS)
+    vlrs = [conf.training_vocoder.model.optim.learning_rate] * GRAPH_VOC_STEPS
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    out = {}
+    try:
+        model = ModelGroup(dist.group.WORLD, 0, 1)
+        paths = (
+            ("CPC", lambda m: CPCTrainer(conf, DEVICE, None, m),
+             lambda tr: tr.train_steps(mels, negs, lrs)["loss"],
+             lambda tr: {"encoder": tr.encoder, "cpc": tr.cpc}, TRAIN_KERNELS, _train_counts,
+             GRAPH_CPC_STEPS, lambda tr: tr.encoder_dims),
+            ("vocoder", lambda m: _voc_trainer(seed, conf, None, m),
+             lambda tr: tr.train_steps(audio, vmels, spk, vlrs)["loss"],
+             lambda tr: {"vocoder": tr.vocoder}, VOC_KERNELS, _voc_counts, GRAPH_VOC_STEPS,
+             lambda tr: tr.vocoder_dims),
+        )
+        for what, make, run, modules, kernels, counts, n, dims in paths:
+            plain = make(None)
+            loss_plain = run(plain)
+            grouped = make(model)
+            check(len(dims(grouped)) > 0, f"M 1 {what}: no tensor took a model dim")
+            torch.cuda.synchronize()
+            counts(reset=True)
+            loss_group = run(grouped)
+            torch.cuda.synchronize()
+            launches = counts()
+            graph = check_graph(grouped.graph, kernels, n, launches, f"M 1 NCCL {what}")
+            a, b = _train_state(plain, modules(plain)), _train_state(grouped, modules(grouped))
+            check(set(a) == set(b), f"M 1 {what}: state names differ")
+            diffs = _bit_diffs(a, b)
+            if not torch.equal(loss_plain, loss_group):
+                diffs["loss"] = float((loss_plain - loss_group).abs().max())
+            check(not diffs, f"M 1 NCCL {what}: differs from no group: "
+                             f"{dict(list(diffs.items())[:6])}")
+            ms = {"no group": [], "NCCL model group of 1": []}
+            for label, tr in (("no group", plain), ("NCCL model group of 1", grouped)) * 3:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(tr)
+                torch.cuda.synchronize()
+                ms[label].append(1e3 * (time.perf_counter() - t0) / n)
+            med = {k: float(np.median(v)) for k, v in ms.items()}
+            out[what] = {"launches": launches, "graph": graph, "ms": med,
+                         "model_dims": len(dims(grouped))}
+            print(f"M 1 NCCL {what}: {n} steps through the step graph, {len(dims(grouped))} "
+                  f"tensors on the model axis, their collectives inside the capture: losses, "
+                  f"weights, buffers and Adam's state the same bits as without a group "
+                  f"({len(a)} tensors); captured a step "
+                  f"{json.dumps(graph['captured_per_step'])}; step wall ms, median of 3 runs in "
+                  f"turns: no group {med['no group']:.3f} "
+                  f"({', '.join(f'{x:.3f}' for x in ms['no group'])}), model group of 1 "
+                  f"{med['NCCL model group of 1']:.3f} "
+                  f"({', '.join(f'{x:.3f}' for x in ms['NCCL model group of 1'])})  [{card}]")
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 4n wall {time.perf_counter() - start:.3f} s  [{card}]")
+    return out
+
+
 def phase_serve_sharded(seed: int, card: str, serve: dict) -> dict:
     """Phase 4k: phase 4b's 48 requests, greedy bf16, through a server of
     SHARDED_SLOTS slots in 2 shards on card 0 (one decode launch per shard
@@ -3569,16 +3873,43 @@ def phase_cli_two_cards(seed: int, card: str, d: Path) -> Optional[dict]:
     return {"seconds": seconds}
 
 
+def phase_cli_two_cards_model(seed: int, card: str, d: Path) -> Optional[dict]:
+    """Phase 4o: the train_cpc CLI at runtime.mesh_model=2, NCCL, one rank a
+    card, on phase 4d's corpus; only where two cards are."""
+    from vectorquantizedcpc_tpu_torch.cli import train_cpc
+
+    if torch.cuda.device_count() < 2:
+        print(f"phase 4o (train_cpc CLI at runtime.mesh_model=2 over NCCL) did not run: "
+              f"{torch.cuda.device_count()} card on this machine, it needs 2  [{card}]")
+        return None
+    start = time.perf_counter()
+    argv = _corpus_args(d) + [f"checkpoint_dir={d / 'ckpt_tp'}", "training.cpc.n_epochs=4",
+                              "training.cpc.checkpoint_interval=4",
+                              "training.cpc.log_interval=2", f"seed={seed}",
+                              "runtime.mesh_model=2"]
+    check(train_cpc.main(argv) is None, "the launching CLI returned a trainer")
+    ckpts = sorted(p.name for p in (d / "ckpt_tp").glob("*.pt"))
+    check(ckpts == ["model.ckpt-4.pt"], f"2-card checkpoints {ckpts}")
+    seconds = time.perf_counter() - start
+    print(f"train_cpc CLI on 2 cards at mesh_model 2 (NCCL): 4 epochs x 2 steps, {ckpts}; "
+          f"{seconds:.3f} s wall incl. both ranks' start-up  [{card}]")
+    return {"seconds": seconds}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--dp-rank", type=Path, help="run one of phase 4j's ranks (internal)")
+    parser.add_argument("--tp-rank", type=Path, help="run one of phase 4m's ranks (internal)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     if args.dp_rank is not None:
         dp_rank(args.dp_rank, args.seed)
+        return 0
+    if args.tp_rank is not None:
+        tp_rank(args.tp_rank, args.seed)
         return 0
 
     # Phase 1: the card.
@@ -3619,6 +3950,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         trained = phase_train(args.seed, card, Path(tmp))
         phase_cli_two_cards(args.seed, card, Path(tmp))
+        phase_cli_two_cards_model(args.seed, card, Path(tmp))
         phase_train_step(args.seed, card)
         mid = time.perf_counter()
         trained_voc = phase_train_vocoder(args.seed, card, Path(tmp))
@@ -3629,6 +3961,9 @@ def main() -> int:
     world_one = phase_world_one(args.seed, card)
     with tempfile.TemporaryDirectory() as tmp:
         two_ranks = phase_two_ranks(args.seed, card, Path(tmp))
+    model_one = phase_model_one(args.seed, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        two_model = phase_two_model_ranks(args.seed, card, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         jax_ckpt = phase_jax_checkpoints(args.seed, card, Path(tmp))
         phase_async_checkpoints(args.seed, card, Path(tmp))
@@ -3757,7 +4092,10 @@ def main() -> int:
             "launches_by_path": {"train_cpc": trained["launches"][name],
                                  "train_cpc_jax_resume": jax_ckpt["train_cpc"][name],
                                  "nccl_world_1": world_one["CPC"]["launches"][name],
-                                 "two_ranks_gloo": [r["cpc"][name] for r in two_ranks["ranks"]]},
+                                 "two_ranks_gloo": [r["cpc"][name] for r in two_ranks["ranks"]],
+                                 "nccl_model_group_1": model_one["CPC"]["launches"][name],
+                                 "two_model_ranks_gloo": [r["cpc"][name]
+                                                          for r in two_model["ranks"]]},
             "captured_per_step": trained["graph"]["captured_per_step"][name],
             "graph_replays": trained["graph"]["replays"],
             "max_abs_err": compared_train[name],
@@ -3783,7 +4121,10 @@ def main() -> int:
                                  "train_vocoder_jax_resume": jax_ckpt["train_vocoder"][name],
                                  "nccl_world_1": world_one["vocoder"]["launches"][name],
                                  "two_ranks_gloo": [r["vocoder"][name]
-                                                    for r in two_ranks["ranks"]]},
+                                                    for r in two_ranks["ranks"]],
+                                 "nccl_model_group_1": model_one["vocoder"]["launches"][name],
+                                 "two_model_ranks_gloo": [r["vocoder"][name]
+                                                          for r in two_model["ranks"]]},
             "captured_per_step": trained_voc["graph"]["captured_per_step"][name],
             "graph_replays": trained_voc["graph"]["replays"],
             "max_abs_err": compared_gru_train[name],

@@ -352,7 +352,7 @@ def test_mesh_keys_load_from_the_cli_and_a_jax_yaml(tmp_path):
 
 @pytest.mark.parametrize("cli", ["train_cpc", "train_vocoder"])
 @pytest.mark.parametrize("extra, error, match", [
-    (["runtime.mesh_model=2"], NotImplementedError, "tensor parallelism is not ported"),
+    (["runtime.mesh_data=0"], ValueError, "runtime.mesh_data=0 must be at least 1"),
     (["runtime.mesh_data=2", "runtime.num_processes=2"], ValueError, "describe a cluster"),
     (["runtime.mesh_data=3", "training.cpc.n_speakers_per_batch=4",
       "data.loader.batch_size=4"], ValueError, "=4 does not divide over runtime.mesh_data=3"),

@@ -3,16 +3,18 @@
     python -m vectorquantizedcpc_tpu_torch.cli.train_cpc \\
         data.dataset.name=ZR19 data.corpus.root=/data/zr19 checkpoint_dir=./ckpt \\
         [resume=./ckpt/model.ckpt-2000.pt] [runtime.precision=float32] \\
-        [runtime.mesh_data=8]
+        [runtime.mesh_data=4] [runtime.mesh_model=2]
 
 Writes ``model.ckpt-{epoch}.pt`` reference-format checkpoints under
 ``checkpoint_dir``; the encode CLI reads them as they are.
 
-``runtime.mesh_data=N`` trains data-parallel: this command starts N ranks
-through torchrun, one per card (``parallel/mesh.py``), each on S / N of the
+``runtime.mesh_data=D runtime.mesh_model=M`` trains on a (data, model)
+mesh: this command starts D x M ranks through torchrun, one per card
+(``parallel/mesh.py``). Each model group of M ranks holds one copy of the
+train state in shards (``parallel/tensor.py``) and trains on S / D of the
 speakers; ``runtime.coordinator_address=host:port runtime.num_processes=P
-runtime.process_id=i`` on each of P hosts starts N / P ranks there; under
-``torchrun`` the process is one rank.
+runtime.process_id=i`` on each of P hosts starts D M / P ranks there,
+whole model groups; under ``torchrun`` the process is one rank.
 """
 
 import sys

@@ -2,7 +2,8 @@
 
     python -m vectorquantizedcpc_tpu_torch.cli.train_vocoder \\
         cpc_checkpoint=./ckpt/model.ckpt-22000.pt \\
-        data.dataset.name=ZR19 data.corpus.root=/data/zr19 [runtime.mesh_data=8]
+        data.dataset.name=ZR19 data.corpus.root=/data/zr19 \\
+        [runtime.mesh_data=4] [runtime.mesh_model=2]
 
 Preprocesses the corpus into ``data.dataset.adress_data_root`` (or
 ``data.adress_data_root``, else ``./features``), then trains; checkpoints go
@@ -10,8 +11,10 @@ to ``{dir_root}/{name_exp}/{name_version}/checkpoints/model.ckpt-{step}.pt``
 (``training_vocoder.ckpt_log``), which the convert CLI reads as
 ``vocoder_checkpoint``. A rerun resumes from the latest one.
 
-``runtime.mesh_data=N`` trains data-parallel, each of N ranks on B / N of
-each batch; the keys and launches are the train_cpc CLI's.
+``runtime.mesh_data=D runtime.mesh_model=M`` trains on D x M ranks, each
+model group on B / D of each batch with the vocoder's state in M shards;
+the keys and launches are the train_cpc CLI's. Rank 0 validates and
+writes checkpoints from the gathered weights.
 """
 
 import sys

@@ -345,13 +345,15 @@ class ConfRuntime:
     # A directory: both trainers write one profiler trace of a few steps
     # after the first dispatch group there (utils/profiling.trace).
     profile_dir: Optional[str] = None
-    # Data parallelism (parallel/mesh.py), the JAX package's keys: the
-    # trainers' batches split over mesh_data ranks, one process per card.
-    # The CLIs start the ranks: mesh_data local workers, or, with all three
-    # cluster keys, mesh_data / num_processes on each of num_processes
-    # hosts, the rendezvous at coordinator_address ("host:port"); under
-    # torchrun its RANK / WORLD_SIZE / LOCAL_RANK. mesh_model > 1 (tensor
-    # parallelism) is not ported and raises.
+    # The trainers' (data, model) mesh (parallel/mesh.py), the JAX
+    # package's keys, one process per card: the batches split over
+    # mesh_data ranks, the train state's wide tensors over mesh_model
+    # (parallel/tensor.py: the JAX package's sharding rules). The CLIs start
+    # the mesh_data x mesh_model ranks: all locally, or, with all three
+    # cluster keys, an equal share of whole model groups on each of
+    # num_processes hosts, the rendezvous at coordinator_address
+    # ("host:port"); under torchrun its RANK / WORLD_SIZE / LOCAL_RANK.
+    # Serving, convert and encode take no model axis, as in the JAX package.
     mesh_data: int = 1
     mesh_model: int = 1
     coordinator_address: Optional[str] = None

@@ -46,13 +46,13 @@ def preprocess_corpus(
 ) -> Dict:
     """Preprocess every utterance; returns (and writes) the manifest. An
     existing manifest is returned as it is unless ``force``. With a
-    data-parallel ``mesh`` only rank 0 writes; the other ranks wait for it
-    at a barrier, then read the manifest."""
+    ``mesh`` only global rank 0 writes; the other ranks wait for it at a
+    barrier, then read the manifest."""
     if mesh is not None:
-        from ..parallel.mesh import barrier
+        from ..parallel.mesh import barrier, is_main
 
         manifest = (preprocess_corpus(corpus, out_dir, conf, num_workers, force)
-                    if mesh.rank == 0 else None)
+                    if is_main(mesh) else None)
         barrier(mesh)
         return manifest if manifest is not None else load_manifest(out_dir)
     out_dir = Path(out_dir)

@@ -10,6 +10,15 @@ A GRU computes in its input's dtype, as the JAX package's ``gru_apply``:
 bfloat16 rounds every product and element-wise op to bf16 (the vocoder
 PreNet in training). The vocoder's sample-level f32 recurrence is
 ``gru_scan_loop``; its bf16 one runs the CUDA kernels (``ops/gru_train.py``).
+
+Tensor parallel (``model``): where ``parallel/tensor.shard_module_`` cut a
+recurrence's weights to this rank's rows of the gate axis, the input
+projection is column-parallel (the rank's gate columns of ``x @ wx + b``,
+gathered along the gate axis) and ``wh`` and the GRU's ``bh`` are gathered
+before the loop or kernel, which then runs on full tensors over the rank's
+batch, as the JAX package runs its kernels under ``shard_map`` with
+``P()`` for ``wh``. Every model rank computes the same full ``wh``
+gradient, of which the gather's backward keeps its slice.
 """
 
 from typing import Optional, Tuple
@@ -18,7 +27,13 @@ import torch
 from torch import nn
 
 from ..ops.lstm_scan import LstmScan, lstm_scan
+from ..parallel.tensor import ModelGroup, column_product, gather_from_model, split_on
 from .matmul import rows_matmul
+
+
+def gathered(t: torch.Tensor, model: Optional[ModelGroup]) -> torch.Tensor:
+    """The full tensor of the rank's gate rows ``t`` (``t`` itself without ``model``)."""
+    return t if model is None else gather_from_model(t, model, 0)
 
 
 def gru_step(
@@ -44,14 +59,18 @@ def gru_apply(
     bias_ih: torch.Tensor,
     bias_hh: torch.Tensor,
     reverse: bool = False,
+    model: Optional[ModelGroup] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run a GRU from a zero state over ``x`` (B, T, D) in ``x``'s dtype;
-    returns ((B, T, H), h_T). Differentiable by autograd."""
+    returns ((B, T, H), h_T). Differentiable by autograd; over the rank's
+    gate rows with ``model`` (the module docstring)."""
     b, t, _ = x.shape
     dt = x.dtype
     h = x.new_zeros(b, weight_hh.shape[1])
-    xproj = x @ weight_ih.t().to(dt) + bias_ih.to(dt)  # (B, T, 3H)
-    weight_hh, bias_hh = weight_hh.to(dt), bias_hh.to(dt)
+    model = split_on(model, weight_hh)
+    xproj = column_product(x, weight_ih.t().to(dt), torch.matmul, model)
+    xproj = xproj + gathered(bias_ih.to(dt), model)  # (B, T, 3H)
+    weight_hh, bias_hh = gathered(weight_hh, model).to(dt), gathered(bias_hh, model).to(dt)
     out = [None] * t
     for i in (reversed(range(t)) if reverse else range(t)):
         h = gru_step(h, xproj[:, i], weight_hh, bias_hh)
@@ -103,7 +122,8 @@ def gru_apply_masked_reverse(
     return torch.stack(out, dim=1)
 
 
-def bigru_apply(gru: nn.GRU, layer: int, x: torch.Tensor) -> torch.Tensor:
+def bigru_apply(gru: nn.GRU, layer: int, x: torch.Tensor,
+                model: Optional[ModelGroup] = None) -> torch.Tensor:
     """Layer ``layer`` of a bidirectional ``nn.GRU``: concat(fwd, bwd) (B, T,
     2H), in ``x``'s dtype."""
     outs = []
@@ -115,6 +135,7 @@ def bigru_apply(gru: nn.GRU, layer: int, x: torch.Tensor) -> torch.Tensor:
             getattr(gru, f"bias_ih_{sfx}"),
             getattr(gru, f"bias_hh_{sfx}"),
             reverse=reverse,
+            model=model,
         )
         outs.append(out)
     return torch.cat(outs, dim=-1)
@@ -128,6 +149,7 @@ def lstm_apply(
     bias_hh: torch.Tensor,
     state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     compute_dtype: torch.dtype = torch.float32,
+    model: Optional[ModelGroup] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Run an LSTM over ``x`` (B, T, D) from ``state`` (zeros by default).
 
@@ -139,18 +161,21 @@ def lstm_apply(
     runs its Pallas kernels on a TPU: without gradients the inference kernel
     ``ops/lstm_scan.lstm_scan``; with gradients ``LstmScan``, the training
     forward and the backward kernel. float32 runs a plain f32 loop whose
-    rows sum alike at any batch size, differentiable by autograd.
+    rows sum alike at any batch size, differentiable by autograd. With
+    ``model``, over the rank's gate rows (the module docstring).
     """
     b, t, _ = x.shape
     hidden = weight_hh.shape[1]
-    bias = bias_ih.float() + bias_hh.float()
+    model = split_on(model, weight_hh)
+    bias = gathered(bias_ih.float() + bias_hh.float(), model)
+    weight_hh = gathered(weight_hh, model)
     if state is None:
         zeros = torch.zeros(b, hidden, dtype=torch.float32, device=x.device)
         state = (zeros, zeros)
     h, c = (s.float() for s in state)
     if compute_dtype == torch.bfloat16:
         bf = torch.bfloat16
-        xproj = x.to(bf) @ weight_ih.t().to(bf) + bias.to(bf)
+        xproj = column_product(x.to(bf), weight_ih.t().to(bf), torch.matmul, model) + bias.to(bf)
         args = (weight_hh.t().to(bf).contiguous(), xproj.transpose(0, 1).contiguous(),
                 h.contiguous(), c.contiguous())
         if torch.is_grad_enabled() and any(a.requires_grad for a in args):
@@ -160,7 +185,7 @@ def lstm_apply(
         return hs.transpose(0, 1), (h.to(bf), c.to(bf))
     if compute_dtype != torch.float32:
         raise ValueError(f"lstm_apply computes in float32 or bfloat16, not {compute_dtype}")
-    xproj = rows_matmul(x.float(), weight_ih.t().float()) + bias
+    xproj = column_product(x.float(), weight_ih.t().float(), rows_matmul, model) + bias
     wh = weight_hh.t().float()
     out = []
     for i in range(t):

@@ -12,6 +12,13 @@ Modules keep the reference ``Vocoder``'s ``state_dict`` names
 The GRU modules only hold parameters; the recurrences are the loops of
 ``models/rnn.py`` and the CUDA kernels of ``ops/gru_train.py`` (teacher-forced
 training) and ``ops/ar_decode.py`` (the sample-level decode).
+
+Tensor parallel training (``model``, the JAX package's rules): the GRUs'
+gate axes (``models/rnn.py``), ``fc1``'s outputs, gathered before ``fc2``,
+and ``fc2``'s classes are this rank's slices; the teacher-forced forward
+then gives the rank's columns of the logits, which
+``parallel/tensor.vocab_parallel_cross_entropy`` scores without gathering
+them. The embeddings are replicated.
 """
 
 from typing import Optional
@@ -23,7 +30,9 @@ from ..configs import ConfVocoderNetwork
 from ..dsp.mulaw import mulaw_decode
 from ..ops.gru_train import GruScan, gru_scan
 from ..ops.matmul import bf16_product
-from .rnn import bigru_apply, gru_apply, gru_apply_masked_reverse, gru_scan_loop, gru_step
+from ..parallel.tensor import ModelGroup, column_product, copy_to_model, split_on
+from .rnn import (bigru_apply, gathered, gru_apply, gru_apply_masked_reverse, gru_scan_loop,
+                  gru_step)
 
 
 class RNNMS(nn.Module):
@@ -92,6 +101,7 @@ def conditioning_frames(
     z_indices: torch.Tensor,
     speaker: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
+    model: Optional[ModelGroup] = None,
 ) -> torch.Tensor:
     """Codes (B, Tz) + speakers (B,) -> frame-rate conditioning (B, 2 Tz, V)
     at ``compute_dtype``, differentiable.
@@ -102,8 +112,14 @@ def conditioning_frames(
     """
     cond = _prenet_inputs(vocoder, z_indices, speaker).to(compute_dtype)
     for layer in range(vocoder.rnnms.prenet.num_layers):
-        cond = bigru_apply(vocoder.rnnms.prenet, layer, cond)
+        cond = bigru_apply(vocoder.rnnms.prenet, layer, cond, model)
     return cond
+
+
+def vocab_sharded(vocoder: Vocoder, model: Optional[ModelGroup]) -> bool:
+    """True where ``vocoder_forward`` gives this rank's classes of the logits."""
+    fc2 = vocoder.rnnms.fc2.weight
+    return model is not None and model.size > 1 and split_on(model, fc2) is not None
 
 
 def vocoder_forward(
@@ -112,10 +128,13 @@ def vocoder_forward(
     z_indices: torch.Tensor,
     speaker: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
+    model: Optional[ModelGroup] = None,
 ) -> torch.Tensor:
     """Teacher-forced forward: logits (B, T, 2^bits) float32 of the class
     after each of ``x_mulaw`` (B, T), the JAX package's ``vocoder_forward``
-    with its kernel route for bfloat16.
+    with its kernel route for bfloat16. With ``model``, over this rank's
+    shards; where ``vocab_sharded``, the logits are the rank's classes
+    (B, T, 2^bits / M).
 
     bfloat16 with T a multiple of hop: the AR GRU's input projection at
     frame rate, a (C, 3H) table of the embedding's projection gathered per
@@ -130,42 +149,51 @@ def vocoder_forward(
     against bf16-rounded weights.
     """
     rnnms = vocoder.rnnms
+    rnn = rnnms.rnn
     hop = vocoder.conf.rnnms.upsampling_t
     cd = compute_dtype
     b, t = x_mulaw.shape
     embed_dim = rnnms.embedding.embedding_dim
-    wx = rnnms.rnn.weight_ih_l0.t()  # (E + V, 3H)
-    bx = rnnms.rnn.bias_ih_l0.to(cd)
+    ar = split_on(model, rnn.weight_hh_l0)
+    wx = rnn.weight_ih_l0.t()  # (E + V, 3H), the rank's gate columns with ``ar``
+    bx = gathered(rnn.bias_ih_l0.to(cd), ar)
     if cd == torch.bfloat16 and t % hop == 0:
-        cond_f = conditioning_frames(vocoder, z_indices, speaker, cd)  # (B, F, V)
-        table = rnnms.embedding.weight.to(cd) @ wx[:embed_dim].to(cd)  # (C, 3H)
-        cond_proj = cond_f @ wx[embed_dim:].to(cd) + bx
+        cond_f = conditioning_frames(vocoder, z_indices, speaker, cd, model)  # (B, F, V)
+        table = column_product(rnnms.embedding.weight.to(cd), wx[:embed_dim].to(cd),
+                               torch.matmul, ar)  # (C, 3H)
+        cond_proj = column_product(cond_f, wx[embed_dim:].to(cd), torch.matmul, ar) + bx
         f = t // hop
         xp_embed = _TableGather.apply(table, x_mulaw)  # (B, T, 3H)
         xproj = (xp_embed.reshape(b, f, hop, -1) + cond_proj[:, :f, None, :]).reshape(b, t, -1)
     else:
-        cond = conditioning_frames(vocoder, z_indices, speaker, cd)
+        cond = conditioning_frames(vocoder, z_indices, speaker, cd, model)
         cond = cond.repeat_interleave(hop, dim=1)[:, :t]  # val utterances can be a frame short
         inputs = torch.cat([rnnms.embedding(x_mulaw).to(cd), cond], dim=-1)
-        xproj = inputs @ wx.to(cd) + bx
+        xproj = column_product(inputs, wx.to(cd), torch.matmul, ar) + bx
     xproj = xproj.transpose(0, 1)  # (T, B, 3H)
 
-    rnn = rnnms.rnn
+    wh, bh = gathered(rnn.weight_hh_l0, ar), gathered(rnn.bias_hh_l0, ar)
     h0 = torch.zeros(b, rnn.hidden_size, dtype=torch.float32, device=xproj.device)
     if cd == torch.bfloat16:
-        args = (rnn.weight_hh_l0.t().to(cd).contiguous(), rnn.bias_hh_l0.to(cd).float(),
-                xproj.contiguous(), h0)
+        args = (wh.t().to(cd).contiguous(), bh.to(cd).float(), xproj.contiguous(), h0)
         if torch.is_grad_enabled() and any(a.requires_grad for a in args):
             hs, _ = GruScan.apply(*args)
         else:
             hs, _ = gru_scan(*args)
     elif cd == torch.float32:
-        hs = gru_scan_loop(rnn.weight_hh_l0.t(), rnn.bias_hh_l0, xproj, h0)
+        hs = gru_scan_loop(wh.t(), bh, xproj, h0)
     else:
         raise ValueError(f"vocoder_forward computes in float32 or bfloat16, not {cd}")
     hs = hs.transpose(0, 1)  # (B, T, H)
-    hidden = torch.relu((hs @ rnnms.fc1.weight.t().to(cd)).float() + rnnms.fc1.bias)
-    return hidden @ rnnms.fc2.weight.t().to(cd).float() + rnnms.fc2.bias
+    fc1, fc2 = rnnms.fc1, rnnms.fc2
+    m1 = split_on(model, fc1.weight)
+    hidden = torch.relu(column_product(hs, fc1.weight.t().to(cd), torch.matmul, m1).float()
+                        + gathered(fc1.bias, m1))
+    if vocab_sharded(vocoder, model):  # the rank's classes, scored without a gather
+        return copy_to_model(hidden, model) @ fc2.weight.t().to(cd).float() + fc2.bias
+    m2 = split_on(model, fc2.weight)
+    return column_product(hidden, fc2.weight.t().to(cd).float(), torch.matmul, m2) + gathered(
+        fc2.bias, m2)
 
 
 def _prenet_inputs(vocoder: Vocoder, z_indices: torch.Tensor, speaker: torch.Tensor):

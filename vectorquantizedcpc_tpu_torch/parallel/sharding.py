@@ -14,14 +14,13 @@ parameters one process would hold after the step on the whole batch:
   equal share, so the global mean's gradient is the ranks' mean. Both
   trainers take their gradients through it, with a group or without;
 - ``all_reduce_sum``: the VQ-EMA statistics, summed before the EMA;
-- ``agree``: one flag (the preemption request) agreed by every rank.
+- ``agree``: flags (the preemption request, a checkpoint's turn) agreed
+  by every rank of the mesh.
 
-The JAX package's tensor-parallel rules (``_spec_for``, ``_divisible``:
-the GRU gate axes, the FC outputs, the codebook's codes on the model axis)
-are not ported yet.
+The model axis's rules and collectives are ``parallel/tensor.py``'s.
 """
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -107,11 +106,14 @@ class FlatGrads:
         return self.flat[self.n_params:].clone()
 
 
-def agree(flag: bool, mesh: Optional[DataMesh]) -> bool:
-    """True on every rank when any rank's ``flag`` is (an ``all_reduce``
-    of the max; it waits for the device)."""
-    if mesh is None:
-        return flag
-    t = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
-    return bool(t.item())
+def agree(flags: Union[bool, Sequence[bool]], mesh: Optional[DataMesh]):
+    """True on every rank where any rank's flag is (an ``all_reduce`` of the
+    max over every rank of the mesh; it waits for the device): one bool, or
+    a list of them for a sequence."""
+    one = isinstance(flags, bool)
+    values = [flags] if one else list(flags)
+    if mesh is not None:
+        t = torch.tensor([int(f) for f in values], dtype=torch.int32, device=mesh.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        values = [bool(v) for v in t.tolist()]
+    return values[0] if one else values

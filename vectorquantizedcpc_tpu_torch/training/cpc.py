@@ -42,6 +42,16 @@ selection's forward and backward (``CpcNegativeScores``).
   preprocesses, logs and writes checkpoints and TensorBoard; every rank
   reads the same ``resume`` checkpoint; the ranks agree on a preemption
   request at each group boundary and stop together.
+- Tensor parallel (``runtime.mesh_model`` ranks in each model group,
+  ``parallel/tensor.py``): every rank draws the full init from
+  ``conf.seed``, then keeps its shards of the encoder's parameters and
+  VQ-EMA buffers by the JAX package's rules; Adam's moments follow their
+  parameters. The model ranks see the same batch share and negatives (by
+  data rank) and run the partitioned products of ``models/``;
+  ``FlatGrads`` holds the rank's tensors and reduces over the data group
+  only. A checkpoint gathers the shards first: it holds one process's
+  keys and shapes, which every entry point and mesh reads, sliced again
+  for each rank on load.
 """
 
 import collections
@@ -63,6 +73,8 @@ from ..models.cpc import (CPCLoss, cpc_apply_with_indices, sample_negative_indic
 from ..models.encoder import Encoder
 from ..parallel.mesh import is_main, mesh_from_conf
 from ..parallel.sharding import FlatGrads, agree, local_share, shard_batch, world_of
+from ..parallel.tensor import (ModelGroup, gather_module_state, gather_optimizer_state,
+                               shard_module_, shard_optimizer_state, shard_state)
 from ..utils.profiling import device_time, trace
 from ..weights import cpc_train_state_from_jax
 from .checkpoint import (AsyncCheckpointer, checkpoint_format, load_checkpoint,
@@ -97,13 +109,16 @@ class CPCTrainer:
     ``graph`` steps ``train_steps``. With a process ``group`` the trainer is
     one data-parallel rank: its steps take its share of the speakers
     (``n_speakers``) and reduce across the group; every rank starts from
-    the same weights.
+    the same weights. With a ``model`` group it holds this rank's shards
+    of the encoder (``encoder_dims``: {state_dict name: dim}).
     """
 
-    def __init__(self, conf: ConfGlobal, device: Union[str, torch.device], group=None):
+    def __init__(self, conf: ConfGlobal, device: Union[str, torch.device], group=None,
+                 model: Optional[ModelGroup] = None):
         self.conf = conf
         self.device = torch.device(device)
         self.group = group
+        self.model = model
         self.n_speakers = local_share(conf.model.cpc.n_speakers_per_batch, world_of(group),
                                       "training.cpc.n_speakers_per_batch")
         self.compute_dtype = resolve_compute_dtype(conf.runtime.precision)
@@ -113,13 +128,15 @@ class CPCTrainer:
         fold_lstm_bias(self.encoder)
         self.encoder.to(self.device).train()
         self.cpc.to(self.device).train()
+        self.encoder_dims = ({} if model is None else
+                             shard_module_(self.encoder, model, "encoder."))
         named = [(f"encoder.{n}", p) for n, p in self.encoder.named_parameters()
                  if n != FOLDED_BIAS] + [(f"cpc.{n}", p) for n, p in self.cpc.named_parameters()]
         self.param_names = [n for n, _ in named]  # the optimizer's order
         self.optimizer = make_adam([p for _, p in named], self.device)
         k_steps = conf.model.cpc.n_prediction_steps // 2
         self.grads = FlatGrads([p for _, p in named], 3 + k_steps, group)
-        self.graph = StepGraph(self._step, self.optimizer, self.device, group)
+        self.graph = StepGraph(self._step, self.optimizer, self.device, group, model)
 
     def train_step(
         self,
@@ -155,7 +172,8 @@ class CPCTrainer:
         cc = self.conf.model.cpc
         s, u = self.n_speakers, cc.n_utterances_per_speaker
         mels = mels.reshape(s * u, mels.shape[2], mels.shape[3])
-        z, c, vq_loss, perplexity = self.encoder(mels, self.compute_dtype, self.group)
+        z, c, vq_loss, perplexity = self.encoder(mels, self.compute_dtype, self.group,
+                                                 self.model)
         cpc_loss, accuracies = cpc_apply_with_indices(
             self.cpc, cc, z, c, utt_index, seq_index,
             exclude_self_negatives=self.conf.training.cpc.exclude_self_negatives,
@@ -173,11 +191,12 @@ class CPCTrainer:
         }
 
     def checkpoint(self, epoch: int, schedule: WarmupSchedule) -> dict:
-        """The reference layout: {encoder, cpc, optimizer, scheduler, epoch}."""
+        """The reference layout: {encoder, cpc, optimizer, scheduler, epoch},
+        the shards gathered over the model group (every model rank calls it)."""
         return {
-            "encoder": self.encoder.state_dict(),
+            "encoder": gather_module_state(self.encoder, self.model),
             "cpc": self.cpc.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": gather_optimizer_state(self.optimizer, self.model),
             "scheduler": {
                 "last_epoch": epoch,
                 "warmup_epochs": schedule.warmup_epochs,
@@ -192,17 +211,22 @@ class CPCTrainer:
     def load(self, path: Union[str, Path]) -> int:
         """Restore a checkpoint of this layout, or the JAX package's CPC train
         state (parameters, VQ-EMA state, Adam's moments and count, epoch);
-        returns its epoch. Load before the step graph's capture."""
+        returns its epoch; with a model group, this rank's slices of its full
+        tensors. Load before the step graph's capture."""
         if checkpoint_format(path) == "jax":
             ckpt = cpc_train_state_from_jax(read_jax_checkpoint(path), self.param_names)
         else:
             ckpt = load_checkpoint(path)
-        self.encoder.load_state_dict(ckpt["encoder"], strict=True)
+        encoder = ckpt["encoder"]
+        if self.model is not None:
+            encoder = shard_state(encoder, self.encoder_dims, self.model)
+        self.encoder.load_state_dict(encoder, strict=True)
         fold_lstm_bias(self.encoder)  # a reference checkpoint may hold two biases
         if "cpc" in ckpt:
             self.cpc.load_state_dict(ckpt["cpc"], strict=True)
         if "optimizer" in ckpt:
-            load_optimizer_state(self.optimizer, ckpt["optimizer"])
+            load_optimizer_state(self.optimizer, shard_optimizer_state(
+                ckpt["optimizer"], self.optimizer, self.model))
         return int(ckpt.get("epoch", 0))
 
 
@@ -242,8 +266,8 @@ def train_model(
 
     Runs on ``device``, else on ``runtime.platform``, else on the CUDA card;
     raises when no card is there and the CPU was not asked for. In a
-    data-parallel rank (``parallel/mesh.py:mesh_from_conf``) it runs on the
-    rank's card with its process group.
+    rank of the mesh (``parallel/mesh.py:mesh_from_conf``) it runs on the
+    rank's card with its data and model groups.
     ``max_steps`` caps the optimizer steps, checked after each epoch group.
     """
     mesh = mesh_from_conf(conf.runtime)
@@ -254,7 +278,8 @@ def train_model(
     log = print if main else (lambda *args, **kwargs: None)
     checkpoint_dir = Path(conf.checkpoint_dir)
     tc = conf.training.cpc
-    trainer = CPCTrainer(conf, device, None if mesh is None else mesh.group)
+    trainer = CPCTrainer(conf, device, *((None, None) if mesh is None else
+                                         (mesh.group, mesh.model)))
     schedule = WarmupSchedule(
         warmup_epochs=tc.scheduler.warmup_epochs,
         initial_lr=tc.scheduler.initial_lr,
@@ -378,8 +403,9 @@ def train_model(
         # leave the others waiting in their next collective.
         if agree(preemption_requested(), mesh):
             ckpt_writer.wait()
+            state = trainer.checkpoint(epoch, schedule)  # every model rank gathers
             if main:
-                path = save_checkpoint(checkpoint_dir, epoch, trainer.checkpoint(epoch, schedule))
+                path = save_checkpoint(checkpoint_dir, epoch, state)
                 print(f"Preempted: saved {path.name}; resume with resume={path}.")
             break
 

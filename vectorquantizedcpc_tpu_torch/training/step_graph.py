@@ -24,18 +24,23 @@ step's few hundred kernels.
   ``replays`` the replays and ``eager_steps`` the warm-up steps.
 - On the CPU there is no graph: every step runs eagerly, the plain version
   of the graph path, with the learning rate set as a float.
+- No cyclic garbage collection runs inside a capture (a dead trainer's
+  graph freed there would invalidate it): one runs just before.
 - The capture is thread-local: other threads may use the card meanwhile
   (a process group's watchdog querying its events, a checkpoint writer
   waiting on its copy), with a process group or without one in the step.
-- Data parallel (``group``): the step's collectives (the VQ statistics',
-  the gradients' and metrics' ``all_reduce``) go inside the graph under
-  NCCL. The warm-up steps run them eagerly first, which makes the NCCL
-  communicator before the capture. A gloo
-  group's collectives run on the host and cannot be captured: on a card
-  ``step`` raises, and a caller that wants eager steps calls the trainer's
-  ``train_step``.
+- Data and tensor parallel (``group``, and ``model``'s group): the step's
+  collectives (the VQ statistics', the gradients' and metrics'
+  ``all_reduce``; the model group's gathers and sums of the partitioned
+  products, the VQ argmin, the clip's norm and the vocab-parallel loss) go
+  inside the graph under NCCL, called in the same order on every rank. The
+  warm-up steps run them eagerly first, which makes both NCCL
+  communicators before the capture. A gloo group's collectives run on the
+  host and cannot be captured: on a card ``step`` raises, and a caller
+  that wants eager steps calls the trainer's ``train_step``.
 """
 
+import gc
 import time
 from typing import Callable, Dict, List, NamedTuple, Sequence, Union
 
@@ -129,11 +134,12 @@ class StepGraph:
 
     def __init__(self, step_fn: Callable[..., Dict[str, torch.Tensor]],
                  optimizer: torch.optim.Optimizer, device: Union[str, torch.device],
-                 group=None):
+                 group=None, model=None):
         self.step_fn = step_fn
         self.optimizer = optimizer
         self.device = torch.device(device)
-        self.group = group
+        self.groups = [g for g in (group, None if model is None else model.group)
+                       if g is not None]
         self._graphs: Dict[tuple, _Graph] = {}
         self._warm: Dict[tuple, int] = {}
         self._stream = None
@@ -151,12 +157,13 @@ class StepGraph:
         if self.device.type != "cuda":
             self.eager_steps += 1
             return self.step_fn(*inputs)
-        if self.group is not None and dist.get_backend(self.group) != "nccl":
-            raise RuntimeError(
-                f"a {dist.get_backend(self.group)} process group's collectives cannot be "
-                "captured in a CUDA graph; use NCCL, or call the trainer's train_step for "
-                "eager steps"
-            )
+        for group in self.groups:
+            if dist.get_backend(group) != "nccl":
+                raise RuntimeError(
+                    f"a {dist.get_backend(group)} process group's collectives cannot be "
+                    "captured in a CUDA graph; use NCCL, or call the trainer's train_step for "
+                    "eager steps"
+                )
         key = tuple((tuple(x.shape), x.dtype) for x in inputs)
         graph = self._graphs.get(key)
         if graph is None:
@@ -187,14 +194,25 @@ class StepGraph:
 
     def _capture(self, inputs) -> _Graph:
         static = [x.clone() for x in inputs]  # outside the graph's pool
+        # A dead trainer's graph sits in a reference cycle (its step_fn is a
+        # bound method of the trainer); the cyclic collector must free it
+        # now, not inside this capture, where destroying a graph is refused
+        # and invalidates the capture.
+        gc.collect()
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         before = launch_counts()
         start = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            outputs = self.step_fn(*static)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outputs = self.step_fn(*static)
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(self.device)
         self.capture_s += time.perf_counter() - start
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved

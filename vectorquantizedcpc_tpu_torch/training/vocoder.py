@@ -45,6 +45,16 @@ W)``; the gradients and the loss are the ranks' means by one
 the global gradient, as JAX clips it. Only rank 0 validates and writes
 checkpoints and TensorBoard; every rank auto-resumes from the same file;
 the ranks agree on a preemption request at each group boundary.
+
+Tensor parallel (``runtime.mesh_model``, ``parallel/tensor.py``): each
+rank keeps its shards of the vocoder (the GRUs' gate axes, the FCs'
+outputs) from the full seeded init, runs the partitioned forward of
+``models/vocoder.py`` and scores its classes of the logits by the
+vocab-parallel cross-entropy; the frozen encoder is replicated. The
+clip's norm is the sharded gradients' sum of squares summed over the model
+group, plus each replicated gradient's counted once, so the clip runs on
+the global norm. Checkpoints and validation decodes read the gathered
+weights, rank 0 decoding through the AR kernel as without a model group.
 """
 
 import collections
@@ -61,10 +71,14 @@ from ..data.datamodule import VocoderDataModule
 from ..device import resolve_device
 from ..dsp.audio_io import write_wav
 from ..models.encoder import Encoder
-from ..models.vocoder import Vocoder, vocoder_forward, vocoder_generate
+from ..models.vocoder import Vocoder, vocab_sharded, vocoder_forward, vocoder_generate
 from ..ops.ar_decode import fused_ar_decode, resolve_precision
 from ..parallel.mesh import is_main, mesh_from_conf
 from ..parallel.sharding import FlatGrads, agree, local_share, shard_batch, world_of
+from ..parallel.tensor import (ModelGroup, all_reduce_model, gather_module_state,
+                               gather_optimizer_state, model_dim, shard_module_,
+                               shard_optimizer_state, shard_state,
+                               vocab_parallel_cross_entropy)
 from ..utils.profiling import device_time, trace
 from ..weights import vocoder_train_state_from_jax
 from .checkpoint import (AsyncCheckpointer, checkpoint_format, latest_checkpoint,
@@ -77,11 +91,20 @@ HISTORY_STEPS = 10_000  # per-step losses kept on the trainer
 SPEAKER_INCREMENT = 5  # validation converts speaker s to (s + 5) % n_speakers
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         model: Optional[ModelGroup] = None,
+                         sharded: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: where the global norm is at
     least ``max_norm``, every gradient becomes g / norm * max_norm. Returns
-    the norm, a scalar on the gradients' device (nothing waits for it)."""
-    norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    the norm, a scalar on the gradients' device (nothing waits for it).
+    With ``model``, ``sharded`` (bool, one per gradient) marks this rank's
+    slices: their sums of squares are summed over the model group, the
+    replicated ones' counted once, then all summed in the gradients' order."""
+    squares = torch.stack([g.square().sum() for g in grads])
+    if model is not None:
+        summed = all_reduce_model(torch.where(sharded, squares, 0.0), model)
+        squares = torch.where(sharded, summed, squares)
+    norm = squares.sum().sqrt()
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -95,23 +118,31 @@ class VocoderTrainer:
     then moved. ``step`` counts optimizer steps, ``epoch`` finished epochs;
     ``graph`` steps ``train_steps``. With a process ``group`` the trainer is
     one data-parallel rank: its steps take its share of the batch and
-    reduce across the group; every rank starts from the same weights.
+    reduce across the group; every rank starts from the same weights. With
+    a ``model`` group it holds this rank's shards of the vocoder
+    (``vocoder_dims``: {state_dict name: dim}).
     """
 
     def __init__(self, conf: ConfGlobal, encoder: Encoder, device: Union[str, torch.device],
-                 group=None):
+                 group=None, model: Optional[ModelGroup] = None):
         self.conf = conf
         self.device = torch.device(device)
         self.group = group
+        self.model = model
         local_share(conf.data.loader.batch_size, world_of(group), "data.loader.batch_size")
         self.compute_dtype = resolve_compute_dtype(conf.runtime.precision)
         tv = conf.training_vocoder
         torch.manual_seed(conf.seed)
         self.vocoder = Vocoder(tv.model.network).to(self.device).train()
+        self.vocoder_dims, self.sharded = {}, None  # the clip's mask of shards
+        if model is not None:
+            self.vocoder_dims = shard_module_(self.vocoder, model)
+            self.sharded = torch.tensor([model_dim(p) is not None
+                                         for p in self.vocoder.parameters()], device=self.device)
         self.encoder = encoder.to(self.device).eval().requires_grad_(False)
         self.optimizer = make_adam(self.vocoder.parameters(), self.device)
         self.grads = FlatGrads(list(self.vocoder.parameters()), 1, group)
-        self.graph = StepGraph(self._step, self.optimizer, self.device, group)
+        self.graph = StepGraph(self._step, self.optimizer, self.device, group, model)
         self.clip = tv.trainer.gradient_clip_val
         self.step = 0
         self.epoch = 0
@@ -127,8 +158,11 @@ class VocoderTrainer:
         """Mean next-sample cross-entropy of a batch: audio (B, L + 1) classes."""
         audio = audio.long()
         logits = vocoder_forward(self.vocoder, audio[:, :-1], self.codes(mels),
-                                 speakers.long(), self.compute_dtype)
-        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), audio[:, 1:].reshape(-1))
+                                 speakers.long(), self.compute_dtype, self.model)
+        logits, target = logits.reshape(-1, logits.shape[-1]), audio[:, 1:].reshape(-1)
+        if vocab_sharded(self.vocoder, self.model):
+            return vocab_parallel_cross_entropy(logits, target, self.model)
+        return F.cross_entropy(logits, target)
 
     def train_step(
         self, audio: torch.Tensor, mels: torch.Tensor, speakers: torch.Tensor, lr: float
@@ -160,17 +194,32 @@ class VocoderTrainer:
         so a CUDA graph can hold it."""
         loss = self.loss(audio, mels, speakers)
         loss = self.grads.backward(loss, [loss])[0]
-        clip_by_global_norm_([p.grad for p in self.vocoder.parameters()], self.clip)
+        clip_by_global_norm_([p.grad for p in self.vocoder.parameters()], self.clip, self.model,
+                             self.sharded)
         self.optimizer.step()
         return {"loss": loss.detach()}
 
     def checkpoint(self) -> dict:
+        """{vocoder, optimizer, step, epoch}, the shards gathered over the
+        model group (every model rank calls it)."""
         return {
-            "vocoder": self.vocoder.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "vocoder": gather_module_state(self.vocoder, self.model),
+            "optimizer": gather_optimizer_state(self.optimizer, self.model),
             "step": self.step,
             "epoch": self.epoch,
         }
+
+    def full_vocoder(self) -> Vocoder:
+        """The vocoder with every weight whole: itself, or with a model
+        group a copy holding the gathered shards (every model rank calls it)."""
+        if self.model is None:
+            return self.vocoder
+        state = gather_module_state(self.vocoder, self.model)
+        with torch.device("meta"):
+            vocoder = Vocoder(self.conf.training_vocoder.model.network)
+        vocoder = vocoder.to_empty(device=self.device)
+        vocoder.load_state_dict(state, strict=True)
+        return vocoder
 
     def load(self, path: Union[str, Path]) -> None:
         """Restore a checkpoint of this layout, or the JAX package's vocoder
@@ -181,8 +230,12 @@ class VocoderTrainer:
             ckpt = vocoder_train_state_from_jax(read_jax_checkpoint(path), names)
         else:
             ckpt = load_checkpoint(path)
-        self.vocoder.load_state_dict(ckpt["vocoder"], strict=True)
-        load_optimizer_state(self.optimizer, ckpt["optimizer"])
+        vocoder = ckpt["vocoder"]
+        if self.model is not None:
+            vocoder = shard_state(vocoder, self.vocoder_dims, self.model)
+        self.vocoder.load_state_dict(vocoder, strict=True)
+        load_optimizer_state(self.optimizer, shard_optimizer_state(
+            ckpt["optimizer"], self.optimizer, self.model))
         self.step, self.epoch = int(ckpt["step"]), int(ckpt["epoch"])
 
 
@@ -196,13 +249,14 @@ def validation_precision(precision: str) -> str:
 
 @torch.no_grad()
 def validate(conf: ConfGlobal, trainer: VocoderTrainer, val_items, out_dir: Path,
-             global_step: int, writer=None) -> None:
+             global_step: int, writer=None, vocoder: Optional[Vocoder] = None) -> None:
     """Reconstruction and conversion of each validation utterance, written as
-    ``spk_{s}_step{n}.wav`` and ``spk_{s}_to_{t}_step{n}.wav``. The codes come
-    from an f32 encode, as in the JAX package."""
+    ``spk_{s}_step{n}.wav`` and ``spk_{s}_to_{t}_step{n}.wav``, by ``vocoder``
+    (the trainer's by default; ``full_vocoder`` with a model group). The
+    codes come from an f32 encode, as in the JAX package."""
     n_speakers = conf.training_vocoder.model.n_speakers
     sr = conf.training_vocoder.model.sampling_rate
-    vocoder = trainer.vocoder.eval()
+    vocoder = (trainer.vocoder if vocoder is None else vocoder).eval()
     on_card = trainer.device.type == "cuda"
     precision = validation_precision(conf.runtime.precision)
     weights = {}  # prepared once for every utterance of this validation
@@ -260,8 +314,8 @@ def train_vocoder(
 
     Runs on ``device``, else on ``runtime.platform``, else on the CUDA card;
     raises when no card is there and the CPU was not asked for. In a
-    data-parallel rank (``parallel/mesh.py:mesh_from_conf``) it runs on the
-    rank's card with its process group.
+    rank of the mesh (``parallel/mesh.py:mesh_from_conf``) it runs on the
+    rank's card with its data and model groups.
     """
     mesh = mesh_from_conf(conf.runtime)
     if mesh is not None:
@@ -274,7 +328,8 @@ def train_vocoder(
     ckpt_dir = (Path(tv.ckpt_log.dir_root) / tv.ckpt_log.name_exp / tv.ckpt_log.name_version
                 / "checkpoints")
     sample_dir = ckpt_dir.parent / "samples"
-    trainer = VocoderTrainer(conf, encoder, device, None if mesh is None else mesh.group)
+    trainer = VocoderTrainer(conf, encoder, device, *((None, None) if mesh is None else
+                                                      (mesh.group, mesh.model)))
     last = latest_checkpoint(ckpt_dir)
     if last is not None:
         trainer.load(last)
@@ -360,12 +415,14 @@ def train_vocoder(
                       f"{rate:.2f} steps/s")
                 if writer is not None:
                     writer.add_scalar("loss", loss_mean, trainer.step)
-            if (time.time() - last_ckpt_time) / 60.0 >= checkpoint_minutes:
+            # Every rank saves and stops at the same group: a checkpoint's
+            # gathers and every step are collectives of all the ranks.
+            due, stop = agree([(time.time() - last_ckpt_time) / 60.0 >= checkpoint_minutes,
+                               preemption_requested()], mesh)
+            if due:
                 ckpt_writer.save(ckpt_dir, trainer.step, trainer.checkpoint())
                 last_ckpt_time = time.time()
-            # Every rank stops at the same group: one stopping alone would
-            # leave the others waiting in their next collective.
-            if agree(preemption_requested(), mesh):
+            if stop:
                 preempted = True
                 break
             if done():
@@ -376,8 +433,10 @@ def train_vocoder(
             log(f"Preempted: saving model.ckpt-{trainer.step}.pt; rerun the same command "
                   "to auto-resume.")
             break
-        if epoch % tv.trainer.val_interval_epoch == 0 and main:
-            validate(conf, trainer, val_items, sample_dir, trainer.step, writer)
+        if epoch % tv.trainer.val_interval_epoch == 0:
+            vocoder = trainer.full_vocoder()  # every model rank gathers
+            if main:
+                validate(conf, trainer, val_items, sample_dir, trainer.step, writer, vocoder)
     close_window()  # a run that ended inside the window
 
     _fetch(trainer, pending)
@@ -394,8 +453,9 @@ def train_vocoder(
             )
         )
     ckpt_writer.wait()
+    state = trainer.checkpoint()  # every model rank gathers
     if main:
-        save_checkpoint(ckpt_dir, trainer.step, trainer.checkpoint())
+        save_checkpoint(ckpt_dir, trainer.step, state)
     if writer is not None:
         writer.close()
     return trainer
