@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's voice conversion (bf16, int8, auto), serving, latent export, CPC and vocoder training on one CUDA card.
+"""Drive the PyTorch port's voice conversion (bf16, int8, auto), serving, latent export, CPC and vocoder training, and its data plane on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -104,6 +104,14 @@ Phases (any failure ends the run with a non-zero exit):
    training kernel once a step in the graph, both step times in turns;
 4o. the train_cpc CLI at ``runtime.mesh_model=2`` over NCCL, where two
    cards are (a printed line says it did not run otherwise);
+4p. (run right after 4e) the native clip engine on 4d's features: built
+   with this machine's g++; both datasets' ``sample_batch`` at their
+   default batch shapes (CPC 8 x 8 x 80 x 140; vocoder 32 clips of 5,121
+   mu-law samples and 32 x 80 x 32 mels) against the per-item stack, the
+   same bits, host ms per batch each way over 21 batches; the batches
+   4d and 4e took through ``sample_batch``; the train_cpc CLI at 4d's
+   arguments with each assembly in turns, its logged steps/s;
+   ``examples/full_pipeline_torch.py`` on the card and its converted wav;
 5. time each kernel, its plain version and, where one exists, the PyTorch
    library call for the same function at the main paths' shapes, beside
    the least time the card could take; the AR step in both modes at B in
@@ -128,7 +136,9 @@ Phases (any failure ends the run with a non-zero exit):
    of 3 runs), host us per step, the device's busy ms, idle share and
    operations per step from a trace read by ``utils/profiling``, the
    capture's time and the graph's pool, the eager vocoder step's peak
-   memory; the train_cpc CLI's logged steps/s; last, the LSTM pair, the
+   memory; the train_cpc CLI's logged steps/s; the train_vocoder CLI's
+   ``data_wait`` (4e's profiler report) beside the graph step, with 4p's
+   assembly times; last, the LSTM pair, the
    kernels that must not move, the CPC step and the export beside their
    earlier figures.
 
@@ -1821,6 +1831,7 @@ def phase_train(seed: int, card: str, d: Path) -> dict:
     from vectorquantizedcpc_tpu_torch.cli import preprocess as preprocess_cli
     from vectorquantizedcpc_tpu_torch.cli import train_cpc
     from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.data import datasets
     from vectorquantizedcpc_tpu_torch.data.corpus import SyntheticCorpus
     from vectorquantizedcpc_tpu_torch.models.encoder import Encoder
 
@@ -1839,6 +1850,7 @@ def phase_train(seed: int, card: str, d: Path) -> dict:
                    f"runtime.profile_dir={d / 'prof_cpc'}", f"seed={seed}"]
     torch.cuda.synchronize()
     _train_counts(reset=True)
+    batch_calls = datasets.SAMPLE_BATCH_CALLS
     start = time.perf_counter()
     log = io.StringIO()  # the CLI's output, kept to read its logged steps/s
     try:
@@ -1849,6 +1861,7 @@ def phase_train(seed: int, card: str, d: Path) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = _train_counts()
+    batch_calls = datasets.SAMPLE_BATCH_CALLS - batch_calls
     steps = trainer.global_step
     check(steps == TRAIN_EPOCHS * TRAIN_SPEAKERS // 8 >= 20, f"{steps} train steps")
     graph = check_graph(trainer.graph, TRAIN_KERNELS, steps, launches, "train_cpc")
@@ -1881,7 +1894,7 @@ def phase_train(seed: int, card: str, d: Path) -> dict:
           f"{logged} steps/s; one trace in runtime.profile_dir; checkpoints {ckpts} load strict "
           f"into Encoder; the encode CLI exported {n} mels from model.ckpt-10.pt  [{card}]")
     return {"launches": launches, "seconds": seconds, "steps": steps, "graph": graph,
-            "logged_steps_per_s": logged}
+            "logged_steps_per_s": logged, "sample_batch_calls": batch_calls}
 
 
 @contextlib.contextmanager
@@ -1990,6 +2003,7 @@ def phase_train_vocoder(seed: int, card: str, d: Path) -> dict:
     from vectorquantizedcpc_tpu_torch.cli import convert as convert_cli
     from vectorquantizedcpc_tpu_torch.cli import train_vocoder
     from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.data import datasets
     from vectorquantizedcpc_tpu_torch.dsp.audio_io import read_wav
     from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
     from vectorquantizedcpc_tpu_torch.training import vocoder as train_voc_module
@@ -2020,15 +2034,23 @@ def phase_train_vocoder(seed: int, card: str, d: Path) -> dict:
     argv = argv_for(VOC_EPOCHS)
     torch.cuda.synchronize()
     _voc_counts(reset=True)
+    batch_calls = datasets.SAMPLE_BATCH_CALLS
     start = time.perf_counter()
     train_voc_module.validate = measured_validate
+    log = io.StringIO()  # the CLI's output, kept to read its profiler report
     try:
-        trainer = train_vocoder.main(argv)
+        with contextlib.redirect_stdout(log):
+            trainer = train_vocoder.main(argv)
     finally:
         train_voc_module.validate = validate
+        print(log.getvalue(), end="")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = _voc_counts()
+    batch_calls = datasets.SAMPLE_BATCH_CALLS - batch_calls
+    report = {name: (float(total), float(mean), int(n)) for name, total, mean, n in re.findall(
+        r"(data_wait|train_dispatch)\s+([0-9.]+)\s+([0-9.]+)\s+([0-9]+)", log.getvalue())}
+    check(sorted(report) == ["data_wait", "train_dispatch"], f"profiler report {report}")
     steps = trainer.step
     per_epoch = (TRAIN_SPEAKERS * TRAIN_UTTS - 3) // VOC_B
     check(steps == VOC_EPOCHS * per_epoch == 12, f"{steps} vocoder train steps")
@@ -2108,7 +2130,143 @@ def phase_train_vocoder(seed: int, card: str, d: Path) -> dict:
     print(f"train vocoder runtime.precision=int8: resumed to step {last}, validation wrote "
           f"{len(got)} wavs in [-1, 1]; launches {json.dumps(launches_int8)}  [{card}]")
     return {"launches": launches, "launches_int8": launches_int8, "seconds": seconds,
-            "steps": steps, "graph": graph, "validation_peak_bytes": peak}
+            "steps": steps, "graph": graph, "validation_peak_bytes": peak,
+            "sample_batch_calls": batch_calls, "profiler_report": report}
+
+
+DATA_PLANE_BATCHES = 21  # phase 4p: batches assembled each way per dataset
+EXAMPLE_EPOCHS = 2  # phase 4p: examples/full_pipeline_torch.py --epochs
+EXAMPLE_LIMIT_S = 300
+
+
+def _assembly_ms(ds, batch: int, seed: int, n: int) -> dict:
+    """``n`` batches of ``ds`` in the loader's order, epoch after epoch, each
+    assembled by ``sample_batch`` and by the per-item stack in turns (which
+    goes first alternates); both the same bits. Host ms per batch each way."""
+    from vectorquantizedcpc_tpu_torch.data.loader import PrefetchLoader, stack_items
+
+    loader = PrefetchLoader(ds, batch_size=batch, seed=seed)
+    ms = {"sample_batch": [], "per_item": []}
+    epoch = 0
+    while len(ms["per_item"]) < n:
+        epoch += 1
+        loader.set_epoch(epoch)
+        order = loader._order()
+        for b in range(min(len(loader), n - len(ms["per_item"]))):
+            idx = order[b * batch : (b + 1) * batch]
+            got = {}
+            for way in (("sample_batch", "per_item") if len(ms["per_item"]) % 2 == 0 else
+                        ("per_item", "sample_batch")):
+                start = time.perf_counter()
+                got[way] = ds.sample_batch(idx) if way == "sample_batch" else stack_items(ds, idx)
+                ms[way].append((time.perf_counter() - start) * 1e3)
+            for x, y in zip(got["sample_batch"], got["per_item"]):
+                check(x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y),
+                      f"sample_batch of epoch {epoch} batch {b}: not the per-item bits")
+    return {way: {"ms": float(np.median(v)), "spread_ms": max(v) - min(v), "runs_ms": v}
+            for way, v in ms.items()}
+
+
+def phase_data_plane(seed: int, card: str, d: Path, trained: dict, trained_voc: dict) -> dict:
+    """The native clip engine (``data/native.py``) on phase 4d's features:
+    a build with this machine's g++, ``sample_batch`` of both datasets at
+    their default batch shapes against the per-item stack (the same bits,
+    host ms per batch each way), the engine's batches counted in phases 4d
+    and 4e, the train_cpc CLI's logged steps/s with each assembly, then
+    ``examples/full_pipeline_torch.py`` on the card."""
+    from vectorquantizedcpc_tpu_torch.cli import train_cpc
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.data import datasets, native
+    from vectorquantizedcpc_tpu_torch.data.datamodule import VocoderDataModule
+    from vectorquantizedcpc_tpu_torch.data.loader import PrefetchLoader, stack_items
+    from vectorquantizedcpc_tpu_torch.dsp.audio_io import read_wav
+
+    gpp = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+    in_use, native.BUILD_DIR = native.BUILD_DIR, d / "host_native"
+    try:
+        start = time.perf_counter()
+        fresh = native.build()
+        build_s = time.perf_counter() - start
+    finally:
+        native.BUILD_DIR = in_use
+    check(fresh.name == native.build().name, f"engine builds {fresh.name} and {native.build()}")
+    for what, res in (("train_cpc (4d)", trained), ("train_vocoder (4e)", trained_voc)):
+        check(res["sample_batch_calls"] == res["steps"] > 0,
+              f"{what}: {res['sample_batch_calls']} batches through sample_batch in "
+              f"{res['steps']} steps")
+
+    conf = load_conf([])
+    cpc = datasets.CPCMelSpkDataset(True, conf.data.dataset, d / "features", seed=seed)
+    dm = VocoderDataModule(conf.data, data_dir=d / "features", seed=seed)
+    dm.setup()
+    s, b = conf.training.cpc.n_speakers_per_batch, conf.data.loader.batch_size
+    clip, hop = conf.data.dataset.clip_length_mel, conf.data.dataset.mel_stft_stride
+    shapes = {"CPC": ([(s, conf.training.cpc.n_utterances_per_speaker, 80,
+                        conf.data.dataset.cpc.clip_length_mel), (s,)], cpc, s),
+              "vocoder": ([(b, clip * hop + 1), (b, 80, clip), (b,)], dm._train, b)}
+    out = {"build_s": build_s}
+    for what, (want, ds, batch) in shapes.items():
+        got = ds.sample_batch(np.arange(batch))
+        check([x.shape for x in got] == want, f"{what} sample_batch shapes "
+              f"{[x.shape for x in got]}, expected {want}")
+        out[what] = times = _assembly_ms(ds, batch, seed, DATA_PLANE_BATCHES)
+        mb = sum(x.nbytes for x in got) / 2**20
+        print(f"data plane {what}: batch {' + '.join(str(tuple(x.shape)) for x in got)} "
+              f"({mb:.2f} MiB), {DATA_PLANE_BATCHES} batches each way, the same bits: "
+              f"sample_batch {times['sample_batch']['ms']:.3f} ms per batch (spread "
+              f"{times['sample_batch']['spread_ms']:.3f}), per-item stack "
+              f"{times['per_item']['ms']:.3f} ms (spread {times['per_item']['spread_ms']:.3f}), "
+              f"{times['per_item']['ms'] / times['sample_batch']['ms']:.2f}x  [{card}]")
+    print(f"data plane: engine {fresh.name} built in {build_s:.3f} s by {gpp.splitlines()[0]}; "
+          f"sample_batch assembled {trained['sample_batch_calls']} of 4d's {trained['steps']} "
+          f"and {trained_voc['sample_batch_calls']} of 4e's {trained_voc['steps']} batches  "
+          f"[{card}]")
+
+    # The train_cpc CLI at 4d's arguments (no trace), its loader assembling
+    # per item and by sample_batch in turns: the steady logged steps/s
+    # (epochs 6-10) each way.
+    argv = _corpus_args(d) + [f"training.cpc.n_epochs={TRAIN_EPOCHS}", "training.cpc.log_interval=5",
+                              f"training.cpc.checkpoint_interval={TRAIN_EPOCHS}", f"seed={seed}"]
+    batched = PrefetchLoader._assemble
+    logged = {"per_item": [], "sample_batch": []}
+    for i, way in enumerate(("per_item", "sample_batch", "sample_batch", "per_item")):
+        PrefetchLoader._assemble = (batched if way == "sample_batch" else
+                                    lambda self, idx: stack_items(self.dataset, idx))
+        log = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log):
+                train_cpc.main(argv + [f"checkpoint_dir={d / f'ckpt_cli_{i}'}"])
+        finally:
+            PrefetchLoader._assemble = batched
+        rates = [float(x) for x in re.findall(r"([0-9.]+) steps/s", log.getvalue())]
+        check(len(rates) == TRAIN_EPOCHS // 5, f"train_cpc CLI logged {rates}")
+        logged[way].append(rates[-1])
+    out["cpc_cli_steps_per_s"] = logged
+    print(f"data plane: train_cpc CLI (4d's arguments, no trace), steady logged steps/s (epochs "
+          f"6-10) in turns: per-item assembly {logged['per_item']}, sample_batch "
+          f"{logged['sample_batch']}  [{card}]")
+
+    ws = d / "example"
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "examples" /
+                                               "full_pipeline_torch.py"),
+                           "--epochs", str(EXAMPLE_EPOCHS), "--workdir", str(ws)],
+                          capture_output=True, text=True, timeout=EXAMPLE_LIMIT_S)
+    example_s = time.perf_counter() - start
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], sep="\n")
+    check(proc.returncode == 0, f"examples/full_pipeline_torch.py exited {proc.returncode}")
+    wav = ws / "converted" / "demo_vc.wav"
+    check(wav.exists(), f"the example wrote no {wav.name}")
+    wave, _ = read_wav(wav)
+    check(wave.size > 0 and bool(np.isfinite(wave).all()) and float(np.abs(wave).max()) <= 1.0,
+          f"the example's {wav.name}")
+    n_codes = len(list((ws / "codes").glob("*.txt")))
+    print(f"data plane: examples/full_pipeline_torch.py --epochs {EXAMPLE_EPOCHS} on the card in "
+          f"{example_s:.3f} s wall (5 CLI processes): {n_codes} code files, {wav.name} "
+          f"{wave.size} samples, finite, in [-1, 1]  [{card}]")
+    out["example_s"] = example_s
+    return out
 
 
 def _grid_counts(reset: bool = False) -> dict:
@@ -3955,6 +4113,9 @@ def main() -> int:
         mid = time.perf_counter()
         trained_voc = phase_train_vocoder(args.seed, card, Path(tmp))
         print(f"phase 4e vocoder training: {time.perf_counter() - mid:.3f} s wall")
+        mid = time.perf_counter()
+        data_plane = phase_data_plane(args.seed, card, Path(tmp), trained, trained_voc)
+        print(f"phase 4p data plane: {time.perf_counter() - mid:.3f} s wall")
         wide = phase_wide(args.seed, card, Path(tmp))
     phase_train_vocoder_step(args.seed, card)
     phase_graph_vs_eager(args.seed, card)
@@ -3998,6 +4159,18 @@ def main() -> int:
           f"{trained['logged_steps_per_s']} steps/s over each 5 epochs, data loading and the "
           f"group's copy included; the first group holds the warm-up and the capture  [{card}]")
     timing_voc = phase_time_vocoder(args.seed, card)
+    wait = trained_voc["profiler_report"]["data_wait"][1]
+    voc_ms, cpc_ms = timing_voc["step"]["ms"], timing_train["step"]["ms"]
+    print(f"timing data plane: train_vocoder CLI (phase 4e) data_wait {wait:.3f} ms per step "
+          f"(mean of {trained_voc['profiler_report']['data_wait'][2]}), train_dispatch "
+          f"{trained_voc['profiler_report']['train_dispatch'][1]:.3f} ms, beside the vocoder "
+          f"graph step {voc_ms:.3f} ms; assembly per batch (4p) CPC "
+          f"{data_plane['CPC']['sample_batch']['ms']:.3f} ms by sample_batch, "
+          f"{data_plane['CPC']['per_item']['ms']:.3f} ms per item, vocoder "
+          f"{data_plane['vocoder']['sample_batch']['ms']:.3f} / "
+          f"{data_plane['vocoder']['per_item']['ms']:.3f} ms; the train_cpc CLI (4d) logged "
+          f"{trained['logged_steps_per_s']} steps/s beside the CPC graph step {cpc_ms:.3f} ms "
+          f"= {1e3 / cpc_ms:.1f} steps/s  [{card}]")
     report_lstm(lstm_stamps, timing_lstm, timing_train, timing_lstm_h256, timing_lstm_grid,
                 timing_voc, timing_masked_grid, exported, card)
     print(f"phase 5: {time.perf_counter() - start:.3f} s wall")

@@ -6,11 +6,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.eval import abx as jax_abx
 from vectorquantizedcpc_tpu_torch.cli import eval_abx as cli
 from vectorquantizedcpc_tpu_torch.eval import abx
 
 torch.set_num_threads(1)
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 
 def _padded_pairs(rng, lens_a, lens_b, dim=4):

@@ -9,7 +9,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, assert_prefix_parity, jax_models, port_models
+from torch_port_util import SMALL, assert_prefix_parity, jax_models, port_models, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.models.encoder import encoder_encode
 from vectorquantizedcpc_tpu.models.vocoder import vocoder_generate as jax_generate
 from vectorquantizedcpc_tpu_torch.dsp.audio_io import read_wav, write_wav
@@ -17,6 +17,7 @@ from vectorquantizedcpc_tpu_torch.dsp.loudness import integrated_loudness
 from vectorquantizedcpc_tpu_torch.models.vocoder import vocoder_generate
 
 torch.set_num_threads(1)
+TIME_LIMIT_S = 180  # each test's own limit (torch_port_util.time_limit)
 
 
 def test_encode_then_greedy_generate_matches_jax(rng):

@@ -10,6 +10,7 @@ import json
 import numpy as np
 import pytest
 
+from torch_port_util import time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.data.corpus import SyntheticCorpus as JaxSynthetic
 from vectorquantizedcpc_tpu.data.datasets import CPCMelSpkDataset as JaxDataset
@@ -22,6 +23,7 @@ from vectorquantizedcpc_tpu_torch.data.loader import PrefetchLoader
 from vectorquantizedcpc_tpu_torch.data.preprocess import preprocess_corpus
 
 ARGV = ["training.cpc.sample_frames=20", "training.cpc.n_utterances_per_speaker=3"]
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 
 @pytest.fixture(scope="module")

@@ -21,7 +21,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, flat
+from torch_port_util import SMALL, flat, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.models.encoder import encoder_init
 from vectorquantizedcpc_tpu.training.torch_import import import_vocoder
@@ -32,6 +32,8 @@ from vectorquantizedcpc_tpu_torch.models.encoder import Encoder
 from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
 from vectorquantizedcpc_tpu_torch.training.vocoder import VocoderTrainer
 from vectorquantizedcpc_tpu_torch.weights import from_jax_params
+
+TIME_LIMIT_S = 120  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

@@ -7,7 +7,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, jax_models, port_models
+from torch_port_util import SMALL, jax_models, port_models, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.infer.encode import encode_dataset as jax_encode_dataset
 from vectorquantizedcpc_tpu.models.encoder import encoder_encode
@@ -18,6 +18,7 @@ from vectorquantizedcpc_tpu_torch.configs import load_conf
 from vectorquantizedcpc_tpu_torch.infer.encode import encode_dataset, load_encoder_checkpoint
 
 torch.set_num_threads(1)
+TIME_LIMIT_S = 120  # each test's own limit (torch_port_util.time_limit)
 
 LENGTHS = [37, 50, 64, 71, 100, 129]  # odd and even, buckets of 64, 128 and 192 frames
 

@@ -15,12 +15,15 @@ import math
 
 import pytest
 import yaml
-from hypothesis import HealthCheck, assume, given, settings
+from hypothesis import HealthCheck, assume, example, given, settings
 from hypothesis import strategies as st
 
 from vectorquantizedcpc_tpu import configs as jax_configs
 from vectorquantizedcpc_tpu_torch import configs
 from vectorquantizedcpc_tpu_torch.utils.yaml_subset import load_value, safe_load
+from torch_port_util import time_limit  # noqa: F401
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 INF = float("inf")
 
@@ -75,6 +78,7 @@ def _flow_style(tree: dict, indent: int = 0) -> str:
 
 @settings(max_examples=150, deadline=None, suppress_health_check=[HealthCheck.too_slow])
 @given(tree=config_trees)
+@example(tree={"a": '0,"'})  # a quote after a comma outside a flow list is plain text
 def test_config_trees_parse_as_pyyaml(tree):
     block = yaml.safe_dump(tree, default_flow_style=False, width=INF, sort_keys=False)
     flow = _flow_style(tree) + "\n"

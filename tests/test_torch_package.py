@@ -8,9 +8,10 @@ from pathlib import Path
 import pytest
 import torch
 
-from torch_port_util import SMALL
+from torch_port_util import SMALL, time_limit  # noqa: F401
 
 torch.set_num_threads(1)
+TIME_LIMIT_S = 120  # each test's own limit (torch_port_util.time_limit)
 
 PKG = Path(__file__).resolve().parents[1] / "vectorquantizedcpc_tpu_torch"
 

@@ -30,7 +30,7 @@ import yaml
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, flat
+from torch_port_util import SMALL, flat, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.models.cpc import sample_negative_indices as jax_sample
 from vectorquantizedcpc_tpu.models.encoder import encoder_init
@@ -47,6 +47,8 @@ from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
 from vectorquantizedcpc_tpu_torch.training.vocoder import VocoderTrainer
 from vectorquantizedcpc_tpu_torch.weights import (cpc_from_jax_params, encoder_from_jax_params,
                                                   from_jax_params)
+
+TIME_LIMIT_S = 360  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

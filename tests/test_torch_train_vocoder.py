@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from torch_port_util import SMALL, flat, jax_models, port_models
+from torch_port_util import SMALL, flat, jax_models, port_models, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.data.datamodule import VocoderDataModule as JaxDataModule
 from vectorquantizedcpc_tpu.data.datasets import MulawMelSpkDataset as JaxDataset
@@ -40,6 +40,8 @@ from vectorquantizedcpc_tpu_torch.training.checkpoint import latest_checkpoint
 from vectorquantizedcpc_tpu_torch.training.schedule import MultiStepSchedule
 from vectorquantizedcpc_tpu_torch.training.vocoder import VocoderTrainer, clip_by_global_norm_
 from vectorquantizedcpc_tpu_torch.weights import from_jax_params
+
+TIME_LIMIT_S = 180  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

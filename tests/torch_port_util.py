@@ -1,6 +1,18 @@
 """Helpers shared by the tests that hold the PyTorch port against the JAX package."""
 
+import faulthandler
+import hashlib
+import sys
+import tempfile
+from pathlib import Path
+
 import numpy as np
+import pytest
+
+# A test that starts a trainer, a CLI, a thread or a subprocess runs under a
+# time limit of its own (``time_limit``): its module sets ``TIME_LIMIT_S``
+# to at least 5x its slowest test's time.
+DEFAULT_TIME_LIMIT_S = 300.0
 
 # Small widths for CPU parity runs (the shapes of tests/test_ar_decode.py).
 SMALL = [
@@ -86,3 +98,38 @@ def classes_of(wave, n_classes):
 
     table = mulaw_decode(np.arange(n_classes), n_classes)
     return np.abs(np.asarray(wave)[..., None] - table).argmin(-1)
+
+
+@pytest.fixture(autouse=True)
+def time_limit(request):
+    """Arm ``faulthandler.dump_traceback_later`` for the test: past its
+    limit every thread's stack goes to the test run's stderr and the process
+    exits, so a hang fails one test (xdist reports its worker down and goes
+    on) in place of stopping the whole run. Imported by a test module, it
+    applies to each of its tests; cancelled on teardown.
+
+    xdist's ``--dist loadfile`` hands a crashed worker's unfinished file,
+    the cut test included, to its replacement: a marker file per test and
+    run, left only by a cut, makes that attempt fail at once."""
+    limit = getattr(request.module, "TIME_LIMIT_S", DEFAULT_TIME_LIMIT_S)
+    run = getattr(request.config, "workerinput", {}).get("testrunuid")
+    marker = None
+    if run is not None:
+        digest = hashlib.sha256(request.node.nodeid.encode()).hexdigest()[:16]
+        marker = Path(tempfile.gettempdir()) / f"vqcpc_time_limit_{run}_{digest}"
+        if marker.exists():
+            marker.unlink()
+            pytest.fail(f"cut at its {limit:.0f} s time limit in an earlier worker of this run "
+                        "(every thread's stack is in the run's stderr)")
+        marker.write_text(request.node.nodeid)
+    try:  # pytest's own copy of the stderr descriptor, outside the capture
+        from _pytest.faulthandler import fault_handler_stderr_fd_key
+
+        out = request.config.stash[fault_handler_stderr_fd_key]
+    except (ImportError, KeyError):
+        out = sys.__stderr__
+    faulthandler.dump_traceback_later(limit, exit=True, file=out)
+    yield
+    faulthandler.cancel_dump_traceback_later()
+    if marker is not None:
+        marker.unlink(missing_ok=True)

@@ -27,6 +27,9 @@ class _Subset:
     def __getitem__(self, i):
         return self.ds[self.idx[i]]
 
+    def sample_batch(self, indices):
+        return self.ds.sample_batch([self.idx[int(i)] for i in indices])
+
     def set_epoch(self, epoch: int) -> None:
         self.ds.set_epoch(epoch)
 

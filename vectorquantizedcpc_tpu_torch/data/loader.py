@@ -4,7 +4,10 @@ The JAX package's ``data/loader.py:PrefetchLoader`` without its device
 transfer (the trainer moves each batch to its device): the same seeded
 order (``seed * 7919 + epoch``), ``drop_last``, and ``prefetch`` batches
 assembled ahead of the consumer, so host clip sampling overlaps the
-device's work on the step before.
+device's work on the step before. The dataset assembles each batch with
+``sample_batch`` (both training datasets: the native clip engine,
+``data/native.py``), in one call outside the GIL; ``stack_items`` is its
+plain version.
 """
 
 import queue
@@ -12,6 +15,13 @@ import threading
 from typing import Iterator, Sequence
 
 import numpy as np
+
+
+def stack_items(dataset, indices: Sequence[int]) -> tuple:
+    """The batch of ``indices`` item by item: each field of
+    ``dataset[i]`` stacked (the plain version of ``sample_batch``)."""
+    items = [dataset[int(i)] for i in indices]
+    return tuple(np.stack(p) for p in zip(*items))
 
 
 class PrefetchLoader:
@@ -50,8 +60,7 @@ class PrefetchLoader:
         return np.random.default_rng(self.seed * 7919 + self.epoch).permutation(n)
 
     def _assemble(self, indices: Sequence[int]):
-        items = [self.dataset[int(i)] for i in indices]
-        return tuple(np.stack(p) for p in zip(*items))
+        return tuple(self.dataset.sample_batch(indices))
 
     def __iter__(self) -> Iterator:
         order = self._order()

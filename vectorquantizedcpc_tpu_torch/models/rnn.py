@@ -84,13 +84,15 @@ def gru_scan_loop(
     """The GRU recurrence over ``xproj`` (T, B, 3H) from ``h0`` (B, H) in
     float32: hs (T, B, H), the JAX package's ``models/rnn.py:gru_scan``.
     ``wh`` is (H, 3H). A plain loop differentiable by autograd, whose rows
-    sum alike at any batch size."""
+    sum alike at any batch size. The steps' inputs come from one
+    ``unbind``, whose backward stacks their gradients once (indexing
+    ``xproj[t]`` would add a whole (T, B, 3H) gradient per step)."""
     hidden = wh.shape[0]
     h = h0
     out = []
-    for t in range(xproj.shape[0]):
+    for x_t in xproj.unbind(0):
         hproj = rows_matmul(h, wh) + bh
-        xr, xz, xn = xproj[t].split(hidden, dim=-1)
+        xr, xz, xn = x_t.split(hidden, dim=-1)
         hr, hz, hn = hproj.split(hidden, dim=-1)
         r = torch.sigmoid(xr + hr)
         z = torch.sigmoid(xz + hz)

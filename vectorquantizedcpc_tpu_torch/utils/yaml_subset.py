@@ -129,11 +129,12 @@ def _quoted_end(text: str, start: int, line: int) -> int:
     raise _fail(line, "a quoted scalar that does not end on its line")
 
 
-def _opens_scalar(text: str, i: int) -> bool:
-    """Whether a quote at ``i`` opens a quoted scalar: at the start, in a
-    flow list after ``[`` or ``,``, or after ``:`` or ``-`` and a blank."""
+def _opens_scalar(text: str, i: int, in_flow: bool) -> bool:
+    """Whether a quote or ``[`` at ``i`` opens a scalar or a flow list: at
+    the start, in a flow list after ``[`` or ``,``, or after ``:`` or ``-``
+    and a blank. Outside a flow list ``,`` is part of a plain scalar."""
     before = text[:i].rstrip(" \t")
-    if not before or before.endswith(("[", ",")):
+    if not before or (in_flow and before.endswith(("[", ","))):
         return True
     return before.endswith((":", "-")) and len(before) < i
 
@@ -141,12 +142,16 @@ def _opens_scalar(text: str, i: int) -> bool:
 def _strip_comment(text: str, line: int) -> str:
     """``text`` without its comment (a ``#`` at the start or after a blank,
     outside quotes) and trailing blanks."""
-    i = 0
+    i, depth = 0, 0
     while i < len(text):
         c = text[i]
-        if c in "'\"" and _opens_scalar(text, i):
+        if c in "'\"" and _opens_scalar(text, i, depth > 0):
             i = _quoted_end(text, i, line)
             continue
+        if c == "[" and _opens_scalar(text, i, depth > 0):
+            depth += 1
+        elif c == "]" and depth:
+            depth -= 1
         if c == "#" and (i == 0 or text[i - 1] in " \t"):
             return text[:i].rstrip()
         i += 1
