@@ -17,8 +17,9 @@ Phases (any failure ends the run with a non-zero exit):
    through them) at B 64 / 32 (a rank's share at mesh_data 2) / 3, T 70 /
    1, and the CPC selection forward and backward at the training shape, at
    a rank's S 4, at an L that is not a multiple of 8 and at Z 300, with every collision tied bit for bit; the grid LSTM kernels
-   at H 512 and 37, export and training shapes, and at H 1,600 (K chunks),
-   with autograd; the GRU scan's grid kernels (training forward, backward,
+   at H 512 and 37 at the export and training shapes, at B 3 (one partial
+   row group) and B 1, and at H 1,600 (one row group, wh whole) and 2,048
+   (K chunks), with autograd; the GRU scan's grid kernels (training forward, backward,
    and autograd through them) at the vocoder's T 5,120, B 32 and 16 (a
    rank's share at mesh_data 2), H 896, and at B 3, T 1, H 200 and H 2,500 (K chunks), the no-grad forward's bits equal
    to the training forward's;
@@ -123,12 +124,15 @@ Phases (any failure ends the run with a non-zero exit):
    bits); the cluster LSTM pair's split by phase at the export and
    training shapes from its stamped variants (launched only here, same
    bits), beside the split of the FMA kernels it replaced; the grid LSTM
+   pair's split by phase at B 64, T 70, H 512 from its stamped variants
+   (launched only here, same bits) and its plan; the grid LSTM
    pair at H 256 through its entry points, the one-family yardstick; the
    GRU scans beside cuDNN's GRU with their ratio; the grid
    LSTM pair at H 512 beside cuDNN's LSTM; the masked grid forward;
    each serving drain beside the request mix's slot-utilisation ceiling
    times the raw kernel rate at that many rows; the export's wall time;
-   cuDNN's LSTM forward and backward beside the training pair; the CPC
+   cuDNN's LSTM forward and backward beside the training pair; the grid
+   LSTM pair device only beside its earlier times and bounds; the CPC
    train step in steps/s to the device with the kernels' share; the GRU
    training pair and GruScan's dwh product beside cuDNN's GRU, their
    bounds and the one-group kernels' times; both train steps on both paths,
@@ -202,10 +206,14 @@ LSTM_H = 256  # the context LSTM's width (dim_cpc_context)
 LSTM_SHAPES = {"export": (16, 256), "training": (64, 70)}
 # The grid LSTM kernels (ops/csrc/lstm_grid.cu): a 512-wide context
 # (dim_cpc_context=512, phase 4f) and a width that is not a multiple of 8,
-# at LSTM_SHAPES; and a width whose blocks stage wh in K chunks (both
-# directions) at a short shape of its own.
+# at LSTM_SHAPES and LSTM_GRID_SMALL_B (one partial row group, one row);
+# and wide widths at a short shape of their own: H 1,600, one row group
+# whose blocks hold wh whole, and H 2,048, whose blocks stage wh in K
+# chunks (both directions).
 LSTM_GRID_H = (512, 37)
-LSTM_STREAM_H, LSTM_STREAM_SHAPE = 1600, (16, 24)
+LSTM_GRID_SMALL_B = {"partial group": (3, 70), "one row": (1, 70)}
+LSTM_WIDE_H = {1600: "one group", 2048: "K chunks"}
+LSTM_STREAM_SHAPE = (16, 24)
 GRU_WIDE_H = 256  # a PreNet of 256 per direction (dim_voc_latent=512): the masked grid
 GRU_STREAM_H = 2500  # a masked grid forward whose blocks stage wh in K chunks
 EXPORT_MELS = 40  # phase 4c: mels of 50 to 1,000 frames
@@ -285,9 +293,21 @@ FMA_LSTM_STAMPS = {
                           "barrier": 1.597, "product": 4.978, "part sum": 0.147, "total": 12.439},
 }
 EARLIER_MS = {"lstm_scan": 1.7029, "lstm_scan_train": 0.5012, "lstm_scan_bwd": 0.8480,
-              "lstm_scan_grid": 0.6796, "lstm_scan_grid_bwd": 0.9968, "gru_scan_train": 20.156,
-              "gru_scan_bwd": 21.835, "gru_scan_masked_grid": 0.5025, "cpc_step": 13.614,
-              "cpc_device_busy": 2.797}
+              "cpc_step": 13.614, "cpc_device_busy": 2.797}
+# The grid LSTM pair before row groups (one grid barrier a step, every block
+# staging all B rows; PERF.md section 6, H100 80GB HBM3 at 700 W, ms per
+# call by CUDA events): at H 512 the training forward and the backward at B
+# 64, T 70 and the inference forward at B 16, T 256; the training forward
+# and backward at H 1,600, B 64, T 70 (K chunks then); at H 256 the
+# inference, training forward and backward. And the kernels this slice must
+# not move, as PERF.md section 6 holds them (ms; the selection pair device
+# only).
+EARLIER_GRID_MS = {"lstm_scan_grid": 0.6865, "lstm_scan_grid_bwd": 0.9991,
+                   "lstm_scan_grid_inference": 1.1142, "h1600": (10.0392, 8.6950),
+                   "h256": (1.0792, 0.5894, 0.7806)}
+UNMOVED_MS = {"lstm_scan": 0.4188, "lstm_scan_train": 0.1367, "lstm_scan_bwd": 0.0917,
+              "gru_scan_train": 20.156, "gru_scan_bwd": 21.835, "gru_scan_masked_grid": 0.5025,
+              "cpc_select": 0.0183, "cpc_select_bwd": 0.0326}
 EARLIER_EXPORT_FRAMES_S = 2998.8
 # The selection pair before its redesign at SELECT_SHAPES["training"] (H100
 # 80GB HBM3 at 700 W, PERF.md section 5): ms by the host loop (PERF.md
@@ -1193,27 +1213,15 @@ def phase_time_lstm_grid_h256(seed: int, card: str) -> dict:
     launched through its entry points (``scan_route`` sends H 256 to the
     cluster), held against the plain versions and timed at the export shape
     (inference) and the training shape (training forward, backward): the
-    yardstick of one LSTM kernel family."""
+    yardstick of one LSTM kernel family (``ls._grid_forward`` and
+    ``_grid_backward``, which count nothing)."""
     from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
-    from vectorquantizedcpc_tpu_torch.ops._build import launch
 
     def forward(args, save):
-        wh, xproj, h0, c0 = args
-        t, b, _ = xproj.shape
-        hs = torch.empty(t, b, LSTM_H, dtype=torch.bfloat16, device=DEVICE)
-        acts = torch.empty_like(xproj) if save else None
-        c_prev = torch.empty(t, b, LSTM_H, device=DEVICE) if save else None
-        h_out, c_out = torch.empty_like(h0), torch.empty_like(c0)
-        launch("vq_lstm_scan_grid_launch", "LSTM grid forward at H 256", xproj.device, xproj, wh,
-               h0, c0, hs, acts, c_prev, h_out, c_out, t, b, LSTM_H, int(save))
+        hs, acts, c_prev, h_out, c_out = ls._grid_forward(*args, save)
         return (hs, acts, c_prev, h_out, c_out) if save else (hs, h_out, c_out)
 
-    def backward(acts, c_prev, dhs, wh, dh_t, dc_t):
-        t, b, _ = acts.shape
-        dgates, dh0, dc0 = torch.empty_like(acts), torch.empty_like(dh_t), torch.empty_like(dc_t)
-        launch("vq_lstm_scan_grid_bwd_launch", "LSTM grid backward at H 256", acts.device, acts,
-               c_prev, dhs, wh, dh_t, dc_t, dgates, dh0, dc0, t, b, LSTM_H)
-        return dgates, dh0, dc0
+    backward = ls._grid_backward
 
     out = {}
     batch, steps = LSTM_SHAPES["export"]
@@ -1238,21 +1246,22 @@ def phase_time_lstm_grid_h256(seed: int, card: str) -> dict:
         check(e <= MAX_LSTM_BWD_REL * m + 1e-3, f"grid LSTM backward at H 256: {what} {e} of {m}")
     out["lstm_scan_train"] = time_cuda(lambda: forward(args, True), reps=20)
     out["lstm_scan_bwd"] = time_cuda(lambda: backward(*bwd_args), reps=20)
+    old = EARLIER_GRID_MS["h256"]
     print(f"timing lstm grid pair at H={LSTM_H} (yardstick; the cluster kernels take H 256): "
           f"inference B={LSTM_SHAPES['export'][0]} T={LSTM_SHAPES['export'][1]} "
           f"{out['lstm_scan']:.4f} ms, training forward B={batch} T={steps} "
-          f"{out['lstm_scan_train']:.4f} ms, backward {out['lstm_scan_bwd']:.4f} ms  [{card}]")
+          f"{out['lstm_scan_train']:.4f} ms, backward {out['lstm_scan_bwd']:.4f} ms (one-barrier "
+          f"grid: {old[0]} / {old[1]} / {old[2]} ms)  [{card}]")
     return out
 
 
 def report_lstm(stamps: dict, timing_lstm: dict, timing_train: dict, grid_h256: dict,
-                timing_lstm_grid: dict, timing_voc: dict, timing_masked_grid: dict,
-                exported: dict, card: str) -> None:
+                timing_voc: dict, timing_masked_grid: dict, exported: dict, card: str) -> None:
     """Phase 5's account of the cluster LSTM pair: the stamped split of the
     FMA kernels (FMA_LSTM_STAMPS) beside this run's; each kernel beside its
     bound, cuDNN, the grid pair at H 256 and its earlier time (EARLIER_MS);
-    the kernels that must not move, the CPC step and the export beside
-    theirs."""
+    the kernels that must not move (UNMOVED_MS), the CPC step and the
+    export beside theirs."""
     for kernel, split in (("forward export", stamps["export"]["forward"]),
                           ("training forward training", stamps["training"]["training forward"]),
                           ("backward training", stamps["training"]["backward"])):
@@ -1270,13 +1279,16 @@ def report_lstm(stamps: dict, timing_lstm: dict, timing_train: dict, grid_h256: 
               f"{res['bound_by']}; cuDNN {res['library_ms']:.4f} ms; grid pair at H 256 "
               f"{grid_h256[name]:.4f} ms (cluster / grid {res['ms'] / grid_h256[name]:.3f})  "
               f"[{card}]")
-    unmoved = {"lstm_scan_grid": timing_lstm_grid["lstm_scan_grid"]["ms"],
-               "lstm_scan_grid_bwd": timing_lstm_grid["lstm_scan_grid_bwd"]["ms"],
+    unmoved = {"lstm_scan": timing_lstm["export"]["ms"],
+               "lstm_scan_train": timing_train["lstm_scan_train"]["ms"],
+               "lstm_scan_bwd": timing_train["lstm_scan_bwd"]["ms"],
                "gru_scan_train": timing_voc["gru_scan_train"]["ms"],
                "gru_scan_bwd": timing_voc["gru_scan_bwd"]["ms"],
-               "gru_scan_masked_grid": timing_masked_grid["ms"]}
+               "gru_scan_masked_grid": timing_masked_grid["ms"],
+               "cpc_select": timing_train["cpc_select"]["ms"],
+               "cpc_select_bwd": timing_train["cpc_select_bwd"]["ms"]}
     print("unmoved kernels, this run against earlier (ms): " + ", ".join(
-        f"{k} {v:.4f} vs {EARLIER_MS[k]} ({(v / EARLIER_MS[k] - 1) * 100:+.1f} %)"
+        f"{k} {v:.4f} vs {UNMOVED_MS[k]} ({(v / UNMOVED_MS[k] - 1) * 100:+.1f} %)"
         for k, v in unmoved.items()) + f"  [{card}]")
     step = timing_train["step"]
     busy = step.get("device_busy_ms")
@@ -1372,77 +1384,150 @@ def phase_time_gru_masked_grid(seed: int, card: str) -> dict:
     return res
 
 
-def phase_time_lstm_grid(seed: int, card: str) -> dict:
-    """The grid LSTM pair at H 512 and the training shape (B 64, T 70), and
-    the inference grid forward at the export shape (B 16, T 256), beside
-    their plain versions, bounds and cuDNN's LSTM (fp16, H 512, with the
-    input projection; only timed here)."""
+def _lstm_grid_plan_text(batch: int, hidden: int) -> str:
+    """The grid LSTM plan of both directions at (B, H): groups x blocks x
+    units, shared bytes a block, K chunk."""
     from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    parts = []
+    for backward, k in ((False, hidden), (True, 4 * hidden)):
+        p = ls.grid_plan(batch, hidden, backward=backward)
+        parts.append(f"{'backward' if backward else 'forward'} {p.groups} groups of {p.rows} rows "
+                     f"x {p.blocks} blocks x {p.units} units, {p.smem} B shared, K chunk "
+                     f"{p.chunk} of {k}")
+    return "; ".join(parts)
+
+
+def phase_time_lstm_grid(seed: int, card: str) -> dict:
+    """The grid LSTM pair device only (``time_device``) at H 512: the
+    training forward and the backward at the training shape (B 64, T 70)
+    and the inference forward at the export shape (B 16, T 256), each
+    beside its time before row groups (EARLIER_GRID_MS), its host loop, its
+    plain version, its bound and cuDNN's LSTM (fp16, H 512, with the input
+    projection; only timed here), with the plan; then both directions at
+    the wide widths of LSTM_WIDE_H (B 64, T 70) beside their bounds."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    def timed(kernel, plain, bound, by, lib, reps=20) -> dict:
+        ms, host_us = time_device(kernel, reps)
+        return {"ms": ms, "host_us": host_us, "host_loop_ms": time_cuda(kernel, reps),
+                "plain_ms": time_cuda(plain, reps=2), "bound_ms": bound, "bound_by": by,
+                "library_ms": time_cuda(lib, reps) if lib is not None else None}
+
+    def line(name, res, batch, steps, hidden, earlier, lib_text) -> None:
+        lib = ("" if res["library_ms"] is None else
+               f"; cuDNN nn.LSTM ({lib_text}) {res['library_ms']:.4f} ms")
+        print(f"timing {name} B={batch} T={steps} H={hidden}: kernel {res['ms']:.4f} ms device "
+              f"only = {res['ms'] * 1e3 / steps:.3f} us/step (before row groups {earlier} ms by "
+              f"CUDA events, {earlier / res['ms']:.2f}x; this run's host loop "
+              f"{res['host_loop_ms']:.4f} ms, host {res['host_us']:.1f} us a call); plain "
+              f"{res['plain_ms']:.3f} ms{lib}; bound {res['bound_ms'] * 1e3:.3f} us by "
+              f"{res['bound_by']}; bound / kernel = {res['bound_ms'] / res['ms'] * 100:.3f} %  "
+              f"[{card}]")
+
+    def training_rows(batch, steps, hidden, cudnn_lib):
+        args = _lstm_inputs(seed, batch, steps, hidden)
+        hs, acts, c_prev, h_t, c_t = ls.lstm_scan_train(*args)
+        rng = np.random.default_rng(seed + 12)
+        dhs = torch.from_numpy(rng.normal(size=(steps, batch, hidden)).astype(np.float32)).to(
+            DEVICE).bfloat16()
+        bwd_args = (acts, c_prev, dhs, args[0], torch.zeros_like(h_t), torch.zeros_like(c_t))
+        flops = 2 * batch * steps * hidden * 4 * hidden
+        fwd_bound = _bound(_nbytes(*args, hs, acts, c_prev, h_t, c_t), flops, PEAK_BF16_FLOPS)
+        bwd_bound = _bound(_nbytes(*bwd_args, acts, h_t, c_t), flops, PEAK_BF16_FLOPS)
+        return {
+            "lstm_scan_grid": (lambda: ls.lstm_scan_train(*args),
+                               lambda: ls.lstm_scan_train_reference(*args), *fwd_bound,
+                               cudnn_lib[0]),
+            "lstm_scan_grid_bwd": (lambda: ls.lstm_scan_bwd(*bwd_args),
+                                   lambda: ls.lstm_scan_bwd_reference(*bwd_args), *bwd_bound,
+                                   cudnn_lib[1]),
+        }
 
     hidden = LSTM_GRID_H[0]
     out = {}
     batch, steps = LSTM_SHAPES["training"]
-    args = _lstm_inputs(seed, batch, steps, hidden)
-    hs, acts, c_prev, h_t, c_t = ls.lstm_scan_train(*args)
-    rng = np.random.default_rng(seed + 12)
-    dhs = torch.from_numpy(rng.normal(size=(steps, batch, hidden)).astype(np.float32)).to(
-        DEVICE).bfloat16()
-    bwd_args = (acts, c_prev, dhs, args[0], torch.zeros_like(h_t), torch.zeros_like(c_t))
-    flops = 2 * batch * steps * hidden * 4 * hidden
     lstm_in = torch.randn(batch, steps, 64, device=DEVICE, dtype=CUDNN_DTYPE, requires_grad=True)
     cudnn = torch.nn.LSTM(64, hidden, batch_first=True).to(DEVICE, CUDNN_DTYPE)
     lib_out, _ = cudnn(lstm_in)
     lib_grad = torch.randn_like(lib_out)
     inputs = [lstm_in] + list(cudnn.parameters())
-    rows = {
-        "lstm_scan_grid": (lambda: ls.lstm_scan_train(*args),
-                           lambda: ls.lstm_scan_train_reference(*args),
-                           _nbytes(*args, hs, acts, c_prev, h_t, c_t), lambda: cudnn(lstm_in)),
-        "lstm_scan_grid_bwd": (lambda: ls.lstm_scan_bwd(*bwd_args),
-                               lambda: ls.lstm_scan_bwd_reference(*bwd_args),
-                               _nbytes(*bwd_args, acts, h_t, c_t),
-                               lambda: torch.autograd.grad(lib_out, inputs, lib_grad,
-                                                           retain_graph=True)),
-    }
-    for name, (kernel, plain, n_bytes, lib) in rows.items():
-        bound, by = _bound(n_bytes, flops, PEAK_BF16_FLOPS)
-        res = out[name] = {"ms": time_cuda(kernel, reps=20), "plain_ms": time_cuda(plain, reps=2),
-                           "bound_ms": bound, "bound_by": by, "library_ms": time_cuda(lib, reps=20)}
-        print(f"timing {name} B={batch} T={steps} H={hidden}: kernel {res['ms']:.4f} ms = "
-              f"{res['ms'] * 1e3 / steps:.3f} us/step; plain {res['plain_ms']:.3f} ms; cuDNN "
-              f"nn.LSTM (fp16, with the input projection) {res['library_ms']:.4f} ms; bound "
-              f"{bound * 1e3:.3f} us by {by}; bound / kernel = {bound / res['ms'] * 100:.3f} %  "
-              f"[{card}]")
+    libs = (lambda: cudnn(lstm_in),
+            lambda: torch.autograd.grad(lib_out, inputs, lib_grad, retain_graph=True))
+    for name, row in training_rows(batch, steps, hidden, libs).items():
+        out[name] = timed(*row)
+        line(name, out[name], batch, steps, hidden, EARLIER_GRID_MS[name],
+             "fp16, with the input projection" + (", backward" if "bwd" in name else ""))
+    print(f"plan lstm grid B={batch} H={hidden}: {_lstm_grid_plan_text(batch, hidden)}  [{card}]")
     del lib_out, inputs
     batch, steps = LSTM_SHAPES["export"]
     args = _lstm_inputs(seed, batch, steps, hidden)
     lstm_in = torch.randn(batch, steps, 64, device=DEVICE, dtype=CUDNN_DTYPE)
     n_bytes = _nbytes(*args) + steps * batch * hidden * 2 + 2 * batch * hidden * 4
-    bound, by = _bound(n_bytes, 2 * batch * steps * hidden * 4 * hidden, PEAK_BF16_FLOPS)
+    bound = _bound(n_bytes, 2 * batch * steps * hidden * 4 * hidden, PEAK_BF16_FLOPS)
     with torch.no_grad():
-        res = {"ms": time_cuda(lambda: ls.lstm_scan(*args), reps=20),
-               "plain_ms": time_cuda(lambda: ls.lstm_scan_reference(*args), reps=2),
-               "bound_ms": bound, "bound_by": by,
-               "library_ms": time_cuda(lambda: cudnn(lstm_in), reps=20)}
-    print(f"timing lstm_scan_grid (inference) B={batch} T={steps} H={hidden}: kernel "
-          f"{res['ms']:.4f} ms = {res['ms'] * 1e3 / steps:.3f} us/step; plain {res['plain_ms']:.3f} "
-          f"ms; cuDNN nn.LSTM (fp16) {res['library_ms']:.4f} ms; bound {bound * 1e3:.3f} us by "
-          f"{by}  [{card}]")
+        res = timed(lambda: ls.lstm_scan(*args), lambda: ls.lstm_scan_reference(*args), *bound,
+                    lambda: cudnn(lstm_in))
+    line("lstm_scan_grid (inference)", res, batch, steps, hidden,
+         EARLIER_GRID_MS["lstm_scan_grid_inference"], "fp16")
+    print(f"plan lstm grid B={batch} H={hidden}: {_lstm_grid_plan_text(batch, hidden)}  [{card}]")
     out["lstm_scan_grid"]["inference_export_shape"] = res
-    # A width whose blocks stage wh in K chunks, at the training shape.
-    hidden = LSTM_STREAM_H
+    # The wide widths at the training shape: one row group, then K chunks.
+    batch, steps = LSTM_SHAPES["training"]
+    for hidden, kind in LSTM_WIDE_H.items():
+        res = {name: timed(*row, reps=5)
+               for name, row in training_rows(batch, steps, hidden, (None, None)).items()}
+        old = EARLIER_GRID_MS["h1600"] if hidden == 1600 else None
+        print(f"timing lstm_scan_grid {kind} B={batch} T={steps} H={hidden} ("
+              f"{_lstm_grid_plan_text(batch, hidden)}): " + ", ".join(
+                  f"{what} {r['ms']:.4f} ms device only = {r['ms'] * 1e3 / steps:.3f} us/step, "
+                  f"bound {r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}"
+                  + (f" (before row groups {old[i]} ms)" if old else "")
+                  for i, (what, r) in enumerate(zip(("training forward", "backward"),
+                                                    res.values())))
+              + f"  [{card}]")
+        out["lstm_scan_grid"][f"h{hidden}_ms"] = res["lstm_scan_grid"]["ms"]
+        out["lstm_scan_grid_bwd"][f"h{hidden}_ms"] = res["lstm_scan_grid_bwd"]["ms"]
+    return out
+
+
+def phase_lstm_grid_stamps(seed: int, card: str) -> dict:
+    """The grid LSTM pair's split by phase at B 64, T 70, H 512, from its
+    stamped variants (``lstm_scan_grid_stamped``,
+    ``lstm_scan_grid_bwd_stamped``, reached from nothing but this phase),
+    which must give the plain launches' bits. Returns {"forward": split,
+    "backward": split}, each {block: {phase: us per step}}."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    hidden = LSTM_GRID_H[0]
     batch, steps = LSTM_SHAPES["training"]
     args = _lstm_inputs(seed, batch, steps, hidden)
-    _, acts, c_prev, h_t, c_t = ls.lstm_scan_train(*args)
-    dhs = torch.zeros(steps, batch, hidden, device=DEVICE, dtype=torch.bfloat16)
-    bwd_args = (acts, c_prev, dhs, args[0], h_t, c_t)
-    chunks = ls.grid_chunks(batch, hidden, -(-hidden // _sms()))
-    fwd_ms = time_cuda(lambda: ls.lstm_scan_train(*args), reps=5)
-    bwd_ms = time_cuda(lambda: ls.lstm_scan_bwd(*bwd_args), reps=5)
-    print(f"timing lstm_scan_grid K chunks B={batch} T={steps} H={hidden} (chunks {chunks[0]} of "
-          f"{hidden}, {chunks[1]} of {4 * hidden}): training forward {fwd_ms:.4f} ms = "
-          f"{fwd_ms * 1e3 / steps:.3f} us/step, backward {bwd_ms:.4f} ms = "
-          f"{bwd_ms * 1e3 / steps:.3f} us/step  [{card}]")
+    plain = ls.lstm_scan_train(*args)
+    ls.lstm_scan_grid_stamped(*args)  # warm-up
+    *got, stamps = ls.lstm_scan_grid_stamped(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+          "the stamped grid LSTM forward's outputs are not the plain launch's bits")
+    out = {"forward": ls.summarize_scan_stamps(stamps.cpu().tolist(), steps, grid=True)}
+    rng = np.random.default_rng(seed + 12)
+    dhs = torch.from_numpy(rng.normal(size=(steps, batch, hidden)).astype(np.float32)).to(
+        DEVICE).bfloat16()
+    bwd_args = (plain[1], plain[2], dhs, args[0], torch.zeros_like(plain[3]),
+                torch.zeros_like(plain[4]))
+    plain_b = ls.lstm_scan_bwd(*bwd_args)
+    ls.lstm_scan_grid_bwd_stamped(*bwd_args)
+    *got_b, stamps_b = ls.lstm_scan_grid_bwd_stamped(*bwd_args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got_b, plain_b)),
+          "the stamped grid LSTM backward's outputs are not the plain launch's bits")
+    out["backward"] = ls.summarize_scan_stamps(stamps_b.cpu().tolist(), steps, backward=True,
+                                               grid=True)
+    for kernel, split in out.items():
+        check(bool(split), f"stamps LSTM grid {kernel}: no block recorded")
+        for block, phases in split.items():
+            print(f"stamps lstm grid {kernel} B={batch} T={steps} H={hidden} {block} (us/step "
+                  f"over {steps - 1} steps): " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+                  + f"  [{card}]")
     return out
 
 
@@ -1637,20 +1722,26 @@ def phase_compare_train(seed: int, card: str) -> dict:
 
 def phase_compare_lstm_grid(seed: int, card: str) -> dict:
     """The grid LSTM kernels (ops/csrc/lstm_grid.cu) against their plain
-    versions at H 512 and 37, at the export and training shapes, and at H
-    1,600 (wh staged in K chunks) at a short shape: both
-    forward variants (the inference one gives the training one's bits), the
-    backward, and autograd through ``LstmScan`` against the plain route on
-    the CPU; returns each kernel's worst max abs error."""
+    versions at H 512 and 37, at the export and training shapes and at B 3
+    (one partial row group) and 1, and at H 1,600 (one row group) and 2,048
+    (wh staged in K chunks) at a short shape: both forward variants (the
+    inference one gives the training one's bits), the backward, and
+    autograd through ``LstmScan`` against the plain route on the CPU; each
+    plan against its mirror (``group_plan``); returns each kernel's worst
+    max abs error."""
     from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
 
     worst = {"lstm_scan_grid": 0.0, "lstm_scan_grid_bwd": 0.0}
-    cases = [(h, LSTM_SHAPES) for h in LSTM_GRID_H]
-    cases.append((LSTM_STREAM_H, {"K chunks": LSTM_STREAM_SHAPE}))
+    cases = [(h, {**LSTM_SHAPES, **LSTM_GRID_SMALL_B}) for h in LSTM_GRID_H]
+    cases += [(h, {kind: LSTM_STREAM_SHAPE}) for h, kind in LSTM_WIDE_H.items()]
     for hidden, shapes in cases:
         check(ls.scan_route(hidden) == ls.scan_route(hidden, backward=True) == "grid",
               f"H {hidden} should take the grid kernels")
         for name, (batch, steps) in shapes.items():
+            for backward in (False, True):
+                plan = ls.grid_plan(batch, hidden, backward=backward)
+                check(plan == ls.group_plan(batch, hidden, backward, sms=_sms()),
+                      f"lstm grid H={hidden} B={batch}: the plan {plan} is not its mirror's")
             args = _lstm_inputs(seed, batch, steps, hidden)
             inf = ls.lstm_scan(*args)
             got = ls.lstm_scan_train(*args)
@@ -1677,7 +1768,8 @@ def phase_compare_lstm_grid(seed: int, card: str) -> dict:
             for what, (e, m) in zip(("dwh", "dxproj", "dh0", "dc0"), errs_g):
                 check(e <= MAX_LSTM_GRAD_REL * m,
                       f"LstmScan grid H={hidden} {name}: {what} differs by {e} (largest {m})")
-            print(f"compare lstm_scan_grid {name} B={batch} T={steps} H={hidden}: hs, acts, c_prev, "
+            print(f"compare lstm_scan_grid {name} B={batch} T={steps} H={hidden} "
+                  f"({_lstm_grid_plan_text(batch, hidden)}): hs, acts, c_prev, "
                   f"h_T, c_T max abs diff {', '.join(f'{e:.3e}' for e in errs)} (bound "
                   f"{MAX_LSTM_ERR}), inference = training bits; lstm_scan_grid_bwd dgates, dh0, dc0 "
                   f"{', '.join(f'{e:.3e} of {m:.3f}' for e, m in errs_b)} (bound {MAX_LSTM_BWD_REL} "
@@ -4136,11 +4228,12 @@ def main() -> int:
 
     stamped = (ar.AR_DECODE_STAMPED_LAUNCHES, g.GRU_SCAN_TRAIN_STAMPED_LAUNCHES,
                g.GRU_SCAN_BWD_STAMPED_LAUNCHES, ls.LSTM_SCAN_STAMPED_LAUNCHES,
-               ls.LSTM_SCAN_BWD_STAMPED_LAUNCHES, cs.CPC_SELECT_STAMPED_LAUNCHES,
+               ls.LSTM_SCAN_BWD_STAMPED_LAUNCHES, ls.LSTM_SCAN_GRID_STAMPED_LAUNCHES,
+               ls.LSTM_SCAN_GRID_BWD_STAMPED_LAUNCHES, cs.CPC_SELECT_STAMPED_LAUNCHES,
                cs.CPC_SELECT_BWD_STAMPED_LAUNCHES)
-    check(stamped == (0,) * 7, f"a main path launched a stamped kernel: {stamped}")
+    check(stamped == (0,) * 9, f"a main path launched a stamped kernel: {stamped}")
     print(f"phase 4: {time.perf_counter() - start:.3f} s wall; the stamped AR, GRU grid, LSTM "
-          f"cluster and selection kernels launched {stamped} times in phases 1-4")
+          f"cluster, LSTM grid and selection kernels launched {stamped} times in phases 1-4")
     # Phase 5: times beside the bound.
     start = time.perf_counter()
     timing, ar_ms_by_batch = phase_time(args.seed, card)
@@ -4151,6 +4244,7 @@ def main() -> int:
     lstm_stamps = phase_lstm_stamps(args.seed, card)
     timing_lstm = phase_time_lstm(args.seed, card)
     timing_lstm_h256 = phase_time_lstm_grid_h256(args.seed, card)
+    lstm_grid_stamps = phase_lstm_grid_stamps(args.seed, card)
     timing_lstm_grid = phase_time_lstm_grid(args.seed, card)
     phase_time_serve(serve, ar_ms_by_batch["bf16"], card)
     select_stamps = phase_select_stamps(args.seed, card)
@@ -4171,8 +4265,8 @@ def main() -> int:
           f"{data_plane['vocoder']['per_item']['ms']:.3f} ms; the train_cpc CLI (4d) logged "
           f"{trained['logged_steps_per_s']} steps/s beside the CPC graph step {cpc_ms:.3f} ms "
           f"= {1e3 / cpc_ms:.1f} steps/s  [{card}]")
-    report_lstm(lstm_stamps, timing_lstm, timing_train, timing_lstm_h256, timing_lstm_grid,
-                timing_voc, timing_masked_grid, exported, card)
+    report_lstm(lstm_stamps, timing_lstm, timing_train, timing_lstm_h256, timing_voc,
+                timing_masked_grid, exported, card)
     print(f"phase 5: {time.perf_counter() - start:.3f} s wall")
 
     source = "vectorquantizedcpc_tpu_torch/ops/csrc/"
@@ -4319,6 +4413,7 @@ def main() -> int:
             "graph_replays": wide["graph"]["replays"],
             "max_abs_err": compared_lstm_grid["lstm_scan_grid"],
             **timing_lstm_grid["lstm_scan_grid"],
+            "stamps_us_per_step": lstm_grid_stamps["forward"],
         },
         {
             "name": "lstm_scan_grid_bwd",
@@ -4330,6 +4425,7 @@ def main() -> int:
             "graph_replays": wide["graph"]["replays"],
             "max_abs_err": compared_lstm_grid["lstm_scan_grid_bwd"],
             **timing_lstm_grid["lstm_scan_grid_bwd"],
+            "stamps_us_per_step": lstm_grid_stamps["backward"],
         },
     ]
     print(card)

@@ -19,8 +19,11 @@ LSTM scan: batches off the 8-row cluster tile, one step, odd step counts;
 its training forward and backward at B 1, 3, 9 and 16, T 1 and 256, H 8,
 32, 64, 256, 264, 352 and 432 (past 256 part of wh in shared memory), two
 launches and the stamped variants giving the same bits, the plan against
-its Python mirror, and through autograd; the grid kernels at H 37, 360,
-440 and 512 (forward and backward), their plan and its refusals. CPC selection forward and
+its Python mirror, and through autograd; the grid kernels in row groups
+at H 37, 440, 512, 1200, 1600 and 2047 (forward and backward; B 1 to 64,
+partial last groups, one group holding wh whole, K chunks), two launches
+and the stamped variants giving the same bits, their plan against its
+Python mirror and its refusals. CPC selection forward and
 backward: odd L, tiles that do not fit shared memory, Z not a multiple of
 32 and Z past 256 (257, 300), N 40, U 16, collision ties, out-of-range
 indices, 10 launches and the stamped variants giving the same bits, the
@@ -660,9 +663,10 @@ def test_lstm_scan_bwd_shared_memory_layout_and_limit(cuda):
 
 @pytest.mark.parametrize(
     "t, b, hidden",
-    [(70, 64, 512), (256, 16, 512), (9, 5, 37), (4, 33, 440), (1, 1, 37),
-     (6, 40, 1200),  # the backward streams wh in K chunks
-     (5, 17, 1600), (3, 9, 2047)],  # both do
+    [(70, 64, 512), (256, 16, 512), (70, 3, 512), (9, 5, 37), (4, 33, 440), (1, 1, 37),
+     (6, 40, 1200),  # two row groups of 24 rows
+     (5, 17, 1600),  # one row group holds wh whole
+     (3, 9, 2047)],  # both directions stream wh in K chunks
 )
 def test_lstm_grid_kernels_match_plain(cuda, t, b, hidden):
     """The grid forward (both variants: the inference one gives the training
@@ -696,10 +700,39 @@ def test_lstm_grid_kernels_match_plain(cuda, t, b, hidden):
         assert err <= 1e-2 * float(r.float().abs().max()) + 1e-3, (name, err)
 
 
+def test_lstm_grid_kernels_repeat_their_bits_and_stamps_change_nothing(cuda):
+    """Two launches of each grid LSTM kernel give the same bits (every sum in
+    a fixed order, no float atomics), and so do the stamped variants, whose
+    buffers record both stamped blocks at every step."""
+    from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+    rng = np.random.default_rng(22)
+    args = _lstm_case(rng, 24, 64, 512, cuda)
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+    dhs = f32(rng.normal(0, 1, size=(24, 64, 512))).bfloat16()
+    dh_t, dc_t = f32(rng.normal(0, 1, size=(64, 512))), f32(rng.normal(0, 1, size=(64, 512)))
+    fwd = [ls.lstm_scan_train(*args) for _ in range(2)]
+    *stamped, stamps = ls.lstm_scan_grid_stamped(*args)
+    bwd_args = (fwd[0][1], fwd[0][2], dhs, args[0], dh_t, dc_t)
+    bwd = [ls.lstm_scan_bwd(*bwd_args) for _ in range(2)]
+    *stamped_b, stamps_b = ls.lstm_scan_grid_bwd_stamped(*bwd_args)
+    torch.cuda.synchronize()
+    for first, other in ((fwd[0], fwd[1]), (fwd[0], stamped), (bwd[0], bwd[1]), (bwd[0], stamped_b)):
+        for a, b in zip(first, other):
+            assert torch.equal(a, b)
+    for buf, backward in ((stamps, False), (stamps_b, True)):
+        split = ls.summarize_scan_stamps(buf.cpu().tolist(), 24, backward, grid=True)
+        assert set(split) == {"block 0", "last block"}
+        assert all(v["total"] > 0 for v in split.values())
+    with pytest.raises(ValueError, match="cluster route"):
+        ls.lstm_scan_grid_stamped(*_lstm_case(rng, 4, 8, 256, cuda))
+
+
 def test_lstm_grid_autograd_and_plan(cuda):
     """``LstmScan`` at H 512 on the card against the CPU plain route; the
-    plan's sizes and K chunks, and its refusals (a grid that cannot be
-    resident, a block whose carries do not fit)."""
+    kernel's plan against its mirror (``group_plan``), and its refusals (a
+    grid that cannot be resident, a block whose tiles and carries do not
+    fit)."""
     from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
 
     args = _lstm_case(np.random.default_rng(9), 21, 12, 512, cuda)
@@ -712,16 +745,16 @@ def test_lstm_grid_autograd_and_plan(cuda):
     for a, r in zip(*grads):
         assert float((a - r).abs().max()) <= 2e-2 * float(r.abs().max())
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for b, hidden in ((64, 512), (16, 37), (64, 1600), (64, 4096)):
-        chunks = []
+    for b, hidden in ((64, 512), (16, 512), (3, 512), (16, 37), (64, 1600), (64, 2048),
+                      (64, 4096)):
         for backward in (False, True):
-            blocks, units, smem, chunk = ls.grid_plan(b, hidden, backward=backward)
-            assert units == -(-hidden // sms) and blocks == -(-hidden // units) <= sms
-            assert chunk == ls.grid_chunks(b, hidden, units)[int(backward)]
-            chunks.append(chunk)
-            assert smem == ls.grid_smem_bytes(b, hidden, units, (chunk, chunk))[int(backward)]
-        whole = (hidden, 4 * hidden)
-        assert (tuple(chunks) == whole) == (hidden <= 512)  # wider widths stream in K chunks
+            plan = ls.grid_plan(b, hidden, backward=backward)
+            assert plan == ls.group_plan(b, hidden, backward, sms=sms)
+            assert plan.groups * plan.blocks <= sms and plan.blocks == -(-hidden // plan.units)
+    # The CPC step at dim_cpc_context=512 holds wh whole; H 2,048 streams wh
+    # in K chunks both ways.
+    assert ls.grid_plan(64, 512).chunk == 512 and ls.grid_plan(64, 512, backward=True).chunk == 2048
+    assert ls.grid_plan(64, 2048).chunk < 2048 and ls.grid_plan(64, 2048, backward=True).chunk < 8192
     for b, hidden, units, backward in ((64, 2048, 1, False), (65536, 2048, 0, True)):
         with pytest.raises(RuntimeError, match="LSTM grid plan"):
             ls.grid_plan(b, hidden, units, backward)

@@ -1,9 +1,9 @@
 """Every width the JAX package takes: the LSTM scans, the masked GRU scan and
 the CPC selection at widths the port's first kernels could not hold.
 
-On a card these run the cooperative-grid kernels (``csrc/lstm_grid.cu``,
-the masked grid forward of ``csrc/gru_train.cu``; past the widths whose
-slice of wh fits a block, in K chunks) and the wide-Z selection
+On a card these run the cooperative-grid kernels in row groups
+(``csrc/lstm_grid.cu``, the masked grid forward of ``csrc/gru_train.cu``;
+past the widths whose slice of wh fits a block, in K chunks) and the wide-Z selection
 (tests/test_torch_kernels_gpu.py holds them against the plain versions).
 Here: which kernel each width takes, the K chunks the grid plan picks, that
 the input checks take the width, and the plain versions at such widths
@@ -49,14 +49,20 @@ def test_gru_scan_route():
 
 
 def test_grid_layouts_fit_one_block():
-    """The grid kernels' shared memory at the widths they take: H 512 on 128
-    blocks of 4 units (forward: 16 padded columns of wh and a 32-row h tile
-    of rows 512 + 8 bf16; backward: 8 padded rows of wh of 2048 + 8 and a
-    16-row dgates tile), and H 36 on 36 blocks of 1 unit."""
-    fwd, bwd = ls.grid_smem_bytes(64, 512, 4)
-    assert fwd == 2 * 16 * 520 + 2 * 32 * 520 + 4 * 128 * 16 + 4 * 64 * 4 == 59136
-    assert bwd == 2 * 8 * 2056 + 2 * 16 * 2056 + 4 * 128 * 16 + 2 * 4 * 64 * 4 == 108928
-    assert max(ls.grid_smem_bytes(64, 36, 1)) < fwd
+    """The grid kernels' shared memory at the widths they take: H 512 in row
+    groups of 8 rows, blocks of 32 units (the plan at B 64; forward: 128 A
+    rows, the 4 x 32 i/f/g/o columns of wh, of 512 bf16 = 1,024 bytes padded
+    to 1,088 (64 modulo 128), plus a zero row, and a 16 x 8 f32 tile of
+    partial sums (176 floats with its padding) per warp (8) and A tile (8),
+    each row of tiles padded by 16 floats; backward: 32 rows of wh of 2,048
+    bf16 = 4,096 bytes padded to 4,160, a zero row and 8 x 2 tiles), and H
+    36 in one group of 64 rows on blocks of 1 unit."""
+    fwd = ls.grid_layout_bytes(8, 512, 32, backward=False)
+    bwd = ls.grid_layout_bytes(8, 512, 32, backward=True)
+    assert fwd == 129 * 1088 + 4 * (176 * 8 + 16) * 8 == 185920
+    assert bwd == 33 * 4160 + 4 * (176 * 8 + 16) * 2 == 148672
+    assert max(fwd, bwd) <= ls.SMEM_LIMIT
+    assert max(ls.grid_smem_bytes(64, 36, 1)) < bwd
     assert max(ls.grid_smem_bytes(64, 1056, 8)) <= ls.SMEM_LIMIT
     assert ls.grid_chunks(64, 512, 4) == (512, 2048)  # wh held whole: no K chunks
 
@@ -64,10 +70,11 @@ def test_grid_layouts_fit_one_block():
 @pytest.mark.parametrize(
     "module, batch, hidden, gates, whole",
     [
-        (ls, 64, 1376, 4, (True, False)),  # the backward streams wh from H 1,064
-        (ls, 64, 1600, 4, (False, False)),
+        (ls, 64, 1376, 4, (True, True)),  # no staged tile: both hold wh whole
+        (ls, 64, 1600, 4, (True, True)),  # one row group holds wh whole
+        (ls, 64, 2048, 4, (False, False)),  # the first widths that stream, both directions
         (ls, 64, 4096, 4, (False, False)),
-        (ls, 64, 16384, 4, (False, False)),
+        (ls, 64, 8192, 4, (False, False)),
         (gt, 32, 896, 3, (True, True)),  # the vocoder's width holds wh whole
         (gt, 32, 1200, 3, (True, True)),  # no staged tile: the backward holds wh whole too
         (gt, 32, 4096, 3, (False, False)),

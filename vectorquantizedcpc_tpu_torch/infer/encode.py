@@ -18,7 +18,10 @@ frames equal an unpadded encode's bit for bit. Work is queued on the device
 without waiting, at most 4 batches in flight: the host's text writing for
 one batch overlaps the device's encode of the next. The compute dtype
 follows ``runtime.precision`` (default bfloat16, whose context LSTM runs
-the CUDA kernel on a card); VQ and the dumped values are float32.
+the CUDA kernel on a card). VQ runs and the values are dumped in float32,
+but under bfloat16 the frontend computes z_pre in bfloat16 before that
+cast, so the dumps carry bfloat16 rounding; ``runtime.precision=float32``
+is the setting whose dumps match the JAX package's float32 export.
 """
 
 import json

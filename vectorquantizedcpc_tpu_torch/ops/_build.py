@@ -133,12 +133,16 @@ def library() -> ctypes.CDLL:
         lib.vq_lstm_scan_bwd_stamped_launch.restype = i
         lib.vq_lstm_scan_bwd_smem_bytes.argtypes = [i]
         lib.vq_lstm_scan_bwd_smem_bytes.restype = i
-        lib.vq_lstm_grid_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+        lib.vq_lstm_grid_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.vq_lstm_grid_plan.restype = i
-        lib.vq_lstm_scan_grid_launch.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.vq_lstm_scan_grid_launch.argtypes = [p] * 10 + [i] * 4 + [p]
         lib.vq_lstm_scan_grid_launch.restype = i
-        lib.vq_lstm_scan_grid_bwd_launch.argtypes = [p] * 9 + [i] * 3 + [p]
+        lib.vq_lstm_scan_grid_stamped_launch.argtypes = [p] * 10 + [i] * 4 + [p, p]
+        lib.vq_lstm_scan_grid_stamped_launch.restype = i
+        lib.vq_lstm_scan_grid_bwd_launch.argtypes = [p] * 10 + [i] * 3 + [p]
         lib.vq_lstm_scan_grid_bwd_launch.restype = i
+        lib.vq_lstm_scan_grid_bwd_stamped_launch.argtypes = [p] * 10 + [i] * 3 + [p, p]
+        lib.vq_lstm_scan_grid_bwd_stamped_launch.restype = i
         lib.vq_cpc_select_launch.argtypes = [p] * 6 + [i] * 7 + [p]
         lib.vq_cpc_select_launch.restype = i
         lib.vq_cpc_select_stamped_launch.argtypes = [p] * 6 + [i] * 6 + [p, i, p]

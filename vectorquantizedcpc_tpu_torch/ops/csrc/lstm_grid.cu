@@ -1,7 +1,8 @@
-// LSTM scan at any width over a cooperative grid: the forward (inference and
-// training variants) and the reverse-time backward, for the widths that
-// lstm_scan.cu's cluster of 8 CTAs cannot hold (H not a multiple of 8,
-// H > 432 forward, H > 352 backward; lstm_scan.py:scan_route picks).
+// LSTM scan at any width over a cooperative grid of row groups: the forward
+// (inference and training variants) and the reverse-time backward, for the
+// widths that lstm_scan.cu's cluster of 8 CTAs cannot hold (H not a
+// multiple of 8, H > 432 forward, H > 352 backward; lstm_scan.py:scan_route
+// picks).
 //
 // Forward. Replaces vectorquantizedcpc_tpu/ops/lstm_scan.py:_fwd_kernel at
 // those widths. Per step t and batch row b (torch gate order i, f, g, o):
@@ -19,32 +20,49 @@
 // What bounds them on an H100: at the CPC shape with a 512-wide context
 // (B 64, T 70) each moves ~51 MB (~15 us at 3.35 TB/s) and does 9.4 GFLOP
 // (~9.5 us at the bf16 tensor rate); both are latency-bound instead: T
-// dependent steps, each a (B, H) x (H, 4H) product. wh (H x 4H bf16, 2 MB at
-// H 512) is spread over the SMs, as gru_train.cu spreads the GRU's:
-//   - a persistent cooperative grid, one block per SM; block j owns hidden
-//     units [j U, j U + U) (U = ceil(H / SMs): 128 blocks x 4 units at 512);
-//   - forward: the block keeps its units' 4U i/f/g/o columns of wh in shared
-//     memory for all steps. Each step it stages all of bf16(h_{t-1}) from
-//     hs[t - 1] (which every block wrote before the barrier; bf16(h0) at
-//     t = 0) in tiles of 32 rows, forms its columns of the product with
-//     mma.sync, then the gates of its units with their c carried in shared
-//     memory. hs is the exchange buffer: one grid barrier per step;
-//   - backward: the block keeps its U rows of wh. Each step it makes its
-//     units' da from the streamed residuals and its f32 carries, writes
-//     dgates[t], then one grid barrier, then stages all of dgates[t] (B x 4H
-//     bf16) in tiles of 16 rows and forms its units' dh = dgates[t] @ wh^T.
-// H need not be a multiple of anything: the K padding of the product is
-// zero in shared memory. Where a block's columns (forward) or rows
-// (backward) of wh and its staged tile do not fit 227 KB at their whole
-// depth (on 132 SMs: H above 1,376 forward, above 1,056 backward), the plan
-// picks a K chunk and the block stages, for each tile, its slice of wh and
-// the tile chunk by chunk, adding up the chunks' products: wh is then read
-// from L2 every step instead of once. The plan refuses only a grid that
-// cannot be resident at once or a block whose carries leave no room for a
-// 16-deep chunk. Exchange reads use __ldcg (L1 is not coherent across SMs);
-// the grid barrier orders them after the writes.
+// dependent steps, each a (B, H) x (H, 4H) product whose operand wh (2 MB
+// at H 512) is spread over the SMs, and a hand-off of h (or the gate
+// gradients) between them.
+//
+// The design is gru_train.cu's, on grid_common.cuh's row groups (the batch
+// rows are independent sequences). At B 64, H 512 on 132 SMs that is 8
+// groups x 16 blocks x 32 hidden units (B 16: 2 x 64 x 8). Block j of a
+// group owns units [j U, j U + U):
+//   - forward: it keeps its 4U i/f/g/o columns of wh (128 KB at U 32) in
+//     shared memory as the A operand for the whole scan. Each step its
+//     warps read the group's R rows of bf16(h) of the step before
+//     (bf16(h0) at t = 0) from L2 straight into mma.sync B fragments and
+//     form gates^T = wh^T bf16(h)^T, each warp over its part of K; each
+//     thread then owns (row, unit) pairs, carries their f32 c in registers,
+//     makes their gates and writes hs (and acts, c_prev). h travels to the
+//     group's other blocks as tagged 32-bit words (bf16(h) and its step's
+//     tag, two slots alternating by step: grid_common.cuh tag_of): no
+//     barrier;
+//   - backward: it keeps its U rows of wh (each 4H long). Each step each
+//     thread makes its pairs' da from the residuals (acts, c_prev, dhs) and
+//     its f32 carries dh, dc, and writes dgates[t]; then its group's count
+//     barrier (a release / acquire count that only grows), then the warps
+//     read the group's rows of dgates[t] from L2 into B fragments and form
+//     dh = dgates[t] @ wh^T for its units;
+//   - what needs no other block's data sits after the block's own stores
+//     (in the backward, between arriving at the barrier and waiting): the
+//     next step's xproj (forward) and residuals (backward), loaded a step
+//     ahead into registers.
+// Each block reads only its group's R rows a step from L2 (at B 64, 8 of
+// the 64 rows), and each barrier joins a group's blocks, not the grid.
+// Where not even one group's
+// slice of wh fits a block (on 132 SMs at B 64: H above ~1,900), the
+// blocks stage it with each K chunk of every step, adding up the chunks'
+// products in shared memory. The exchange words and the counts live in
+// buffers the wrapper zeroes for each launch (so a replayed CUDA graph
+// starts each scan from clean tags and counts).
+//
+// The kStamps variants (vq_lstm_scan_grid_stamped_launch,
+// vq_lstm_scan_grid_bwd_stamped_launch) also record, on thread 0 of block
+// 0 and of the grid's last block, the clock64 cycles of each phase of
+// every step (FwdPhase, BwdPhase); no entry point of the package launches
+// them.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,23 +70,28 @@
 
 #include "grid_common.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 using namespace vq_grid;
+
+constexpr int kGates = 4;
+constexpr int kFwdMt = 8, kFwdLoads = 4;  // A tiles of one pass, K blocks in flight
+constexpr int kBwdMt = 2, kBwdLoads = 8;
 
 struct FwdArgs {
   const __nv_bfloat16* xproj;  // (T, B, 4H) input projection x @ wx + b
   const __nv_bfloat16* wh;     // (H, 4H)
   const float* h0;             // (B, H)
   const float* c0;             // (B, H)
-  __nv_bfloat16* hs;           // (T, B, H), also the exchange buffer
+  __nv_bfloat16* hs;           // (T, B, H)
   __nv_bfloat16* acts;         // (T, B, 4H) activated gates (training variant)
   float* c_prev;               // (T, B, H) cell state entering each step (training)
   float* h_out;                // (B, H)
   float* c_out;                // (B, H)
-  int steps, batch, hidden, units;
+  unsigned int* xchg;          // (2, B, H) tagged h words (bf16 | tag << 16), zeroed
+  long long* stamps;           // kStamps: (2, 4 + steps * kFwdPhases)
+  int steps, batch, hidden;
+  int rows, blocks, units;     // rows and blocks of a group, hidden units of a block
   int chunk;                   // K extent staged at once (H: all of it)
 };
 
@@ -82,314 +105,373 @@ struct BwdArgs {
   __nv_bfloat16* dgates;       // (T, B, 4H), also the exchange buffer
   float* dh0;                  // (B, H)
   float* dc0;                  // (B, H)
-  int steps, batch, hidden, units;
+  unsigned int* sync;          // (groups, kSyncStride) barrier counts, zeroed
+  long long* stamps;           // kStamps: (2, 4 + steps * kBwdPhases)
+  int steps, batch, hidden;
+  int rows, blocks, units;
   int chunk;                   // K extent staged at once (4H: all of it)
 };
 
-struct Layout {
-  size_t wh, tile, part, carry, carry2, total;  // carry2: the backward's only
-  int kp, stride, np;
+// Phases of a step that the stamped kernels time (lstm_scan.py:
+// GRID_FWD_STAMP_PHASES, GRID_BWD_STAMP_PHASES).
+enum FwdPhase { kXproj, kHLoad, kProduct, kReduce, kGatePass, kPrefetch, kFwdPhases };
+enum BwdPhase { kResiduals, kGateGrads, kBwdBarrier, kDgLoad, kBwdProduct, kCarry, kBwdPhases };
+
+// A pair's residuals of one step: the activated gates and dhs in bf16 (left
+// so until used), c_prev in f32.
+struct Residuals {
+  __nv_bfloat16 act[4], dhs;
+  float cp;
 };
 
-// Forward shared memory at K chunk ``kc`` (H: all of it); the same on the
-// host (size) and the card. lstm_scan.py:grid_smem_bytes mirrors it.
-__host__ __device__ __forceinline__ Layout fwd_layout(int B, int H, int U, int kc) {
-  Layout L = {};
-  L.kp = round_up(min(H, kc), 16);
-  L.stride = L.kp + kPad;
-  L.np = round_up(4 * U, 8);
-  size_t off = 0;
-  L.wh = take(&off, sizeof(__nv_bfloat16) * (size_t)L.np * L.stride);
-  L.tile = take(&off, sizeof(__nv_bfloat16) * (size_t)kFwdRows * L.stride);
-  L.part = take(&off, sizeof(float) * 128 * n_slots(2 * (L.np / 8)));
-  L.carry = take(&off, sizeof(float) * (size_t)B * U);  // c
-  L.total = off;
-  return L;
-}
-
-// Backward: U rows of wh (each a column of wh^T), the dgates tile, the parts,
-// the dh and dc carries.
-__host__ __device__ __forceinline__ Layout bwd_layout(int B, int H, int U, int kc) {
-  Layout L = {};
-  L.kp = round_up(min(4 * H, kc), 16);
-  L.stride = L.kp + kPad;
-  L.np = round_up(U, 8);
-  size_t off = 0;
-  L.wh = take(&off, sizeof(__nv_bfloat16) * (size_t)L.np * L.stride);
-  L.tile = take(&off, sizeof(__nv_bfloat16) * (size_t)kBwdRows * L.stride);
-  L.part = take(&off, sizeof(float) * 128 * n_slots(L.np / 8));
-  L.carry = take(&off, sizeof(float) * (size_t)B * U);   // dh
-  L.carry2 = take(&off, sizeof(float) * (size_t)B * U);  // dc
-  L.total = off;
-  return L;
-}
-
-// kStream: the plan's K chunk is below H, so wh is staged with each chunk
-// of the tile; otherwise one pass over all of K with wh resident.
-template <bool kSave, bool kStream>
-__global__ void __launch_bounds__(kThreads, 1) lstm_scan_grid_kernel(FwdArgs a) {
-  cg::grid_group grid = cg::this_grid();
+// kSave: also write acts and c_prev. kStream: the plan's K chunk is below
+// H, so wh is staged with each chunk of every step; otherwise once.
+template <bool kSave, bool kStream, bool kStamps>
+__global__ void __launch_bounds__(kBlockThreads, 1) lstm_scan_grid_kernel(FwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int H = a.hidden, H4 = 4 * a.hidden, B = a.batch, U = a.units;
-  const int tid = threadIdx.x;
-  const int u0 = blockIdx.x * U;
-  const int nu = min(U, H - u0);
-  const int n_cols = 4 * nu;  // local column lc = gate * nu + unit
-  const int nt_count = (n_cols + 7) / 8;
-  const int n_chunks = kStream ? (H + a.chunk - 1) / a.chunk : 1;
+  const int H = a.hidden, H4 = 4 * a.hidden, B = a.batch, tid = threadIdx.x;
+  const Share sh = block_share(B, H, a.rows, a.blocks, a.units);
+  const int r0 = sh.r0, nr = sh.nr, u0 = sh.u0, nu = sh.nu, n_cols = 4 * nu;
+  const int n_pairs = nr * nu, kparts = group_kparts(nr);
+  const int n_chunks = kStream ? cdiv(H, a.chunk) : 1;
 
-  const Layout L = fwd_layout(B, H, U, a.chunk);
-  __nv_bfloat16* wh_s = reinterpret_cast<__nv_bfloat16*>(smem + L.wh);
-  __nv_bfloat16* h_s = reinterpret_cast<__nv_bfloat16*>(smem + L.tile);
+  const Layout L = fwd_layout(kGates, false, H, a.units, a.chunk, a.rows);
+  unsigned char* w_s = smem + L.w;
   float* part_s = reinterpret_cast<float*>(smem + L.part);
-  float* c_s = reinterpret_cast<float*>(smem + L.carry);  // [b][u]
+  float* carry_s = reinterpret_cast<float*>(smem + L.state);  // c of pairs past kRegPairs
+  if (!kStream) stage_fwd_rows<kGates>(w_s, L.stride, a.wh, H, u0, nu, 0, H, L.kp);
 
-  if (!kStream) {  // all of this block's columns, resident for every step
-    stage_wh_cols(wh_s, a.wh, 4, H, u0, nu, L.np, L.stride, 0, H, L.kp);
-    zero_cols(h_s, kFwdRows, H, L.kp, L.stride);
+  // Pair p is (group row p / nu, unit p % nu). Thread tid holds pairs
+  // tid + k kBlockThreads (k < kMaxPairs) in registers: their offsets, f32
+  // c and the step's gate inputs, loaded a step ahead and left in bf16
+  // until the gate pass uses them. Pairs past kRegPairs keep c in shared
+  // memory and load their inputs when they are used.
+  Pair<kGates> pr[kMaxPairs];
+  float cell[kMaxPairs];
+  __nv_bfloat16 xv[kMaxPairs][4];
+  auto load_x = [&](int t, const Pair<kGates>& q, __nv_bfloat16 (&x)[4]) {
+    const __nv_bfloat16* xr = a.xproj + (size_t)t * B * H4 + q.rhg;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) x[g] = xr[g * H];
+  };
+  auto load_inputs = [&](int t) {
+#pragma unroll
+    for (int k = 0; k < kMaxPairs; ++k)
+      if (tid + k * kBlockThreads < n_pairs) load_x(t, pr[k], xv[k]);
+  };
+#pragma unroll
+  for (int k = 0; k < kMaxPairs; ++k) {
+    const int p = tid + k * kBlockThreads;
+    pr[k] = make_pair<kGates>(p, r0, u0, nu, H, L.tile_row, kparts, kGates);
+    cell[k] = p < n_pairs ? a.c0[pr[k].rh] : 0.f;
   }
-  for (int i = tid; i < B * nu; i += kThreads) {
-    const int b = i / nu, u = i % nu;
-    c_s[b * U + u] = a.c0[(size_t)b * H + u0 + u];
+  for (int p = tid + kRegPairs; p < n_pairs; p += kBlockThreads)
+    carry_s[p - kRegPairs] = a.c0[make_pair<kGates>(p, r0, u0, nu, H, L.tile_row, kparts, 0).rh];
+  // bf16(h0) into the exchange as step -1 (slot 1), for the first product.
+  for (int p = tid; p < n_pairs; p += kBlockThreads) {
+    const int rh = make_pair<kGates>(p, r0, u0, nu, H, L.tile_row, kparts, 0).rh;
+    st_relaxed(a.xchg + (size_t)B * H + rh,
+               __bfloat16_as_ushort(__float2bfloat16(a.h0[rh])) | (tag_of(-1) << 16));
   }
+  load_inputs(0);
+  __syncthreads();  // w_s is staged
 
+  // Pair q's gates at step t from its product (xproj added): its new c and
+  // its stores, the exchange word first.
+  auto gates = [&](int t, const Pair<kGates>& q, float& c, const __nv_bfloat16 (&x)[4],
+                   const float (&hp)[4]) {
+    const float ig = sigmoid(__bfloat162float(x[0]) + hp[0]);
+    const float fg = sigmoid(__bfloat162float(x[1]) + hp[1]);
+    const float gg = tanhf(__bfloat162float(x[2]) + hp[2]);
+    const float og = sigmoid(__bfloat162float(x[3]) + hp[3]);
+    const float c_old = c;
+    c = fg * c_old + ig * gg;
+    const float h = og * tanhf(c);
+    const __nv_bfloat16 hb = __float2bfloat16(h);
+    st_relaxed(a.xchg + (size_t)(t & 1) * B * H + q.rh, __bfloat16_as_ushort(hb) | (tag_of(t) << 16));
+    const size_t rh = (size_t)t * B * H + q.rh, rhg = (size_t)t * B * H4 + q.rhg;
+    a.hs[rh] = hb;
+    if (kSave) {
+      a.c_prev[rh] = c_old;
+      a.acts[rhg] = __float2bfloat16(ig);
+      a.acts[rhg + H] = __float2bfloat16(fg);
+      a.acts[rhg + 2 * H] = __float2bfloat16(gg);
+      a.acts[rhg + 3 * H] = __float2bfloat16(og);
+    }
+    if (t == a.steps - 1) {
+      a.h_out[q.rh] = h;
+      a.c_out[q.rh] = c;
+    }
+  };
+
+  PhaseStamps<kFwdPhases> st;
+  if constexpr (kStamps) st.open(a.stamps, a.steps);
   for (int t = 0; t < a.steps; ++t) {
-    for (int r0 = 0; r0 < B; r0 += kFwdRows) {
-      const int rows = min(kFwdRows, B - r0);
-      // This thread's first gate inputs, loaded ahead of the product.
-      float x0[4] = {0.f, 0.f, 0.f, 0.f};
-      if (tid < rows * nu) {
-        const int b = r0 + tid / nu, j = u0 + tid % nu;
-        const __nv_bfloat16* xrow = a.xproj + ((size_t)t * B + b) * H4 + j;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) x0[g] = __bfloat162float(xrow[g * H]);
-      }
-      const int mt_count = (rows + 15) / 16;
-      int kparts = 0;
-      for (int c = 0; c < n_chunks; ++c) {
-        const int k0 = kStream ? c * a.chunk : 0;
-        const int kn = kStream ? min(a.chunk, H - k0) : H;
-        const int kp = kStream ? round_up(kn, 16) : L.kp;
-        __syncthreads();  // the last tile's (or chunk's) h_s, wh_s and part_s are read
-        if (t == 0) {
-          for (int i = tid; i < rows * kn; i += kThreads) {
-            const int r = i / kn, k = i % kn;
-            h_s[(size_t)r * L.stride + k] =
-                __float2bfloat16(a.h0[(size_t)(r0 + r) * H + k0 + k]);
-          }
-        } else {
-          stage_rows(h_s, a.hs + ((size_t)(t - 1) * B + r0) * H + k0, rows, kn, H, L.stride);
-        }
-        if (kStream) {
-          stage_wh_cols(wh_s, a.wh, 4, H, u0, nu, L.np, L.stride, k0, kn, kp);
-          zero_cols(h_s, kFwdRows, kn, kp, L.stride);
-        }
+    if constexpr (kStamps) st.begin_step();
+    // gates^T of this block's columns for its group's rows, from bf16(h)
+    // of the step before (bf16(h0) at t = 0) in the exchange words.
+    Rows src{};
+    src.ld = H;
+    src.K = H;
+    src.vec = H % 4 == 0;
+    src.tagged = a.xchg + ((size_t)((t - 1) & 1) * B + r0) * H;
+    src.want = tag_of(t - 1);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int k0 = kStream ? c * a.chunk : 0;
+      const int kn = kStream ? min(a.chunk, H - k0) : H;
+      if (kStream) {
+        __syncthreads();  // the last chunk's w_s and part_s are read
+        stage_fwd_rows<kGates>(w_s, L.stride, a.wh, H, u0, nu, k0, kn, round_up(kn, kKBlock));
         __syncthreads();
-        kparts =
-            tile_products(h_s, wh_s, L.stride, kp, mt_count, nt_count, part_s, kStream && c > 0);
       }
-      __syncthreads();
+      chunk_product<kFwdMt, kFwdLoads, true, kStamps>(w_s, L.stride, n_cols, L.mts, src, nr, k0,
+                                                      kn, part_s, L.tile_row, kStream && c > 0, st,
+                                                      kHLoad);
+    }
+    __syncthreads();
+    if constexpr (kStamps) st.mark(kProduct);
 
-      for (int i = tid; i < rows * nu; i += kThreads) {
-        const int rb = i / nu, u = i % nu, b = r0 + rb, j = u0 + u;
-        const size_t row = (size_t)t * B + b;
-        float x[4] = {x0[0], x0[1], x0[2], x0[3]};
-        if (i != tid) {
+    float hp[kMaxPairs][4];
 #pragma unroll
-          for (int g = 0; g < 4; ++g) x[g] = __bfloat162float(a.xproj[row * H4 + g * H + j]);
-        }
-        float hp[4];
+    for (int k = 0; k < kMaxPairs; ++k)
+      if (tid + k * kBlockThreads < n_pairs)
 #pragma unroll
-        for (int g = 0; g < 4; ++g) hp[g] = product_at(part_s, rb, g * nu + u, nt_count, kparts);
-        const float ig = sigmoid(x[0] + hp[0]);
-        const float fg = sigmoid(x[1] + hp[1]);
-        const float gg = tanhf(x[2] + hp[2]);
-        const float og = sigmoid(x[3] + hp[3]);
-        const float c_old = c_s[b * U + u];
-        const float c = fg * c_old + ig * gg;
-        const float h = og * tanhf(c);
-        c_s[b * U + u] = c;
-        a.hs[row * H + j] = __float2bfloat16(h);
-        if (kSave) {
-          a.c_prev[row * H + j] = c_old;
-          __nv_bfloat16* arow = a.acts + row * H4 + j;
-          arow[0] = __float2bfloat16(ig);
-          arow[H] = __float2bfloat16(fg);
-          arow[2 * H] = __float2bfloat16(gg);
-          arow[3 * H] = __float2bfloat16(og);
-        }
-        if (t == a.steps - 1) {
-          a.h_out[(size_t)b * H + j] = h;
-          a.c_out[(size_t)b * H + j] = c;
-        }
+        for (int g = 0; g < 4; ++g) hp[k][g] = part_at(part_s, pr[k].part[g], kparts);
+    if constexpr (kStamps) {
+      if (n_pairs > tid) {
+        settle(hp[0][0] + hp[0][1] + hp[0][2] + hp[0][3]);
+        st.mark(kReduce);
+        settle(__bfloat162float(xv[0][0]) + __bfloat162float(xv[0][1]) +
+               __bfloat162float(xv[0][2]) + __bfloat162float(xv[0][3]));
+        st.mark(kXproj);
       }
     }
-    grid.sync();  // hs[t] is complete for the next step
+#pragma unroll
+    for (int k = 0; k < kMaxPairs; ++k)
+      if (tid + k * kBlockThreads < n_pairs) gates(t, pr[k], cell[k], xv[k], hp[k]);
+    for (int p = tid + kRegPairs; p < n_pairs; p += kBlockThreads) {
+      const Pair<kGates> q = make_pair<kGates>(p, r0, u0, nu, H, L.tile_row, kparts, kGates);
+      __nv_bfloat16 x[4];
+      float hq[4];
+      load_x(t, q, x);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) hq[g] = part_at(part_s, q.part[g], kparts);
+      gates(t, q, carry_s[p - kRegPairs], x, hq);
+    }
+    if constexpr (kStamps) st.mark(kGatePass);
+    if (t + 1 < a.steps) load_inputs(t + 1);
+    __syncthreads();  // part_s is read
+    if constexpr (kStamps) {
+      st.mark(kPrefetch);
+      st.end_step(t);
+    }
   }
+  if constexpr (kStamps) st.close();
 }
 
-template <bool kStream>
-__global__ void __launch_bounds__(kThreads, 1) lstm_scan_grid_bwd_kernel(BwdArgs a) {
-  cg::grid_group grid = cg::this_grid();
+template <bool kStream, bool kStamps>
+__global__ void __launch_bounds__(kBlockThreads, 1) lstm_scan_grid_bwd_kernel(BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int H = a.hidden, H4 = 4 * a.hidden, B = a.batch, U = a.units;
-  const int tid = threadIdx.x;
-  const int u0 = blockIdx.x * U;
-  const int nu = min(U, H - u0);
-  const int nt_count = (nu + 7) / 8;
-  const int n_chunks = kStream ? (H4 + a.chunk - 1) / a.chunk : 1;
+  const int H = a.hidden, H4 = 4 * a.hidden, B = a.batch, tid = threadIdx.x;
+  const Share sh = block_share(B, H, a.rows, a.blocks, a.units);
+  const int r0 = sh.r0, nr = sh.nr, u0 = sh.u0, nu = sh.nu;
+  const int n_pairs = nr * nu, kparts = group_kparts(nr);
+  const int n_chunks = kStream ? cdiv(H4, a.chunk) : 1;
+  unsigned int* sync = a.sync + (size_t)(blockIdx.x / a.blocks) * kSyncStride;  // the group's
 
-  const Layout L = bwd_layout(B, H, U, a.chunk);
-  __nv_bfloat16* wh_s = reinterpret_cast<__nv_bfloat16*>(smem + L.wh);
-  __nv_bfloat16* d_s = reinterpret_cast<__nv_bfloat16*>(smem + L.tile);
+  const Layout L = bwd_layout(kGates, H, a.units, a.chunk, a.rows);
+  unsigned char* w_s = smem + L.w;
   float* part_s = reinterpret_cast<float*>(smem + L.part);
-  float* dh_s = reinterpret_cast<float*>(smem + L.carry);   // [b][u]
-  float* dc_s = reinterpret_cast<float*>(smem + L.carry2);  // [b][u]
+  const int n_tail = max(0, a.rows * a.units - kRegPairs);
+  float* dh_s = reinterpret_cast<float*>(smem + L.state);  // pairs past kRegPairs
+  float* dc_s = dh_s + n_tail;
+  if (!kStream) stage_bwd_rows(w_s, L.stride, a.wh, H4, u0, nu, 0, H4, L.kp);
 
-  if (!kStream) {  // all of this block's rows, resident for every step
-    stage_wh_rows(wh_s, a.wh, H4, u0, nu, L.np, L.stride, 0, H4, L.kp);
-    zero_cols(d_s, kBwdRows, H4, L.kp, L.stride);
-  }
-  for (int i = tid; i < B * nu; i += kThreads) {
-    const int b = i / nu, u = i % nu;
-    dh_s[b * U + u] = a.dh_t[(size_t)b * H + u0 + u];
-    dc_s[b * U + u] = a.dc_t[(size_t)b * H + u0 + u];
-  }
-  __syncthreads();
-
-  for (int t = a.steps - 1; t >= 0; --t) {
-    // This block's units: the gate gradients from the residuals and carries.
-    for (int i = tid; i < B * nu; i += kThreads) {
-      const int b = i / nu, u = i % nu, j = u0 + u;
-      const size_t row = (size_t)t * B + b;
-      const __nv_bfloat16* arow = a.acts + row * H4 + j;
-      const float ai = __bfloat162float(arow[0]);
-      const float af = __bfloat162float(arow[H]);
-      const float ag = __bfloat162float(arow[2 * H]);
-      const float ao = __bfloat162float(arow[3 * H]);
-      const float cp = a.c_prev[row * H + j];
-      const float dh = dh_s[b * U + u] + __bfloat162float(a.dhs[row * H + j]);
-      const float cc = af * cp + ai * ag;  // recomputed, not stored
-      const float tc = tanhf(cc);
-      const float d_o = dh * tc;
-      float dc = dc_s[b * U + u] + dh * ao * (1.f - tc * tc);
-      const float da[4] = {
-          dc * ag * ai * (1.f - ai),
-          dc * cp * af * (1.f - af),
-          dc * ai * (1.f - ag * ag),
-          d_o * ao * (1.f - ao),
-      };
-      dc_s[b * U + u] = dc * af;
-      __nv_bfloat16* grow = a.dgates + row * H4 + j;
+  // Pairs as in the forward: in registers their offsets, the f32 carries
+  // dh (the product of the step after) and dc, and the step's residuals
+  // (loaded a step ahead); past kRegPairs the carries in shared memory.
+  Pair<kGates> pr[kMaxPairs];
+  float dh[kMaxPairs], dc[kMaxPairs];
+  Residuals res[kMaxPairs];
+  auto load_res = [&](int t, const Pair<kGates>& q, Residuals& v) {
+    const __nv_bfloat16* ar = a.acts + (size_t)t * B * H4 + q.rhg;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) grow[g * H] = __float2bfloat16(da[g]);
-    }
-    grid.sync();  // dgates[t] is complete
+    for (int g = 0; g < 4; ++g) v.act[g] = ar[g * H];
+    const size_t rh = (size_t)t * B * H + q.rh;
+    v.cp = a.c_prev[rh];
+    v.dhs = a.dhs[rh];
+  };
+  auto load_residuals = [&](int t) {
+#pragma unroll
+    for (int k = 0; k < kMaxPairs; ++k)
+      if (tid + k * kBlockThreads < n_pairs) load_res(t, pr[k], res[k]);
+  };
+#pragma unroll
+  for (int k = 0; k < kMaxPairs; ++k) {
+    const int p = tid + k * kBlockThreads;
+    pr[k] = make_pair<kGates>(p, r0, u0, nu, H, L.tile_row, kparts, 1);
+    dh[k] = p < n_pairs ? a.dh_t[pr[k].rh] : 0.f;
+    dc[k] = p < n_pairs ? a.dc_t[pr[k].rh] : 0.f;
+  }
+  for (int p = tid + kRegPairs; p < n_pairs; p += kBlockThreads) {
+    const int rh = make_pair<kGates>(p, r0, u0, nu, H, L.tile_row, kparts, 0).rh;
+    dh_s[p - kRegPairs] = a.dh_t[rh];
+    dc_s[p - kRegPairs] = a.dc_t[rh];
+  }
+  load_residuals(a.steps - 1);
+  __syncthreads();  // w_s is staged
 
-    // dh = dgates[t] @ wh^T for this block's units, 16 rows at a time.
-    for (int r0 = 0; r0 < B; r0 += kBwdRows) {
-      const int rows = min(kBwdRows, B - r0);
-      int kparts = 0;
-      for (int c = 0; c < n_chunks; ++c) {
-        const int k0 = kStream ? c * a.chunk : 0;
-        const int kn = kStream ? min(a.chunk, H4 - k0) : H4;
-        const int kp = kStream ? round_up(kn, 16) : L.kp;
-        __syncthreads();  // the last tile's (or chunk's) d_s, wh_s and part_s are read
-        stage_rows(d_s, a.dgates + ((size_t)t * B + r0) * H4 + k0, rows, kn, H4, L.stride);
-        if (kStream) {
-          stage_wh_rows(wh_s, a.wh, H4, u0, nu, L.np, L.stride, k0, kn, kp);
-          zero_cols(d_s, kBwdRows, kn, kp, L.stride);
-        }
+  // Pair q's gate gradients at step t from its residuals and carries:
+  // dgates[t] (the exchange), and its new dc.
+  auto grads = [&](int t, const Pair<kGates>& q, const Residuals& v, float dh_in, float& dc_p) {
+    const float ai = __bfloat162float(v.act[0]), af = __bfloat162float(v.act[1]);
+    const float ag = __bfloat162float(v.act[2]), ao = __bfloat162float(v.act[3]);
+    const float cp = v.cp;
+    const float dhv = dh_in + __bfloat162float(v.dhs);
+    const float tc = tanhf(af * cp + ai * ag);  // c, recomputed, not stored
+    const float d_o = dhv * tc;
+    const float dcv = dc_p + dhv * ao * (1.f - tc * tc);
+    __nv_bfloat16* grow = a.dgates + (size_t)t * B * H4 + q.rhg;
+    grow[0] = __float2bfloat16(dcv * ag * ai * (1.f - ai));
+    grow[H] = __float2bfloat16(dcv * cp * af * (1.f - af));
+    grow[2 * H] = __float2bfloat16(dcv * ai * (1.f - ag * ag));
+    grow[3 * H] = __float2bfloat16(d_o * ao * (1.f - ao));
+    dc_p = dcv * af;
+  };
+
+  PhaseStamps<kBwdPhases> st;
+  if constexpr (kStamps) st.open(a.stamps, a.steps);
+  for (int t = a.steps - 1; t >= 0; --t) {
+    if constexpr (kStamps) {
+      st.begin_step();
+      if (n_pairs > tid) {
+        float sum = res[0].cp + __bfloat162float(res[0].dhs);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) sum += __bfloat162float(res[0].act[g]);
+        settle(sum);
+        st.mark(kResiduals);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxPairs; ++k)
+      if (tid + k * kBlockThreads < n_pairs) grads(t, pr[k], res[k], dh[k], dc[k]);
+    for (int p = tid + kRegPairs; p < n_pairs; p += kBlockThreads) {
+      const Pair<kGates> q = make_pair<kGates>(p, r0, u0, nu, H, L.tile_row, kparts, 0);
+      Residuals v;
+      load_res(t, q, v);
+      grads(t, q, v, dh_s[p - kRegPairs], dc_s[p - kRegPairs]);
+    }
+    if constexpr (kStamps) st.mark(kGateGrads);
+    count_arrive(sync);  // dgates[t] of the group is complete once all arrive
+    if (t > 0) load_residuals(t - 1);
+    count_wait(sync, (unsigned int)(a.steps - t) * a.blocks);
+    if constexpr (kStamps) st.mark(kBwdBarrier);
+
+    // dh = dgates[t] @ wh^T for this block's units and group's rows.
+    Rows src{};
+    src.bf = a.dgates + ((size_t)t * B + r0) * H4;
+    src.ld = H4;
+    src.K = H4;
+    src.vec = H4 % 8 == 0;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int k0 = kStream ? c * a.chunk : 0;
+      const int kn = kStream ? min(a.chunk, H4 - k0) : H4;
+      if (kStream) {
+        __syncthreads();  // the last chunk's w_s and part_s are read
+        stage_bwd_rows(w_s, L.stride, a.wh, H4, u0, nu, k0, kn, round_up(kn, kKBlock));
         __syncthreads();
-        kparts = tile_products(d_s, wh_s, L.stride, kp, 1, nt_count, part_s, kStream && c > 0);
       }
-      __syncthreads();
-      for (int i = tid; i < rows * nu; i += kThreads) {
-        const int rb = i / nu, u = i % nu, b = r0 + rb;
-        dh_s[b * U + u] = product_at(part_s, rb, u, nt_count, kparts);
-      }
+      chunk_product<kBwdMt, kBwdLoads, false, kStamps>(w_s, L.stride, nu, L.mts, src, nr, k0, kn,
+                                                       part_s, L.tile_row, kStream && c > 0, st,
+                                                       kDgLoad);
     }
-    __syncthreads();  // the carries are read by other threads next step
+    __syncthreads();
+    if constexpr (kStamps) st.mark(kBwdProduct);
+#pragma unroll
+    for (int k = 0; k < kMaxPairs; ++k)
+      if (tid + k * kBlockThreads < n_pairs) dh[k] = part_at(part_s, pr[k].part[0], kparts);
+    for (int p = tid + kRegPairs; p < n_pairs; p += kBlockThreads)
+      dh_s[p - kRegPairs] = part_at(part_s, part_base(L.tile_row, kparts, p / nu, p % nu), kparts);
+    if constexpr (kStamps) {
+      if (n_pairs > tid) settle(dh[0]);
+      st.mark(kCarry);
+      st.end_step(a.steps - 1 - t);
+    }
   }
+  if constexpr (kStamps) st.close();
 
-  for (int i = tid; i < B * nu; i += kThreads) {
-    const int b = i / nu, u = i % nu;
-    a.dh0[(size_t)b * H + u0 + u] = dh_s[b * U + u];
-    a.dc0[(size_t)b * H + u0 + u] = dc_s[b * U + u];
+#pragma unroll
+  for (int k = 0; k < kMaxPairs; ++k) {
+    if (tid + k * kBlockThreads < n_pairs) {
+      a.dh0[pr[k].rh] = dh[k];
+      a.dc0[pr[k].rh] = dc[k];
+    }
+  }
+  for (int p = tid + kRegPairs; p < n_pairs; p += kBlockThreads) {
+    const int rh = make_pair<kGates>(p, r0, u0, nu, H, L.tile_row, kparts, 0).rh;
+    a.dh0[rh] = dh_s[p - kRegPairs];
+    a.dc0[rh] = dc_s[p - kRegPairs];
   }
 }
 
-struct Plan {
-  int grid, units, chunk;
-  size_t smem;
-};
-
-template <bool kSave>
-const void* fwd_kernel(bool stream) {
-  return stream ? (const void*)lstm_scan_grid_kernel<kSave, true>
-                : (const void*)lstm_scan_grid_kernel<kSave, false>;
+// The forward kernel of a launch: training (``save``) or inference,
+// streaming wh in K chunks or not; stamped (training).
+const void* fwd_kernel(bool save, bool stream, bool stamps) {
+  if (stamps)
+    return stream ? (const void*)lstm_scan_grid_kernel<true, true, true>
+                  : (const void*)lstm_scan_grid_kernel<true, false, true>;
+  if (stream)
+    return save ? (const void*)lstm_scan_grid_kernel<true, true, false>
+                : (const void*)lstm_scan_grid_kernel<false, true, false>;
+  return save ? (const void*)lstm_scan_grid_kernel<true, false, false>
+              : (const void*)lstm_scan_grid_kernel<false, false, false>;
 }
 
-const void* bwd_kernel(bool stream) {
-  return stream ? (const void*)lstm_scan_grid_bwd_kernel<true>
-                : (const void*)lstm_scan_grid_bwd_kernel<false>;
-}
-
-// Plans a forward (``backward`` 0) or backward launch at these widths and
-// readies its kernels' shared memory. ``units`` 0 takes ceil(H / SMs); the
-// K chunk is all of K (H forward, 4H backward) where it fits, else the
-// widest that does. Refuses a block that does not fit even a 16-deep chunk
-// or a grid that cannot be resident.
-cudaError_t plan_launch(int batch, int hidden, int units, int backward, Plan* p) {
-  if (batch < 1 || hidden < 1 || units < 0) return cudaErrorInvalidValue;
-  int sms, max_smem;
-  cudaError_t err = device_limits(&sms, &max_smem);
-  if (err != cudaSuccess) return err;
-  p->units = units > 0 ? units : (hidden + sms - 1) / sms;
-  p->grid = (hidden + p->units - 1) / p->units;
-  const int U = p->units;
-  auto fwd_size = [&](int kc) { return fwd_layout(batch, hidden, U, kc).total; };
-  auto bwd_size = [&](int kc) { return bwd_layout(batch, hidden, U, kc).total; };
-  p->chunk = backward ? fit_chunk(4 * hidden, max_smem, bwd_size)
-                      : fit_chunk(hidden, max_smem, fwd_size);
-  if (p->chunk == 0) return cudaErrorInvalidValue;
-  p->smem = backward ? bwd_layout(batch, hidden, U, p->chunk).total
-                     : fwd_layout(batch, hidden, U, p->chunk).total;
-  if (backward)
-    return ready_resident(bwd_kernel(p->chunk < 4 * hidden), p->smem, p->grid, sms);
-  err = ready_resident(fwd_kernel<true>(p->chunk < hidden), p->smem, p->grid, sms);
-  if (err != cudaSuccess) return err;
-  return ready_resident(fwd_kernel<false>(p->chunk < hidden), p->smem, p->grid, sms);
+const void* bwd_kernel(bool stream, bool stamps) {
+  if (stamps)
+    return stream ? (const void*)lstm_scan_grid_bwd_kernel<true, true>
+                  : (const void*)lstm_scan_grid_bwd_kernel<false, true>;
+  return stream ? (const void*)lstm_scan_grid_bwd_kernel<true, false>
+                : (const void*)lstm_scan_grid_bwd_kernel<false, false>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Blocks, hidden units per block, dynamic shared memory bytes and K chunk
-// of a forward (``backward`` 0) or backward launch at these widths
-// (``units`` 0: the default); returns a cudaError_t.
-int vq_lstm_grid_plan(int batch, int hidden, int units, int backward, int* out4) {
-  Plan p;
-  const cudaError_t err = plan_launch(batch, hidden, units, backward, &p);
+// The forward's and then the backward's row groups, rows per group, blocks
+// per group, hidden units per block, dynamic shared memory bytes and K
+// chunk of a launch at these widths (``units`` 0: the default); returns a
+// cudaError_t, also where the plain kernels cannot all be resident.
+int vq_lstm_grid_plan(int batch, int hidden, int units, int* out12) {
+  GridPlan p;
+  cudaError_t err = plan_grid(kGates, false, batch, hidden, units, &p);
   if (err != cudaSuccess) return (int)err;
-  out4[0] = p.grid;
-  out4[1] = p.units;
-  out4[2] = (int)p.smem;
-  out4[3] = p.chunk;
-  return 0;
+  plan_numbers(p, out12);
+  for (int save = 0; save < 2; ++save) {
+    err = ready_resident(fwd_kernel(save, p.fwd.chunk < hidden, false), p.fwd.smem,
+                         p.fwd.groups * p.fwd.blocks, p.sms, kBlockThreads);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)ready_resident(bwd_kernel(p.bwd.chunk < 4 * hidden, false), p.bwd.smem,
+                             p.bwd.groups * p.bwd.blocks, p.sms, kBlockThreads);
 }
 
-// The forward on ``stream``; with ``save`` 0, ``acts`` and ``c_prev`` are
-// not written (and may be null). Allocates nothing and does not
-// synchronise; returns cudaGetLastError() after the launch.
-int vq_lstm_scan_grid_launch(const void* xproj, const void* wh, const void* h0, const void* c0,
-                             void* hs, void* acts, void* c_prev, void* h_out, void* c_out,
-                             int steps, int batch, int hidden, int save, void* stream) {
-  if (steps < 1 || (save && (acts == nullptr || c_prev == nullptr)))
+// The forward on ``stream``, with ``stamps`` non-null the stamped variant
+// (int64, 2 x (4 + steps x kFwdPhases), zeroed; it takes ``save`` 1). With
+// ``save`` 0, ``acts`` and ``c_prev`` are not written (and may be null).
+// ``xchg`` (2, B, H) uint32, zeroed: the exchange of h between blocks.
+// Allocates nothing and does not synchronise; returns cudaGetLastError()
+// after the launch.
+int vq_lstm_scan_grid_stamped_launch(const void* xproj, const void* wh, const void* h0,
+                                     const void* c0, void* hs, void* acts, void* c_prev,
+                                     void* h_out, void* c_out, void* xchg, int steps, int batch,
+                                     int hidden, int save, void* stamps, void* stream) {
+  if (steps < 1 || xchg == nullptr || (save && (acts == nullptr || c_prev == nullptr)) ||
+      (stamps != nullptr && !save))
     return (int)cudaErrorInvalidValue;
-  Plan p;
-  cudaError_t err = plan_launch(batch, hidden, 0, 0, &p);
+  GridPlan p;
+  const cudaError_t err = plan_grid(kGates, false, batch, hidden, 0, &p);
   if (err != cudaSuccess) return (int)err;
   FwdArgs a;
   a.xproj = static_cast<const __nv_bfloat16*>(xproj);
@@ -401,27 +483,36 @@ int vq_lstm_scan_grid_launch(const void* xproj, const void* wh, const void* h0, 
   a.c_prev = static_cast<float*>(c_prev);
   a.h_out = static_cast<float*>(h_out);
   a.c_out = static_cast<float*>(c_out);
+  a.xchg = static_cast<unsigned int*>(xchg);
+  a.stamps = static_cast<long long*>(stamps);
   a.steps = steps;
   a.batch = batch;
   a.hidden = hidden;
-  a.units = p.units;
-  a.chunk = p.chunk;
-  void* params[] = {&a};
-  const bool streamed = p.chunk < hidden;
-  const void* kernel = save ? fwd_kernel<true>(streamed) : fwd_kernel<false>(streamed);
-  cudaLaunchCooperativeKernel(kernel, dim3(p.grid), dim3(kThreads), params, p.smem,
-                              static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  a.rows = p.fwd.rows;
+  a.blocks = p.fwd.blocks;
+  a.units = p.fwd.units;
+  a.chunk = p.fwd.chunk;
+  const void* kernel = fwd_kernel(save, p.fwd.chunk < hidden, stamps != nullptr);
+  return (int)launch_grid(kernel, p.fwd, p.sms, &a, stream);
 }
 
-// The backward on ``stream``; the same contract as the forward's launch.
-int vq_lstm_scan_grid_bwd_launch(const void* acts, const void* c_prev, const void* dhs,
-                                 const void* wh, const void* dh_t, const void* dc_t, void* dgates,
-                                 void* dh0, void* dc0, int steps, int batch, int hidden,
-                                 void* stream) {
-  if (steps < 1) return (int)cudaErrorInvalidValue;
-  Plan p;
-  cudaError_t err = plan_launch(batch, hidden, 0, 1, &p);
+int vq_lstm_scan_grid_launch(const void* xproj, const void* wh, const void* h0, const void* c0,
+                             void* hs, void* acts, void* c_prev, void* h_out, void* c_out,
+                             void* xchg, int steps, int batch, int hidden, int save, void* stream) {
+  return vq_lstm_scan_grid_stamped_launch(xproj, wh, h0, c0, hs, acts, c_prev, h_out, c_out, xchg,
+                                          steps, batch, hidden, save, nullptr, stream);
+}
+
+// The backward on ``stream``; the same contract as the forward's launch
+// (``sync``: grid_plan.py:SYNC_WORDS uint32, zeroed; ``stamps``: 2 x (4 +
+// steps x kBwdPhases), its steps in reverse time).
+int vq_lstm_scan_grid_bwd_stamped_launch(const void* acts, const void* c_prev, const void* dhs,
+                                         const void* wh, const void* dh_t, const void* dc_t,
+                                         void* dgates, void* dh0, void* dc0, void* sync, int steps,
+                                         int batch, int hidden, void* stamps, void* stream) {
+  if (steps < 1 || sync == nullptr) return (int)cudaErrorInvalidValue;
+  GridPlan p;
+  const cudaError_t err = plan_grid(kGates, false, batch, hidden, 0, &p);
   if (err != cudaSuccess) return (int)err;
   BwdArgs a;
   a.acts = static_cast<const __nv_bfloat16*>(acts);
@@ -433,15 +524,25 @@ int vq_lstm_scan_grid_bwd_launch(const void* acts, const void* c_prev, const voi
   a.dgates = static_cast<__nv_bfloat16*>(dgates);
   a.dh0 = static_cast<float*>(dh0);
   a.dc0 = static_cast<float*>(dc0);
+  a.sync = static_cast<unsigned int*>(sync);
+  a.stamps = static_cast<long long*>(stamps);
   a.steps = steps;
   a.batch = batch;
   a.hidden = hidden;
-  a.units = p.units;
-  a.chunk = p.chunk;
-  void* params[] = {&a};
-  cudaLaunchCooperativeKernel(bwd_kernel(p.chunk < 4 * hidden), dim3(p.grid), dim3(kThreads),
-                              params, p.smem, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  a.rows = p.bwd.rows;
+  a.blocks = p.bwd.blocks;
+  a.units = p.bwd.units;
+  a.chunk = p.bwd.chunk;
+  return (int)launch_grid(bwd_kernel(p.bwd.chunk < 4 * hidden, stamps != nullptr), p.bwd, p.sms,
+                          &a, stream);
+}
+
+int vq_lstm_scan_grid_bwd_launch(const void* acts, const void* c_prev, const void* dhs,
+                                 const void* wh, const void* dh_t, const void* dc_t, void* dgates,
+                                 void* dh0, void* dc0, void* sync, int steps, int batch, int hidden,
+                                 void* stream) {
+  return vq_lstm_scan_grid_bwd_stamped_launch(acts, c_prev, dhs, wh, dh_t, dc_t, dgates, dh0, dc0,
+                                              sync, steps, batch, hidden, nullptr, stream);
 }
 
 }  // extern "C"

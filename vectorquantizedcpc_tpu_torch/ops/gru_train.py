@@ -38,13 +38,14 @@ phase of a step for ``summarize_grid_stamps``; no entry point calls them.
 """
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import torch
 
-from ._build import fit_chunk as _fit_chunk
+from . import grid_plan as _grid
 from ._build import launch as _launch
 from ._build import on_card as _on_card
+from .grid_plan import SMEM_LIMIT, SMS, GridPlan
 from .matmul import bf16_product
 
 GRU_SCAN_LAUNCHES = 0
@@ -63,14 +64,7 @@ ROWS = 8  # kRows in csrc/gru_scan.cu: batch rows per block, the mma's N
 REG_STEPS = 8  # kRegSteps: 16-deep K steps of wh^T held in registers
 STAGES = 3  # kStages: xproj steps in the shared ring
 MAX_WARPS = 12  # kMaxWarps: a warp per 16 hidden units, of up to 168 registers
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can opt into (227 KB)
 BLOCK_MAX_HIDDEN = 16 * MAX_WARPS  # 192: the widest H one gru_scan.cu block takes
-# csrc/gru_train.cu: kBlockWarps, kMaxPairs, kKBlock; SYNC_WORDS = kMaxGroups
-# x kSyncStride, the uint32 barrier counts a backward launch is given.
-GRID_WARPS, MAX_PAIRS, K_BLOCK = 8, 2, 32
-SYNC_WORDS = 256 * 32
-PART_TILE = 8 * 20 + 16  # kPartTile: floats of a 16 x 8 tile of partial sums
-SMS = 132  # the H100's SMs: the grid the plan mirror assumes
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -104,25 +98,11 @@ def scan_smem_bytes(hidden: int) -> int:
 
 def grid_layout_bytes(rows: int, hidden: int, units: int, backward: bool, chunk: int = 0) -> int:
     """Dynamic shared memory of one grid block of a group of ``rows`` rows
-    (csrc/gru_train.cu block_layout): its A operand, ``units`` rows of
-    ``wh`` (backward, K = 3H) or its 3 ``units`` columns (forward, K = H)
-    over a K chunk of ``chunk`` (0: all of K) padded to 32, each row padded
-    to 64 bytes modulo 128, and one zero row; a 16 x 8 f32 tile of partial
-    sums (``PART_TILE`` floats, padded against bank conflicts) per 16-row A
-    tile (plus 16 floats between A tiles where that keeps them 16 modulo 32
-    apart) and product task (a warp, or an 8-row N tile
-    where there are more of them than warps); the forward's 3 ``units``
-    f32 biases. The threads carry up to 512 (row, unit) pairs in
-    registers; past that, each pair's carry (and in the backward dh z)
-    takes f32 in shared memory."""
-    k, m_rows = (3 * hidden, units) if backward else (hidden, 3 * units)
-    row_bytes = 2 * _cdiv(min(k, chunk or k), K_BLOCK) * K_BLOCK
-    stride = row_bytes + (192 - row_bytes % 128) % 128
-    tasks = max(GRID_WARPS, _cdiv(rows, 8))
-    tile_row = tasks * PART_TILE + (16 if tasks % 2 == 0 else 0)
-    tail = max(0, rows * units - MAX_PAIRS * 32 * GRID_WARPS)
-    return (_align16((m_rows + 1) * stride) + _align16(4 * tile_row * _cdiv(m_rows, 16))
-            + (0 if backward else _align16(4 * m_rows)) + _align16(4 * (2 if backward else 1) * tail))
+    (``grid_plan.layout_bytes`` at 3 gates): its A operand, ``units`` rows
+    of ``wh`` (backward, K = 3H) or its 3 ``units`` columns and their f32
+    biases (forward, K = H) over a K chunk of ``chunk`` (0: all of K), the
+    partial sums and the carries past the registers."""
+    return _grid.layout_bytes(3, True, rows, hidden, units, backward, chunk)
 
 
 def grid_smem_bytes(batch: int, hidden: int, units: int,
@@ -130,67 +110,23 @@ def grid_smem_bytes(batch: int, hidden: int, units: int,
     """A forward and a backward block's shared memory at ``units`` hidden
     units in one group of all ``batch`` rows (``grid_layout_bytes``), each
     over K chunks of ``chunks`` (0: all of K)."""
-    rows = _cdiv(batch, 8) * 8
-    return (grid_layout_bytes(rows, hidden, units, False, chunks[0]),
-            grid_layout_bytes(rows, hidden, units, True, chunks[1]))
+    return _grid.one_group_bytes(3, True, batch, hidden, units, chunks)
 
 
 def grid_chunks(batch: int, hidden: int, units: int, limit: int = SMEM_LIMIT) -> Tuple[int, int]:
-    """The K chunks of a forward and a backward block of ``units`` units:
-    all of K (H, 3H) where the block fits ``limit`` bytes, else the widest
-    multiple of 16 that fits (the block then stages its slice of ``wh``
-    with each chunk of every step); 0 where not even 16 fits."""
-    return (
-        _fit_chunk(hidden, lambda c: grid_smem_bytes(batch, hidden, units, (c, 0))[0], limit),
-        _fit_chunk(3 * hidden, lambda c: grid_smem_bytes(batch, hidden, units, (0, c))[1], limit),
-    )
-
-
-class GridPlan(NamedTuple):
-    """One direction of a grid launch: ``groups`` row groups of ``rows``
-    rows (the last may hold fewer), each of ``blocks`` blocks of ``units``
-    hidden units, ``smem`` bytes of shared memory a block, K staged in
-    chunks of ``chunk`` (all of K where ``wh`` stays resident)."""
-
-    groups: int
-    rows: int
-    blocks: int
-    units: int
-    smem: int
-    chunk: int
+    """The K chunks of a forward and a backward block of ``units`` units in
+    one group: all of K (H, 3H) where the block fits ``limit`` bytes, else
+    the widest multiple of 16 that fits; 0 where not even 16 fits."""
+    return _grid.one_group_chunks(3, True, batch, hidden, units, limit)
 
 
 def group_plan(batch: int, hidden: int, backward: bool = False, units: int = 0,
                sms: int = SMS, limit: int = SMEM_LIMIT) -> GridPlan:
-    """The grid plan of csrc/gru_train.cu (plan_direction) on ``sms`` SMs:
-    the most row groups (rows a multiple of 8) whose blocks hold their
-    slice of ``wh`` whole; where none do, the fewest groups, with the
-    widest K chunk that fits. Each group takes ``sms // groups`` SMs and
-    splits H over them (``units`` 0: as few units a block as that allows).
-    Raises ``ValueError`` where no grid fits."""
-    k = 3 * hidden if backward else hidden
-    fewest = None
-    for rows in range(8, _cdiv(batch, 8) * 8 + 1, 8):
-        groups = _cdiv(batch, rows)
-        if groups > min(sms, SYNC_WORDS // 32):
-            continue
-        share = sms // groups
-        u = units or _cdiv(hidden, share)
-        blocks = _cdiv(hidden, u)
-        if blocks > share:
-            continue
-        smem = grid_layout_bytes(rows, hidden, u, backward)
-        if smem <= limit:
-            return GridPlan(groups, rows, blocks, u, smem, k)
-        if fewest is None or groups < fewest.groups:
-            fewest = GridPlan(groups, rows, blocks, u, 0, 0)
-    if fewest is None:
-        raise ValueError(f"no GRU grid of row groups fits B={batch}, H={hidden} on {sms} SMs")
-    size = lambda c: grid_layout_bytes(fewest.rows, hidden, fewest.units, backward, c)
-    chunk = _fit_chunk(k, size, limit)
-    if chunk == 0:
-        raise ValueError(f"a GRU grid block of {fewest.units} units does not fit {limit} bytes")
-    return fewest._replace(smem=size(chunk), chunk=chunk)
+    """The grid plan of csrc/gru_train.cu (``grid_plan.group_plan`` at 3
+    gates, with biases) on ``sms`` SMs: the most row groups whose blocks
+    hold their slice of ``wh`` whole, else the fewest with the widest K
+    chunk that fits. Raises ``ValueError`` where no grid fits."""
+    return _grid.group_plan(3, True, batch, hidden, backward, units, sms, limit)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -370,17 +306,6 @@ def _launch_block(entry: str, xproj, valid, wh, bh, h0):
     return hs, h_out
 
 
-def _exchange_buffer(batch: int, hidden: int, device) -> torch.Tensor:
-    """The forward's exchange of h between blocks, zeroed: two slots of (B,
-    H) words, each bf16(h) and the tag of its step (no tag is 0)."""
-    return torch.zeros(2, batch, hidden, dtype=torch.int32, device=device)
-
-
-def _sync_buffer(device) -> torch.Tensor:
-    """The row groups' barrier counts of one backward launch, zeroed."""
-    return torch.zeros(SYNC_WORDS, dtype=torch.int32, device=device)
-
-
 def _grid_forward(wh, bh, xproj, h0, save: bool, valid=None, stamps=None):
     """One launch of the grid forward (its stamped variant where ``stamps``
     is given): (hs, acts, hns, h_out), acts and hns None without ``save``."""
@@ -391,7 +316,7 @@ def _grid_forward(wh, bh, xproj, h0, save: bool, valid=None, stamps=None):
     acts = torch.empty(t, b, g3, dtype=torch.bfloat16, device=dev) if save else None
     hns = torch.empty_like(hs) if save else None
     h_out = torch.empty(b, hidden, dtype=torch.float32, device=dev)
-    args = [xproj, valid, wh, bh, h0, hs, acts, hns, h_out, _exchange_buffer(b, hidden, dev), t,
+    args = [xproj, valid, wh, bh, h0, hs, acts, hns, h_out, _grid.exchange_buffer(b, hidden, dev), t,
             b, hidden, int(save)]
     if stamps is None:
         _launch("vq_gru_scan_grid_launch", "GRU grid forward kernel launch", dev, *args)
@@ -408,7 +333,7 @@ def _grid_backward(acts, hns, h_prevs, dhs, wh, dh_t, stamps=None) -> Tensors3:
     hidden = wh.shape[0]
     dgx, dgh = torch.empty_like(acts), torch.empty_like(acts)
     dh0 = torch.empty(b, hidden, dtype=torch.float32, device=acts.device)
-    args = [acts, hns, h_prevs, dhs, wh, dh_t, dgx, dgh, dh0, _sync_buffer(acts.device), t, b,
+    args = [acts, hns, h_prevs, dhs, wh, dh_t, dgx, dgh, dh0, _grid.sync_buffer(acts.device), t, b,
             hidden]
     if stamps is None:
         _launch("vq_gru_scan_bwd_launch", "gru_scan_bwd kernel launch", acts.device, *args)

@@ -16,11 +16,14 @@ over one cluster as ``mma.sync`` fragments, in registers up to H 256 (the
 reference width) and partly in shared memory above (H a multiple of 8, at
 most 432 forward and 352 backward; ``scan_plan``, ``bwd_plan`` and the
 fragment maps ``tile_at``, ``fwd_a_column``, ``fwd_gate_lane`` mirror its
-layout), or ``csrc/lstm_grid.cu``'s
-cooperative grid of one block per SM, which takes every other width: above
-1,376 forward and 1,056 backward on 132 SMs, where a block's slice of
-``wh`` no longer fits, it stages that slice with each K chunk of its tile
-(``grid_chunks``).
+layout), or ``csrc/lstm_grid.cu``'s cooperative grid of row groups (the
+batch rows are independent sequences), which takes every other width:
+each group's blocks spread ``wh`` over their SMs and read only the group's
+rows, handing h on through tagged exchange words (forward) or one count
+barrier a step (backward), as the GRU's grid pair does (``group_plan``
+mirrors the plan, ``grid_plan.py`` at 4 gates; where even one group's
+slice of ``wh`` does not fit a block, the blocks stage it with each K
+chunk of every step).
 
 Torch gate order i, f, g, o::
 
@@ -35,10 +38,10 @@ VJP: its backward runs ``lstm_scan_bwd`` and one bf16 product for ``dwh``.
 Each ``*_reference`` rounds at the kernel's places; a wrapper uses it for
 CPU tensors only: a CUDA tensor launches the kernel or raises. The
 ``LSTM_SCAN*_LAUNCHES`` counters count launches of the cluster kernels,
-``LSTM_SCAN_GRID*_LAUNCHES`` those of the grid kernels. The cluster
-kernels' stamped variants (``lstm_scan_stamped``, ``lstm_scan_bwd_stamped``)
-time each phase of a step for ``summarize_scan_stamps``; no entry point
-calls them.
+``LSTM_SCAN_GRID*_LAUNCHES`` those of the grid kernels. Both families'
+stamped variants (``lstm_scan_stamped``, ``lstm_scan_bwd_stamped``;
+``lstm_scan_grid_stamped``, ``lstm_scan_grid_bwd_stamped``) time each
+phase of a step for ``summarize_scan_stamps``; no entry point calls them.
 """
 
 import ctypes
@@ -46,9 +49,10 @@ from typing import Tuple
 
 import torch
 
-from ._build import fit_chunk as _fit_chunk
+from . import grid_plan as _grid
 from ._build import launch as _launch
 from ._build import on_card as _on_card
+from .grid_plan import SMEM_LIMIT, SMS, GridPlan
 from .matmul import bf16_product
 
 LSTM_SCAN_LAUNCHES = 0
@@ -57,13 +61,18 @@ LSTM_SCAN_BWD_LAUNCHES = 0
 LSTM_SCAN_GRID_LAUNCHES = 0  # the grid forward, inference variant
 LSTM_SCAN_GRID_TRAIN_LAUNCHES = 0  # the grid forward, training variant
 LSTM_SCAN_GRID_BWD_LAUNCHES = 0
-# The stamped cluster kernels (measurement only: no entry point calls them).
-LSTM_SCAN_STAMPED_LAUNCHES = 0  # both forward variants
+# The stamped kernels (measurement only: no entry point calls them).
+LSTM_SCAN_STAMPED_LAUNCHES = 0  # the cluster's, both forward variants
 LSTM_SCAN_BWD_STAMPED_LAUNCHES = 0
-# The phases of a step that the stamped cluster kernels time, in the order
-# of FwdPhase and BwdPhase in csrc/lstm_scan.cu.
+LSTM_SCAN_GRID_STAMPED_LAUNCHES = 0  # the grid's training forward
+LSTM_SCAN_GRID_BWD_STAMPED_LAUNCHES = 0
+# The phases of a step that the stamped kernels time, in the order of
+# FwdPhase and BwdPhase in csrc/lstm_scan.cu (cluster) and csrc/lstm_grid.cu
+# (grid).
 FWD_STAMP_PHASES = ("xproj", "product", "part sum", "gate pass", "remote writes", "barrier")
 BWD_STAMP_PHASES = ("residuals", "gate grads", "remote writes", "barrier", "product", "part sum")
+GRID_FWD_STAMP_PHASES = ("xproj", "h load", "product", "reduce", "gate pass", "prefetch")
+GRID_BWD_STAMP_PHASES = ("residuals", "gate grads", "barrier", "dgates load", "product", "carry")
 CLUSTER = 8  # kCluster in csrc/lstm_scan.cu: CTAs per cluster, each U = H / 8 units
 ROWS = 8  # kRows: batch rows per cluster, the mma's N
 REG_BLOCKS = 8  # kRegBlocks: 32-deep K blocks of a warp's wh slice held in registers
@@ -71,8 +80,6 @@ WIDE_REG_BLOCKS = 2  # kWideRegBlocks: the same in the forward above H 256
 PARTS = 4  # kParts: the backward's K parts per 16-unit m-tile, a warp each
 BLOCK = 256  # kBlock: bf16 of one 32-deep K block of a tile (32 lanes x 8)
 MAX_HIDDEN, MAX_BWD_HIDDEN = 432, 352  # kMaxHidden, kMaxBwdHidden: the cluster route's widths
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can opt into (227 KB)
-FWD_ROWS, BWD_ROWS, SLOTS = 32, 16, 16  # kFwdRows, kBwdRows, kWarps in csrc/grid_common.cuh
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -204,50 +211,55 @@ def scan_route(hidden: int, backward: bool = False) -> str:
     return "cluster" if hidden % CLUSTER == 0 and CLUSTER <= hidden <= top else "grid"
 
 
+def grid_layout_bytes(rows: int, hidden: int, units: int, backward: bool, chunk: int = 0) -> int:
+    """Dynamic shared memory of one grid block of a group of ``rows`` rows
+    (``grid_plan.layout_bytes`` at 4 gates, no biases): its A operand,
+    ``units`` rows of ``wh`` (backward, K = 4H) or its 4 ``units`` i/f/g/o
+    columns (forward, K = H) over a K chunk of ``chunk`` (0: all of K), the
+    partial sums and the carries past the registers (c forward; dh and dc
+    backward)."""
+    return _grid.layout_bytes(4, False, rows, hidden, units, backward, chunk)
+
+
 def grid_smem_bytes(batch: int, hidden: int, units: int,
                     chunks: Tuple[int, int] = (0, 0)) -> Tuple[int, int]:
-    """Dynamic shared memory of one forward and one backward block of the grid
-    kernels (csrc/lstm_grid.cu fwd_layout and bwd_layout), each staging its
-    K (H, 4H) in chunks of ``chunks`` (0: all of it)."""
-    sizes = []
-    for width, cols, rows, slots, carries, chunk in (
-        (hidden, 4 * units, FWD_ROWS, max(SLOTS, 2 * _cdiv(4 * units, 8)), 1, chunks[0]),
-        (4 * hidden, units, BWD_ROWS, max(SLOTS, _cdiv(units, 8)), 2, chunks[1]),
-    ):
-        stride = _cdiv(min(width, chunk or width), 16) * 16 + 8
-        sizes.append(
-            _align16(2 * _cdiv(cols, 8) * 8 * stride)  # this block's part of wh, bf16
-            + _align16(2 * rows * stride)  # the h (forward) or dgates (backward) tile
-            + _align16(4 * 128 * slots)  # 16 x 8 partial products
-            + carries * _align16(4 * batch * units)  # the f32 carries
-        )
-    return sizes[0], sizes[1]
+    """A forward and a backward block's shared memory at ``units`` hidden
+    units in one group of all ``batch`` rows (``grid_layout_bytes``), each
+    over K chunks of ``chunks`` (0: all of K)."""
+    return _grid.one_group_bytes(4, False, batch, hidden, units, chunks)
 
 
 def grid_chunks(batch: int, hidden: int, units: int, limit: int = SMEM_LIMIT) -> Tuple[int, int]:
-    """The K chunks the grid plan picks for a forward and a backward block:
-    all of K (H, 4H) where the block fits ``limit`` bytes, else the widest
-    multiple of 16 that fits (the block then stages its slice of ``wh``
-    with each chunk of its tile); 0 where not even 16 fits."""
-    return (
-        _fit_chunk(hidden, lambda c: grid_smem_bytes(batch, hidden, units, (c, 0))[0], limit),
-        _fit_chunk(4 * hidden, lambda c: grid_smem_bytes(batch, hidden, units, (0, c))[1], limit),
-    )
+    """The K chunks of a forward and a backward block of ``units`` units in
+    one group: all of K (H, 4H) where the block fits ``limit`` bytes, else
+    the widest multiple of 16 that fits (the block then stages its slice of
+    ``wh`` with each chunk of every step); 0 where not even 16 fits."""
+    return _grid.one_group_chunks(4, False, batch, hidden, units, limit)
 
 
-def grid_plan(batch: int, hidden: int, units: int = 0, backward: bool = False):
-    """(blocks, hidden units per block, shared memory bytes, K chunk) of a
-    grid launch; ``units`` 0 takes ceil(H / SMs). Raises when the grid
-    cannot be resident on the card at once or a block does not fit."""
+def group_plan(batch: int, hidden: int, backward: bool = False, units: int = 0,
+               sms: int = SMS, limit: int = SMEM_LIMIT) -> GridPlan:
+    """The grid plan of csrc/lstm_grid.cu (``grid_plan.group_plan`` at 4
+    gates, no biases) on ``sms`` SMs: the most row groups (rows a multiple
+    of 8) whose blocks hold their slice of ``wh`` whole; where none do, the
+    fewest groups with the widest K chunk that fits. Raises ``ValueError``
+    where no grid fits."""
+    return _grid.group_plan(4, False, batch, hidden, backward, units, sms, limit)
+
+
+def grid_plan(batch: int, hidden: int, units: int = 0, backward: bool = False) -> GridPlan:
+    """The card's plan of a forward (or ``backward``) grid launch
+    (``group_plan`` mirrors it); ``units`` 0 takes the default. Raises when
+    the grid cannot be resident on the card at once or a block does not
+    fit."""
     from . import _build
 
-    out4 = (ctypes.c_int * 4)()
+    out12 = (ctypes.c_int * 12)()
     _build.check(
-        _build.library().vq_lstm_grid_plan(batch, hidden, units, int(backward), out4),
-        f"LSTM grid plan (B={batch}, H={hidden}, units={units or 'auto'}, "
-        f"{'backward' if backward else 'forward'})",
+        _build.library().vq_lstm_grid_plan(batch, hidden, units, out12),
+        f"LSTM grid plan (B={batch}, H={hidden}, units={units or 'auto'})",
     )
-    return tuple(out4)
+    return GridPlan(*out12[6:] if backward else out12[:6])
 
 
 def _gates(xproj_t, h, whf, hidden):
@@ -365,30 +377,55 @@ def check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t) -> None:
         raise ValueError(f"empty LSTM scan backward: acts {tuple(acts.shape)}")
 
 
+def _forward_outputs(xproj, hidden: int, save: bool):
+    """A forward's outputs, allocated: (hs, acts, c_prev, h_T, c_T), acts
+    and c_prev None unless ``save``."""
+    t, b, g4 = xproj.shape
+    dev = xproj.device
+    hs = torch.empty(t, b, hidden, dtype=torch.bfloat16, device=dev)
+    acts = torch.empty(t, b, g4, dtype=torch.bfloat16, device=dev) if save else None
+    c_prev = torch.empty(t, b, hidden, dtype=torch.float32, device=dev) if save else None
+    h_out = torch.empty(b, hidden, dtype=torch.float32, device=dev)
+    return hs, acts, c_prev, h_out, torch.empty_like(h_out)
+
+
+def _grid_forward(wh, xproj, h0, c0, save: bool, stamps=None):
+    """One launch of the grid forward (its stamped variant where ``stamps``
+    is given, which takes ``save``): (hs, acts, c_prev, h_T, c_T), acts and
+    c_prev None unless ``save``. Counts nothing: the callers do."""
+    t, b, _ = xproj.shape
+    hidden = wh.shape[0]
+    out = _forward_outputs(xproj, hidden, save)
+    args = [xproj, wh, h0, c0, *out, _grid.exchange_buffer(b, hidden, xproj.device), t, b, hidden,
+            int(save)]
+    if stamps is None:
+        _launch("vq_lstm_scan_grid_launch", "LSTM grid forward kernel launch", xproj.device, *args)
+    else:
+        _launch("vq_lstm_scan_grid_stamped_launch", "stamped LSTM grid forward kernel launch",
+                xproj.device, *args, stamps)
+    return out
+
+
 def _forward(wh, xproj, h0, c0, save: bool, stamps=None):
     """Launch the forward on the card by ``scan_route`` (the cluster's
     stamped variant where ``stamps`` is given): (hs, acts, c_prev, h_T,
     c_T), acts and c_prev None unless ``save``."""
     global LSTM_SCAN_LAUNCHES, LSTM_SCAN_TRAIN_LAUNCHES
     global LSTM_SCAN_GRID_LAUNCHES, LSTM_SCAN_GRID_TRAIN_LAUNCHES
-    t, b, g4 = xproj.shape
     hidden = wh.shape[0]
-    dev = xproj.device
-    hs = torch.empty(t, b, hidden, dtype=torch.bfloat16, device=dev)
-    acts = torch.empty(t, b, g4, dtype=torch.bfloat16, device=dev) if save else None
-    c_prev = torch.empty(t, b, hidden, dtype=torch.float32, device=dev) if save else None
-    h_out = torch.empty(b, hidden, dtype=torch.float32, device=dev)
-    c_out = torch.empty_like(h_out)
-    if stamps is not None:
-        _launch("vq_lstm_scan_stamped_launch", "stamped lstm_scan kernel launch", dev, xproj, wh,
-                h0, c0, hs, acts, c_prev, h_out, c_out, t, b, hidden, int(save), stamps)
-    elif scan_route(hidden) == "grid":
-        _launch("vq_lstm_scan_grid_launch", "LSTM grid forward kernel launch", dev,
-                xproj, wh, h0, c0, hs, acts, c_prev, h_out, c_out, t, b, hidden, int(save))
+    if stamps is None and scan_route(hidden) == "grid":
+        out = _grid_forward(wh, xproj, h0, c0, save)
         if save:
             LSTM_SCAN_GRID_TRAIN_LAUNCHES += 1
         else:
             LSTM_SCAN_GRID_LAUNCHES += 1
+        return out
+    t, b, _ = xproj.shape
+    dev = xproj.device
+    hs, acts, c_prev, h_out, c_out = _forward_outputs(xproj, hidden, save)
+    if stamps is not None:
+        _launch("vq_lstm_scan_stamped_launch", "stamped lstm_scan kernel launch", dev, xproj, wh,
+                h0, c0, hs, acts, c_prev, h_out, c_out, t, b, hidden, int(save), stamps)
     elif save:
         _launch("vq_lstm_scan_train_launch", "lstm_scan_train kernel launch", dev,
                 xproj, wh, h0, c0, hs, acts, c_prev, h_out, c_out, t, b, hidden)
@@ -400,23 +437,42 @@ def _forward(wh, xproj, h0, c0, save: bool, stamps=None):
     return hs, acts, c_prev, h_out, c_out
 
 
+def _backward_outputs(acts, dh_t) -> Tensors3:
+    """A backward's outputs, allocated: (dgates, dh0, dc0)."""
+    return torch.empty_like(acts), torch.empty_like(dh_t), torch.empty_like(dh_t)
+
+
+def _grid_backward(acts, c_prev, dhs, wh, dh_t, dc_t, stamps=None) -> Tensors3:
+    """One launch of the grid backward (its stamped variant where ``stamps``
+    is given): (dgates, dh0, dc0). Counts nothing: the callers do."""
+    t, b, _ = acts.shape
+    out = _backward_outputs(acts, dh_t)
+    args = [acts, c_prev, dhs, wh, dh_t, dc_t, *out, _grid.sync_buffer(acts.device), t, b,
+            wh.shape[0]]
+    if stamps is None:
+        _launch("vq_lstm_scan_grid_bwd_launch", "LSTM grid backward kernel launch", acts.device,
+                *args)
+    else:
+        _launch("vq_lstm_scan_grid_bwd_stamped_launch", "stamped LSTM grid backward kernel launch",
+                acts.device, *args, stamps)
+    return out
+
+
 def _backward(acts, c_prev, dhs, wh, dh_t, dc_t, stamps=None) -> Tensors3:
     """Launch the backward on the card by ``scan_route(H, backward=True)``
     (the cluster's stamped variant where ``stamps`` is given)."""
     global LSTM_SCAN_BWD_LAUNCHES, LSTM_SCAN_GRID_BWD_LAUNCHES
-    t, b, _ = acts.shape
     hidden = wh.shape[0]
-    dgates = torch.empty_like(acts)
-    dh0 = torch.empty(b, hidden, dtype=torch.float32, device=acts.device)
-    dc0 = torch.empty_like(dh0)
+    if stamps is None and scan_route(hidden, backward=True) == "grid":
+        out = _grid_backward(acts, c_prev, dhs, wh, dh_t, dc_t)
+        LSTM_SCAN_GRID_BWD_LAUNCHES += 1
+        return out
+    t, b, _ = acts.shape
+    dgates, dh0, dc0 = _backward_outputs(acts, dh_t)
     args = (acts, c_prev, dhs, wh, dh_t, dc_t, dgates, dh0, dc0, t, b, hidden)
     if stamps is not None:
         _launch("vq_lstm_scan_bwd_stamped_launch", "stamped lstm_scan_bwd kernel launch",
                 acts.device, *args, stamps)
-    elif scan_route(hidden, backward=True) == "grid":
-        _launch("vq_lstm_scan_grid_bwd_launch", "LSTM grid backward kernel launch",
-                acts.device, *args)
-        LSTM_SCAN_GRID_BWD_LAUNCHES += 1
     else:
         _launch("vq_lstm_scan_bwd_launch", "lstm_scan_bwd kernel launch", acts.device, *args)
         LSTM_SCAN_BWD_LAUNCHES += 1
@@ -460,11 +516,15 @@ def lstm_scan_bwd(acts, c_prev, dhs, wh, dh_t, dc_t) -> Tensors3:
     return _backward(acts, c_prev, dhs, wh, dh_t, dc_t)
 
 
-def _check_stamped(x, hidden: int, backward: bool, what: str) -> None:
+def _stamp_buffer(steps: int, phases, device) -> torch.Tensor:
+    return torch.zeros(2, 4 + steps * len(phases), dtype=torch.int64, device=device)
+
+
+def _check_stamped(x, hidden: int, backward: bool, what: str, route: str = "cluster") -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda only, not {x.device}")
-    if scan_route(hidden, backward) != "cluster":
-        raise ValueError(f"{what}: H {hidden} takes the grid route")
+    if scan_route(hidden, backward) != route:
+        raise ValueError(f"{what}: H {hidden} takes the {scan_route(hidden, backward)} route")
 
 
 def lstm_scan_stamped(wh, xproj, h0, c0, save: bool = False):
@@ -476,8 +536,7 @@ def lstm_scan_stamped(wh, xproj, h0, c0, save: bool = False):
     global LSTM_SCAN_STAMPED_LAUNCHES
     check_scan_inputs(wh, xproj, h0, c0)
     _check_stamped(xproj, wh.shape[0], False, "lstm_scan_stamped")
-    stamps = torch.zeros(2, 4 + xproj.shape[0] * len(FWD_STAMP_PHASES), dtype=torch.int64,
-                         device=xproj.device)
+    stamps = _stamp_buffer(xproj.shape[0], FWD_STAMP_PHASES, xproj.device)
     out = _forward(wh, xproj, h0, c0, save, stamps)
     LSTM_SCAN_STAMPED_LAUNCHES += 1
     return (*out, stamps)
@@ -490,22 +549,53 @@ def lstm_scan_bwd_stamped(acts, c_prev, dhs, wh, dh_t, dc_t):
     global LSTM_SCAN_BWD_STAMPED_LAUNCHES
     check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t)
     _check_stamped(acts, wh.shape[0], True, "lstm_scan_bwd_stamped")
-    stamps = torch.zeros(2, 4 + acts.shape[0] * len(BWD_STAMP_PHASES), dtype=torch.int64,
-                         device=acts.device)
+    stamps = _stamp_buffer(acts.shape[0], BWD_STAMP_PHASES, acts.device)
     out = _backward(acts, c_prev, dhs, wh, dh_t, dc_t, stamps)
     LSTM_SCAN_BWD_STAMPED_LAUNCHES += 1
     return (*out, stamps)
 
 
-def summarize_scan_stamps(stamps, n_steps: int, backward: bool = False, skip: int = 1):
-    """A stamped cluster kernel's buffer -> {CTA: {phase: us per step, ...,
-    "total", "wall"}} over ``FWD_STAMP_PHASES`` or ``BWD_STAMP_PHASES``;
-    "block 0" is rank 0 of the first cluster, "last block" the last
-    cluster's last rank (``ar_decode.summarize_stamps``)."""
+def lstm_scan_grid_stamped(wh, xproj, h0, c0):
+    """The grid's training forward through its variant that stamps each
+    phase of a step, on a CUDA tensor at a grid width only (a measurement:
+    no entry point calls it). Returns (hs, acts, c_prev, h_T, c_T, stamps
+    (2, 4 + T x len(GRID_FWD_STAMP_PHASES)) int64); the outputs are the
+    plain launch's bits."""
+    global LSTM_SCAN_GRID_STAMPED_LAUNCHES
+    check_scan_inputs(wh, xproj, h0, c0)
+    _check_stamped(xproj, wh.shape[0], False, "lstm_scan_grid_stamped", "grid")
+    stamps = _stamp_buffer(xproj.shape[0], GRID_FWD_STAMP_PHASES, xproj.device)
+    out = _grid_forward(wh, xproj, h0, c0, True, stamps)
+    LSTM_SCAN_GRID_STAMPED_LAUNCHES += 1
+    return (*out, stamps)
+
+
+def lstm_scan_grid_bwd_stamped(acts, c_prev, dhs, wh, dh_t, dc_t):
+    """``lstm_scan_bwd`` through the grid backward's stamped variant, on a
+    CUDA tensor at a grid width only: (dgates, dh0, dc0, stamps (2, 4 + T x
+    len(GRID_BWD_STAMP_PHASES)) int64), the stamps' steps in reverse time."""
+    global LSTM_SCAN_GRID_BWD_STAMPED_LAUNCHES
+    check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t)
+    _check_stamped(acts, wh.shape[0], True, "lstm_scan_grid_bwd_stamped", "grid")
+    stamps = _stamp_buffer(acts.shape[0], GRID_BWD_STAMP_PHASES, acts.device)
+    out = _grid_backward(acts, c_prev, dhs, wh, dh_t, dc_t, stamps)
+    LSTM_SCAN_GRID_BWD_STAMPED_LAUNCHES += 1
+    return (*out, stamps)
+
+
+def summarize_scan_stamps(stamps, n_steps: int, backward: bool = False, skip: int = 1,
+                          grid: bool = False):
+    """A stamped kernel's buffer -> {block: {phase: us per step, ...,
+    "total", "wall"}} over the cluster's ``FWD_STAMP_PHASES`` /
+    ``BWD_STAMP_PHASES`` or, with ``grid``, the grid's
+    ``GRID_FWD_STAMP_PHASES`` / ``GRID_BWD_STAMP_PHASES``; "block 0" is
+    the first block (the cluster's: rank 0 of the first cluster), "last
+    block" the grid's last (``ar_decode.summarize_stamps``)."""
     from .ar_decode import summarize_stamps
 
-    return summarize_stamps(stamps, n_steps, skip,
-                            BWD_STAMP_PHASES if backward else FWD_STAMP_PHASES)
+    phases = ((GRID_BWD_STAMP_PHASES if backward else GRID_FWD_STAMP_PHASES) if grid
+              else (BWD_STAMP_PHASES if backward else FWD_STAMP_PHASES))
+    return summarize_stamps(stamps, n_steps, skip, phases)
 
 
 class LstmScan(torch.autograd.Function):
