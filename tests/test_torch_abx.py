@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import time_limit  # noqa: F401
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.eval import abx as jax_abx
 from vectorquantizedcpc_tpu_torch.cli import eval_abx as cli
 from vectorquantizedcpc_tpu_torch.eval import abx

@@ -22,13 +22,17 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, assert_prefix_parity, classes_of, jax_models, port_models
+from torch_port_util import (  # noqa: F401
+    SMALL, assert_prefix_parity, classes_of, jax_models, module_time_limit, port_models, time_limit,
+)
 from vectorquantizedcpc_tpu.ops.ar_decode import fused_ar_decode as jax_fused
 from vectorquantizedcpc_tpu_torch.dsp.audio_io import read_wav, write_wav
 from vectorquantizedcpc_tpu_torch.infer import serving
 from vectorquantizedcpc_tpu_torch.infer.serving import ContinuousBatcher
 from vectorquantizedcpc_tpu_torch.models.vocoder import build_conditioning_frames
 from vectorquantizedcpc_tpu_torch.ops import ar_decode as port
+
+TIME_LIMIT_S = 180  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

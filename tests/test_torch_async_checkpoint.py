@@ -23,7 +23,7 @@ from vectorquantizedcpc_tpu_torch.training.checkpoint import (AsyncCheckpointer,
 from vectorquantizedcpc_tpu_torch.training.cpc import CPCTrainer
 from vectorquantizedcpc_tpu_torch.training.schedule import WarmupSchedule
 from vectorquantizedcpc_tpu_torch.training.vocoder import VocoderTrainer
-from torch_port_util import time_limit  # noqa: F401
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 
 TIME_LIMIT_S = 120  # each test's own limit (torch_port_util.time_limit)
 

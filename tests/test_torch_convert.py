@@ -9,7 +9,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, assert_prefix_parity, jax_models, port_models, time_limit  # noqa: F401
+from torch_port_util import (  # noqa: F401
+    SMALL, assert_prefix_parity, jax_models, module_time_limit, port_models, time_limit,
+)
 from vectorquantizedcpc_tpu.models.encoder import encoder_encode
 from vectorquantizedcpc_tpu.models.vocoder import vocoder_generate as jax_generate
 from vectorquantizedcpc_tpu_torch.dsp.audio_io import read_wav, write_wav

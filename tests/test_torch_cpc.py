@@ -28,7 +28,9 @@ from vectorquantizedcpc_tpu_torch.models.encoder import Encoder
 from vectorquantizedcpc_tpu_torch.models.vq import VQEmbeddingEMA, vq_apply_train
 from vectorquantizedcpc_tpu_torch.weights import cpc_from_jax_params, encoder_from_jax_params
 
-from torch_port_util import flat
+from torch_port_util import flat, module_time_limit, time_limit  # noqa: F401
+
+TIME_LIMIT_S = 180  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

@@ -14,8 +14,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.ops.cpc_select import cpc_negative_scores as jax_scores
 from vectorquantizedcpc_tpu_torch.ops import cpc_select as port
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

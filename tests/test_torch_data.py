@@ -6,11 +6,13 @@ loader batches at the same seed and epoch too.
 """
 
 import json
+import os
+import threading
 
 import numpy as np
 import pytest
 
-from torch_port_util import time_limit  # noqa: F401
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.data.corpus import SyntheticCorpus as JaxSynthetic
 from vectorquantizedcpc_tpu.data.datasets import CPCMelSpkDataset as JaxDataset
@@ -23,7 +25,7 @@ from vectorquantizedcpc_tpu_torch.data.loader import PrefetchLoader
 from vectorquantizedcpc_tpu_torch.data.preprocess import preprocess_corpus
 
 ARGV = ["training.cpc.sample_frames=20", "training.cpc.n_utterances_per_speaker=3"]
-TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
+TIME_LIMIT_S = 120  # each test's own limit (torch_port_util.time_limit)
 
 
 @pytest.fixture(scope="module")
@@ -55,6 +57,37 @@ def test_corpus_and_features_are_bit_identical(features):
             assert a.dtype == b.dtype and np.array_equal(a, b), name
 
 
+def test_preprocess_pool_spawns_and_keeps_the_bits(features, tmp_path, monkeypatch):
+    """Two workers while a live thread holds a lock: the pool never calls
+    ``os.fork`` (its workers are spawned, so none inherits a held lock) and
+    writes the manifest and arrays of one worker, bit for bit."""
+    root, _, pconf = features
+    held, release = threading.Lock(), threading.Event()
+
+    def hold():
+        with held:
+            release.wait()
+
+    thread = threading.Thread(target=hold, daemon=True)
+    thread.start()
+
+    def no_fork():
+        raise AssertionError("the preprocessing pool forked")
+
+    monkeypatch.setattr(os, "fork", no_fork)
+    try:
+        manifest = preprocess_corpus(port_corpus.SyntheticCorpus(root / "pc"), tmp_path / "pf",
+                                     pconf.data.dataset.preprocess, num_workers=2)
+    finally:
+        release.set()
+        thread.join(5)
+    assert manifest == json.loads((root / "pf" / "index.json").read_text())
+    for rec in manifest["utterances"]:
+        for kind in ("mel", "mulaw"):
+            name = f"{rec['speaker']}/{rec['name']}.{kind}.npy"
+            assert (tmp_path / "pf" / name).read_bytes() == (root / "pf" / name).read_bytes(), name
+
+
 def test_cpc_clips_and_batches_equal_jax(features):
     """Items and shuffled, drop_last batches at seed 3, epochs 1 and 2."""
     root, jconf, pconf = features
@@ -78,8 +111,10 @@ def test_cpc_clips_and_batches_equal_jax(features):
 
 
 def test_corpus_download_and_unknown_names():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_corpus.get_corpus("ZR19", ConfCorpus(download=True, root="/nonexistent"))
+    with pytest.raises(ValueError, match="download destination.$"):
+        port_corpus.get_corpus("ZR19", ConfCorpus(download=True))
+    with pytest.raises(RuntimeError, match="no public archive"):
+        port_corpus.get_corpus("JVS", ConfCorpus(download=True, root="/nonexistent"))
     with pytest.raises(ValueError, match="not supported"):
         port_corpus.get_corpus("LibriSpeech", ConfCorpus())
     with pytest.raises(ValueError, match="data.corpus.root"):

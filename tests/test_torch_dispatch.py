@@ -21,7 +21,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, flat, time_limit  # noqa: F401
+from torch_port_util import SMALL, flat, module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.models.encoder import encoder_init
 from vectorquantizedcpc_tpu.training.torch_import import import_vocoder

@@ -6,9 +6,12 @@ import torch
 
 import jax.numpy as jnp
 
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu import dsp as jdsp
 from vectorquantizedcpc_tpu.dsp import audio_io as jio
 from vectorquantizedcpc_tpu_torch.dsp import audio_io, loudness, mel, mulaw
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

@@ -7,7 +7,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, jax_models, port_models, time_limit  # noqa: F401
+from torch_port_util import (  # noqa: F401
+    SMALL, jax_models, module_time_limit, port_models, time_limit,
+)
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.infer.encode import encode_dataset as jax_encode_dataset
 from vectorquantizedcpc_tpu.models.encoder import encoder_encode

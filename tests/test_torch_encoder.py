@@ -6,10 +6,14 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, jax_models, port_models
+from torch_port_util import (  # noqa: F401
+    SMALL, jax_models, module_time_limit, port_models, time_limit,
+)
 from vectorquantizedcpc_tpu.models.encoder import encoder_encode
 from vectorquantizedcpc_tpu.models.vq import nearest_code_indices as jax_nearest
 from vectorquantizedcpc_tpu_torch.models.vq import nearest_code_indices
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

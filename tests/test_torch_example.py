@@ -12,7 +12,7 @@ from pathlib import Path
 
 import numpy as np
 
-from torch_port_util import time_limit  # noqa: F401
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu_torch.dsp.audio_io import read_wav
 
 ROOT = Path(__file__).resolve().parents[1]

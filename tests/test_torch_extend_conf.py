@@ -21,7 +21,7 @@ from hypothesis import strategies as st
 from vectorquantizedcpc_tpu import configs as jax_configs
 from vectorquantizedcpc_tpu_torch import configs
 from vectorquantizedcpc_tpu_torch.utils.yaml_subset import load_value, safe_load
-from torch_port_util import time_limit  # noqa: F401
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 
 TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 

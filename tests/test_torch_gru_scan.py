@@ -13,7 +13,9 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, jax_models, port_models
+from torch_port_util import (  # noqa: F401
+    SMALL, jax_models, module_time_limit, port_models, time_limit,
+)
 from vectorquantizedcpc_tpu.models.vocoder import (
     build_conditioning_frames_ragged as jax_ragged,
 )
@@ -23,6 +25,8 @@ from vectorquantizedcpc_tpu.ops.gru_train import (
 )
 from vectorquantizedcpc_tpu_torch.models.vocoder import build_conditioning_frames_ragged
 from vectorquantizedcpc_tpu_torch.ops import gru_train as port
+
+TIME_LIMIT_S = 180  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

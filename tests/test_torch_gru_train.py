@@ -15,10 +15,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.models.rnn import gru_init
 from vectorquantizedcpc_tpu.models.rnn import gru_scan as jax_gru_scan
 from vectorquantizedcpc_tpu.ops.gru_train import _bwd_call, _fwd_call, _pick_chunk, fused_gru_scan
 from vectorquantizedcpc_tpu_torch.ops import gru_train as port
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

@@ -19,7 +19,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import assert_prefix_parity, flat, time_limit  # noqa: F401
+from torch_port_util import assert_prefix_parity, flat, module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.infer.convert import load_vocoder_checkpoint as jax_load_vocoder
 from vectorquantizedcpc_tpu.infer.encode import encode_dataset as jax_encode_dataset
@@ -47,7 +47,7 @@ from vectorquantizedcpc_tpu_torch.weights import (cpc_from_jax_params, encoder_f
                                                   flatten, from_jax_params,
                                                   vocoder_from_jax_params)
 
-TIME_LIMIT_S = 120  # each test's own limit (torch_port_util.time_limit)
+TIME_LIMIT_S = 180  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

@@ -9,14 +9,19 @@ with them is ``tests/test_torch_jax_checkpoint.py``.
 """
 
 import json
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
 import torch_port_jax_fixtures as fixtures
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu_torch.dsp.audio_io import read_wav
 from vectorquantizedcpc_tpu_torch.training.checkpoint import read_jax_checkpoint
+
+TIME_LIMIT_S = 300  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 
@@ -38,8 +43,26 @@ def _compare_trees(got, want, path):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6, err_msg=path)
 
 
+def _write_fresh(out_dir: Path) -> Path:
+    """``fixtures.write_fixtures`` in a process of its own, with the JAX
+    settings of ``tests/conftest.py``: the JAX CLIs leave threads running
+    (their tensorboardX writers) that must not outlive this module."""
+    code = "\n".join([
+        "import sys",
+        "import jax",
+        "jax.config.update('jax_platforms', 'cpu')",
+        "jax.config.update('jax_num_cpu_devices', 8)",
+        "jax.config.update('jax_default_matmul_precision', 'highest')",
+        f"sys.path.insert(0, {str(Path(fixtures.__file__).parent)!r})",
+        "import torch_port_jax_fixtures",
+        f"torch_port_jax_fixtures.write_fixtures({str(out_dir)!r})",
+    ])
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=TIME_LIMIT_S - 30)
+    return out_dir
+
+
 def test_committed_fixtures_match_a_fresh_run(tmp_path):
-    fresh = fixtures.write_fixtures(tmp_path / "jax_ckpt")
+    fresh = _write_fresh(tmp_path / "jax_ckpt")
     committed = fixtures.DEFAULT_DIR
     assert _files(fresh) == _files(committed)
     total = 0

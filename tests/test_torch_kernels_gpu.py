@@ -40,6 +40,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
+
+TIME_LIMIT_S = 600  # each test's own limit, the kernels' build included
+
 pytestmark = pytest.mark.gpu
 
 

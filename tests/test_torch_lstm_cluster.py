@@ -15,7 +15,10 @@ kernels themselves run only on a card (tests/test_torch_kernels_gpu.py).
 import numpy as np
 import pytest
 
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 
 @pytest.mark.parametrize(

@@ -11,9 +11,12 @@ K chunks past the widths whose slice fits whole, and the refusals.
 
 import pytest
 
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu_torch.ops import grid_plan
 from vectorquantizedcpc_tpu_torch.ops import gru_train as gt
 from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 
 @pytest.mark.parametrize(

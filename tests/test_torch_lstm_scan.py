@@ -14,12 +14,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.models.rnn import LSTMParams
 from vectorquantizedcpc_tpu.models.rnn import lstm_apply as jax_lstm_apply
 from vectorquantizedcpc_tpu.models.rnn import lstm_init
 from vectorquantizedcpc_tpu.ops.lstm_scan import fused_lstm_scan
 from vectorquantizedcpc_tpu_torch.models import rnn as port_rnn
 from vectorquantizedcpc_tpu_torch.ops import lstm_scan as port
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

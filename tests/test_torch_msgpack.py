@@ -20,7 +20,10 @@ from hypothesis import strategies as st
 import jax.numpy as jnp
 from flax import serialization
 
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu_torch.utils.msgpack import unpackb
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 scalars = st.one_of(
     st.none(),

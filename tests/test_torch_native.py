@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from test_torch_dispatch import CPC_TINY, VOC_ARGV, assert_same_bits
-from torch_port_util import time_limit  # noqa: F401
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.data import datasets as jax_datasets
 from vectorquantizedcpc_tpu.data.native import NpyWindowStore as JaxWindowStore

@@ -8,7 +8,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from torch_port_util import SMALL, time_limit  # noqa: F401
+from torch_port_util import SMALL, module_time_limit, time_limit  # noqa: F401
 
 torch.set_num_threads(1)
 TIME_LIMIT_S = 120  # each test's own limit (torch_port_util.time_limit)

@@ -30,7 +30,7 @@ import yaml
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, flat, time_limit  # noqa: F401
+from torch_port_util import SMALL, flat, module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.models.cpc import sample_negative_indices as jax_sample
 from vectorquantizedcpc_tpu.models.encoder import encoder_init

@@ -9,7 +9,7 @@ two apart by comparing the value with its default ``./out``, so an explicit
 
 import pytest
 
-from torch_port_util import time_limit  # noqa: F401
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu_torch.cli import preprocess
 from vectorquantizedcpc_tpu_torch.data.corpus import SyntheticCorpus
 

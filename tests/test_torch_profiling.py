@@ -11,8 +11,11 @@ import json
 import pytest
 import torch
 
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.utils import profiling as jax_profiling
 from vectorquantizedcpc_tpu_torch.utils import profiling
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

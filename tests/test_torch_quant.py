@@ -15,11 +15,15 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, jax_models, port_models
+from torch_port_util import (  # noqa: F401
+    SMALL, jax_models, module_time_limit, port_models, time_limit,
+)
 from vectorquantizedcpc_tpu.ops import ar_decode as jax_ar
 from vectorquantizedcpc_tpu.ops import quant as jax_quant
 from vectorquantizedcpc_tpu_torch.ops import ar_decode as port_ar
 from vectorquantizedcpc_tpu_torch.ops import quant
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

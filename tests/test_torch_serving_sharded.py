@@ -13,12 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import SMALL, jax_models, port_models
+from torch_port_util import (  # noqa: F401
+    SMALL, jax_models, module_time_limit, port_models, time_limit,
+)
 from vectorquantizedcpc_tpu.infer import serving as jax_serving
 from vectorquantizedcpc_tpu.parallel.mesh import make_mesh
 from vectorquantizedcpc_tpu_torch.infer.serving import ContinuousBatcher
 
 from test_torch_serving import REQUESTS, _hold_to_single_shot
+
+TIME_LIMIT_S = 180  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

@@ -4,9 +4,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import SMALL, jax_models, port_models
+from torch_port_util import (  # noqa: F401
+    SMALL, jax_models, module_time_limit, port_models, time_limit,
+)
 from vectorquantizedcpc_tpu.infer.streaming import encode_streaming as jax_encode_streaming
 from vectorquantizedcpc_tpu_torch.infer.streaming import StreamingEncoder, encode_streaming
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

@@ -32,7 +32,7 @@ import jax.numpy as jnp
 from flax import serialization
 
 from test_torch_parallel import CPC_ARGV, LR, _cli, _np, _torchrun, world_of_one  # noqa: F401
-from torch_port_util import SMALL, flat, time_limit  # noqa: F401
+from torch_port_util import SMALL, flat, module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.models.cpc import sample_negative_indices as jax_sample
 from vectorquantizedcpc_tpu.models.encoder import encoder_init
@@ -52,7 +52,7 @@ from vectorquantizedcpc_tpu_torch.weights import (cpc_from_jax_params, cpc_train
                                                   encoder_from_jax_params, from_jax_params,
                                                   vocoder_train_state_from_jax)
 
-TIME_LIMIT_S = 240  # each test's own limit (torch_port_util.time_limit)
+TIME_LIMIT_S = 300  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

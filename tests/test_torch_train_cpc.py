@@ -33,9 +33,9 @@ from vectorquantizedcpc_tpu_torch.training import cpc as port_train
 from vectorquantizedcpc_tpu_torch.training.schedule import WarmupSchedule
 from vectorquantizedcpc_tpu_torch.weights import cpc_from_jax_params, encoder_from_jax_params
 
-from torch_port_util import flat, time_limit  # noqa: F401
+from torch_port_util import flat, module_time_limit, time_limit  # noqa: F401
 
-TIME_LIMIT_S = 180  # each test's own limit (torch_port_util.time_limit)
+TIME_LIMIT_S = 300  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

@@ -21,7 +21,9 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from torch_port_util import SMALL, flat, jax_models, port_models, time_limit  # noqa: F401
+from torch_port_util import (  # noqa: F401
+    SMALL, flat, jax_models, module_time_limit, port_models, time_limit,
+)
 from vectorquantizedcpc_tpu.configs import load_conf as jax_load_conf
 from vectorquantizedcpc_tpu.data.datamodule import VocoderDataModule as JaxDataModule
 from vectorquantizedcpc_tpu.data.datasets import MulawMelSpkDataset as JaxDataset

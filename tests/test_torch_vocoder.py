@@ -7,7 +7,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import SMALL, assert_prefix_parity, jax_models, port_models
+from torch_port_util import (  # noqa: F401
+    SMALL, assert_prefix_parity, jax_models, module_time_limit, port_models, time_limit,
+)
 from vectorquantizedcpc_tpu.models.rnn import GRUParams, gru_apply as jax_gru_apply
 from vectorquantizedcpc_tpu.models.vocoder import (
     build_conditioning_frames as jax_conditioning,
@@ -18,6 +20,8 @@ from vectorquantizedcpc_tpu_torch.models.vocoder import (
     build_conditioning_frames,
     vocoder_generate,
 )
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

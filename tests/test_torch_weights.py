@@ -4,13 +4,17 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import SMALL, flat, jax_models, port_models
+from torch_port_util import (  # noqa: F401
+    SMALL, flat, jax_models, module_time_limit, port_models, time_limit,
+)
 from vectorquantizedcpc_tpu.training.torch_import import import_encoder, import_vocoder
 from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
 from vectorquantizedcpc_tpu_torch.weights import (
     load_cpc_checkpoint,
     load_vocoder_checkpoint,
 )
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

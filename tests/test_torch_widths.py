@@ -17,12 +17,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_port_util import module_time_limit, time_limit  # noqa: F401
 from vectorquantizedcpc_tpu.ops.cpc_select import cpc_negative_scores as jax_scores
 from vectorquantizedcpc_tpu.ops.gru_train import fused_gru_scan_masked as jax_gru_masked
 from vectorquantizedcpc_tpu.ops.lstm_scan import fused_lstm_scan
 from vectorquantizedcpc_tpu_torch.ops import cpc_select as cs
 from vectorquantizedcpc_tpu_torch.ops import gru_train as gt
 from vectorquantizedcpc_tpu_torch.ops import lstm_scan as ls
+
+TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
 
 torch.set_num_threads(1)
 

@@ -1,18 +1,23 @@
 """Helpers shared by the tests that hold the PyTorch port against the JAX package."""
 
 import faulthandler
-import hashlib
+import os
+import signal
 import sys
-import tempfile
-from pathlib import Path
+import threading
+import time
 
 import numpy as np
 import pytest
 
-# A test that starts a trainer, a CLI, a thread or a subprocess runs under a
-# time limit of its own (``time_limit``): its module sets ``TIME_LIMIT_S``
-# to at least 5x its slowest test's time.
+# Every port test module imports ``module_time_limit`` and ``time_limit``:
+# its module set-up, each test and its module teardown run under a limit,
+# the module's ``TIME_LIMIT_S``, at least 5x its slowest test or module
+# fixture.
 DEFAULT_TIME_LIMIT_S = 300.0
+# Past the limit plus this grace, with the main thread still not back in
+# Python (a hang inside C code), the worker process exits.
+GRACE_S = 30.0
 
 # Small widths for CPU parity runs (the shapes of tests/test_ar_decode.py).
 SMALL = [
@@ -100,36 +105,90 @@ def classes_of(wave, n_classes):
     return np.abs(np.asarray(wave)[..., None] - table).argmin(-1)
 
 
+class _Limit:
+    """SIGALRM at ``limit`` seconds: every thread's stack goes to the test
+    run's stderr, then the phase fails with ``pytest.fail`` raised in the
+    main thread, and the worker goes on to the next test. A worker process
+    that exits takes down more than one test: pytest-xdist 3.8's
+    ``--dist loadfile`` puts every file the crashed worker had run back on
+    its queue, its replacements are sent those files' finished (empty) work
+    units, and a worker left holding its last test waits for a next one
+    that never comes, so the run stalls to its time limit. Only a main
+    thread that stays in C code past ``limit + GRACE_S`` makes
+    ``faulthandler`` dump the stacks again and exit."""
+
+    def __init__(self, request, what: str) -> None:
+        module = request.module
+        self.limit = float(getattr(module, "TIME_LIMIT_S", DEFAULT_TIME_LIMIT_S))
+        self.what = what
+        try:  # pytest's own copy of the stderr descriptor, outside the capture
+            from _pytest.faulthandler import fault_handler_stderr_fd_key
+
+            self.out = request.config.stash[fault_handler_stderr_fd_key]
+        except (ImportError, KeyError):
+            self.out = sys.__stderr__
+
+    def _alarm(self, signum, frame) -> None:
+        note = f"\n{self.what} exceeded its {self.limit:g} s time limit; every thread:\n"
+        if isinstance(self.out, int):
+            os.write(self.out, note.encode())
+        else:
+            self.out.write(note)
+            self.out.flush()
+        faulthandler.dump_traceback(file=self.out, all_threads=True)
+        pytest.fail(f"{self.what} exceeded its {self.limit:g} s time limit "
+                    "(every thread's stack is in the run's stderr)", pytrace=False)
+
+    def arm(self) -> None:
+        signal.signal(signal.SIGALRM, self._alarm)
+        signal.setitimer(signal.ITIMER_REAL, self.limit)
+        faulthandler.dump_traceback_later(self.limit + GRACE_S, exit=True, file=self.out)
+
+    @staticmethod
+    def disarm() -> None:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, signal.SIG_DFL)
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _left_running(before) -> list:
+    """What a test module left behind: threads started since ``before``
+    still alive after 10 s in all, and a default process group."""
+    deadline = time.monotonic() + 10.0
+    left = []
+    for thread in set(threading.enumerate()) - before:
+        thread.join(max(0.0, deadline - time.monotonic()))
+        if thread.is_alive():
+            left.append(f"thread {thread.name} ({type(thread).__name__})")
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        left.append("a torch.distributed process group")
+    return left
+
+
+@pytest.fixture(scope="module", autouse=True)
+def module_time_limit(request):
+    """Arm the module's limit before its module-scoped fixtures set up
+    (pytest sets up autouse fixtures first within a scope); ``time_limit``
+    takes over for each test. After the module's teardown no thread it
+    started may still run and no process group may stand: the next module
+    in this worker would inherit them (and a fork there, their locks)."""
+    _Limit(request, f"module set-up of {request.node.name}").arm()
+    before = set(threading.enumerate())
+    yield
+    try:
+        left = _left_running(before)
+        assert not left, f"{request.node.name} left running: {', '.join(left)}"
+    finally:
+        _Limit.disarm()
+
+
 @pytest.fixture(autouse=True)
 def time_limit(request):
-    """Arm ``faulthandler.dump_traceback_later`` for the test: past its
-    limit every thread's stack goes to the test run's stderr and the process
-    exits, so a hang fails one test (xdist reports its worker down and goes
-    on) in place of stopping the whole run. Imported by a test module, it
-    applies to each of its tests; cancelled on teardown.
-
-    xdist's ``--dist loadfile`` hands a crashed worker's unfinished file,
-    the cut test included, to its replacement: a marker file per test and
-    run, left only by a cut, makes that attempt fail at once."""
-    limit = getattr(request.module, "TIME_LIMIT_S", DEFAULT_TIME_LIMIT_S)
-    run = getattr(request.config, "workerinput", {}).get("testrunuid")
-    marker = None
-    if run is not None:
-        digest = hashlib.sha256(request.node.nodeid.encode()).hexdigest()[:16]
-        marker = Path(tempfile.gettempdir()) / f"vqcpc_time_limit_{run}_{digest}"
-        if marker.exists():
-            marker.unlink()
-            pytest.fail(f"cut at its {limit:.0f} s time limit in an earlier worker of this run "
-                        "(every thread's stack is in the run's stderr)")
-        marker.write_text(request.node.nodeid)
-    try:  # pytest's own copy of the stderr descriptor, outside the capture
-        from _pytest.faulthandler import fault_handler_stderr_fd_key
-
-        out = request.config.stash[fault_handler_stderr_fd_key]
-    except (ImportError, KeyError):
-        out = sys.__stderr__
-    faulthandler.dump_traceback_later(limit, exit=True, file=out)
+    """Each test of a module that imports it runs under ``_Limit``: a hang
+    fails that test, and the run goes on. Its teardown arms the limit again
+    for what follows up to the next test: the module fixtures that the next
+    test sets up first, or the module's teardown."""
+    _Limit(request, request.node.nodeid).arm()
     yield
-    faulthandler.cancel_dump_traceback_later()
-    if marker is not None:
-        marker.unlink(missing_ok=True)
+    _Limit(request, f"module fixtures after {request.node.nodeid}").arm()

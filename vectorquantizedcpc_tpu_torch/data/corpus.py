@@ -5,20 +5,30 @@ utterances and speaker labels from an on-disk corpus layout. The synthetic
 corpus generates deterministic multi-speaker audio (distinct f0 and
 harmonic mix per speaker, a melody per utterance), bit for bit the JAX
 package's, so the whole preprocess, train and encode chain runs without a
-real corpus. Downloading an archive (``data.corpus.download=true``) is not
-ported: it raises ``NotImplementedError``; place the extracted corpus under
-``data.corpus.root`` instead.
+real corpus.
+
+Download path, as in the JAX package: ``data.corpus.download=true`` fetches
+the corpus archive into ``data.corpus.root``, verifies its checksum (when
+pinned), extracts it, and drops a completion marker so a second run is
+free. The fetch goes through an injectable ``fetcher(url, dest)`` callable,
+so the whole path runs offline in the tests; the default urllib fetcher
+turns a network failure into an error naming the manual fallback.
 """
 
 import hashlib
+import shutil
+import tarfile
 import tempfile
+import zipfile
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 
 from ..configs import ConfCorpus
+
+Fetcher = Callable[[str, Path], None]
 
 
 @dataclass(frozen=True)
@@ -38,16 +48,118 @@ class Corpus:
         return sorted({u.speaker for u in self.utterances()})
 
 
-def _require_root(conf: ConfCorpus, name: str) -> Path:
-    if conf.download:
-        raise NotImplementedError(
-            f"data.corpus.download=true: downloading {name} is not ported; "
-            "extract the corpus under data.corpus.root and set "
-            "data.corpus.download=false"
+@dataclass(frozen=True)
+class ArchiveSpec:
+    """A downloadable corpus archive."""
+
+    url: str
+    filename: str
+    # Pinned sha256 of the archive; None = not pinned (verification skipped
+    # with a warning: the official servers publish no digests).
+    sha256: Optional[str] = None
+
+
+# ZR19: the official ZeroSpeech2019 English set (the reference inference
+# notebook cell-3 fetches the same URL). JVS is distributed behind a consent
+# form and has no stable direct URL, so it stays a manual download.
+CORPUS_ARCHIVES: Dict[str, ArchiveSpec] = {
+    "ZeroSpeech2019": ArchiveSpec(
+        url="https://download.zerospeech.com/2019/english.tgz",
+        filename="english.tgz",
+    ),
+}
+
+
+def default_fetcher(url: str, dest: Path) -> None:
+    """urllib fetch into ``<dest>.part``, renamed to ``dest`` when whole."""
+    import urllib.request
+
+    tmp = dest.with_suffix(dest.suffix + ".part")
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r, open(tmp, "wb") as f:
+            shutil.copyfileobj(r, f)
+        tmp.rename(dest)
+    except Exception as e:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"Could not fetch {url} ({e!r}) — likely no network egress in "
+            f"this environment. Download the archive manually, place the "
+            f"extracted corpus under `data.corpus.root`, and set "
+            f"`data.corpus.download=false`."
+        ) from e
+
+
+def _extract_archive(archive: Path, dest: Path) -> None:
+    name = archive.name
+    if name.endswith((".tgz", ".tar.gz", ".tar")):
+        with tarfile.open(archive) as tf:
+            # "data" filter: refuse absolute paths, traversal and devices.
+            tf.extractall(dest, filter="data")
+    elif name.endswith(".zip"):
+        with zipfile.ZipFile(archive) as zf:
+            zf.extractall(dest)
+    else:
+        raise ValueError(f"Unsupported archive format: {name}")
+
+
+def _sha256_file(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def download_corpus(name: str, root: Path, fetcher: Optional[Fetcher] = None) -> Path:
+    """Fetch, verify and extract a corpus archive into ``root`` (idempotent):
+    a completion marker makes a second call free, an archive already present
+    is not fetched again, and a pinned checksum that mismatches raises
+    rather than training on corrupt data."""
+    spec = CORPUS_ARCHIVES.get(name)
+    if spec is None:
+        raise RuntimeError(
+            f"{name} has no public archive URL (distribution requires a "
+            "consent form). Download it manually, place the extracted "
+            "corpus under `data.corpus.root`, and set "
+            "`data.corpus.download=false`."
         )
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    marker = root / f".{spec.filename}.complete"
+    if marker.exists():
+        return root
+
+    archive = root / spec.filename
+    if not archive.exists():
+        print(f"Downloading {name} from {spec.url} -> {archive}")
+        (fetcher or default_fetcher)(spec.url, archive)
+
+    if spec.sha256 is not None:
+        digest = _sha256_file(archive)
+        if digest != spec.sha256:
+            raise RuntimeError(
+                f"Checksum mismatch for {archive}: got {digest}, expected "
+                f"{spec.sha256}. Delete the file and re-download."
+            )
+    else:
+        print(f"WARNING: no pinned checksum for {spec.filename}; skipping "
+              "verification.")
+
+    print(f"Extracting {archive} -> {root}")
+    _extract_archive(archive, root)
+    marker.touch()
+    return root
+
+
+def _require_root(conf: ConfCorpus, name: str, fetcher: Optional[Fetcher] = None) -> Path:
     if conf.root is None:
-        raise ValueError(f"data.corpus.root must point at the {name} corpus.")
+        raise ValueError(
+            f"data.corpus.root must point at the {name} corpus"
+            + (" download destination." if conf.download else ".")
+        )
     root = Path(conf.root)
+    if conf.download:
+        return download_corpus(name, root, fetcher)
     if not root.exists():
         raise FileNotFoundError(f"Corpus root does not exist: {root}")
     return root
@@ -67,8 +179,9 @@ class ZR19Corpus(Corpus):
         self,
         conf: ConfCorpus,
         subset: str = "train/unit",
+        fetcher: Optional[Fetcher] = None,
     ):
-        self.root = _require_root(conf, "ZeroSpeech2019")
+        self.root = _require_root(conf, "ZeroSpeech2019", fetcher)
         self.subset = subset
 
     def utterances(self) -> List[Utterance]:
@@ -200,12 +313,12 @@ class SyntheticCorpus(Corpus):
         return utts
 
 
-def get_corpus(name: str, conf: ConfCorpus) -> Corpus:
+def get_corpus(name: str, conf: ConfCorpus, fetcher: Optional[Fetcher] = None) -> Corpus:
     """Corpus factory keyed by ``data.dataset.name`` (reference
     train_cpc.py:78-83 selects ZR19/JVS the same way). The synthetic corpus
     lives under ``data.corpus.root``, else under the temporary directory."""
     if name == "ZR19":
-        return ZR19Corpus(conf)
+        return ZR19Corpus(conf, fetcher=fetcher)
     if name == "JVS":
         return JVSCorpus(conf)
     if name == "synthetic":

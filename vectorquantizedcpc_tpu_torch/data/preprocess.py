@@ -8,6 +8,7 @@ can plan fixed-shape sampling without opening every file.
 """
 
 import json
+import multiprocessing
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 from typing import Dict
@@ -63,7 +64,11 @@ def preprocess_corpus(
 
     tasks = [(u, out_dir, conf) for u in corpus.utterances()]
     if num_workers > 1:
-        with ProcessPoolExecutor(max_workers=num_workers) as pool:
+        # Spawned, not forked: the caller may hold threads (torch's intra-op
+        # pool, a loader or checkpoint writer, a CUDA context) whose locks a
+        # forked child would inherit held.
+        with ProcessPoolExecutor(max_workers=num_workers,
+                                 mp_context=multiprocessing.get_context("spawn")) as pool:
             records = list(pool.map(_process_one, tasks, chunksize=8))
     else:
         records = [_process_one(t) for t in tasks]

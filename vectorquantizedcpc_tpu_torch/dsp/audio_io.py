@@ -11,7 +11,6 @@ from typing import Tuple, Union
 
 import numpy as np
 import scipy.io.wavfile
-import scipy.signal
 
 
 def read_wav(path: Union[str, Path], sr: int = None) -> Tuple[np.ndarray, int]:
@@ -34,8 +33,12 @@ def read_wav(path: Union[str, Path], sr: int = None) -> Tuple[np.ndarray, int]:
         wave = wave.mean(axis=1)
 
     if sr is not None and sr != file_sr:
+        # Imported here: scipy.signal takes seconds to import, and every
+        # process that reads wavs pays it (each spawned preprocessing worker).
+        from scipy.signal import resample_poly
+
         g = np.gcd(int(sr), int(file_sr))
-        wave = scipy.signal.resample_poly(wave, sr // g, file_sr // g).astype(
+        wave = resample_poly(wave, sr // g, file_sr // g).astype(
             np.float32
         )
         file_sr = sr
