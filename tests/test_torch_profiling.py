@@ -1,9 +1,8 @@
-"""The port's ``utils/profiling.py`` against the JAX package's, on the CPU.
+"""The port's ``utils/profiling.py`` on the CPU (its spans: ``test_torch_spans.py``).
 
 ``trace`` writes one Chrome trace of a block into a directory and nothing
 without one; ``device_time`` reads no device time from a CPU trace;
-``StepTimer`` counts and resets as the JAX package's on the same sequence
-of ticks; ``enable_nan_checks`` toggles autograd's anomaly mode.
+``enable_nan_checks`` toggles autograd's anomaly mode.
 """
 
 import json
@@ -12,7 +11,6 @@ import pytest
 import torch
 
 from torch_port_util import module_time_limit, time_limit  # noqa: F401
-from vectorquantizedcpc_tpu.utils import profiling as jax_profiling
 from vectorquantizedcpc_tpu_torch.utils import profiling
 
 TIME_LIMIT_S = 60  # each test's own limit (torch_port_util.time_limit)
@@ -40,27 +38,6 @@ def test_trace_without_a_directory_does_nothing(tmp_path, monkeypatch, profile_d
     with profiling.trace(profile_dir) as prof:
         torch.ones(3).sum()
     assert prof is None and not list(tmp_path.iterdir())
-
-
-def test_step_timer_counts_and_resets_as_jax(monkeypatch):
-    """Both timers on one fake clock: the same counts, origins and rates
-    through ticks, reads with and without a reset, and an empty interval."""
-    import time
-
-    now = {"t": 10.0}
-    monkeypatch.setattr(time, "time", lambda: now["t"])  # read by both modules
-    ours, theirs = profiling.StepTimer(), jax_profiling.StepTimer()
-    rates = []
-    for ticks, t, reset in (([1, 2], 12.0, True), ([4], 13.0, False), ([1, 1, 1], 15.0, True),
-                            ([], 15.5, True), ([2], 15.5, True)):
-        for n in ticks:
-            ours.tick(n)
-            theirs.tick(n)
-        now["t"] = t
-        rates.append((ours.rate(reset=reset), theirs.rate(reset=reset)))
-        assert (ours.count, ours.t0) == (theirs.count, theirs.t0)
-    assert [a for a, _ in rates] == [b for _, b in rates]
-    assert [a for a, _ in rates] == [3 / 2.0, 4 / 1.0, 7 / 3.0, 0.0, 0.0]
 
 
 def test_enable_nan_checks_toggles_anomaly_mode():

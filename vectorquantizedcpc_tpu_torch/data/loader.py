@@ -8,6 +8,10 @@ device's work on the step before. The dataset assembles each batch with
 ``sample_batch`` (both training datasets: the native clip engine,
 ``data/native.py``), in one call outside the GIL; ``stack_items`` is its
 plain version.
+
+Spans (``utils/profiling.py``): ``data.assemble``, one batch's assembly on
+the worker thread, and ``data.wait``, the consumer's wait for the next one
+(and once more for the end of the epoch).
 """
 
 import queue
@@ -15,6 +19,8 @@ import threading
 from typing import Iterator, Sequence
 
 import numpy as np
+
+from ..utils.profiling import span
 
 
 def stack_items(dataset, indices: Sequence[int]) -> tuple:
@@ -60,7 +66,8 @@ class PrefetchLoader:
         return np.random.default_rng(self.seed * 7919 + self.epoch).permutation(n)
 
     def _assemble(self, indices: Sequence[int]):
-        return tuple(self.dataset.sample_batch(indices))
+        with span("data.assemble"):
+            return tuple(self.dataset.sample_batch(indices))
 
     def __iter__(self) -> Iterator:
         order = self._order()
@@ -82,7 +89,8 @@ class PrefetchLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with span("data.wait"):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, BaseException):

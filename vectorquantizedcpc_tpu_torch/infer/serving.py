@@ -22,6 +22,12 @@ stream's samples: chaining segments reproduces a single-shot decode.
 - :meth:`ContinuousBatcher.step`, the incremental mode: admission into
   freed slots, one segment across all slots, retirement.
 
+Spans (``utils/profiling.py``): ``serving.condition`` (a conditioning
+pass), ``serving.launch`` (one segment's host pass, with its ``segment``),
+``serving.admit`` (one admission of ``step()``, with its ``rid``),
+``serving.fetch`` (the classes' copy to the host) and ``serving.expand``
+(one request's waveform from its classes, with its ``rid``).
+
 Sampling noise differs from segment to segment: the launch of global
 segment k gets the seed ``segment_seed(seed, k)``.
 
@@ -30,7 +36,6 @@ per shard and segment (the JAX server's ``mesh=``; ``ContinuousBatcher``).
 """
 
 import contextlib
-import functools
 import heapq
 import time
 from collections import deque
@@ -58,6 +63,7 @@ from ..ops.ar_decode import (
     resolve_precision,
     segment_seed,
 )
+from ..utils.profiling import span
 
 __all__ = ["ContinuousBatcher", "compute_drain_schedule"]
 
@@ -128,16 +134,23 @@ def _to_host(classes: torch.Tensor) -> np.ndarray:
 
 
 class _Timeline:
-    """One drain's classes (steps, slots, sf * hop), fetched to the host
-    once: the shards' (steps, slots of the shard, sf * hop) side by side."""
+    """Classes (steps, slots, sf * hop) on the device, fetched to the host
+    once: the shards' (steps, slots of the shard, sf * hop) side by side
+    (one drain's), or one finished request's (1, 1, samples)."""
 
     def __init__(self, classes: List[torch.Tensor]):
         self._dev = classes
         self._host: Optional[np.ndarray] = None
 
-    def request(self, slot, s0, nseg, n, prefix: Optional[torch.Tensor]) -> np.ndarray:
+    def fetch(self) -> None:
+        """Copy the classes to the host (waits for the device), once."""
         if self._host is None:
-            self._host = np.concatenate([_to_host(c) for c in self._dev], axis=1)
+            with span("serving.fetch"):
+                self._host = np.concatenate([_to_host(c) for c in self._dev], axis=1)
+
+    def request(self, slot, s0, nseg, n, prefix: Optional[torch.Tensor]) -> np.ndarray:
+        """A request's classes: ``n`` from segment ``s0`` of ``slot``, after
+        ``prefix`` (on the device: what it decoded before the drain)."""
         out = self._host[s0 : s0 + nseg, slot].reshape(-1)[:n]
         return out if prefix is None else np.concatenate([_to_host(prefix), out])
 
@@ -253,12 +266,16 @@ class ContinuousBatcher:
                                        self._hop, self._n_classes, n_shards > 1))
         self._slot_meta = [_Slot() for _ in range(slots)]
         self._queue: Deque[tuple] = deque()
-        self._pending: Dict[int, functools.partial] = {}  # rid -> fetch of its classes
+        # rid -> (its timeline, where it lies there: request()'s arguments)
+        self._pending: Dict[int, tuple] = {}
         self._results: Dict[int, np.ndarray] = {}
         self._next_rid = 0
+        self._submitted: Dict[int, float] = {}  # rid -> host clock at submit, until admitted
         self._step_count = 0
         self._samples_out = 0
         self._dispatch_wall = 0.0
+        self._admitted = 0
+        self._queue_wait = 0.0
         # Expanded on the device, so that a host lookup gives the device's values.
         self._mulaw_table = _to_host(
             mulaw_decode(torch.arange(self._n_classes, device=self._device), self._n_classes)
@@ -279,6 +296,7 @@ class ContinuousBatcher:
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append((rid, z, int(speaker)))
+        self._submitted[rid] = time.perf_counter()
         return rid
 
     @torch.no_grad()
@@ -295,19 +313,21 @@ class ContinuousBatcher:
         start = time.perf_counter()
         sf, hop = self._segment_frames, self._hop
         classes = []
-        for shard in self._shards:
-            with shard.launching():
-                seg = self._gather(
-                    [(shard.pool, i) for i in range(shard.n)],
-                    [s.pos_frames for s in self._slot_meta[shard.first: shard.first + shard.n]],
-                )
-                out, shard.state = fused_ar_decode_segment(
-                    shard.weights, seg, shard.state, self._launch_seed(self._step_count, shard),
-                    hop, self._greedy,
-                )
-                classes.append(out)
-        for shard in self._shards:
-            shard.join()
+        with span("serving.launch", segment=self._step_count):
+            for shard in self._shards:
+                with shard.launching():
+                    seg = self._gather(
+                        [(shard.pool, i) for i in range(shard.n)],
+                        [s.pos_frames
+                         for s in self._slot_meta[shard.first: shard.first + shard.n]],
+                    )
+                    out, shard.state = fused_ar_decode_segment(
+                        shard.weights, seg, shard.state,
+                        self._launch_seed(self._step_count, shard), hop, self._greedy,
+                    )
+                    classes.append(out)
+            for shard in self._shards:
+                shard.join()
         self._step_count += 1
         finished: List[int] = []
         for i in live:
@@ -319,8 +339,9 @@ class ContinuousBatcher:
             slot.pos_frames += sf
             if slot.pos_frames >= slot.total_frames:
                 n = slot.total_frames * hop
-                self._pending[slot.rid] = functools.partial(
-                    _to_host, shard.out_buf[row, :n].clone()
+                self._pending[slot.rid] = (
+                    _Timeline([shard.out_buf[row, :n].clone()[None, None]]),
+                    (0, 0, 1, n, None),
                 )
                 finished.append(slot.rid)
                 self._slot_meta[i] = _Slot()
@@ -330,7 +351,10 @@ class ContinuousBatcher:
     def result(self, rid: int) -> np.ndarray:
         """A finished stream's float32 waveform (waits for the device)."""
         if rid in self._pending:
-            self._results[rid] = self._mulaw_table[self._pending.pop(rid)()]
+            timeline, where = self._pending.pop(rid)
+            timeline.fetch()
+            with span("serving.expand", rid=rid):
+                self._results[rid] = self._mulaw_table[timeline.request(*where)]
         return self._results[rid]
 
     def run(self, materialize: bool = True, wait: bool = True) -> Dict[int, np.ndarray]:
@@ -349,10 +373,18 @@ class ContinuousBatcher:
 
     @property
     def stats(self) -> Dict[str, float]:
+        """Counters since the server was made, each a sum, so that two
+        snapshots subtract: ``steps`` (segments launched), ``samples_out``
+        (requests' samples decoded), ``dispatch_wall_s`` (host seconds in
+        ``step()`` and the planned drain), ``admitted`` (requests taken from
+        the queue: into a slot by ``step()``, into the plan by ``run()``)
+        and ``queue_wait_s`` (their host seconds from ``submit``)."""
         return {
             "samples_out": float(self._samples_out),
             "dispatch_wall_s": self._dispatch_wall,
             "steps": float(self._step_count),
+            "admitted": float(self._admitted),
+            "queue_wait_s": self._queue_wait,
         }
 
     # ------------------------------------------------------------ internals
@@ -376,18 +408,26 @@ class ContinuousBatcher:
         """Codes -> staging rows (G, 2 max_codes + pad, 3H) bf16 on the first
         device; the width is a multiple of the segment, so every window of a
         valid row fits."""
-        z = torch.from_numpy(zs).to(self._device)
-        spk = torch.from_numpy(speakers).to(self._device)
-        if n_frames is None:
-            cond = build_conditioning_frames(self._vocoder, z, spk)
-        else:
-            nf = torch.from_numpy(n_frames).to(self._device)
-            cond = build_conditioning_frames_ragged(
-                self._vocoder, z, spk, nf, use_kernel=True
-            ).float()
-        rows = project_cond_frames(self._weights, cond)
-        pad = -rows.shape[1] % self._segment_frames
-        return torch.nn.functional.pad(rows, (0, 0, 0, pad))
+        with span("serving.condition"):
+            z = torch.from_numpy(zs).to(self._device)
+            spk = torch.from_numpy(speakers).to(self._device)
+            if n_frames is None:
+                cond = build_conditioning_frames(self._vocoder, z, spk)
+            else:
+                nf = torch.from_numpy(n_frames).to(self._device)
+                cond = build_conditioning_frames_ragged(
+                    self._vocoder, z, spk, nf, use_kernel=True
+                ).float()
+            rows = project_cond_frames(self._weights, cond)
+            pad = -rows.shape[1] % self._segment_frames
+            return torch.nn.functional.pad(rows, (0, 0, 0, pad))
+
+    def _admitted_now(self, rids) -> None:
+        """Count ``rids`` as taken from the queue, with their waits."""
+        now = time.perf_counter()
+        for rid in rids:
+            self._queue_wait += now - self._submitted.pop(rid)
+            self._admitted += 1
 
     def _admit(self) -> None:
         n_mid = self._n_classes // 2
@@ -395,13 +435,15 @@ class ContinuousBatcher:
             if slot.rid is not None or not self._queue:
                 continue
             rid, z, speaker = self._queue.popleft()
-            shard, row = self._shard_of(i)
-            cond = self._condition(z[None], np.asarray([speaker]))[0, : 2 * z.shape[0]]
-            shard.pool[row].zero_()
-            shard.pool[row, : cond.shape[0]] = cond.to(shard.device)
-            shard.state.h[row] = 0.0
-            shard.state.prev[row] = n_mid
-            self._slot_meta[i] = _Slot(rid=rid, pos_frames=0, total_frames=2 * z.shape[0])
+            with span("serving.admit", rid=rid):
+                self._admitted_now([rid])
+                shard, row = self._shard_of(i)
+                cond = self._condition(z[None], np.asarray([speaker]))[0, : 2 * z.shape[0]]
+                shard.pool[row].zero_()
+                shard.pool[row, : cond.shape[0]] = cond.to(shard.device)
+                shard.state.h[row] = 0.0
+                shard.state.prev[row] = n_mid
+                self._slot_meta[i] = _Slot(rid=rid, pos_frames=0, total_frames=2 * z.shape[0])
 
     @torch.no_grad()
     def _drain_planned(self, wait: bool) -> None:
@@ -414,6 +456,7 @@ class ContinuousBatcher:
         ]
         new_reqs = list(self._queue)
         self._queue.clear()
+        self._admitted_now([rid for rid, _z, _s in new_reqs])
 
         # Staging rows: the slots in flight (rows 0..slots-1, in their
         # shards' pools), then the conditioning of every new request.
@@ -482,23 +525,25 @@ class ContinuousBatcher:
         n_mid = self._n_classes // 2
         outs: List[List[torch.Tensor]] = [[] for _ in self._shards]
         for k in range(rows_t.shape[0]):
-            for shard in self._shards:
-                cols = slice(shard.first, shard.first + shard.n)
-                with shard.launching():
-                    h, prev = shard.state
-                    for row in np.flatnonzero(fresh_t[k, cols]):
-                        h[row] = 0.0
-                        prev[row] = n_mid
-                    # Idle slots (row -1) decode their own pool's row 0;
-                    # nothing reads their samples.
-                    rows = [(on(row_loc[r][0], shard.device), row_loc[r][1]) if r >= 0
-                            else (shard.pool, 0) for r in rows_t[k, cols]]
-                    seg = self._gather(rows, pos_t[k, cols].tolist())
-                    classes, shard.state = fused_ar_decode_segment(
-                        shard.weights, seg, DecodeState(h, prev),
-                        self._launch_seed(self._step_count + k, shard), hop, self._greedy,
-                    )
-                    outs[shard.index].append(classes)
+            with span("serving.launch", segment=self._step_count + k):
+                for shard in self._shards:
+                    cols = slice(shard.first, shard.first + shard.n)
+                    with shard.launching():
+                        h, prev = shard.state
+                        for row in np.flatnonzero(fresh_t[k, cols]):
+                            h[row] = 0.0
+                            prev[row] = n_mid
+                        # Idle slots (row -1) decode their own pool's row 0;
+                        # nothing reads their samples.
+                        rows = [(on(row_loc[r][0], shard.device), row_loc[r][1]) if r >= 0
+                                else (shard.pool, 0) for r in rows_t[k, cols]]
+                        seg = self._gather(rows, pos_t[k, cols].tolist())
+                        classes, shard.state = fused_ar_decode_segment(
+                            shard.weights, seg, DecodeState(h, prev),
+                            self._launch_seed(self._step_count + k, shard), hop,
+                            self._greedy,
+                        )
+                        outs[shard.index].append(classes)
         for shard in self._shards:
             shard.join()
 
@@ -508,8 +553,8 @@ class ContinuousBatcher:
                 pos0 = rid_pos0[rid]
                 shard, row = self._shard_of(slot)
                 prefix = shard.out_buf[row, : pos0 * hop].clone() if pos0 else None
-                self._pending[rid] = functools.partial(
-                    timeline.request, slot, s0, nseg, (rid_total[rid] - pos0) * hop, prefix
+                self._pending[rid] = (
+                    timeline, (slot, s0, nseg, (rid_total[rid] - pos0) * hop, prefix)
                 )
         if wait:
             for d in {shard.device for shard in self._shards if shard.device.type == "cuda"}:

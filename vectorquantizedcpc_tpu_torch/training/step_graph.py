@@ -38,6 +38,9 @@ step's few hundred kernels.
   communicators before the capture. A gloo group's collectives run on the
   host and cannot be captured: on a card ``step`` raises, and a caller
   that wants eager steps calls the trainer's ``train_step``.
+- Spans (``utils/profiling.py``): ``step.stage``, a group's copy to the
+  device (:func:`stage`), and ``step.dispatch``, one :meth:`StepGraph.step`
+  on any of its paths (eager, capture, replay).
 """
 
 import gc
@@ -47,6 +50,8 @@ from typing import Callable, Dict, List, NamedTuple, Sequence, Union
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils.profiling import span
 
 WARMUP_STEPS = 2  # eager steps of each input shape before its capture
 COUNTED_MODULES = ("ar_decode", "cpc_select", "gru_train", "lstm_scan")
@@ -112,13 +117,14 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
 def stage(batches: Sequence[np.ndarray], device: Union[str, torch.device]) -> torch.Tensor:
     """A group's batches stacked (G, ...) on ``device`` in one copy: to a
     card from pinned memory, without waiting for it."""
-    if torch.device(device).type != "cuda":
-        return torch.from_numpy(np.stack(batches))
-    first = np.asarray(batches[0])
-    host = torch.empty((len(batches),) + first.shape, dtype=torch.from_numpy(first).dtype,
-                       pin_memory=True)
-    np.stack(batches, out=host.numpy())
-    return host.to(device, non_blocking=True)
+    with span("step.stage"):
+        if torch.device(device).type != "cuda":
+            return torch.from_numpy(np.stack(batches))
+        first = np.asarray(batches[0])
+        host = torch.empty((len(batches),) + first.shape, dtype=torch.from_numpy(first).dtype,
+                           pin_memory=True)
+        np.stack(batches, out=host.numpy())
+        return host.to(device, non_blocking=True)
 
 
 class _Graph(NamedTuple):
@@ -153,6 +159,10 @@ class StepGraph:
     def step(self, inputs: Sequence[torch.Tensor], lr: float) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``inputs`` (tensors on the step's device) at
         ``lr``; returns the step's metrics as tensors there, without waiting."""
+        with span("step.dispatch"):
+            return self._step(inputs, lr)
+
+    def _step(self, inputs, lr: float) -> Dict[str, torch.Tensor]:
         set_lr(self.optimizer, lr)
         if self.device.type != "cuda":
             self.eager_steps += 1

@@ -35,8 +35,10 @@ The JAX package's ``training/vocoder.py`` on PyTorch:
 device in one copy, with one learning rate per step; checkpoint and
 preemption checks follow each group, as the JAX trainer's dispatch groups;
 ``max_steps`` stops at exactly that step; ``runtime.profile_dir`` traces the
-groups from 3 steps after the start to 6 steps after it, once. Validation
-decodes run outside the graph.
+groups from 3 steps after the start to 6 steps after it, once;
+``training_vocoder.trainer.profiler`` reports the loop's host seconds in the
+loader's ``data.wait`` and in ``step.stage`` + ``step.dispatch`` (spans of
+``utils/profiling.py``). Validation decodes run outside the graph.
 
 Data parallel (``runtime.mesh_data`` ranks, ``parallel/``): every rank
 builds the same global batch and keeps its rows ``[r B / W, (r + 1) B /
@@ -79,7 +81,7 @@ from ..parallel.tensor import (ModelGroup, all_reduce_model, gather_module_state
                                gather_optimizer_state, model_dim, shard_module_,
                                shard_optimizer_state, shard_state,
                                vocab_parallel_cross_entropy)
-from ..utils.profiling import device_time, trace
+from ..utils.profiling import device_time, totals, trace
 from ..weights import vocoder_train_state_from_jax
 from .checkpoint import (AsyncCheckpointer, checkpoint_format, latest_checkpoint,
                          load_checkpoint, read_jax_checkpoint, save_checkpoint)
@@ -362,7 +364,9 @@ def train_vocoder(
     ckpt_writer = AsyncCheckpointer(active=main)
     install_preemption_handler()
     preempted = False
-    prof = {"data_wait_s": 0.0, "train_dispatch_s": 0.0, "n_steps": 0}
+    # The profiler report's rows: the spans' totals since here
+    # (``data.wait``; ``step.stage`` and ``step.dispatch``) over the steps.
+    spans_before, n_steps = totals(), 0
     # One traced window of groups, from 3 steps after the start (past the
     # warm-up and the capture) to 6 after it, as JAX's.
     profile_dir = conf.runtime.profile_dir
@@ -384,22 +388,18 @@ def train_vocoder(
         if done():
             break
         loader.set_epoch(epoch)
-        t_iter = time.time()
         for group in _grouped(loader, spd):
-            prof["data_wait_s"] += time.time() - t_iter
             if max_steps is not None:
                 group = group[: max_steps - trainer.step]
             if profile_dir and not profiled and trainer.step >= profile_start:
                 window_prof = window.enter_context(trace(profile_dir, device))
                 profiled = True
-            t_step = time.time()
             lrs = [schedule(trainer.step + j) for j in range(len(group))]
             audio, mel, spk = (stage([shard_batch(b[i], mesh) for b in group], device)
                                for i in range(3))
             pending.append(trainer.train_steps(audio, mel, spk, lrs)["loss"])
             n_pending += len(group)
-            prof["n_steps"] += len(group)
-            prof["train_dispatch_s"] += time.time() - t_step
+            n_steps += len(group)
             if window_prof is not None:
                 window_steps += len(group)
                 if trainer.step >= profile_start + 3:
@@ -427,7 +427,6 @@ def train_vocoder(
                 break
             if done():
                 break
-            t_iter = time.time()
         trainer.epoch = epoch
         if preempted:
             log(f"Preempted: saving model.ckpt-{trainer.step}.pt; rerun the same command "
@@ -440,16 +439,22 @@ def train_vocoder(
     close_window()  # a run that ended inside the window
 
     _fetch(trainer, pending)
-    if tv.trainer.profiler is not None and prof["n_steps"]:
-        n = prof["n_steps"]
+    if tv.trainer.profiler is not None and n_steps:
+        spans = totals()
+
+        def seconds(*names):
+            return sum(spans.get(k, (0, 0.0))[1] - spans_before.get(k, (0, 0.0))[1]
+                       for k in names)
+
+        data_wait, dispatch = seconds("data.wait"), seconds("step.stage", "step.dispatch")
         log(
             "Profiler report ({}):\n"
             "  action           total_s    mean_ms    steps\n"
             "  data_wait      {:9.3f}  {:9.3f}  {:7d}\n"
             "  train_dispatch {:9.3f}  {:9.3f}  {:7d}".format(
                 tv.trainer.profiler,
-                prof["data_wait_s"], 1e3 * prof["data_wait_s"] / n, n,
-                prof["train_dispatch_s"], 1e3 * prof["train_dispatch_s"] / n, n,
+                data_wait, 1e3 * data_wait / n_steps, n_steps,
+                dispatch, 1e3 * dispatch / n_steps, n_steps,
             )
         )
     ckpt_writer.wait()
