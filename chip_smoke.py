@@ -196,7 +196,7 @@ TIME_FRAMES = 100  # phase_time's decode: 100 frames (1 s of audio)
 SERVE_SLOTS = (8, 32, 64)  # the JAX bench serves this mix at 32 and 64 (bench.py:530,716)
 # The AR decode's comparisons by mode, and the batches its step is timed at
 # (both modes; the table that "auto" interpolates, ops/ar_decode.py:_STEP_US).
-COMPARE_BATCHES = {"bf16": (1, 3, 8, 32, 64), "int8": (1, 3, 8, 32, 64, 128)}
+COMPARE_BATCHES = {"bf16": (1, 3, 8, 32, 64, 128), "int8": (1, 3, 8, 32, 64, 128)}
 TIME_BATCHES = (1, 8, 32, 64, 128)
 # LSTM scans, kernel against plain version: the reasoning of MAX_GRU_ERR.
 MAX_LSTM_ERR = 1e-2
@@ -1080,7 +1080,7 @@ def phase_time(seed: int, card: str):
     return timing, ms_by_batch
 
 
-STAMP_BATCHES = (1, 8, 64)
+STAMP_BATCHES = (1, 8, 64, 128)
 STAMP_FRAMES = 8  # 1,280 steps per stamped launch
 
 
@@ -1088,8 +1088,8 @@ def phase_stamps(seed: int, card: str) -> dict:
     """The AR step's split by phase, from the kernel variant that stamps
     clock64 per phase on block 0 and the grid's last block
     (``ar_decode_stamped``, reached from nothing but this phase), in both
-    modes at B 1, 8 and 64; ``summarize_stamps`` turns the buffer into
-    microseconds per step. Returns {mode: {B: split}}."""
+    modes at B 1, 8, 64 and 128 (the serving shape); ``summarize_stamps``
+    turns the buffer into microseconds per step. Returns {mode: {B: split}}."""
     from vectorquantizedcpc_tpu_torch.configs import load_conf
     from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar

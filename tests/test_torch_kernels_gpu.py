@@ -203,13 +203,14 @@ def _decode_case(rng, batch, hidden, n_classes, frames, device):
     return cond_proj, h0, prev0
 
 
-@pytest.mark.parametrize("batch", [1, 7, 8, 9, 127, 128])
+@pytest.mark.parametrize("batch", [1, 7, 8, 9, 65, 100, 127, 128])
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
 def test_ar_decode_tile_edges_match_plain(cuda, batch, mode):
-    """Batches at the edges of the 8-row N tiles and of the two sampling
+    """Batches at the edges of the 8-row N tiles, of the two sampling
     layouts (up to 8 rows every block samples every row; above, block g
-    samples rows g, g + G, ...), at the reference widths, sampled, under
-    the prefix rule."""
+    samples rows g, g + G, ...) and of the product's two-tile passes (above
+    8 tiles: at 65 rows one warp pairs a full tile with a one-row tile), at
+    the reference widths, sampled, under the prefix rule."""
     from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
 
     rng = np.random.default_rng(batch + 7)
@@ -228,6 +229,26 @@ def test_ar_decode_tile_edges_match_plain(cuda, batch, mode):
             assert scores[t0, r].max() - scores[t0, r, out[t0, r]] <= 0.05
         else:
             assert float((h_t[r] - ref_h[r]).abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_ar_decode_two_tile_pass_gives_each_row_its_own_bits(cuda, mode):
+    """Above 8 row tiles a warp takes two tiles in one pass. Each row's sums
+    keep the order they have where a warp takes one tile (B 64), so a greedy
+    decode of 128 rows gives, row for row, the classes and h_T of two
+    launches of 64 rows, bit for bit."""
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+
+    rng = np.random.default_rng(64)
+    w = _weights(rng, 896, 256, 256, cuda)
+    w = _int8(w) if mode == "int8" else w
+    cond_proj, h0, prev0 = _decode_case(rng, 128, 896, 256, 1, cuda)
+    out, h_t = ar.ar_decode(cond_proj, h0, prev0, w, 160, seed=2, greedy=True)
+    for rows in (slice(0, 64), slice(64, 128)):
+        half, h_half = ar.ar_decode(cond_proj[:, rows].contiguous(), h0[rows].contiguous(),
+                                    prev0[rows].contiguous(), w, 160, seed=2, greedy=True)
+        assert torch.equal(out[:, rows], half)
+        assert torch.equal(h_t[rows], h_half)
 
 
 @pytest.mark.parametrize("batch", [8, 12])

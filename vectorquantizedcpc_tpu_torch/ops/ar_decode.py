@@ -82,10 +82,12 @@ _FLOAT_SPELLINGS = ("bfloat16", "bf16", "float32", "f32", "fp32")
 # Per-step kernel time (us/step) of each mode at the measured batches, the
 # table "auto" interpolates: chip_smoke.py phase 5 (100 frames = 16,000
 # steps per launch) on one NVIDIA H100 80GB HBM3 at a 700.00 W power limit
-# (PERF.md section 5). bf16 is the faster mode up to 9 rows, int8 from 10.
+# (PERF.md section 5); the 128-row entries from a run after the product's
+# two-tile pass, which moves only batches above 64. bf16 is the faster mode
+# up to 9 rows, int8 from 10.
 _STEP_US = {
-    "bf16": [(1, 7.041), (8, 7.909), (32, 10.873), (64, 13.031), (128, 18.67)],
-    "int8": [(1, 7.12), (8, 7.98), (32, 9.794), (64, 10.577), (128, 14.312)],
+    "bf16": [(1, 7.041), (8, 7.909), (32, 10.873), (64, 13.031), (128, 14.545)],
+    "int8": [(1, 7.12), (8, 7.98), (32, 9.794), (64, 10.577), (128, 11.789)],
 }
 
 STEP_US_CAPTURE_NAME = "BENCH_STEP_US.json"

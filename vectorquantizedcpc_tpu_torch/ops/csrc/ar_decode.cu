@@ -40,6 +40,8 @@
 //     mma.sync.m16n8k16 bf16 / m16n8k32 s8 (exact int32), the batch as N
 //     in tiles of 8 rows, the K range split over the warps where there are
 //     fewer tiles than warps, the warps' parts added in a fixed order;
+//     where there are more, a warp takes two tiles in one pass, so that
+//     each A fragment it reads from shared memory feeds both;
 //   - after the barrier that publishes FC1, FC2 (bf16, A fragments of
 //     fc2^T in shared memory, the sampled FC1 rows staged once per block)
 //     and the argmax / Gumbel sample: at B <= 8 every block computes them
@@ -445,63 +447,95 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
       a.hid_buf[(size_t)b * FK + col] = __float2bfloat16(fmaxf(v + fc1b_s[m - n_cols], 0.f));
     }
   };
-  // The product of the A rows with the h rows of slot ``slot``: hproj of
-  // the next step into hp_s and, where ``fc1``, FC1 into hid_buf.
-  auto product = [&](int slot, bool fc1) {
-    const unsigned char* xs = a.x_buf + (size_t)slot * B * rb;
-    for (int task = warp; task < tasks; task += kWarps) {
-      const int tile = task / kparts, kp = task % kparts;
-      const int kb_lo = kp * kb_count / kparts, kb_hi = (kp + 1) * kb_count / kparts;
-      const int n = tile * kTile + g;
-      const uint4* brow = reinterpret_cast<const uint4*>(xs + (size_t)n * rb) + q;
-      float c[kMaxMt][2][4];
+  // One warp's pass over the K range for ``NT`` row tiles at once: tile
+  // ``task / kparts`` and, for NT 2, the tile kWarps further on. Each A
+  // fragment is read from shared memory once for all NT tiles; each tile's
+  // sums take the same order as alone.
+  auto tile_pass = [&](auto nt, const unsigned char* xs, int task, bool fc1) {
+    constexpr int NT = decltype(nt)::value;
+    const int kp = task % kparts;
+    const int kb_lo = kp * kb_count / kparts, kb_hi = (kp + 1) * kb_count / kparts;
+    int tile[NT];
+    const uint4* brow[NT];
+    bool live[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      tile[j] = task / kparts + j * kWarps;
+      const int n = tile[j] * kTile + g;
+      live[j] = n < B;
+      brow[j] = reinterpret_cast<const uint4*>(xs + (size_t)n * rb) + q;
+    }
+    float c[NT][kMaxMt][2][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int mt = 0; mt < kMaxMt; ++mt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) c[mt][0][e] = c[mt][1][e] = 0.f;
-      // kLoads K blocks of h in flight at once, then their mma steps.
-      for (int kb0 = kb_lo; kb0 < kb_hi; kb0 += kLoads) {
-        uint4 bv[kLoads];
+        for (int e = 0; e < 4; ++e) c[j][mt][0][e] = c[j][mt][1][e] = 0.f;
+    // kLoads K blocks of h per tile in flight at once, then their mma steps.
+    for (int kb0 = kb_lo; kb0 < kb_hi; kb0 += kLoads) {
+      uint4 bv[NT][kLoads];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int i = 0; i < kLoads; ++i)
-          bv[i] = n < B && kb0 + i < kb_hi ? __ldcg(brow + (kb0 + i) * 4) : make_uint4(0, 0, 0, 0);
+          bv[j][i] = live[j] && kb0 + i < kb_hi ? __ldcg(brow[j] + (kb0 + i) * 4)
+                                                 : make_uint4(0, 0, 0, 0);
 #pragma unroll
-        for (int i = 0; i < kLoads; ++i) {
-          const int kb = kb0 + i;
+      for (int i = 0; i < kLoads; ++i) {
+        const int kb = kb0 + i;
 #pragma unroll
-          for (int mt = 0; mt < kMaxMt; ++mt) {
-            if (mt < mts && kb < kb_hi) {
-              const int r0 = min(mt * 16 + g, m_rows), r1 = min(mt * 16 + g + 8, m_rows);
-              const uint4 lo = *reinterpret_cast<const uint4*>(w_s + (size_t)r0 * stride +
-                                                               kb * kKBlock + q * 16);
-              const uint4 hi = *reinterpret_cast<const uint4*>(w_s + (size_t)r1 * stride +
-                                                               kb * kKBlock + q * 16);
-              mma_block<kInt8>(c[mt][0], c[mt][1], lo, hi, bv[i]);
-            }
+        for (int mt = 0; mt < kMaxMt; ++mt) {
+          if (mt < mts && kb < kb_hi) {
+            const int r0 = min(mt * 16 + g, m_rows), r1 = min(mt * 16 + g + 8, m_rows);
+            const uint4 lo = *reinterpret_cast<const uint4*>(w_s + (size_t)r0 * stride +
+                                                             kb * kKBlock + q * 16);
+            const uint4 hi = *reinterpret_cast<const uint4*>(w_s + (size_t)r1 * stride +
+                                                             kb * kKBlock + q * 16);
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              mma_block<kInt8>(c[j][mt][0], c[j][mt][1], lo, hi, bv[j][i]);
           }
         }
       }
-      if (kparts == 1) {  // a warp per row tile: its sums are final
+    }
+    if (kparts == 1) {  // whole K ranges: the sums are final
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int mt = 0; mt < kMaxMt; ++mt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int m = mt * 16 + g + 8 * (e >> 1), b = tile * kTile + 2 * q + (e & 1);
+            const int m = mt * 16 + g + 8 * (e >> 1), b = tile[j] * kTile + 2 * q + (e & 1);
             if (mt < mts && m < m_rows && b < B && (fc1 || m < n_cols))
-              emit(b, m, add_chains<kInt8>(c[mt][0][e], c[mt][1][e]));
+              emit(b, m, add_chains<kInt8>(c[j][mt][0][e], c[j][mt][1][e]));
           }
-        continue;
-      }
+      return;
+    }
 #pragma unroll
-      for (int mt = 0; mt < kMaxMt; ++mt)
-        if (mt < mts) {
-          float4 v;
-          v.x = add_chains<kInt8>(c[mt][0][0], c[mt][1][0]);
-          v.y = add_chains<kInt8>(c[mt][0][1], c[mt][1][1]);
-          v.z = add_chains<kInt8>(c[mt][0][2], c[mt][1][2]);
-          v.w = add_chains<kInt8>(c[mt][0][3], c[mt][1][3]);
-          reinterpret_cast<float4*>(part_s)[(task * mts + mt) * 32 + lane] = v;
-        }
+    for (int mt = 0; mt < kMaxMt; ++mt)
+      if (mt < mts) {
+        float4 v;
+        v.x = add_chains<kInt8>(c[0][mt][0][0], c[0][mt][1][0]);
+        v.y = add_chains<kInt8>(c[0][mt][0][1], c[0][mt][1][1]);
+        v.z = add_chains<kInt8>(c[0][mt][0][2], c[0][mt][1][2]);
+        v.w = add_chains<kInt8>(c[0][mt][0][3], c[0][mt][1][3]);
+        reinterpret_cast<float4*>(part_s)[(task * mts + mt) * 32 + lane] = v;
+      }
+  };
+  // The product of the A rows with the h rows of slot ``slot``: hproj of
+  // the next step into hp_s and, where ``fc1``, FC1 into hid_buf. Above
+  // kWarps row tiles (B > 64) a warp takes tiles w and w + kWarps in one
+  // pass, which halves the block's reads of A from shared memory.
+  auto product = [&](int slot, bool fc1) {
+    const unsigned char* xs = a.x_buf + (size_t)slot * B * rb;
+    for (int task = warp; task < tasks; task += kWarps) {
+      if (kparts == 1 && task + kWarps < tasks) {
+        tile_pass(std::integral_constant<int, 2>(), xs, task, fc1);
+        task += kWarps;
+      } else {
+        tile_pass(std::integral_constant<int, 1>(), xs, task, fc1);
+      }
     }
     __syncthreads();
     if constexpr (kStamps) st.mark(kProduct);
