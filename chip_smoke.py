@@ -22,7 +22,10 @@ Phases (any failure ends the run with a non-zero exit):
    (K chunks), with autograd; the GRU scan's grid kernels (training forward, backward,
    and autograd through them) at the vocoder's T 5,120, B 32 and 16 (a
    rank's share at mesh_data 2), H 896, and at B 3, T 1, H 200 and H 2,500 (K chunks), the no-grad forward's bits equal
-   to the training forward's;
+   to the training forward's; the dual softmax head's decode
+   (``ops/dual_decode.py``, ``rnnms.output=dual16``) greedy and sampled at
+   B in {1, 8, 64, 128}, its stamped variant's bits, and 4 chained
+   segments;
 4. convert 8 synthetic wavs end to end through the CLI entry point, on
    full-width random weights saved as reference-format checkpoints, at
    ``runtime.precision`` bfloat16, int8 and auto, and check the wavs and
@@ -175,6 +178,13 @@ PEAK_BYTES = 3.35e12
 # Prefix rule: where kernel and plain version first pick different classes,
 # the plain version's score gap to the kernel's class is at most this.
 MAX_GAP = 0.05
+# The dual head's decode, kernel against plain version, by the same bounds:
+# each of its products is one of the bf16 products above (448 deep, summed
+# in f32 in another order: the kernel adds the coarse and the fine K halves
+# of R h apart), and each draw an argmax of 256 scores, so a divergence is a
+# near tie of the plain version's scores of the byte that differs (MAX_GAP)
+# and the final h of a row that never diverged is within MAX_H_ERR.
+DUAL_BATCHES = (1, 8, 64, 128)
 # Final-h bound while no sample diverged: the two sum the 896-deep products
 # in different orders (~1e-6 relative in f32); when that moves an h element
 # across a bf16 rounding boundary the next step's product moves by one bf16
@@ -429,6 +439,81 @@ def phase_compare(seed: int, card: str, precision: str = "bf16") -> dict:
     )
     chain_h = _compare_chain(w, net, rng, seed, card)
     return {"max_abs_err": max(worst_h, chain_h)}
+
+
+def phase_compare_dual(seed: int, card: str) -> dict:
+    """The dual head's kernel against its plain version at the default
+    widths (H 896, halves of 448, 256 classes a head), 8 frames (1,280
+    steps) at B in DUAL_BATCHES, greedy and sampled; the stamped variant
+    must give the plain launch's bits; 4 chained greedy segments must give
+    one launch's. Returns the worst numbers."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+    from vectorquantizedcpc_tpu_torch.ops import dual_decode as dd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = load_conf(["training_vocoder.model.network.rnnms.output=dual16"]
+                    ).training_vocoder.model.network
+    torch.manual_seed(seed)
+    vocoder = Vocoder(net)
+    with torch.no_grad():  # scores with a clear maximum, as a trained head's
+        vocoder.rnnms.o2.weight.mul_(8.0)
+        vocoder.rnnms.o4.weight.mul_(8.0)
+    vocoder = vocoder.cuda().eval()
+    w = dd.prep_dual_weights(vocoder)
+    hop, hidden = net.rnnms.upsampling_t, net.rnnms.wave_ar.size_h_rnn
+    rng = np.random.default_rng(seed)
+    frames = 8
+    worst_h, worst_gap, n_div = 0.0, 0.0, 0
+    for batch in DUAL_BATCHES:
+        cond = torch.from_numpy(
+            rng.uniform(-1, 1, size=(batch, frames, net.rnnms.dim_voc_latent)).astype(np.float32)
+        ).cuda()
+        cond_proj = ar.project_cond_frames(w, cond).transpose(0, 1).contiguous()
+        state = dd.init_dual_state(batch, hidden, cond.device)
+        for greedy in (True, False):
+            out_k, st_k = dd.dual_decode(cond_proj, state, w, hop, seed=seed + batch,
+                                         greedy=greedy)
+            torch.cuda.synchronize()
+            out_r, st_r, scores = dd.dual_decode_reference(
+                cond_proj, state, w, hop, seed=seed + batch, greedy=greedy, return_scores=True)
+            out_k, out_r = out_k.cpu().numpy(), out_r.cpu().numpy()
+            scores = scores.cpu().numpy()
+            check(out_k.min() >= 0 and out_k.max() < 65536, "dual kernel sample out of range")
+            div = first_divergence(out_k, out_r)
+            for r, t0 in enumerate(div):
+                if t0 is None:
+                    err = float((st_k.h[r] - st_r.h[r]).abs().max())
+                    check(err <= MAX_H_ERR, f"dual B={batch} row {r}: final h differs by {err}")
+                    worst_h = max(worst_h, err)
+                    continue
+                n_div += 1
+                c, f = divmod(int(out_k[t0, r]), 256)
+                sc = scores[t0, r]
+                gap = (sc[:256].max() - sc[c] if c != out_r[t0, r] // 256
+                       else sc[256:].max() - sc[256 + f])
+                check(gap <= MAX_GAP, f"dual B={batch} row {r} step {t0}: gap {gap} > {MAX_GAP}")
+                worst_gap = max(worst_gap, float(gap))
+            if not greedy:
+                out_s, _, _ = dd.dual_decode_stamped(cond_proj, state, w, hop, seed=seed + batch)
+                check(np.array_equal(out_s.cpu().numpy(), out_k),
+                      f"dual B={batch}: the stamped variant gave other samples")
+            print(f"compare dual16 B={batch} {'greedy ' if greedy else 'sampled'} "
+                  f"steps={frames * hop}: first divergence per row {div}, same samples "
+                  f"{float(np.mean(out_k == out_r)):.6f}  [{card}]")
+        one, _ = dd.dual_decode(cond_proj, state, w, hop, greedy=True)
+        chained, st = [], state
+        for k in range(0, frames, 2):
+            seg, st = dd.fused_dual_decode_segment(w, cond_proj[k:k + 2].transpose(0, 1), st,
+                                                   seed, hop, greedy=True)
+            chained.append(seg)
+        check(torch.equal(torch.cat(chained, 1), one.t()),
+              f"dual B={batch}: 4 chained segments differ from one launch")
+    print(f"compare dual16: final-h max abs diff {worst_h:.3e} (bound {MAX_H_ERR}) over rows "
+          f"that never diverged; {n_div} rows diverged, worst gap {worst_gap:.3e} "
+          f"(bound {MAX_GAP}); stamped bits and 4 chained segments equal  [{card}]")
+    return {"max_abs_err": worst_h, "worst_gap": worst_gap}
 
 
 def _compare_chain(w, net, rng, seed: int, card: str) -> float:
@@ -824,6 +909,114 @@ def phase_serve(seed: int, card: str) -> dict:
             "requests": requests, "valid": valid, "vocoder": vocoder}
 
 
+def _dual_vocoder(seed: int):
+    """A full-width dual16 vocoder (H 896, halves of 448, 256 classes a
+    head) on the card, randomized as phase 4b's, its heads' second layers
+    8 times larger so that the scores have a clear maximum."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
+
+    net = load_conf(["training_vocoder.model.network.rnnms.output=dual16"]
+                    ).training_vocoder.model.network
+    vocoder = Vocoder(net)
+    randomize(vocoder, np.random.default_rng(seed + 4))
+    with torch.no_grad():
+        vocoder.rnnms.o2.weight.mul_(8.0)
+        vocoder.rnnms.o4.weight.mul_(8.0)
+    return net, vocoder.to(DEVICE).eval()
+
+
+def _check_pcm16(wave: np.ndarray, n: int, what: str) -> None:
+    """``wave`` holds ``n`` values, each a 16-bit sample's (256 c + f) / 32767.5 - 1 to 1e-6."""
+    from vectorquantizedcpc_tpu_torch.dsp.pcm16 import pcm16_to_float
+
+    check(wave.shape == (n,), f"{what}: wave of {wave.shape}, expected ({n},)")
+    v = np.rint((wave.astype(np.float64) + 1.0) * 32767.5)
+    check(bool(np.isfinite(wave).all()) and v.min() >= 0 and v.max() <= 65535,
+          f"{what}: values outside 16-bit PCM")
+    off = float(np.abs(pcm16_to_float(v.astype(np.int64)) - wave).max())
+    check(off <= 1e-6, f"{what}: a value {off} from its 16-bit sample's")
+
+
+def phase_serve_dual(seed: int, card: str, serve: dict) -> dict:
+    """The dual softmax head on the main serving path: phase 4b's 48
+    requests through ``ContinuousBatcher`` at 8 slots, bf16, sampled, the
+    counts zeroed just before and read just after. The planned drain takes
+    one dual decode launch a segment and no AR decode launch, the PreNet's
+    GRU kernels once each; every wave is 16-bit PCM of its length and
+    ``samples_out`` counts 16-bit samples; a second drain with the seed
+    gives the same waves; the same requests by ``step()`` take one launch
+    a step. Returns the launch counts."""
+    from vectorquantizedcpc_tpu_torch.infer.serving import ContinuousBatcher
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+    from vectorquantizedcpc_tpu_torch.ops import dual_decode as dd
+    from vectorquantizedcpc_tpu_torch.ops import gru_train as g
+
+    net, vocoder = _dual_vocoder(seed)
+    hop = net.rnnms.upsampling_t
+    requests, valid = serve["requests"], serve["valid"]
+
+    def server():
+        return ContinuousBatcher(vocoder, slots=8, segment_frames=4,
+                                 max_frames=2 * max(MIX_CODES) + 32, precision="bf16",
+                                 seed=seed, device=DEVICE)
+
+    def zero():
+        torch.cuda.synchronize()
+        dd.DUAL_DECODE_LAUNCHES = 0
+        ar.AR_DECODE_LAUNCHES = ar.AR_DECODE_INT8_LAUNCHES = ar.AR_DECODE_STAMPED_LAUNCHES = 0
+        g.GRU_SCAN_LAUNCHES = g.GRU_SCAN_MASKED_LAUNCHES = 0
+
+    def counts():
+        return {"dual_decode": dd.DUAL_DECODE_LAUNCHES,
+                "ar_decode": ar.AR_DECODE_LAUNCHES + ar.AR_DECODE_INT8_LAUNCHES
+                + ar.AR_DECODE_STAMPED_LAUNCHES,
+                "gru_scan": g.GRU_SCAN_LAUNCHES, "gru_scan_masked": g.GRU_SCAN_MASKED_LAUNCHES}
+
+    def drain(srv):
+        rids = [srv.submit(z, spk) for z, spk in requests]
+        waves = srv.run()
+        return [waves[r] for r in rids]
+
+    srv = server()
+    zero()
+    start = time.perf_counter()
+    waves = drain(srv)
+    seconds = time.perf_counter() - start
+    launches = counts()
+    steps = int(srv.stats["steps"])
+    check(len(waves) == 48, f"dual16: {len(waves)} of 48 requests returned")
+    for i, ((z, _spk), wave) in enumerate(zip(requests, waves)):
+        _check_pcm16(wave, 2 * len(z) * hop, f"dual16 request {i}")
+    check(srv.stats["samples_out"] == valid,
+          f"dual16: samples_out {srv.stats['samples_out']} != {valid}")
+    check(launches["dual_decode"] == steps > 0 and launches["ar_decode"] == 0,
+          f"dual16: launches {launches}, {steps} segment steps")
+    check(launches["gru_scan"] == 2 and launches["gru_scan_masked"] == 2,
+          f"dual16: GRU launches {launches}: expected 2 layers x 1 each")
+    again = drain(server())
+    check(all(np.array_equal(a, b) for a, b in zip(waves, again)),
+          "dual16: two drains with one seed gave different waves")
+
+    stepped = server()
+    rids = [stepped.submit(z, spk) for z, spk in requests]
+    zero()
+    done = []
+    while len(done) < len(rids):
+        done += stepped.step()
+    launches_step = dd.DUAL_DECODE_LAUNCHES
+    check(launches_step == int(stepped.stats["steps"]) > 0,
+          f"dual16 step(): {launches_step} launches, {stepped.stats['steps']} steps")
+    for i, ((z, _spk), rid) in enumerate(zip(requests, rids)):
+        _check_pcm16(stepped.result(rid), 2 * len(z) * hop, f"dual16 step() request {i}")
+    print(f"serve dual16 bf16 8 slots: 48 of 48 requests returned as 16-bit PCM, {valid} "
+          f"samples ({valid / 16000:.3f} s of audio) in {steps} segment steps, {seconds:.3f} s "
+          f"wall (first drain); launches {json.dumps(launches)}; a second drain gave the same "
+          f"waves; step() took {launches_step} launches for {int(stepped.stats['steps'])} "
+          f"steps  [{card}]")
+    return {"launches": launches, "launches_step": launches_step}
+
+
 def _speechlike_wave(n_samples: int, cat: int, spk: int, sr: int, rng) -> np.ndarray:
     """Segments of 40-150 ms, as syllables are: a fifth of them noise, the
     rest harmonics of a pitch around the category's (110 + 45 cat Hz, a
@@ -1078,6 +1271,51 @@ def phase_time(seed: int, card: str):
           f"{json.dumps({'device': torch.cuda.get_device_name(0), **step_us})}  [{card}]")
     timing["int8"].update(auto_pick_by_batch=picks, measured_auto_pick_by_batch=measured_picks)
     return timing, ms_by_batch
+
+
+def phase_time_dual(seed: int, card: str) -> dict:
+    """The dual decode at B in DUAL_BATCHES, 100 frames (1 s); kernel and
+    plain version at B = 8 with the bound: each input read once and each
+    output written once, the products at the bf16 tensor-core peak (the
+    byte and c_t columns are element-wise and left out)."""
+    from vectorquantizedcpc_tpu_torch.ops import ar_decode as ar
+    from vectorquantizedcpc_tpu_torch.ops import dual_decode as dd
+
+    net, vocoder = _dual_vocoder(seed + 2)
+    w = dd.prep_dual_weights(vocoder)
+    frames, hop = TIME_FRAMES, net.rnnms.upsampling_t
+    hidden, half = w.wh.shape[0], w.wh.shape[0] // 2
+    n_classes = w.o2_w.shape[1]
+    rng = np.random.default_rng(seed + 2)
+    cond = torch.from_numpy(
+        rng.uniform(-1, 1, size=(max(DUAL_BATCHES), frames, net.rnnms.dim_voc_latent))
+        .astype(np.float32)).cuda()
+    cond_all = ar.project_cond_frames(w, cond).transpose(0, 1).contiguous()
+    steps = frames * hop
+    ms_by_batch = {}
+    for batch in DUAL_BATCHES:
+        args = (cond_all[:, :batch].contiguous(), dd.init_dual_state(batch, hidden, cond.device))
+        ms = ms_by_batch[batch] = time_cuda(lambda: dd.dual_decode(*args, w, hop, seed=1), reps=3)
+        print(f"timing dual_decode B={batch} steps={steps}: kernel {ms:.3f} ms = "
+              f"{ms * 1e3 / steps:.3f} us/step, {batch * steps / (ms / 1e3):.1f} samples/s  "
+              f"[{card}]")
+    batch = 8
+    cond_proj, state = cond_all[:, :batch].contiguous(), dd.init_dual_state(batch, hidden,
+                                                                             cond.device)
+    plain_ms = time_cuda(lambda: dd.dual_decode_reference(cond_proj, state, w, hop, seed=1),
+                         reps=1)
+    ops = 2 * batch * steps * (hidden * 3 * hidden + 2 * (half * half + half * n_classes))
+    kernel_tensors = [t for name, t in w._asdict().items() if name not in ("wx_cond", "bx")]
+    n_bytes = sum(t.numel() * t.element_size() for t in kernel_tensors)
+    n_bytes += cond_proj.numel() * 2 + 2 * state.h.numel() * 4 + 2 * batch * 4 + steps * batch * 4
+    ops_ms, bytes_ms = ops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    bound, by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+    kernel_ms = ms_by_batch[batch]
+    print(f"timing dual_decode B={batch} steps={steps}: kernel {kernel_ms:.3f} ms; plain "
+          f"{plain_ms:.3f} ms; bound {bound * 1e3:.3f} us by {by} ({ops:.4g} operations, "
+          f"{n_bytes:.4g} B); bound / kernel = {bound / kernel_ms * 100:.4f} %  [{card}]")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "ms_by_batch": ms_by_batch}
 
 
 STAMP_BATCHES = (1, 8, 64, 128)
@@ -4179,6 +4417,7 @@ def main() -> int:
 
     # Phase 3: each kernel against its plain version.
     start = time.perf_counter()
+    compared_dual = phase_compare_dual(args.seed, card)
     compared = phase_compare(args.seed, card)
     compared_int8 = phase_compare(args.seed, card, "int8")
     compared_gru = phase_compare_gru(args.seed, card)
@@ -4195,6 +4434,7 @@ def main() -> int:
     converted_auto = phase_convert(args.seed, card, "auto")
     serve = phase_serve(args.seed, card)
     launches, launches_int8 = serve["launches"], serve["launches_int8"]
+    served_dual = phase_serve_dual(args.seed, card, serve)
     sharded = phase_serve_sharded(args.seed, card, serve)
     exported = phase_export(args.seed, card)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4237,6 +4477,7 @@ def main() -> int:
     # Phase 5: times beside the bound.
     start = time.perf_counter()
     timing, ar_ms_by_batch = phase_time(args.seed, card)
+    timing_dual = phase_time_dual(args.seed, card)
     stamps = phase_stamps(args.seed, card)
     gru_stamps = phase_gru_stamps(args.seed, card)
     timing_gru = phase_time_gru(args.seed, card)
@@ -4306,6 +4547,18 @@ def main() -> int:
             **timing["int8"],
             "ms_by_batch": ar_ms_by_batch["int8"],
             "stamps_us_per_step": stamps["int8"],
+            "library_ms": None,
+        },
+        {
+            "name": "dual_decode",
+            "route": "cuda",
+            "source": source + "dual_decode.cu",
+            "replaces": None,  # the dual softmax head has no JAX counterpart
+            "launches": served_dual["launches"]["dual_decode"],
+            "launches_by_path": {"serve_8_slots": served_dual["launches"]["dual_decode"],
+                                 "serve_8_slots_step": served_dual["launches_step"]},
+            "max_abs_err": compared_dual["max_abs_err"],
+            **timing_dual,
             "library_ms": None,
         },
     ] + [

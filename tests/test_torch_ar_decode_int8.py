@@ -27,7 +27,6 @@ from torch_port_util import (  # noqa: F401
 )
 from vectorquantizedcpc_tpu.ops.ar_decode import fused_ar_decode as jax_fused
 from vectorquantizedcpc_tpu_torch.dsp.audio_io import read_wav, write_wav
-from vectorquantizedcpc_tpu_torch.infer import serving
 from vectorquantizedcpc_tpu_torch.infer.serving import ContinuousBatcher
 from vectorquantizedcpc_tpu_torch.models.vocoder import build_conditioning_frames
 from vectorquantizedcpc_tpu_torch.ops import ar_decode as port
@@ -179,8 +178,8 @@ def test_server_decodes_at_int8(models, monkeypatch, tmp_path):
     resolves at the slot count."""
     _, _, vocoder = models
     modes = []
-    prep = serving.prep_decode_weights
-    monkeypatch.setattr(serving, "prep_decode_weights",
+    prep = port.prep_decode_weights  # the server's head prepares through ops.ar_decode
+    monkeypatch.setattr(port, "prep_decode_weights",
                         lambda v, p="bf16": modes.append(p) or prep(v, p))
     rng = np.random.default_rng(5)
     requests = [(rng.integers(0, 16, size=n), spk) for n, spk in [(8, 0), (12, 1), (4, 3), (6, 2)]]
@@ -250,13 +249,13 @@ def test_convert_resolves_per_batch(convert_dir, monkeypatch, tmp_path, precisio
     fused, prep = port.fused_ar_decode, port.prep_decode_weights
     monkeypatch.setattr(port, "prep_decode_weights",
                         lambda v, p="bf16": prepared.append(p) or prep(v, p))
-    from vectorquantizedcpc_tpu_torch.infer import convert as convert_mod
 
     def spy(vocoder, codes, *a, precision="bf16", **k):
         seen.append(port.resolve_precision(precision, codes.shape[0]))
         return fused(vocoder, codes, *a, precision=precision, **k)
 
-    monkeypatch.setattr(convert_mod, "fused_ar_decode", spy)
+    # convert decodes through its head (ops/heads.py), which calls ops.ar_decode's.
+    monkeypatch.setattr(port, "fused_ar_decode", spy)
     conf = load_conf(SMALL + [
         "runtime.platform=cpu", f"runtime.precision={precision}",
         f"cpc_checkpoint={d / 'cpc.pt'}", f"vocoder_checkpoint={d / 'voc.pt'}",

@@ -15,6 +15,10 @@ past H 192, backward) at H 896, 200, 37, 1001, 1200 and 2500, B 1 to 40
 chunks), through autograd, two launches giving the same bits, the stamped
 variants giving the plain launches' bits, their plan against its Python
 mirror and its refusals.
+Dual softmax decode (``rnnms.output=dual16``): B 1, 8, 64 and 128 at H 896,
+halves of 37 (no vector loads), 100 classes (a partial class tile),
+greedy and sampled, its stamped variant's bits, chained segments against
+one launch, its refusals.
 LSTM scan: batches off the 8-row cluster tile, one step, odd step counts;
 its training forward and backward at B 1, 3, 9 and 16, T 1 and 256, H 8,
 32, 64, 256, 264, 352 and 432 (past 256 part of wh in shared memory), two
@@ -272,6 +276,93 @@ def test_ar_decode_chained_segments_equal_one_launch(cuda, batch, mode):
     torch.cuda.synchronize()
     assert torch.equal(torch.cat(outs, dim=1).t(), one)
     assert torch.equal(state.h, h_one)
+
+
+def _dual_case(rng, batch, hidden, n_classes, frames, device):
+    from vectorquantizedcpc_tpu_torch.ops import dual_decode as dd
+
+    def t(shape, scale, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(0, scale, size=shape).astype(np.float32)).to(
+            device=device, dtype=dtype)
+
+    h3, half = 3 * hidden, hidden // 2
+    w = dd.DualDecodeWeights(
+        wx_cond=t((4, h3), 0.5), bx=t((h3,), 0.1), w_prev=t((2, h3), 0.5),
+        w_ct=t((3, half), 0.5), wh=t((hidden, h3), 1 / np.sqrt(hidden), torch.bfloat16),
+        bh=t((h3,), 0.1),
+        o1_w=t((half, half), 1 / np.sqrt(half), torch.bfloat16), o1_b=t((half,), 0.1),
+        o2_w=t((half, n_classes), 4 / np.sqrt(half), torch.bfloat16), o2_b=t((n_classes,), 0.1),
+        o3_w=t((half, half), 1 / np.sqrt(half), torch.bfloat16), o3_b=t((half,), 0.1),
+        o4_w=t((half, n_classes), 4 / np.sqrt(half), torch.bfloat16), o4_b=t((n_classes,), 0.1),
+    )
+    cond_proj = t((frames, batch, h3), 0.5, torch.bfloat16)
+    state = dd.DualDecodeState(
+        torch.from_numpy(rng.uniform(-0.5, 0.5, (batch, hidden)).astype(np.float32)).to(device),
+        torch.from_numpy(rng.integers(0, n_classes, batch).astype(np.int32)).to(device),
+        torch.from_numpy(rng.integers(0, n_classes, batch).astype(np.int32)).to(device))
+    return w, cond_proj, state
+
+
+@pytest.mark.parametrize("batch, hidden, n_classes, hop, frames", [
+    (1, 896, 256, 160, 2),
+    (8, 896, 256, 160, 2),
+    (64, 896, 256, 160, 1),
+    (128, 896, 256, 160, 1),
+    (9, 74, 256, 3, 5),  # halves of 37: no 16-byte loads, one unit a block
+    (5, 64, 100, 7, 4),  # 100 classes: a partial class tile
+])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_dual_decode_kernel_matches_plain(cuda, batch, hidden, n_classes, hop, frames, greedy):
+    from vectorquantizedcpc_tpu_torch.ops import dual_decode as dd
+
+    rng = np.random.default_rng(hidden + batch)
+    w, cond_proj, state = _dual_case(rng, batch, hidden, n_classes, frames, cuda)
+    before = dd.DUAL_DECODE_LAUNCHES
+    out, new = dd.dual_decode(cond_proj, state, w, hop, seed=11, greedy=greedy)
+    torch.cuda.synchronize()
+    assert dd.DUAL_DECODE_LAUNCHES == before + 1
+    ref, ref_state, scores = dd.dual_decode_reference(cond_proj, state, w, hop, seed=11,
+                                                      greedy=greedy, return_scores=True)
+    out, ref, scores = out.cpu().numpy(), ref.cpu().numpy(), scores.cpu().numpy()
+    assert out.shape == (frames * hop, batch)
+    for r in range(batch):
+        diff = np.nonzero(out[:, r] != ref[:, r])[0]
+        if diff.size:  # a near tie of the plain version's scores of the byte that differs
+            t0 = diff[0]
+            c, f = divmod(int(out[t0, r]), 256)
+            sc = scores[t0, r]
+            gap = (sc[:n_classes].max() - sc[c] if c != ref[t0, r] // 256
+                   else sc[n_classes:].max() - sc[n_classes + f])
+            assert gap <= 0.05
+        else:  # chip_smoke.py's MAX_H_ERR
+            assert float((new.h[r] - ref_state.h[r]).abs().max()) <= 1e-2
+    stamped, _, stamps = dd.dual_decode_stamped(cond_proj, state, w, hop, seed=11, greedy=greedy)
+    assert np.array_equal(stamped.cpu().numpy(), out)
+    from vectorquantizedcpc_tpu_torch.ops.ar_decode import summarize_stamps
+
+    split = summarize_stamps(stamps.cpu().tolist(), frames * hop, 0, dd.DUAL_STAMP_PHASES)
+    assert split["block 0"]["total"] > 0
+
+
+def test_dual_decode_chained_segments_equal_one_launch_and_refusals(cuda):
+    from vectorquantizedcpc_tpu_torch.ops import dual_decode as dd
+
+    rng = np.random.default_rng(3)
+    w, cond_proj, state = _dual_case(rng, 16, 896, 256, 4, cuda)
+    one, last = dd.dual_decode(cond_proj, state, w, 40, seed=3, greedy=True)
+    st, parts = state, []
+    for k in range(4):
+        seg, st = dd.fused_dual_decode_segment(w, cond_proj[k:k + 1].transpose(0, 1), st, 0, 40,
+                                               greedy=True)
+        parts.append(seg)
+    assert torch.equal(torch.cat(parts, 1), one.t()) and torch.equal(st.h, last.h)
+    grid, units, smem = dd.kernel_plan(128, 896)
+    assert units * grid >= 448 and smem <= 227 * 1024
+    big = cond_proj.repeat(1, 9, 1)[:, :129].contiguous()
+    with pytest.raises(ValueError, match="1 to 128 rows"):
+        dd.dual_decode(big, dd.init_dual_state(129, 896, cuda), w, 40)
+    with pytest.raises(ValueError, match="cond_proj"):
+        dd.dual_decode(cond_proj.float(), state, w, 40)
 
 
 def test_ar_decode_plan_mirror(cuda):

@@ -28,7 +28,7 @@ from ..device import resolve_device
 from ..infer.encode import load_encoder_checkpoint
 from ..parallel.mesh import launch_args, mesh_from_conf, start_ranks
 from ..parallel.sharding import local_share
-from ..training.vocoder import VocoderTrainer, train_vocoder
+from ..training.vocoder import VocoderTrainer, refuse_untrained_head, train_vocoder
 
 
 def main(argv: Optional[List[str]] = None,
@@ -37,6 +37,7 @@ def main(argv: Optional[List[str]] = None,
     for them and returns None (they run to the config's end)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     conf = load_conf(argv)
+    refuse_untrained_head(conf)  # before any rank starts
     ranks = launch_args(conf.runtime)
     if ranks is not None:
         if max_steps is not None:

@@ -98,6 +98,7 @@ def conf_default_tree() -> Dict[str, Any]:
                         "bits_mu_law": "${bit_mulaw}",
                         "upsampling_t": "${data.dataset.preprocess.hop_length}",
                         "prenet": {"num_layers": 2},
+                        "output": "mulaw",
                         "wave_ar": {
                             "size_i_embed_ar": 256,
                             "size_h_rnn": 896,
@@ -239,6 +240,10 @@ class ConfRNNMS:
     upsampling_t: int = MISSING
     dim_i_feature: int = -1  # derived: dim_i_embedding + dim_speaker_embedding
     prenet: ConfPrenet = field(default_factory=ConfPrenet)
+    # The output head (OUTPUT_HEADS): "mulaw", RNN_MS's one softmax over
+    # 2^bits_mu_law mu-law classes; "dual16", WaveRNN's dual softmax, a
+    # 16-bit linear sample as a coarse and a fine byte (models/vocoder.py).
+    output: str = "mulaw"
     wave_ar: ConfWaveAR = field(default_factory=ConfWaveAR)
 
 
@@ -419,6 +424,12 @@ JAX_ONLY_KEYS = frozenset({
 })
 
 
+# Keys the port has and the JAX package's config lacks (each at its default
+# there is the JAX package's model).
+PORT_ONLY_KEYS = frozenset({"training_vocoder.model.network.rnnms.output"})
+OUTPUT_HEADS = ("mulaw", "dual16")
+
+
 def parse_cli_overrides(argv: List[str]) -> Dict[str, Any]:
     """Parse bare ``key=value`` dotted-path overrides into a nested dict."""
     tree: Dict[str, Any] = {}
@@ -524,6 +535,12 @@ def conf_programatic(conf: ConfGlobal) -> ConfGlobal:
     net = model.network
     net.rnnms.dim_i_feature = net.dim_i_embedding + net.dim_speaker_embedding
     net.n_speakers = model.n_speakers
+    if net.rnnms.output not in OUTPUT_HEADS:
+        raise ValueError(f"training_vocoder.model.network.rnnms.output={net.rnnms.output!r}: "
+                         f"expected one of {OUTPUT_HEADS}")
+    if net.rnnms.output == "dual16" and net.rnnms.wave_ar.size_h_rnn % 2:
+        raise ValueError("rnnms.output=dual16 splits the AR GRU's state in two halves: "
+                         f"size_h_rnn={net.rnnms.wave_ar.size_h_rnn} is odd")
     tc = conf.training.cpc
     conf.data.dataset.cpc.clip_length_mel = tc.sample_frames + tc.n_prediction_steps
     return conf

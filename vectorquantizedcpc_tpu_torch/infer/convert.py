@@ -11,7 +11,9 @@ decode mode is resolved per batch (``runtime.precision`` "auto" may pick
 int8 for a full batch and bf16 for the smaller last one of a bucket). Work is
 queued on the device without waiting, with at most 3 batches in flight:
 the host's loudness matching and wav writing for one batch overlap the
-device's decode of the next.
+device's decode of the next. A vocoder with the dual softmax head
+(``rnnms.output=dual16``) decodes through ``ops/dual_decode.py`` in bf16
+("int8" and "auto" raise), its 16-bit samples as linear PCM.
 """
 
 import json
@@ -29,7 +31,7 @@ from ..dsp.loudness import integrated_loudness, normalize_loudness
 from ..dsp.mel import wave_to_mel
 from ..models.encoder import Encoder
 from ..models.vocoder import Vocoder
-from ..ops.ar_decode import fused_ar_decode, resolve_precision
+from ..ops.heads import decode_head
 from ..weights import load_vocoder_checkpoint
 from .encode import load_encoder_checkpoint
 
@@ -55,9 +57,10 @@ def load_models(conf: ConfGlobal, device: torch.device) -> Tuple[Encoder, Vocode
     JAX package's ``model.ckpt-{n}`` (of a vocoder train state its
     ``params``), each told apart by its contents."""
     encoder = load_encoder_checkpoint(conf.cpc_checkpoint, conf)
-    vocoder = Vocoder(conf.training_vocoder.model.network)
+    net = conf.training_vocoder.model.network
+    vocoder = Vocoder(net)
     vocoder.load_state_dict(
-        load_vocoder_checkpoint(conf.vocoder_checkpoint), strict=True
+        load_vocoder_checkpoint(conf.vocoder_checkpoint, net.rnnms.output), strict=True
     )
     return encoder.to(device).eval(), vocoder.to(device).eval()
 
@@ -73,8 +76,9 @@ def convert(
     raises when no card is there and the CPU was not asked for.
     """
     device = resolve_device(device if device is not None else conf.runtime.platform)
-    precision = conf.runtime.precision
-    resolve_precision(precision, batch_size)  # an unknown mode fails before any work
+    # RNN_MS's mu-law decode, or the dual head's 16-bit one (linear PCM); a
+    # mode the head lacks fails before any work.
+    head = decode_head(conf.training_vocoder.model.network.rnnms, conf.runtime.precision, device)
     in_dir, out_dir = Path(conf.in_dir), Path(conf.out_dir)
     speakers = _load_speakers(in_dir)
     with open(conf.synthesis_list) as f:
@@ -83,7 +87,7 @@ def convert(
 
     print(f"Load checkpoints from: {conf.cpc_checkpoint}, {conf.vocoder_checkpoint}")
     encoder, vocoder = load_models(conf, device)
-    weights = {}  # prepared decode weights by mode, filled by fused_ar_decode
+    weights = {}  # prepared decode weights by mode, filled by the decode
 
     pp = conf.data.dataset.preprocess
     jobs = []
@@ -132,10 +136,7 @@ def convert(
             spk = torch.tensor([jobs[i]["speaker"] for i in chunk], device=device)
             _, codes = encoder.encode(torch.from_numpy(mels).to(device), return_context=False)
             # The seed depends only on how many utterances went before.
-            wave = fused_ar_decode(
-                vocoder, codes, spk, seed=n_dispatched, precision=precision,
-                weights=weights,
-            )
+            wave = head.decode(vocoder, codes, spk, seed=n_dispatched, weights=weights)
             pending.append((chunk, wave))
             n_dispatched += len(chunk)
             if len(pending) >= WINDOW:

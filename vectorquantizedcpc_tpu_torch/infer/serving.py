@@ -31,6 +31,14 @@ pass), ``serving.launch`` (one segment's host pass, with its ``segment``),
 Sampling noise differs from segment to segment: the launch of global
 segment k gets the seed ``segment_seed(seed, k)``.
 
+The vocoder's head decides the decode (``ops/heads.py``, picked once): a
+vocoder with the dual softmax head (``rnnms.output=dual16``) is served the
+same way through ``ops/dual_decode.py``: the segments hand on (h, c_prev,
+f_prev), the samples are 16-bit (256 c + f), ``result`` joins them into
+linear PCM, (256 c + f) / 32767.5 - 1, and ``stats["samples_out"]`` counts
+16-bit samples. It decodes in bf16 only ("int8" and "auto" raise) and on
+one device.
+
 ``devices=[...]`` shards the slots over several devices, one decode launch
 per shard and segment (the JAX server's ``mesh=``; ``ContinuousBatcher``).
 """
@@ -46,23 +54,20 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..dsp.mulaw import mulaw_decode
 from ..models.vocoder import (
     Vocoder,
     build_conditioning_frames,
     build_conditioning_frames_ragged,
 )
-from ..ops.ar_decode import (
+from ..ops.ar_decode import (  # noqa: F401 (DecodeState: the benchmark's faults build it here)
     MAX_BATCH,
     DecodeState,
-    DecodeWeights,
     fused_ar_decode_segment,
-    init_decode_state,
-    prep_decode_weights,
     project_cond_frames,
-    resolve_precision,
     segment_seed,
 )
+from ..ops.dual_decode import fused_dual_decode_segment
+from ..ops.heads import Dual16Head, decode_head
 from ..utils.profiling import span
 
 __all__ = ["ContinuousBatcher", "compute_drain_schedule"]
@@ -161,13 +166,13 @@ class _Shard:
     when there are several shards) its own stream."""
 
     def __init__(self, index: int, device: torch.device, first: int, n: int,
-                 weights, max_frames: int, hop: int, n_classes: int, own_stream: bool):
+                 weights, max_frames: int, hop: int, head, own_stream: bool):
         self.index, self.device, self.first, self.n = index, device, first, n
         self.weights = weights
         hidden, proj3h = weights.wh.shape
         self.pool = torch.zeros(n, max_frames, proj3h, dtype=torch.bfloat16, device=device)
         self.out_buf = torch.zeros(n, max_frames * hop, dtype=torch.int32, device=device)
-        self.state = DecodeState(*init_decode_state(n, hidden, n_classes, device))
+        self.state = head.init_state(n, hidden, device)
         self.stream = (torch.cuda.Stream(device) if own_stream and device.type == "cuda"
                        else None)
 
@@ -189,8 +194,8 @@ class _Shard:
             torch.cuda.current_stream(self.device).wait_stream(self.stream)
 
 
-def _weights_on(weights: DecodeWeights, device: torch.device) -> DecodeWeights:
-    return DecodeWeights(*(t.to(device) if isinstance(t, torch.Tensor) else t for t in weights))
+def _weights_on(weights, device: torch.device):
+    return type(weights)(*(t.to(device) if isinstance(t, torch.Tensor) else t for t in weights))
 
 
 class ContinuousBatcher:
@@ -237,8 +242,11 @@ class ContinuousBatcher:
         if slots % n_shards:
             raise ValueError(f"slots={slots} must divide over the {n_shards} devices")
         per = slots // n_shards
-        precision = resolve_precision(precision, per)
         self._device = devices[0]
+        self._head = decode_head(vocoder.conf.rnnms, precision, self._device)
+        if n_shards > 1 and not self._head.shardable:
+            raise ValueError(f"rnnms.output={vocoder.conf.rnnms.output} serves on one device; "
+                             "sharded serving is RNN_MS's")
         # The plain version (CPU) takes any slot count, as the JAX server does.
         if per < 1 or any(d.type == "cuda" for d in devices) and per > MAX_BATCH:
             raise ValueError(
@@ -253,17 +261,16 @@ class ContinuousBatcher:
         self._segment_frames = segment_frames
         self._max_frames = max_frames + segment_frames  # slack for the last segment
         self._hop = conf.upsampling_t
-        self._n_classes = 2 ** conf.bits_mu_law
         self._greedy = greedy
         self._seed = seed
-        self._weights = prep_decode_weights(self._vocoder, precision)
-        by_device: Dict[torch.device, DecodeWeights] = {self._device: self._weights}
+        self._weights = self._head.prep_weights(self._vocoder, per)
+        by_device = {self._device: self._weights}
         self._shards = []
         for j, d in enumerate(devices):
             if d not in by_device:
                 by_device[d] = _weights_on(self._weights, d)
             self._shards.append(_Shard(j, d, j * per, per, by_device[d], self._max_frames,
-                                       self._hop, self._n_classes, n_shards > 1))
+                                       self._hop, self._head, n_shards > 1))
         self._slot_meta = [_Slot() for _ in range(slots)]
         self._queue: Deque[tuple] = deque()
         # rid -> (its timeline, where it lies there: request()'s arguments)
@@ -276,10 +283,6 @@ class ContinuousBatcher:
         self._dispatch_wall = 0.0
         self._admitted = 0
         self._queue_wait = 0.0
-        # Expanded on the device, so that a host lookup gives the device's values.
-        self._mulaw_table = _to_host(
-            mulaw_decode(torch.arange(self._n_classes, device=self._device), self._n_classes)
-        )
 
     # ------------------------------------------------------------------ API
 
@@ -321,9 +324,9 @@ class ContinuousBatcher:
                         [s.pos_frames
                          for s in self._slot_meta[shard.first: shard.first + shard.n]],
                     )
-                    out, shard.state = fused_ar_decode_segment(
+                    out, shard.state = self._decode_segment(
                         shard.weights, seg, shard.state,
-                        self._launch_seed(self._step_count, shard), hop, self._greedy,
+                        self._launch_seed(self._step_count, shard),
                     )
                     classes.append(out)
             for shard in self._shards:
@@ -354,7 +357,7 @@ class ContinuousBatcher:
             timeline, where = self._pending.pop(rid)
             timeline.fetch()
             with span("serving.expand", rid=rid):
-                self._results[rid] = self._mulaw_table[timeline.request(*where)]
+                self._results[rid] = self._head.to_wave(timeline.request(*where))
         return self._results[rid]
 
     def run(self, materialize: bool = True, wait: bool = True) -> Dict[int, np.ndarray]:
@@ -393,6 +396,15 @@ class ContinuousBatcher:
         """(the shard holding ``slot``, the slot's row in that shard)."""
         return self._shards[slot // self._per_shard], slot % self._per_shard
 
+    def _decode_segment(self, weights, seg, state, seed):
+        """One segment's launch: (classes or 16-bit samples, the state after).
+        The head's segment decode is looked up in this module at each call,
+        so that swapping the module's name swaps the launch (the benchmark's
+        planted faults and controls do)."""
+        launch = (fused_dual_decode_segment if isinstance(self._head, Dual16Head)
+                  else fused_ar_decode_segment)
+        return launch(weights, seg, state, seed, self._hop, self._greedy)
+
     def _launch_seed(self, segment: int, shard: _Shard) -> int:
         """The seed of a shard's launch of global segment ``segment``: the
         shard index folded in when there are several."""
@@ -430,7 +442,6 @@ class ContinuousBatcher:
             self._admitted += 1
 
     def _admit(self) -> None:
-        n_mid = self._n_classes // 2
         for i, slot in enumerate(self._slot_meta):
             if slot.rid is not None or not self._queue:
                 continue
@@ -441,8 +452,7 @@ class ContinuousBatcher:
                 cond = self._condition(z[None], np.asarray([speaker]))[0, : 2 * z.shape[0]]
                 shard.pool[row].zero_()
                 shard.pool[row, : cond.shape[0]] = cond.to(shard.device)
-                shard.state.h[row] = 0.0
-                shard.state.prev[row] = n_mid
+                self._head.reset_row(shard.state, row)
                 self._slot_meta[i] = _Slot(rid=rid, pos_frames=0, total_frames=2 * z.shape[0])
 
     @torch.no_grad()
@@ -522,26 +532,22 @@ class ContinuousBatcher:
                 copies[key] = buf.to(device)
             return copies[key]
 
-        n_mid = self._n_classes // 2
         outs: List[List[torch.Tensor]] = [[] for _ in self._shards]
         for k in range(rows_t.shape[0]):
             with span("serving.launch", segment=self._step_count + k):
                 for shard in self._shards:
                     cols = slice(shard.first, shard.first + shard.n)
                     with shard.launching():
-                        h, prev = shard.state
                         for row in np.flatnonzero(fresh_t[k, cols]):
-                            h[row] = 0.0
-                            prev[row] = n_mid
+                            self._head.reset_row(shard.state, row)
                         # Idle slots (row -1) decode their own pool's row 0;
                         # nothing reads their samples.
                         rows = [(on(row_loc[r][0], shard.device), row_loc[r][1]) if r >= 0
                                 else (shard.pool, 0) for r in rows_t[k, cols]]
                         seg = self._gather(rows, pos_t[k, cols].tolist())
-                        classes, shard.state = fused_ar_decode_segment(
-                            shard.weights, seg, DecodeState(h, prev),
-                            self._launch_seed(self._step_count + k, shard), hop,
-                            self._greedy,
+                        classes, shard.state = self._decode_segment(
+                            shard.weights, seg, shard.state,
+                            self._launch_seed(self._step_count + k, shard),
                         )
                         outs[shard.index].append(classes)
         for shard in self._shards:

@@ -9,6 +9,20 @@ Modules keep the reference ``Vocoder``'s ``state_dict`` names
     rnnms.rnn                                  nn.GRU(256 + 256 -> 896)
     rnnms.fc1, rnnms.fc2                       nn.Linear(896, 256), (256, 2^bits)
 
+With ``rnnms.output=dual16`` (WaveRNN's dual softmax, arXiv:1802.08435
+section 2) the AR part is instead::
+
+    rnnms.rnn                                  nn.GRU(2 + 256 -> H): c_{t-1}, f_{t-1}, conditioning
+    rnnms.ct_proj                              nn.Linear(1, 3 H/2, bias=False): c_t into the fine
+                                               half's r, z, n gates
+    rnnms.o1, rnnms.o2                         nn.Linear(H/2, H/2), (H/2, 256): coarse head
+    rnnms.o3, rnnms.o4                         nn.Linear(H/2, H/2), (H/2, 256): fine head
+
+h splits into a coarse half (units [0, H/2)) and a fine half; the coarse
+half's gates never see c_t, the fine half's add ``ct_proj(c_t)``. Each
+byte enters as b / 127.5 - 1 (``dsp/pcm16.byte_input``); a decode starts
+from c = 128, f = 0. The sample is 256 c + f.
+
 The GRU modules only hold parameters; the recurrences are the loops of
 ``models/rnn.py`` and the CUDA kernels of ``ops/gru_train.py`` (teacher-forced
 training) and ``ops/ar_decode.py`` (the sample-level decode).
@@ -28,11 +42,26 @@ from torch import nn
 
 from ..configs import ConfVocoderNetwork
 from ..dsp.mulaw import mulaw_decode
+from ..dsp.pcm16 import SILENCE, byte_input, join16, pcm16_to_float, split16
 from ..ops.gru_train import GruScan, gru_scan
 from ..ops.matmul import bf16_product
 from ..parallel.tensor import ModelGroup, column_product, copy_to_model, split_on
 from .rnn import (bigru_apply, gathered, gru_apply, gru_apply_masked_reverse, gru_scan_loop,
                   gru_step)
+
+
+DUAL_CLASSES = 256  # classes of each of the dual head's softmaxes: one byte
+
+
+def is_dual16(vocoder) -> bool:
+    """Whether the vocoder has the dual softmax head (``rnnms.output=dual16``)."""
+    return vocoder.conf.rnnms.output == "dual16"
+
+
+def _refuse_dual16(vocoder, what: str) -> None:
+    if is_dual16(vocoder):
+        raise ValueError(f"{what} is RNN_MS's mu-law path; rnnms.output=dual16 takes "
+                         "vocoder_forward_dual16 and vocoder_generate")
 
 
 class RNNMS(nn.Module):
@@ -45,6 +74,13 @@ class RNNMS(nn.Module):
             num_layers=rn.prenet.num_layers, batch_first=True,
             bidirectional=True,
         )
+        if rn.output == "dual16":
+            half = wa.size_h_rnn // 2
+            self.rnn = nn.GRU(2 + rn.dim_voc_latent, wa.size_h_rnn, batch_first=True)
+            self.ct_proj = nn.Linear(1, 3 * half, bias=False)
+            self.o1, self.o2 = nn.Linear(half, half), nn.Linear(half, DUAL_CLASSES)
+            self.o3, self.o4 = nn.Linear(half, half), nn.Linear(half, DUAL_CLASSES)
+            return
         self.embedding = nn.Embedding(2 ** rn.bits_mu_law, wa.size_i_embed_ar)
         self.rnn = nn.GRU(
             wa.size_i_embed_ar + rn.dim_voc_latent, wa.size_h_rnn,
@@ -148,6 +184,7 @@ def vocoder_forward(
     bf16(fc1)) + fc1_b) is float32, so the second product is a float32 one
     against bf16-rounded weights.
     """
+    _refuse_dual16(vocoder, "vocoder_forward")
     rnnms = vocoder.rnnms
     rnn = rnnms.rnn
     hop = vocoder.conf.rnnms.upsampling_t
@@ -194,6 +231,82 @@ def vocoder_forward(
     m2 = split_on(model, fc2.weight)
     return column_product(hidden, fc2.weight.t().to(cd).float(), torch.matmul, m2) + gathered(
         fc2.bias, m2)
+
+
+def _dual16_inputs(samples16: torch.Tensor):
+    """16-bit samples (B, T) -> the teacher-forced inputs of each: (c_{t-1},
+    f_{t-1}, c_t) bytes, the sample before the first being the silence
+    (c 128, f 0)."""
+    c, f = split16(samples16.long())
+    c_prev = torch.cat([torch.full_like(c[:, :1], SILENCE[0]), c[:, :-1]], dim=1)
+    f_prev = torch.cat([torch.full_like(f[:, :1], SILENCE[1]), f[:, :-1]], dim=1)
+    return c_prev, f_prev, c
+
+
+def vocoder_forward_dual16(
+    vocoder: Vocoder,
+    samples16: torch.Tensor,
+    z_indices: torch.Tensor,
+    speaker: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+):
+    """Teacher-forced forward of the dual head: (coarse logits, fine logits),
+    each (B, T, 256) float32, of each of ``samples16`` (B, T) given the
+    samples before it (and, for the fine logits, its own coarse byte).
+
+    With c_t known, the split GRU is a plain GRU whose input projection
+    adds ``ct_proj(c_t)`` to the fine half's columns of each gate: the
+    recurrence runs as ``vocoder_forward``'s (float32 through
+    ``gru_scan_loop``, bfloat16 through the GRU scan kernels).
+    """
+    rnnms = vocoder.rnnms
+    rnn = rnnms.rnn
+    hop = vocoder.conf.rnnms.upsampling_t
+    cd = compute_dtype
+    b, t = samples16.shape
+    hidden = rnn.hidden_size
+    half = hidden // 2
+    c_prev, f_prev, c_cur = _dual16_inputs(samples16)
+    cond = conditioning_frames(vocoder, z_indices, speaker, cd)
+    cond = cond.repeat_interleave(hop, dim=1)[:, :t]
+    inputs = torch.cat([byte_input(c_prev)[..., None].to(cd), byte_input(f_prev)[..., None].to(cd),
+                        cond], dim=-1)
+    xproj = (inputs @ rnn.weight_ih_l0.t().to(cd) + rnn.bias_ih_l0.to(cd)).float()
+    ct = (byte_input(c_cur)[..., None].to(cd) @ rnnms.ct_proj.weight.t().to(cd)).float()
+    xproj = xproj.view(b, t, 3, hidden)
+    xproj = torch.cat([xproj[..., :half], xproj[..., half:] + ct.view(b, t, 3, half)], dim=-1)
+    xproj = xproj.reshape(b, t, 3 * hidden).transpose(0, 1).to(cd)  # (T, B, 3H)
+    h0 = torch.zeros(b, hidden, dtype=torch.float32, device=xproj.device)
+    wh, bh = rnn.weight_hh_l0, rnn.bias_hh_l0
+    if cd == torch.bfloat16:
+        args = (wh.t().to(cd).contiguous(), bh.to(cd).float(), xproj.contiguous(), h0)
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+            hs, _ = GruScan.apply(*args)
+        else:
+            hs, _ = gru_scan(*args)
+    elif cd == torch.float32:
+        hs = gru_scan_loop(wh.t(), bh, xproj, h0)
+    else:
+        raise ValueError(f"vocoder_forward_dual16 computes in float32 or bfloat16, not {cd}")
+    hs = hs.transpose(0, 1)  # (B, T, H)
+    return _dual_head(rnnms.o1, rnnms.o2, hs[..., :half], cd), _dual_head(
+        rnnms.o3, rnnms.o4, hs[..., half:], cd)
+
+
+def _dual_head(first: nn.Linear, second: nn.Linear, y: torch.Tensor,
+               cd: torch.dtype = torch.float32) -> torch.Tensor:
+    """One softmax's logits: second(relu(first(y))), float32."""
+    hid = torch.relu((y.to(cd) @ first.weight.t().to(cd)).float() + first.bias)
+    return hid @ second.weight.t().to(cd).float() + second.bias
+
+
+def dual16_loss(logits_c: torch.Tensor, logits_f: torch.Tensor,
+                samples16: torch.Tensor) -> torch.Tensor:
+    """The dual head's loss: the coarse and the fine bytes' mean cross-entropies, summed."""
+    c, f = split16(samples16.long())
+    ce = torch.nn.functional.cross_entropy
+    return (ce(logits_c.reshape(-1, logits_c.shape[-1]), c.reshape(-1))
+            + ce(logits_f.reshape(-1, logits_f.shape[-1]), f.reshape(-1)))
 
 
 def _prenet_inputs(vocoder: Vocoder, z_indices: torch.Tensor, speaker: torch.Tensor):
@@ -276,8 +389,12 @@ def vocoder_generate(
 
     One GRU step per sample; argmax when ``greedy``, else a categorical
     draw (Gumbel-max with noise from ``generator``). With ``return_aux``
-    also returns the classes (B, T) and logits (B, T, 2^bits).
+    also returns the classes (B, T) and logits (B, T, 2^bits); for the dual
+    head, the 16-bit samples (B, T) and the (coarse, fine) logits, each
+    (B, T, 256).
     """
+    if is_dual16(vocoder):
+        return _generate_dual16(vocoder, z_indices, speaker, generator, greedy, return_aux)
     rnnms = vocoder.rnnms
     hop = vocoder.conf.rnnms.upsampling_t
     n_classes = rnnms.fc2.out_features
@@ -308,4 +425,65 @@ def vocoder_generate(
     wave = mulaw_decode(samples, n_classes)
     if return_aux:
         return wave, samples, torch.stack(logits_all, dim=1)
+    return wave
+
+
+def _draw(logits, generator, greedy):
+    if greedy:
+        return logits.argmax(dim=-1)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return (logits - torch.log(-torch.log(u + 1e-9))).argmax(dim=-1)
+
+
+def _split_gru_half(h, xp, hp, units: slice, hidden: int):
+    """The GRU update of ``units`` from their gates' inputs xp and h
+    products hp (B, 3H)."""
+    r = torch.sigmoid(xp[:, units] + hp[:, units])
+    zs = slice(units.start + hidden, units.stop + hidden)
+    ns = slice(units.start + 2 * hidden, units.stop + 2 * hidden)
+    z = torch.sigmoid(xp[:, zs] + hp[:, zs])
+    n = torch.tanh(xp[:, ns] + r * hp[:, ns])
+    return (1.0 - z) * n + z * h[:, units]
+
+
+def _generate_dual16(vocoder, z_indices, speaker, generator, greedy, return_aux):
+    """``vocoder_generate`` of the dual head: per sample, the coarse half's
+    gates (from c_{t-1}, f_{t-1}), c_t drawn from the coarse softmax, the
+    fine half's gates (with c_t), f_t drawn from the fine softmax."""
+    rnnms = vocoder.rnnms
+    rnn = rnnms.rnn
+    hop = vocoder.conf.rnnms.upsampling_t
+    hidden = rnn.hidden_size
+    half = hidden // 2
+    cond = build_conditioning_frames(vocoder, z_indices, speaker)
+    b, tf, _ = cond.shape
+    w_ih = rnn.weight_ih_l0  # (3H, 2 + V)
+    cond_proj = cond @ w_ih[:, 2:].t() + rnn.bias_ih_l0
+    w_ct = rnnms.ct_proj.weight[:, 0].view(3, half)
+    coarse, fine = slice(0, half), slice(half, hidden)
+    h = cond.new_zeros(b, hidden)
+    c = torch.full((b,), SILENCE[0], dtype=torch.long, device=cond.device)
+    f = torch.full((b,), SILENCE[1], dtype=torch.long, device=cond.device)
+    samples, logits_c, logits_f = [], [], []
+    for t in range(tf * hop):
+        xp = cond_proj[:, t // hop] + w_ih[:, 0] * byte_input(c)[:, None]
+        xp = xp + w_ih[:, 1] * byte_input(f)[:, None]
+        hp = h @ rnn.weight_hh_l0.t() + rnn.bias_hh_l0
+        h_c = _split_gru_half(h, xp, hp, coarse, hidden)
+        lc = _dual_head(rnnms.o1, rnnms.o2, h_c)
+        c = _draw(lc, generator, greedy)
+        xp = xp.view(b, 3, hidden).clone()
+        xp[..., half:] = xp[..., half:] + w_ct * byte_input(c)[:, None, None]
+        h_f = _split_gru_half(h, xp.view(b, 3 * hidden), hp, fine, hidden)
+        lf = _dual_head(rnnms.o3, rnnms.o4, h_f)
+        f = _draw(lf, generator, greedy)
+        h = torch.cat([h_c, h_f], dim=1)
+        samples.append(join16(c, f))
+        if return_aux:
+            logits_c.append(lc)
+            logits_f.append(lf)
+    samples = torch.stack(samples, dim=1)
+    wave = pcm16_to_float(samples)
+    if return_aux:
+        return wave, samples, (torch.stack(logits_c, dim=1), torch.stack(logits_f, dim=1))
     return wave

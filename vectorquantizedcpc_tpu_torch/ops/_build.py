@@ -103,6 +103,12 @@ def library() -> ctypes.CDLL:
         lib.vq_ar_decode_stamped_launch.restype = i
         lib.vq_ar_decode_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
         lib.vq_ar_decode_plan.restype = i
+        lib.vq_dual_decode_launch.argtypes = [p] * 24 + [i] * 6 + [u, p]
+        lib.vq_dual_decode_launch.restype = i
+        lib.vq_dual_decode_stamped_launch.argtypes = [p] * 24 + [i] * 6 + [u, p, p]
+        lib.vq_dual_decode_stamped_launch.restype = i
+        lib.vq_dual_decode_plan.argtypes = [i] * 3 + [ctypes.POINTER(i)]
+        lib.vq_dual_decode_plan.restype = i
         lib.vq_gru_scan_launch.argtypes = [p] * 6 + [i] * 3 + [p]
         lib.vq_gru_scan_launch.restype = i
         lib.vq_gru_scan_masked_launch.argtypes = [p] * 7 + [i] * 3 + [p]

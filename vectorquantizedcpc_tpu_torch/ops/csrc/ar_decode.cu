@@ -62,7 +62,8 @@
 // coherent across SMs.
 //
 // Gumbel noise is a counter-based hash of (seed, t, b, class), so the plain
-// PyTorch version (ar_decode.py:gumbel_bits) reproduces it bit for bit.
+// PyTorch version (ar_decode.py:gumbel_bits) reproduces it bit for bit
+// (decode_common.cuh, shared with dual_decode.cu).
 //
 // The kStamps variant (vq_ar_decode_stamped_launch) also records, on
 // thread 0 of block 0 and of the grid's last block, the clock64 cycles of
@@ -75,6 +76,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "decode_common.cuh"
 
 namespace {
 
@@ -240,26 +243,9 @@ __host__ __device__ __forceinline__ Layout make_layout(int B, int H, int F, int 
   return L;
 }
 
-__host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352du;
-  x ^= x >> 15;
-  x *= 0x846ca68bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// The Gumbel noise of (step key, row b, class c): 24 hashed bits ->
-// uniform (0, 1] -> -log(-log(u)), as ar_decode.py:gumbel_noise.
-__device__ __forceinline__ float gumbel(uint32_t step_key, int b, int c, int C) {
-  const uint32_t bits = mix32(step_key ^ (uint32_t)(b * C + c));
-  const float u = (float)(bits & 0xffffffu) * (1.0f / 16777216.0f) + 1e-9f;
-  return -logf(-logf(u));
-}
-
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
+using vq_decode::better;
+using vq_decode::gumbel;
+using vq_decode::mix32;
 
 template <typename T>
 __device__ __forceinline__ T zero_value() { return T(0); }

@@ -113,6 +113,21 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
     return norm
 
 
+def refuse_untrained_head(conf: ConfGlobal) -> None:
+    """Raise for a vocoder head this trainer does not train: the dual softmax
+    head (``rnnms.output=dual16``) needs 16-bit samples, and the feature
+    store holds 8-bit mu-law audio only; with tensor parallelism
+    (``runtime.mesh_model > 1``) the error says that it has no sharding
+    rules either."""
+    if conf.training_vocoder.model.network.rnnms.output != "dual16":
+        return
+    if conf.runtime.mesh_model > 1:
+        raise ValueError("tensor parallelism (runtime.mesh_model > 1) has no sharding rules "
+                         "for rnnms.output=dual16, which is not trained here")
+    raise ValueError("rnnms.output=dual16 is not trained here: the feature store holds "
+                     "8-bit mu-law audio only, and the dual head needs 16-bit samples")
+
+
 class VocoderTrainer:
     """The vocoder and Adam on one device beside a frozen encoder.
 
@@ -127,6 +142,7 @@ class VocoderTrainer:
 
     def __init__(self, conf: ConfGlobal, encoder: Encoder, device: Union[str, torch.device],
                  group=None, model: Optional[ModelGroup] = None):
+        refuse_untrained_head(conf)
         self.conf = conf
         self.device = torch.device(device)
         self.group = group

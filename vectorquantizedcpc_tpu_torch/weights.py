@@ -113,11 +113,35 @@ def vocoder_state_dict(sd: StateDict) -> StateDict:
     return out
 
 
-def load_vocoder_checkpoint(path: Union[str, Path]) -> StateDict:
+# The port's names of a vocoder with the dual softmax head
+# (``rnnms.output=dual16``, models/vocoder.py) besides the embeddings and
+# the PreNet: no reference or JAX checkpoint has them.
+DUAL16_NAMES = ("rnnms.rnn.weight_ih_l0", "rnnms.rnn.weight_hh_l0", "rnnms.rnn.bias_ih_l0",
+                "rnnms.rnn.bias_hh_l0", "rnnms.ct_proj.weight", "rnnms.o1.weight",
+                "rnnms.o1.bias", "rnnms.o2.weight", "rnnms.o2.bias", "rnnms.o3.weight",
+                "rnnms.o3.bias", "rnnms.o4.weight", "rnnms.o4.bias")
+
+
+def dual16_state_dict(sd: StateDict) -> StateDict:
+    """A dual16 vocoder's state_dict, checked for the port's names."""
+    missing = [k for k in DUAL16_NAMES + ("code_embedding.weight", "speaker_embedding.weight")
+               if k not in sd]
+    if missing or not any(k.startswith("rnnms.prenet.") for k in sd):
+        raise ValueError(f"not a dual16 vocoder state_dict: missing {missing or 'the PreNet'}")
+    return dict(sd)
+
+
+def load_vocoder_checkpoint(path: Union[str, Path], output: str = "mulaw") -> StateDict:
     """The vocoder state_dict of a reference checkpoint or of the JAX
-    package's vocoder train state, in the port's names."""
+    package's vocoder train state, in the port's names. ``output`` is the
+    head (``rnnms.output``): a dual16 vocoder is read from a ``.pt`` in the
+    port's own names (``DUAL16_NAMES``); the JAX package has no such head,
+    so its checkpoints raise."""
     tree = _read_jax(path)
     if tree is not None:
+        if output == "dual16":
+            raise ValueError(f"{path}: a JAX package checkpoint holds an RNN_MS mu-law "
+                             "vocoder; the JAX package has no dual16 head")
         return vocoder_from_jax_params(flatten(tree["params"]))
     ckpt = _load(path)
     if "vocoder" in ckpt:
@@ -130,7 +154,7 @@ def load_vocoder_checkpoint(path: Union[str, Path]) -> StateDict:
         }
     else:
         sd = ckpt
-    return vocoder_state_dict(sd)
+    return dual16_state_dict(sd) if output == "dual16" else vocoder_state_dict(sd)
 
 
 def _t(x: np.ndarray) -> torch.Tensor:
