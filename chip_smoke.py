@@ -184,7 +184,7 @@ MAX_GAP = 0.05
 # of R h apart), and each draw an argmax of 256 scores, so a divergence is a
 # near tie of the plain version's scores of the byte that differs (MAX_GAP)
 # and the final h of a row that never diverged is within MAX_H_ERR.
-DUAL_BATCHES = (1, 8, 64, 128)
+DUAL_BATCHES = (1, 8, 64, 100, 128)
 # Final-h bound while no sample diverged: the two sum the 896-deep products
 # in different orders (~1e-6 relative in f32); when that moves an h element
 # across a bf16 rounding boundary the next step's product moves by one bf16
@@ -963,12 +963,13 @@ def phase_serve_dual(seed: int, card: str, serve: dict) -> dict:
 
     def zero():
         torch.cuda.synchronize()
-        dd.DUAL_DECODE_LAUNCHES = 0
+        dd.DUAL_DECODE_LAUNCHES = dd.DUAL_DECODE_TWO_TILE_LAUNCHES = 0
         ar.AR_DECODE_LAUNCHES = ar.AR_DECODE_INT8_LAUNCHES = ar.AR_DECODE_STAMPED_LAUNCHES = 0
         g.GRU_SCAN_LAUNCHES = g.GRU_SCAN_MASKED_LAUNCHES = 0
 
     def counts():
         return {"dual_decode": dd.DUAL_DECODE_LAUNCHES,
+                "dual_decode_two_tile": dd.DUAL_DECODE_TWO_TILE_LAUNCHES,
                 "ar_decode": ar.AR_DECODE_LAUNCHES + ar.AR_DECODE_INT8_LAUNCHES
                 + ar.AR_DECODE_STAMPED_LAUNCHES,
                 "gru_scan": g.GRU_SCAN_LAUNCHES, "gru_scan_masked": g.GRU_SCAN_MASKED_LAUNCHES}
@@ -992,6 +993,8 @@ def phase_serve_dual(seed: int, card: str, serve: dict) -> dict:
           f"dual16: samples_out {srv.stats['samples_out']} != {valid}")
     check(launches["dual_decode"] == steps > 0 and launches["ar_decode"] == 0,
           f"dual16: launches {launches}, {steps} segment steps")
+    check(launches["dual_decode_two_tile"] == 0,
+          f"dual16: launches {launches}: 8 slots never take the two-tile pass")
     check(launches["gru_scan"] == 2 and launches["gru_scan_masked"] == 2,
           f"dual16: GRU launches {launches}: expected 2 layers x 1 each")
     again = drain(server())

@@ -15,10 +15,12 @@ past H 192, backward) at H 896, 200, 37, 1001, 1200 and 2500, B 1 to 40
 chunks), through autograd, two launches giving the same bits, the stamped
 variants giving the plain launches' bits, their plan against its Python
 mirror and its refusals.
-Dual softmax decode (``rnnms.output=dual16``): B 1, 8, 64 and 128 at H 896,
-halves of 37 (no vector loads), 100 classes (a partial class tile),
-greedy and sampled, its stamped variant's bits, chained segments against
-one launch, its refusals.
+Dual softmax decode (``rnnms.output=dual16``): B 1, 8, 64, 65, 100 and 128
+at H 896 (65 and 100: a row tile without a partner in the two-tile pass,
+and uneven pairs), halves of 37 (no vector loads), 100 classes (a partial
+class tile), greedy and sampled, its stamped variant's bits, B 128 against
+two launches of 64 rows bit for bit, the two-tile launch count, chained
+segments against one launch, its refusals.
 LSTM scan: batches off the 8-row cluster tile, one step, odd step counts;
 its training forward and backward at B 1, 3, 9 and 16, T 1 and 256, H 8,
 32, 64, 256, 264, 352 and 432 (past 256 part of wh in shared memory), two
@@ -307,6 +309,8 @@ def _dual_case(rng, batch, hidden, n_classes, frames, device):
     (1, 896, 256, 160, 2),
     (8, 896, 256, 160, 2),
     (64, 896, 256, 160, 1),
+    (65, 896, 256, 160, 1),  # a row tile without a partner in the two-tile pass
+    (100, 896, 256, 160, 1),  # uneven pairs: the last tile half full
     (128, 896, 256, 160, 1),
     (9, 74, 256, 3, 5),  # halves of 37: no 16-byte loads, one unit a block
     (5, 64, 100, 7, 4),  # 100 classes: a partial class tile
@@ -317,10 +321,11 @@ def test_dual_decode_kernel_matches_plain(cuda, batch, hidden, n_classes, hop, f
 
     rng = np.random.default_rng(hidden + batch)
     w, cond_proj, state = _dual_case(rng, batch, hidden, n_classes, frames, cuda)
-    before = dd.DUAL_DECODE_LAUNCHES
+    before, before_two = dd.DUAL_DECODE_LAUNCHES, dd.DUAL_DECODE_TWO_TILE_LAUNCHES
     out, new = dd.dual_decode(cond_proj, state, w, hop, seed=11, greedy=greedy)
     torch.cuda.synchronize()
     assert dd.DUAL_DECODE_LAUNCHES == before + 1
+    assert dd.DUAL_DECODE_TWO_TILE_LAUNCHES == before_two + (hidden == 896 and batch > 64)
     ref, ref_state, scores = dd.dual_decode_reference(cond_proj, state, w, hop, seed=11,
                                                       greedy=greedy, return_scores=True)
     out, ref, scores = out.cpu().numpy(), ref.cpu().numpy(), scores.cpu().numpy()
@@ -342,6 +347,32 @@ def test_dual_decode_kernel_matches_plain(cuda, batch, hidden, n_classes, hop, f
 
     split = summarize_stamps(stamps.cpu().tolist(), frames * hop, 0, dd.DUAL_STAMP_PHASES)
     assert split["block 0"]["total"] > 0
+
+
+def test_dual_decode_two_tile_pass_gives_each_row_its_own_bits(cuda):
+    """Greedy rows are independent, so B 128 (every warp's two tiles in one
+    pass, the sums from its registers) gives each row the bits that two
+    launches of 64 rows (a tile a warp, the sums through ``part_at``) give
+    it: the samples and the final h. The heads score rows in groups of 19
+    and of 10, whose K splits differ; no draw of this case is that close."""
+    from vectorquantizedcpc_tpu_torch.ops import dual_decode as dd
+
+    rng = np.random.default_rng(128)
+    w, cond_proj, state = _dual_case(rng, 128, 896, 256, 2, cuda)
+    before = dd.DUAL_DECODE_TWO_TILE_LAUNCHES
+    out, new = dd.dual_decode(cond_proj, state, w, 160, seed=5, greedy=True)
+    assert dd.DUAL_DECODE_TWO_TILE_LAUNCHES == before + 1
+    outs, hs = [], []
+    for r0 in (0, 64):
+        rows = slice(r0, r0 + 64)
+        part = dd.DualDecodeState(*(x[rows].contiguous() for x in state))
+        o, n = dd.dual_decode(cond_proj[:, rows].contiguous(), part, w, 160, seed=5, greedy=True)
+        outs.append(o)
+        hs.append(n.h)
+    torch.cuda.synchronize()
+    assert dd.DUAL_DECODE_TWO_TILE_LAUNCHES == before + 1
+    assert torch.equal(torch.cat(outs, 1), out)
+    assert torch.equal(torch.cat(hs, 0), new.h)
 
 
 def test_dual_decode_chained_segments_equal_one_launch_and_refusals(cuda):

@@ -159,6 +159,16 @@ def test_the_two_draws_take_separate_keys_of_one_hash():
     assert not torch.equal(noise[:, :256], noise[:, 256:])
 
 
+@pytest.mark.parametrize("hidden, pass_from", [(896, 65), (64, 65), (74, None), (1000, None)])
+def test_the_two_tile_pass_takes_the_batches_above_64_rows(hidden, pass_from):
+    """``two_tile_pass``, the launch count's mirror of the kernel's rule,
+    takes a batch exactly where it has more 8-row tiles than a block has
+    warps (8), at widths whose halves are whole 16-byte loads (896 and 64;
+    not 74 or 1000, halves of 37 and 500)."""
+    took = [b for b in range(1, dd.MAX_BATCH + 1) if dd.two_tile_pass(b, hidden)]
+    assert took == ([] if pass_from is None else list(range(pass_from, dd.MAX_BATCH + 1)))
+
+
 def test_decoding_in_segments_equals_one_decode(model):
     _, v, _ = model
     rng = np.random.default_rng(5)

@@ -1,7 +1,7 @@
 """Time the AR decode kernel of a checkout, and split its step by phase.
 
     python tools/time_ar_decode.py [--root DIR] [--batches 1,8,32,64,128] [--frames 100]
-    python tools/time_ar_decode.py --head dual16 [--stamp-batches 1,8,64,128]
+    python tools/time_ar_decode.py --head dual16 [--stamp-batches 1,8,64,65,100,128]
 
 Builds a vocoder at the default config's widths (H 896, F 256, 256
 classes) on the CUDA card with weights from ``--seed`` (torch's default
@@ -17,7 +17,9 @@ default): run parent, change, change, parent in one session to compare
 two commits on one card. Prints one JSON line per measurement, each with
 the card's name and power limit. ``--head dual16`` does the same for the
 dual softmax head's kernel (``ops/dual_decode.py``, bf16 only; o2 and o4
-eight times larger), its phases ``DUAL_STAMP_PHASES``.
+eight times larger), its phases ``DUAL_STAMP_PHASES``, by default at B 1,
+8, 64, 65, 100 and 128 (65 and above: its products' two-tile pass), both
+timed and stamped.
 """
 
 import argparse
@@ -44,8 +46,10 @@ def _digest(*tensors) -> str:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
-    parser.add_argument("--batches", default="1,8,32,64,128")
-    parser.add_argument("--stamp-batches", default="8,128")
+    parser.add_argument("--batches", default=None,
+                        help="default 1,8,32,64,128; dual16 1,8,64,65,100,128")
+    parser.add_argument("--stamp-batches", default=None,
+                        help="default 8,128; dual16 1,8,64,65,100,128")
     parser.add_argument("--frames", type=int, default=100)
     parser.add_argument("--stamp-frames", type=int, default=8)
     parser.add_argument("--reps", type=int, default=3)
@@ -72,6 +76,10 @@ def main() -> None:
     vocoder = vocoder.cuda().eval()
     hop, hidden = net.rnnms.upsampling_t, net.rnnms.wave_ar.size_h_rnn
     n_classes = 2 ** net.rnnms.bits_mu_law
+    if args.batches is None:
+        args.batches = "1,8,64,65,100,128" if dual else "1,8,32,64,128"
+    if args.stamp_batches is None:
+        args.stamp_batches = "1,8,64,65,100,128" if dual else "8,128"
     batches = [int(b) for b in args.batches.split(",")]
     stamp_batches = [int(b) for b in args.stamp_batches.split(",") if b]
     gen = torch.Generator().manual_seed(args.seed + 1)

@@ -19,10 +19,21 @@
 // step, so the step is six grid barriers deep. Block j owns U coarse units
 // [jU, jU + U) and the U fine units H/2 + [jU, jU + U), so both gate passes
 // spread over every block. Its shared memory holds two A operands over K =
-// H/2 (grid_common.cuh's chunk_product and part_at, the GRU grid kernels'
-// product tiles): the 3 x 2U wh columns of its units over the coarse K rows
-// plus its columns of o1, and the same over the fine K rows plus its
-// columns of o3. A step:
+// H/2: the 3 x 2U wh columns of its units over the coarse K rows plus its
+// columns of o1, and the same over the fine K rows plus its columns of o3.
+// Up to 64 rows (8 row tiles, one a warp or fewer) a product runs as the
+// GRU grid kernels' do (grid_common.cuh's chunk_product and part_at: K
+// split over the warps, the parts added in order). Above 64 rows (where
+// H/2 allows 16-byte loads) the launch takes the kPairs instantiation:
+// every warp takes all of K, so its sums are final, and warp w takes row
+// tiles w and w + 8 in one pass (tile_pass; the second empty where the
+// batch ends first), both tiles' rows in flight at once, each A fragment
+// read from shared memory once for both, its sums written from the
+// registers. Each tile's sums keep the order of a chunk_product task over
+// all of K (as at 57-64 rows), so the pass changes no bit of the result. A
+// kernel of its own keeps its code out of the smaller batches' kernel: in
+// one kernel, behind a branch, it slowed their steps by 3-8 % on an H100.
+// A step:
 //   coarse gates                      -> bf16(y_c) to xc            barrier 1
 //   xc x [wh_c | o1]: hproj(t + 1) from the coarse half, and o1 -> hidc
 //                                     (the coarse noise between)    barrier 2
@@ -40,7 +51,7 @@
 // are grid_common.cuh's count (release add, acquire polls), one count for
 // the grid. Every exchanged buffer is read with __ldcg.
 //
-// The kStamps variant (vq_dual_decode_stamped_launch) records the cycles of
+// The kStamps variants (vq_dual_decode_stamped_launch) record the cycles of
 // each phase (DualPhase) on thread 0 of block 0 and of the last block.
 
 #include <cuda_bf16.h>
@@ -63,6 +74,7 @@ constexpr int kClassTile = 16;  // classes a head block scores: one mma M tile
 constexpr int kMaxTiles = 16;   // class tiles a softmax has: C <= 256
 constexpr int kDualMt = 2;      // A tiles a warp takes in one pass of the product
 constexpr int kDualLoads = 14;  // K blocks a warp loads at once: all of H/2 = 448
+constexpr int kPairLoads = 5;   // K blocks of each of two row tiles a warp loads at once
 
 // Phases of a step that the stamped kernel times (dual_decode.py:DUAL_STAMP_PHASES).
 enum DualPhase {
@@ -150,7 +162,87 @@ __host__ __device__ __forceinline__ DualLayout dual_layout(int B, int half, int 
 
 __device__ __forceinline__ float byte_in(int v) { return __fsub_rn(__fdiv_rn((float)v, 127.5f), 1.f); }
 
-template <bool kStamps>
+// One warp's pass over all of K for two row tiles of ``src`` at once: tile
+// ``nt`` and the tile kBlockWarps further on. Both tiles' K blocks are
+// loaded kPairLoads at a time before their mma steps; each A fragment
+// (``w_s`` as in chunk_product) is read from shared memory once for both
+// tiles. Each tile's two chains add their K blocks in order, as
+// chunk_product's task over all of K does, so ``emit(row, A row, sum)``
+// gets the sum that chunk_product and part_at give. 16-byte loads only
+// (``src.vec``). The stamped variant marks ``load_phase`` once the first
+// loads are there.
+template <bool kStamps, int kPhases, class Emit>
+__device__ __forceinline__ void tile_pass(const unsigned char* w_s, int stride, int zrow, int mts,
+                                          const Rows& src, int nr, int nt,
+                                          PhaseStamps<kPhases>& st, int load_phase, Emit emit) {
+  constexpr int NT = 2, MT = kDualMt, LOADS = kPairLoads;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int kbs = cdiv(src.K, kKBlock);
+  int n[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) n[j] = (nt + j * kBlockWarps) * kTile + g;
+  for (int mt0 = 0; mt0 < mts; mt0 += MT) {
+    float c[NT][MT][2][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][mt][0][e] = c[j][mt][1][e] = 0.f;
+    for (int kb0 = 0; kb0 < kbs; kb0 += LOADS) {
+      uint4 bv[NT][LOADS];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < LOADS; ++i) {
+          const int k = (kb0 + i) * kKBlock + q * 8;
+          bv[j][i] = n[j] < nr && kb0 + i < kbs
+                         ? load_k8(src.bf + (size_t)n[j] * src.ld, k, src.K, true)
+                         : make_uint4(0, 0, 0, 0);
+        }
+      if constexpr (kStamps) {
+        if (mt0 == 0 && kb0 == 0) {
+          uint32_t all = 0;
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int i = 0; i < LOADS; ++i) all ^= bv[j][i].x ^ bv[j][i].w;
+          settle(all);
+          st.mark(load_phase);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < LOADS; ++i) {
+        if (kb0 + i < kbs) {
+          const int off = (kb0 + i) * kKBlock * 2 + q * 16;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            if (mt0 + mt < mts) {
+              const int r_lo = min((mt0 + mt) * 16 + g, zrow);
+              const int r_hi = min((mt0 + mt) * 16 + g + 8, zrow);
+              const uint4 lo = *reinterpret_cast<const uint4*>(w_s + (size_t)r_lo * stride + off);
+              const uint4 hi = *reinterpret_cast<const uint4*>(w_s + (size_t)r_hi * stride + off);
+#pragma unroll
+              for (int j = 0; j < NT; ++j) mma_k32(c[j][mt][0], c[j][mt][1], lo, hi, bv[j][i]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // c[e]: A row g (+8 for e >= 2), batch row 2q (+1 for odd e)
+          const int m = (mt0 + mt) * 16 + g + 8 * (e >> 1);
+          const int b = (nt + j * kBlockWarps) * kTile + 2 * q + (e & 1);
+          if (mt0 + mt < mts && m < zrow && b < nr) emit(b, m, c[j][mt][0][e] + c[j][mt][1][e]);
+        }
+  }
+}
+
+template <bool kStamps, bool kPairs>
 __global__ void __launch_bounds__(kBlockThreads, 1) dual_decode_kernel(DualArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned barriers = 0;
@@ -256,7 +348,11 @@ __global__ void __launch_bounds__(kBlockThreads, 1) dual_decode_kernel(DualArgs 
   PhaseStamps<kDualPhases> st;
   // One half's product: xs (B rows of bf16 y) x [wh columns | head columns]
   // into hproj of the next step (``first``: its coarse share, else the fine
-  // share added) and, where ``heads``, relu(head + bias) into hid.
+  // share added) and, where ``heads``, relu(head + bias) into hid. kPairs
+  // (B > 64): warp w takes row tiles w and w + kBlockWarps in one tile_pass
+  // (the second empty where the batch ends first) and writes its final
+  // sums itself; else chunk_product splits K over the warps and part_at
+  // adds the parts.
   auto product = [&](const unsigned char* w_s, const __nv_bfloat16* xs, float* hp, bool first,
                      bool heads, const float* ob, __nv_bfloat16* hid, int load_phase) {
     Rows src{};
@@ -264,6 +360,18 @@ __global__ void __launch_bounds__(kBlockThreads, 1) dual_decode_kernel(DualArgs 
     src.ld = ld;
     src.K = half;
     src.vec = vec;
+    if constexpr (kPairs) {
+      auto emit = [&](int b, int m, float v) {
+        if (m < n3)
+          hp[b * n3 + m] = first ? v : hp[b * n3 + m] + v;
+        else if (heads)
+          hid[(size_t)b * ld + blk + (m - n3) * G] = __float2bfloat16(fmaxf(v + ob[m - n3], 0.f));
+      };
+      for (int nt = tid / 32; nt < cdiv(B, kTile); nt += 2 * kBlockWarps)
+        tile_pass<kStamps>(w_s, L.stride, m_rows, mts, src, B, nt, st, load_phase, emit);
+      __syncthreads();
+      return;
+    }
     chunk_product<kDualMt, kDualLoads, false, kStamps>(w_s, L.stride, m_rows, mts, src, B, 0,
                                                        half, part_s, L.tile_row_p, false, st,
                                                        load_phase);
@@ -446,6 +554,13 @@ __global__ void __launch_bounds__(kBlockThreads, 1) dual_decode_kernel(DualArgs 
   if constexpr (kStamps) st.close();
 }
 
+// Whether a launch takes the kernel whose products run tile_pass (kPairs):
+// more row tiles than a block has warps (B > 64) and 16-byte loads (H/2 a
+// multiple of 8). dual_decode.py:two_tile_pass mirrors it.
+bool two_tile_pass(int batch, int hidden) {
+  return cdiv(batch, kTile) > kBlockWarps && (hidden / 2) % 8 == 0;
+}
+
 struct DualPlan {
   int grid, units, o_cols, sms;
   DualLayout layout;
@@ -467,7 +582,10 @@ cudaError_t plan_dual(int batch, int hidden, int classes, bool stamps, DualPlan*
   if (p->grid < n_ct) return cudaErrorInvalidValue;  // a head block per class tile
   p->layout = dual_layout(batch, half, p->units, p->o_cols, p->grid / n_ct);
   if (p->layout.total > (size_t)max_smem) return cudaErrorInvalidValue;
-  p->kernel = stamps ? (const void*)dual_decode_kernel<true> : (const void*)dual_decode_kernel<false>;
+  const void* kernels[2][2] = {
+      {(const void*)dual_decode_kernel<false, false>, (const void*)dual_decode_kernel<false, true>},
+      {(const void*)dual_decode_kernel<true, false>, (const void*)dual_decode_kernel<true, true>}};
+  p->kernel = kernels[stamps][two_tile_pass(batch, hidden)];
   return ready_resident(p->kernel, p->layout.total, p->grid, p->sms, kBlockThreads);
 }
 

@@ -10,8 +10,10 @@ sample is 256 c_t + f_t. bf16 weights with float32 sums, at most
 
 ``dual_decode_reference`` computes the same arithmetic as a torch loop;
 ``dual_decode`` uses it for CPU tensors only. ``DUAL_DECODE_LAUNCHES``
-counts launches; ``dual_decode_stamped`` runs the variant that stamps the
-phases of a step (``DUAL_STAMP_PHASES``, for ``ar_decode.summarize_stamps``).
+counts launches, ``DUAL_DECODE_TWO_TILE_LAUNCHES`` those whose batch takes
+the product's two-tile pass (``two_tile_pass``); ``dual_decode_stamped``
+runs the variant that stamps the phases of a step (``DUAL_STAMP_PHASES``,
+for ``ar_decode.summarize_stamps``).
 
 Sampling noise: ``ar_decode.gumbel_bits`` over 2C classes a row, the coarse
 draw taking classes [0, C) and the fine draw [C, 2C) (``dual_noise``): the
@@ -29,6 +31,7 @@ from ..models.vocoder import DUAL_CLASSES, Vocoder, build_conditioning_frames, i
 from .ar_decode import _M32, gumbel_bits, gumbel_noise, project_cond_frames, segment_seed
 
 DUAL_DECODE_LAUNCHES = 0
+DUAL_DECODE_TWO_TILE_LAUNCHES = 0
 # The phases a step of the stamped kernel times, in the order of
 # csrc/dual_decode.cu's DualPhase.
 DUAL_STAMP_PHASES = ("coarse gates", "barrier 1", "coarse load", "coarse product", "barrier 2",
@@ -37,6 +40,8 @@ DUAL_STAMP_PHASES = ("coarse gates", "barrier 1", "coarse load", "coarse product
                      "fine draw")
 MAX_BATCH = 128  # kMaxBatch in csrc/dual_decode.cu
 CLASS_TILE = 16  # kClassTile: classes of one head block
+ROW_TILE = 8  # kTile in csrc/grid_common.cuh: batch rows of an mma N tile
+BLOCK_WARPS = 8  # kBlockWarps: warps of a block
 
 
 class DualDecodeWeights(NamedTuple):
@@ -268,13 +273,14 @@ def dual_decode(
     returns without waiting for it; on a CPU tensor it runs the plain
     version.
     """
-    global DUAL_DECODE_LAUNCHES
+    global DUAL_DECODE_LAUNCHES, DUAL_DECODE_TWO_TILE_LAUNCHES
     if cond_proj.device.type == "cpu":
         return dual_decode_reference(cond_proj, state, weights, hop, seed, greedy)
     if cond_proj.device.type != "cuda":
         raise ValueError(f"dual_decode runs on cuda or cpu, not {cond_proj.device}")
     out = _launch(cond_proj, state, weights, hop, seed, greedy)
     DUAL_DECODE_LAUNCHES += 1
+    DUAL_DECODE_TWO_TILE_LAUNCHES += two_tile_pass(cond_proj.shape[1], cond_proj.shape[2] // 3)
     return out
 
 
@@ -308,6 +314,15 @@ def fused_dual_decode_segment(
     cond_proj = cond_proj_frames.transpose(0, 1).contiguous()
     samples, new = dual_decode(cond_proj, state, weights, hop, seed, greedy)
     return samples.t(), new
+
+
+def two_tile_pass(batch: int, hidden: int) -> bool:
+    """Whether a launch of ``batch`` rows at width ``hidden`` takes the
+    kernel whose products run the two-tile pass (csrc/dual_decode.cu's
+    ``two_tile_pass``): more row tiles than a block has warps, so each warp
+    takes all of K and tiles w and w + 8, and H/2 a multiple of 8 (16-byte
+    loads)."""
+    return -(-batch // ROW_TILE) > BLOCK_WARPS and (hidden // 2) % 8 == 0
 
 
 def kernel_plan(batch: int, hidden: int, n_classes: int = DUAL_CLASSES) -> Tuple[int, int, int]:
