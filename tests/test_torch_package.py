@@ -153,3 +153,27 @@ def test_precision_modes():
         assert resolve_precision("auto", batch, _STEP_US) == faster
     with pytest.raises(ValueError, match="precision"):
         resolve_precision("fp8")
+
+
+
+@pytest.mark.parametrize("tensor, match", [
+    pytest.param(lambda: torch.zeros(2, 3, device="meta"), r"x is on meta, ref on cpu", id="device"),
+    pytest.param(lambda: torch.zeros(2, 3, dtype=torch.bfloat16),
+                 r"x: expected torch\.float32 \(2, 3\), got torch\.bfloat16 \(2, 3\)", id="dtype"),
+    pytest.param(lambda: torch.zeros(3, 2),
+                 r"x: expected torch\.float32 \(2, 3\), got torch\.float32 \(3, 2\)", id="shape"),
+    pytest.param(lambda: torch.zeros(3, 2).t(), r"x must be contiguous", id="contiguity"),
+    pytest.param(lambda: torch.zeros(2, 3), None, id="taken"),
+])
+def test_expect_tensors_refuses_what_a_kernel_does_not_take(tensor, match):
+    """The kernels' one contract check (ops/_build.py:expect_tensors):
+    device, dtype, shape and contiguity, each named in its refusal."""
+    from vectorquantizedcpc_tpu_torch.ops._build import expect_tensors
+
+    right = (torch.float32, (2, 3))
+    tensors = {"ok": (torch.zeros(2, 3), *right), "x": (tensor(), *right)}
+    if match is None:
+        expect_tensors(tensors, torch.device("cpu"), "ref")
+        return
+    with pytest.raises(ValueError, match=match):
+        expect_tensors(tensors, torch.device("cpu"), "ref")

@@ -177,6 +177,19 @@ def on_card(x, what: str) -> bool:
     return True
 
 
+def expect_tensors(tensors: dict, device, ref_name: str) -> None:
+    """Raise ``ValueError`` unless each ``name: (tensor, dtype, shape)`` of
+    ``tensors`` lies on ``device`` (``ref_name``'s), has that dtype and
+    shape, and is contiguous: what a kernel's C entry takes on trust."""
+    for name, (x, dtype, shape) in tensors.items():
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, {ref_name} on {device}")
+        if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got {x.dtype} {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def launch(entry: str, what: str, device, *args) -> None:
     """Call the C entry ``entry`` on ``device``'s current stream with
     ``args`` (tensors as their data pointers) and raise on its error."""

@@ -39,6 +39,8 @@ import torch
 
 from ..dsp.mulaw import mulaw_decode
 from ..models.vocoder import Vocoder, build_conditioning_frames
+from ._build import expect_tensors
+from .grid_plan import SMS, TILE, align16, cdiv
 from .quant import quantize_int8
 
 AR_DECODE_LAUNCHES = 0
@@ -48,9 +50,8 @@ AR_DECODE_STAMPED_LAUNCHES = 0  # the stamped variant; measurement only
 # csrc/ar_decode.cu's Phase.
 STAMP_PHASES = ("gate pass", "barrier 1", "product", "reduce", "barrier 2", "fc2 stage",
                 "fc2 product", "sample", "barrier 3")
-SMS = 132  # the H100's SMs: the grid the plan mirrors assume
-TILE, K_BLOCK = 8, 64  # kTile (batch rows of an mma N tile), kKBlock (bytes of a K block)
-MAX_BATCH = 128  # kMaxBatch in csrc/ar_decode.cu: rows of one launch
+K_BYTES = 64  # kKBytes in csrc/decode_common.cuh: bytes of a row one K block holds
+MAX_BATCH = 128  # kMaxBatch in csrc/decode_common.cuh: rows of one launch
 
 _M32 = 0xFFFFFFFF
 
@@ -334,15 +335,7 @@ def _check_kernel_inputs(cond_proj, h0, prev0, weights: DecodeWeights, hop: int)
             if x is None:
                 raise ValueError(f"{name}: int8 weights need their scales")
             expect[name] = (x, torch.float32, (n,))
-    for name, (x, dtype, shape) in expect.items():
-        if x.device != cond_proj.device:
-            raise ValueError(f"{name} is on {x.device}, cond_proj on {cond_proj.device}")
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(
-                f"{name}: expected {dtype} {shape}, got {x.dtype} {tuple(x.shape)}"
-            )
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    expect_tensors(expect, cond_proj.device, "cond_proj")
     if h3 % 3 or not 1 <= b <= MAX_BATCH or tf < 1 or hop < 1:
         raise ValueError(
             f"unsupported decode shape: cond_proj {tuple(cond_proj.shape)}, "
@@ -365,7 +358,7 @@ def _launch(cond_proj, h0, prev0, weights: DecodeWeights, hop: int, seed: int, g
     # bf16(h) or q(h) of both steps in flight, rows zero-padded to whole K blocks.
     x_buf = torch.zeros(2, b, exchange_row_bytes(hidden, weights.mode), dtype=torch.uint8,
                         device=device)
-    hid_buf = torch.zeros(b, _cdiv(fc, 32) * 32, dtype=torch.bfloat16, device=device)
+    hid_buf = torch.zeros(b, cdiv(fc, 32) * 32, dtype=torch.bfloat16, device=device)
     out = torch.empty(tf * hop, b, dtype=torch.int32, device=device)
     h_out = torch.empty(b, hidden, dtype=torch.float32, device=device)
     sync = torch.zeros(1, dtype=torch.int32, device=device)  # the grid barrier's count
@@ -509,18 +502,10 @@ def fused_ar_decode_segment(
     return samples.t(), DecodeState(h=h_t, prev=samples[-1].clone())
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _align16(n: int) -> int:
-    return _cdiv(n, 16) * 16
-
-
 def exchange_row_bytes(hidden: int, mode: str) -> int:
     """Bytes of one h row the blocks exchange (csrc row_bytes): H bf16 or
     int8 values, zero-padded to whole 64-byte K blocks."""
-    return _cdiv(hidden * (1 if mode == "int8" else 2), K_BLOCK) * K_BLOCK
+    return cdiv(hidden * (1 if mode == "int8" else 2), K_BYTES) * K_BYTES
 
 
 def decode_plan(batch: int, hidden: int, fc: int, n_classes: int, mode: str = "bf16",
@@ -533,18 +518,18 @@ def decode_plan(batch: int, hidden: int, fc: int, n_classes: int, mode: str = "b
     product's partial tiles (under 8 row tiles), its biases, the FC1 rows
     it samples, the int8 scales, and the sampling scratch."""
     int8 = mode == "int8"
-    units = _cdiv(hidden, sms)
-    grid = _cdiv(hidden, units)
-    fc_cols = _cdiv(fc, grid)
+    units = cdiv(hidden, sms)
+    grid = cdiv(hidden, units)
+    fc_cols = cdiv(fc, grid)
     rb = exchange_row_bytes(hidden, mode)
     stride = rb + (192 - rb % 128) % 128
-    m_tiles = _cdiv(3 * units + fc_cols, 16)
-    slots = 8 if _cdiv(batch, TILE) < 8 else 0  # partial tiles where K is split over the warps
-    hid_row = _cdiv(fc, 32) * 64
+    m_tiles = cdiv(3 * units + fc_cols, 16)
+    slots = 8 if cdiv(batch, TILE) < 8 else 0  # partial tiles where K is split over the warps
+    hid_row = cdiv(fc, 32) * 64
     hid_row += (192 - hid_row % 128) % 128
-    smem = sum(_align16(n) for n in (
+    smem = sum(align16(n) for n in (
         (3 * units + fc_cols + 1) * stride,  # wh | FC1 rows, one zero row
-        _cdiv(n_classes, 16) * (_cdiv(fc, 32) * 32 // 32) * 32 * 32,  # fc2^T fragments
+        cdiv(n_classes, 16) * (cdiv(fc, 32) * 32 // 32) * 32 * 32,  # fc2^T fragments
         n_classes * 3 * units * (1 if int8 else 2),  # embedding columns
         4 * batch * 3 * units,  # hproj of the next step
         4 * batch * units,  # f32 carry

@@ -29,6 +29,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ._build import expect_tensors
 from ._build import on_card as _on_card
 
 CPC_SELECT_LAUNCHES = 0
@@ -103,15 +104,6 @@ def bwd_workspace_bytes(plan: Dict[str, int], k: int, s: int, u: int, n: int, l:
     return (plan["scratch"] + u * l * (n + 1) * 8) * k * s
 
 
-def _expect(name: str, x, dtype, shape, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, wc on {device}")
-    if x.dtype != dtype or x.shape != shape:
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got {x.dtype} {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def check_select_inputs(wc, zs, utt_index, seq_index) -> None:
     """Raise ``ValueError`` on what the kernels do not take: wc and z_shift
     (K, S, U, L, Z) f32, utt_index (K, U, N) and seq_index (K, S, U, N, L)
@@ -120,11 +112,12 @@ def check_select_inputs(wc, zs, utt_index, seq_index) -> None:
         raise ValueError(f"wc must be (K, S, U, L, Z); got {tuple(wc.shape)}")
     k, s, u, l, z = wc.shape
     n = utt_index.shape[-1] if utt_index.dim() == 3 else -1
-    dev = wc.device
-    _expect("wc", wc, torch.float32, wc.shape, dev)
-    _expect("z_shift", zs, torch.float32, wc.shape, dev)
-    _expect("utt_index", utt_index, torch.int32, (k, u, n), dev)
-    _expect("seq_index", seq_index, torch.int32, (k, s, u, n, l), dev)
+    expect_tensors({
+        "wc": (wc, torch.float32, wc.shape),
+        "z_shift": (zs, torch.float32, wc.shape),
+        "utt_index": (utt_index, torch.int32, (k, u, n)),
+        "seq_index": (seq_index, torch.int32, (k, s, u, n, l)),
+    }, wc.device, "wc")
     if min(k, s, u, l, z, n) < 1:
         raise ValueError(f"empty CPC selection: wc {tuple(wc.shape)}, N = {n}")
 
@@ -232,8 +225,10 @@ def cpc_select(wc, zs, utt_index, seq_index) -> Tuple[torch.Tensor, torch.Tensor
 
 def _check_cotangents(d_fneg, d_fpos, wc, n: int) -> None:
     k, s, u, l, _ = wc.shape
-    _expect("d_fneg", d_fneg, torch.float32, (k, s, u, n, l), wc.device)
-    _expect("d_fpos", d_fpos, torch.float32, (k, s, u, l), wc.device)
+    expect_tensors({
+        "d_fneg": (d_fneg, torch.float32, (k, s, u, n, l)),
+        "d_fpos": (d_fpos, torch.float32, (k, s, u, l)),
+    }, wc.device, "wc")
 
 
 def cpc_select_bwd(d_fneg, d_fpos, wc, zs, utt_index, seq_index):

@@ -53,9 +53,10 @@
 //   - the next step's gate pass then needs only the embedding row of the
 //     sample, the conditioning row (held in registers for a frame) and
 //     the hproj already in shared memory.
-// The grid barriers are a count in ``sync_buf`` that only grows (release
-// add, acquire polls), cheaper than cooperative_groups' grid sync; the
-// cooperative launch still guarantees that every block is resident.
+// The grid barriers are grid_common.cuh's count on ``sync_buf``
+// (count_arrive / count_wait), cheaper than cooperative_groups' grid sync;
+// the cooperative launch guarantees that every block is resident. The
+// product runs decode_common.cuh's tile_pass, as the dual decode's does.
 // K is loaded 16 bytes a lane (8 bf16 or 16 int8) and the A operand uses
 // the same permutation of K, so one vector load feeds two mma steps.
 // Buffers exchanged between blocks are read with __ldcg: L1 is not
@@ -65,10 +66,9 @@
 // PyTorch version (ar_decode.py:gumbel_bits) reproduces it bit for bit
 // (decode_common.cuh, shared with dual_decode.cu).
 //
-// The kStamps variant (vq_ar_decode_stamped_launch) also records, on
-// thread 0 of block 0 and of the grid's last block, the clock64 cycles of
-// each phase of every step (Phase); no entry point of the package
-// launches it.
+// The kStamps variant (vq_ar_decode_stamped_launch) also records
+// grid_common.cuh's PhaseStamps of each phase of every step (Phase); no
+// entry point of the package launches it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,15 +78,13 @@
 #include <type_traits>
 
 #include "decode_common.cuh"
+#include "grid_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 8;        // batch rows of one mma N tile
-constexpr int kMaxBatch = 128;  // rows of one launch (the JAX kernel's largest)
+using namespace vq_decode;
+
 constexpr int kMaxMt = 2;       // 16-row A tiles of a block's wh + FC1 columns
-constexpr int kKBlock = 64;     // bytes of a row one K block holds: 4 lanes x 16
 constexpr int kLoads = 8;       // K blocks whose B fragments a warp loads at once
 constexpr int kPairs = 5;       // (row, unit) pairs of the gate pass a thread takes: 128 x 10 / 256
 constexpr unsigned kFull = 0xffffffffu;
@@ -123,92 +121,16 @@ enum Phase {
   kPhases
 };
 
-// Per-phase cycle counts of thread 0 of two blocks (block 0 and the last
-// block): the cycles since the last mark go to the phase that ends at the
-// next one. Row layout: globaltimer and clock64 at the first step's start,
-// the same at the last step's end, then n_steps x kPhases cycle counts.
-struct Stamps {
-  long long* row = nullptr;
-  long long last = 0, acc[kPhases];
-
-  __device__ void open(long long* buf, int n_steps, int blk, int G) {
-    const int sel = blk == 0 ? 0 : (blk == G - 1 ? 1 : -1);
-    if (buf == nullptr || sel < 0 || threadIdx.x != 0) return;
-    row = buf + (size_t)sel * (4 + (size_t)n_steps * kPhases);
-    unsigned long long ns;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-    row[0] = (long long)ns;
-    last = row[1] = clock64();
-  }
-  __device__ void begin_step() {
-    if (row != nullptr)
-      for (int p = 0; p < kPhases; ++p) acc[p] = 0;
-  }
-  __device__ void mark(int phase) {
-    if (row == nullptr) return;
-    const long long now = clock64();
-    acc[phase] += now - last;
-    last = now;
-  }
-  __device__ void end_step(int t) {
-    if (row == nullptr) return;
-    for (int p = 0; p < kPhases; ++p) row[4 + (size_t)t * kPhases + p] = acc[p];
-  }
-  __device__ void close() {
-    if (row == nullptr) return;
-    unsigned long long ns;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-    row[2] = (long long)ns;
-    row[3] = clock64();
-  }
-};
-
-__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// A grid barrier on a count that only grows (the launch is cooperative, so
-// every block is resident): once the block's writes are done, its thread 0
-// adds 1 with release semantics and waits, with acquire loads, for
-// ``target`` (the grid size times the barriers passed so far). In two
-// halves, so that a block can do work that needs no other block's writes
-// between arriving and waiting.
-__device__ __forceinline__ void grid_arrive(unsigned int* count) {
-  __syncthreads();
-  if (threadIdx.x == 0)
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count) : "memory");
-}
-
-__device__ __forceinline__ void grid_wait(unsigned int* count, unsigned int target) {
-  if (threadIdx.x == 0) {
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(count) : "memory");
-    } while (seen < target);
-  }
-  __syncthreads();
-}
-
-// Returns the offset of a region of ``bytes`` at ``*off`` and moves past it.
-__host__ __device__ __forceinline__ size_t take(size_t* off, size_t bytes) {
-  const size_t at = *off;
-  *off += (bytes + 15) & ~size_t(15);
-  return at;
-}
-
 // Bytes of one exchanged h row: H elements of the mode's type, zero-padded
 // to whole K blocks (ar_decode.py:exchange_row_bytes).
 __host__ __device__ __forceinline__ int row_bytes(int H, bool int8) {
-  return cdiv(H * (int8 ? 1 : 2), kKBlock) * kKBlock;
+  return cdiv(H * (int8 ? 1 : 2), kKBytes) * kKBytes;
 }
 
 // FC2's K (FC1 width) padded to whole bf16 K blocks.
-__host__ __device__ __forceinline__ int fc_k(int F) { return cdiv(F, kKBlock / 2) * (kKBlock / 2); }
+__host__ __device__ __forceinline__ int fc_k(int F) { return cdiv(F, kKBlock) * kKBlock; }
 
-// Shared row stride of the A operand: row bytes plus a pad that puts
-// neighbouring rows 64 bytes apart modulo 128 (16-byte lane loads of rows
-// g and g + 1 then hit distinct banks).
-__host__ __device__ __forceinline__ int a_stride(int rb) { return rb + ((192 - rb % 128) % 128); }
-
-struct Layout {
+struct DecodeLayout {
   size_t w, fc2, emb, hp, carry, part, bias, hid, scale, prev, red_v, red_i, total;
 };
 
@@ -221,31 +143,27 @@ struct Layout {
 // over the warps (under 8 row tiles); bias:
 // the block's bh columns, its FC1 biases and all of FC2's; hid: the FC1
 // rows of up to 8 sampled rows, staged once for all warps.
-__host__ __device__ __forceinline__ Layout make_layout(int B, int H, int F, int C, int units,
-                                                      int fc_cols, bool int8) {
+__host__ __device__ __forceinline__ DecodeLayout make_layout(int B, int H, int F, int C,
+                                                            int units, int fc_cols, bool int8) {
   const int rb = row_bytes(H, int8), tiles = cdiv(B, kTile);
   const int mt = cdiv(3 * units + fc_cols, 16);
-  Layout L;
+  DecodeLayout L;
   size_t off = 0;
   L.w = take(&off, (size_t)(3 * units + fc_cols + 1) * a_stride(rb));
   L.fc2 = take(&off, (size_t)cdiv(C, 16) * (fc_k(F) / 32) * 32 * 32);
   L.emb = take(&off, (size_t)C * 3 * units * (int8 ? 1 : 2));
   L.hp = take(&off, sizeof(float) * B * 3 * units);
   L.carry = take(&off, sizeof(float) * B * units);
-  L.part = take(&off, (size_t)(tiles >= kWarps ? 0 : kWarps) * mt * 32 * 16);
+  L.part = take(&off, (size_t)(tiles >= kBlockWarps ? 0 : kBlockWarps) * mt * 32 * 16);
   L.bias = take(&off, sizeof(float) * (3 * units + fc_cols + C));
   L.hid = take(&off, (size_t)kTile * a_stride(fc_k(F) * 2));
   L.scale = take(&off, int8 ? sizeof(float) * (6 * units + fc_cols) : 0);
   L.prev = take(&off, sizeof(int) * kMaxBatch);
-  L.red_v = take(&off, sizeof(float) * kWarps * kTile);
-  L.red_i = take(&off, sizeof(int) * kWarps * kTile);
+  L.red_v = take(&off, sizeof(float) * kBlockWarps * kTile);
+  L.red_i = take(&off, sizeof(int) * kBlockWarps * kTile);
   L.total = off;
   return L;
 }
-
-using vq_decode::better;
-using vq_decode::gumbel;
-using vq_decode::mix32;
 
 template <typename T>
 __device__ __forceinline__ T zero_value() { return T(0); }
@@ -258,67 +176,13 @@ __device__ __forceinline__ int8_t quant_h(float h) {
   return (int8_t)__float2int_rn(h * 127.f);  // round half to even, as jnp.round
 }
 
-// Two mma steps over one K block: ``lo`` / ``hi`` hold A rows g / g + 8 and
-// ``b`` the B column g, 16 bytes each at the lane's K offset. Words x, y
-// feed the first step (K halves a0/a2 and b0/b1), z, w the second; the
-// same permutation of K on both sides leaves the sum unchanged.
-template <bool kInt8>
-__device__ __forceinline__ void mma_block(float c0[4], float c1[4], const uint4& lo,
-                                          const uint4& hi, const uint4& b) {
-  if constexpr (kInt8) {  // int32 sums carried in the f32 registers' bits
-    int i0[4], i1[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      i0[e] = __float_as_int(c0[e]);
-      i1[e] = __float_as_int(c1[e]);
-    }
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(i0[0]), "+r"(i0[1]), "+r"(i0[2]), "+r"(i0[3])
-        : "r"(lo.x), "r"(hi.x), "r"(lo.y), "r"(hi.y), "r"(b.x), "r"(b.y));
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(i1[0]), "+r"(i1[1]), "+r"(i1[2]), "+r"(i1[3])
-        : "r"(lo.z), "r"(hi.z), "r"(lo.w), "r"(hi.w), "r"(b.z), "r"(b.w));
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      c0[e] = __int_as_float(i0[e]);
-      c1[e] = __int_as_float(i1[e]);
-    }
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c0[0]), "+f"(c0[1]), "+f"(c0[2]), "+f"(c0[3])
-        : "r"(lo.x), "r"(hi.x), "r"(lo.y), "r"(hi.y), "r"(b.x), "r"(b.y));
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c1[0]), "+f"(c1[1]), "+f"(c1[2]), "+f"(c1[3])
-        : "r"(lo.z), "r"(hi.z), "r"(lo.w), "r"(hi.w), "r"(b.z), "r"(b.w));
-  }
-}
-
-// The two chains' sum of one accumulator element (int32 sums are exact).
-template <bool kInt8>
-__device__ __forceinline__ float add_chains(float a, float b) {
-  if constexpr (kInt8) {
-    const int s = __float_as_int(a) + __float_as_int(b);
-    return __int_as_float(s);
-  } else {
-    return a + b;
-  }
-}
-
 template <bool kInt8, bool kStamps>
-__global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
+__global__ void __launch_bounds__(kBlockThreads, 1) ar_decode_kernel(DecodeArgs a) {
   using W = typename std::conditional<kInt8, int8_t, __nv_bfloat16>::type;
   unsigned barriers = 0;  // grid barriers passed
   auto grid_sync = [&]() {
-    grid_arrive(a.sync);
-    grid_wait(a.sync, ++barriers * gridDim.x);
+    count_arrive(a.sync);
+    count_wait(a.sync, ++barriers * gridDim.x);
   };
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -333,14 +197,14 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
   while (n_fc < a.fc_cols && blk + n_fc * G < F) ++n_fc;
   const int m_rows = n_cols + n_fc;  // A rows: wh columns, then FC1 columns
   const int mts = cdiv(m_rows, 16);
-  const int rb = row_bytes(H, kInt8), kb_count = rb / kKBlock, stride = a_stride(rb);
+  const int rb = row_bytes(H, kInt8), kb_count = rb / kKBytes, stride = a_stride(rb);
   const int FK = fc_k(F), fb_count = FK / 32, ct_count = cdiv(C, 16);
   const int tiles = cdiv(B, kTile);
-  const int kparts = tiles >= kWarps ? 1 : kWarps / tiles;
+  const int kparts = group_kparts(B);
   const int tasks = tiles * kparts;
   const bool self_sample = B <= kTile;  // every block samples every row
 
-  const Layout L = make_layout(B, H, F, C, a.units, a.fc_cols, kInt8);
+  const DecodeLayout L = make_layout(B, H, F, C, a.units, a.fc_cols, kInt8);
   unsigned char* w_s = smem + L.w;
   uint4* fc2_s = reinterpret_cast<uint4*>(smem + L.fc2);
   W* emb_s = reinterpret_cast<W*>(smem + L.emb);
@@ -365,7 +229,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
 
   // ---- Resident weights and state, loaded once. ----
   // A rows (row-major over K, zero beyond H and in the zero row m_rows).
-  for (int i = tid; i < (m_rows + 1) * (rb / kW); i += kThreads) {
+  for (int i = tid; i < (m_rows + 1) * (rb / kW); i += kBlockThreads) {
     const int m = i / (rb / kW), k = i % (rb / kW);
     W v = zero_value<W>();
     if (k < H && m < n_cols)
@@ -377,7 +241,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
   // fc2^T fragments: tile ct, K block fb, lane (g, q): rows ct*16 + g and
   // + 8, K 32 fb + 8q .. + 7; zero beyond C and F. Only samplers read them.
   if (self_sample || blk < B)
-    for (int i = tid; i < ct_count * fb_count * 32 * 2; i += kThreads) {
+    for (int i = tid; i < ct_count * fb_count * 32 * 2; i += kBlockThreads) {
       const int half = i & 1, ln = (i >> 1) & 31, fb = (i >> 6) % fb_count, ct = (i >> 6) / fb_count;
       const int c = ct * 16 + (ln >> 2) + 8 * half, k0 = fb * 32 + 8 * (ln & 3);
       uint32_t wv[4];
@@ -390,25 +254,25 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
       }
       fc2_s[i] = make_uint4(wv[0], wv[1], wv[2], wv[3]);
     }
-  for (int i = tid; i < C * n_cols; i += kThreads) {
+  for (int i = tid; i < C * n_cols; i += kBlockThreads) {
     const int c = i / n_cols, lc = i % n_cols;
     emb_s[i] = emb_g[(size_t)c * H3 + (lc / n_units) * H + u0 + lc % n_units];
   }
   if constexpr (kInt8) {
-    for (int lc = tid; lc < n_cols; lc += kThreads) {
+    for (int lc = tid; lc < n_cols; lc += kBlockThreads) {
       const int col = (lc / n_units) * H + u0 + lc % n_units;
       wh_sc[lc] = a.wh_scale[col];
       emb_sc[lc] = a.embed_scale[col];
     }
-    for (int j = tid; j < n_fc; j += kThreads) fc1_sc[j] = a.fc1_scale[blk + j * G];
+    for (int j = tid; j < n_fc; j += kBlockThreads) fc1_sc[j] = a.fc1_scale[blk + j * G];
   }
-  for (int lc = tid; lc < n_cols; lc += kThreads)
+  for (int lc = tid; lc < n_cols; lc += kBlockThreads)
     bh_s[lc] = a.bh[(lc / n_units) * H + u0 + lc % n_units];
-  for (int j = tid; j < n_fc; j += kThreads) fc1b_s[j] = a.fc1_b[blk + j * G];
-  for (int c = tid; c < C; c += kThreads) fc2b_s[c] = a.fc2_b[c];
-  for (int b = tid; b < B; b += kThreads) prev_s[b] = min(max(a.prev0[b], 0), C - 1);
+  for (int j = tid; j < n_fc; j += kBlockThreads) fc1b_s[j] = a.fc1_b[blk + j * G];
+  for (int c = tid; c < C; c += kBlockThreads) fc2b_s[c] = a.fc2_b[c];
+  for (int b = tid; b < B; b += kBlockThreads) prev_s[b] = min(max(a.prev0[b], 0), C - 1);
   // h0: the f32 carry of this block's units, and its bf16 / q row in slot 0.
-  for (int i = tid; i < B * n_units; i += kThreads) {
+  for (int i = tid; i < B * n_units; i += kBlockThreads) {
     const int b = i / n_units, u = i % n_units, j = u0 + u;
     const float h = a.h0[(size_t)b * H + j];
     carry_s[b * a.units + u] = h;
@@ -419,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
   }
   grid_sync();
 
-  Stamps st;
+  PhaseStamps<kPhases> st;
   // One output of the product, row b, A row m (int8: the int32 sum's bits):
   // hproj of the next step, or FC1 through ReLU into hid_buf.
   auto emit = [&](int b, int m, float sum) {
@@ -433,101 +297,56 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
       a.hid_buf[(size_t)b * FK + col] = __float2bfloat16(fmaxf(v + fc1b_s[m - n_cols], 0.f));
     }
   };
-  // One warp's pass over the K range for ``NT`` row tiles at once: tile
-  // ``task / kparts`` and, for NT 2, the tile kWarps further on. Each A
-  // fragment is read from shared memory once for all NT tiles; each tile's
-  // sums take the same order as alone.
-  auto tile_pass = [&](auto nt, const unsigned char* xs, int task, bool fc1) {
-    constexpr int NT = decltype(nt)::value;
-    const int kp = task % kparts;
-    const int kb_lo = kp * kb_count / kparts, kb_hi = (kp + 1) * kb_count / kparts;
-    int tile[NT];
-    const uint4* brow[NT];
-    bool live[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      tile[j] = task / kparts + j * kWarps;
-      const int n = tile[j] * kTile + g;
-      live[j] = n < B;
-      brow[j] = reinterpret_cast<const uint4*>(xs + (size_t)n * rb) + q;
-    }
-    float c[NT][kMaxMt][2][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int mt = 0; mt < kMaxMt; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[j][mt][0][e] = c[j][mt][1][e] = 0.f;
-    // kLoads K blocks of h per tile in flight at once, then their mma steps.
-    for (int kb0 = kb_lo; kb0 < kb_hi; kb0 += kLoads) {
-      uint4 bv[NT][kLoads];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < kLoads; ++i)
-          bv[j][i] = live[j] && kb0 + i < kb_hi ? __ldcg(brow[j] + (kb0 + i) * 4)
-                                                 : make_uint4(0, 0, 0, 0);
-#pragma unroll
-      for (int i = 0; i < kLoads; ++i) {
-        const int kb = kb0 + i;
-#pragma unroll
-        for (int mt = 0; mt < kMaxMt; ++mt) {
-          if (mt < mts && kb < kb_hi) {
-            const int r0 = min(mt * 16 + g, m_rows), r1 = min(mt * 16 + g + 8, m_rows);
-            const uint4 lo = *reinterpret_cast<const uint4*>(w_s + (size_t)r0 * stride +
-                                                             kb * kKBlock + q * 16);
-            const uint4 hi = *reinterpret_cast<const uint4*>(w_s + (size_t)r1 * stride +
-                                                             kb * kKBlock + q * 16);
-#pragma unroll
-            for (int j = 0; j < NT; ++j)
-              mma_block<kInt8>(c[j][mt][0], c[j][mt][1], lo, hi, bv[j][i]);
-          }
-        }
-      }
-    }
-    if (kparts == 1) {  // whole K ranges: the sums are final
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int mt = 0; mt < kMaxMt; ++mt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int m = mt * 16 + g + 8 * (e >> 1), b = tile[j] * kTile + 2 * q + (e & 1);
-            if (mt < mts && m < m_rows && b < B && (fc1 || m < n_cols))
-              emit(b, m, add_chains<kInt8>(c[j][mt][0][e], c[j][mt][1][e]));
-          }
-      return;
-    }
-#pragma unroll
-    for (int mt = 0; mt < kMaxMt; ++mt)
-      if (mt < mts) {
-        float4 v;
-        v.x = add_chains<kInt8>(c[0][mt][0][0], c[0][mt][1][0]);
-        v.y = add_chains<kInt8>(c[0][mt][0][1], c[0][mt][1][1]);
-        v.z = add_chains<kInt8>(c[0][mt][0][2], c[0][mt][1][2]);
-        v.w = add_chains<kInt8>(c[0][mt][0][3], c[0][mt][1][3]);
-        reinterpret_cast<float4*>(part_s)[(task * mts + mt) * 32 + lane] = v;
-      }
-  };
   // The product of the A rows with the h rows of slot ``slot``: hproj of
-  // the next step into hp_s and, where ``fc1``, FC1 into hid_buf. Above
-  // kWarps row tiles (B > 64) a warp takes tiles w and w + kWarps in one
-  // pass, which halves the block's reads of A from shared memory.
+  // the next step into hp_s and, where ``fc1``, FC1 into hid_buf. Under 8
+  // row tiles (B <= 56) the K range is split over the warps; above
+  // kBlockWarps row tiles (B > 64) a warp takes tiles w and w + kBlockWarps
+  // in one pass, which halves the block's reads of A from shared memory.
   auto product = [&](int slot, bool fc1) {
     const unsigned char* xs = a.x_buf + (size_t)slot * B * rb;
-    for (int task = warp; task < tasks; task += kWarps) {
-      if (kparts == 1 && task + kWarps < tasks) {
-        tile_pass(std::integral_constant<int, 2>(), xs, task, fc1);
-        task += kWarps;
+    auto load = [&](int n, int kb) {
+      return __ldcg(reinterpret_cast<const uint4*>(xs + (size_t)n * rb + kb * kKBytes) + q);
+    };
+    // One task's pass (NT 2: tasks task and task + kBlockWarps): whole K
+    // ranges give final sums; split ones their part of each 16 x 8 tile, to
+    // part_s. Its K range is worked out inside each NT's instance: shared by
+    // the two, it cost the kernel some 80 registers (nvcc 12.9, sm_90a).
+    auto pass = [&](auto nt, int task) {
+      constexpr int NT = decltype(nt)::value;
+      const int tile = task / kparts, kp = task % kparts;
+      const int kb_lo = kp * kb_count / kparts, kb_hi = (kp + 1) * kb_count / kparts;
+      const auto sums = tile_pass<NT, kMaxMt, kLoads, kInt8, false>(
+          w_s, stride, m_rows, 0, mts, tile, B, kb_lo, kb_hi, load, st, 0);
+      if (kparts == 1) {
+        emit_chains<kInt8>(sums, 0, mts, tile, B, m_rows, [&](int b, int m, float v) {
+          if (fc1 || m < n_cols) emit(b, m, v);
+        });
+        return;
+      }
+      if constexpr (NT == 1) {
+#pragma unroll
+        for (int mt = 0; mt < kMaxMt; ++mt)
+          if (mt < mts) {
+            const float(&c)[2][4] = sums.c[0][mt];
+            reinterpret_cast<float4*>(part_s)[(task * mts + mt) * 32 + lane] = make_float4(
+                add_chains<kInt8>(c[0][0], c[1][0]), add_chains<kInt8>(c[0][1], c[1][1]),
+                add_chains<kInt8>(c[0][2], c[1][2]), add_chains<kInt8>(c[0][3], c[1][3]));
+          }
+      }
+    };
+    for (int task = warp; task < tasks; task += kBlockWarps) {
+      if (kparts == 1 && task + kBlockWarps < tasks) {
+        pass(std::integral_constant<int, 2>(), task);
+        task += kBlockWarps;
       } else {
-        tile_pass(std::integral_constant<int, 1>(), xs, task, fc1);
+        pass(std::integral_constant<int, 1>(), task);
       }
     }
     __syncthreads();
     if constexpr (kStamps) st.mark(kProduct);
     if (kparts == 1) return;
     // Each (row, A row) output: its K parts added in order.
-    for (int i = tid; i < B * m_rows; i += kThreads) {
+    for (int i = tid; i < B * m_rows; i += kBlockThreads) {
       const int b = i / m_rows, m = i % m_rows;
       if (m >= n_cols && !fc1) continue;
       const int tile = b / kTile, n = b % kTile, mt = m / 16, mm = m % 16;
@@ -537,12 +356,12 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
       if constexpr (kInt8) {
         int sum = 0;
 #pragma unroll
-        for (int k = 0; k < kWarps; ++k)
+        for (int k = 0; k < kBlockWarps; ++k)
           if (k < kparts) sum += __float_as_int(p[(size_t)k * mts * 128]);
         v = __int_as_float(sum);
       } else {
 #pragma unroll
-        for (int k = 0; k < kWarps; ++k)
+        for (int k = 0; k < kBlockWarps; ++k)
           if (k < kparts) v += p[(size_t)k * mts * 128];
       }
       emit(b, m, v);
@@ -557,13 +376,13 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
   float cx[kPairs][3];
 #pragma unroll
   for (int k = 0; k < kPairs; ++k) {
-    const int i = tid + k * kThreads;
+    const int i = tid + k * kBlockThreads;
     pb[k] = i < B * n_units ? i / n_units : -1;
     pu[k] = i < B * n_units ? i % n_units : 0;
   }
 
   const uint32_t seed_key = mix32(a.seed);
-  if constexpr (kStamps) st.open(a.stamps, a.n_steps, blk, G);
+  if constexpr (kStamps) st.open(a.stamps, a.n_steps);
   for (int t = 0; t < a.n_steps; ++t) {
     if constexpr (kStamps) st.begin_step();
     const int f = t / a.hop;
@@ -628,14 +447,14 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int cls = (warp + j * kWarps) * 16 + g + 8 * (e >> 1), s = 2 * q + (e & 1);
+          const int cls = (warp + j * kBlockWarps) * 16 + g + 8 * (e >> 1), s = 2 * q + (e & 1);
           noise[j][e] = !a.greedy && cls < C && s < cnt ? gumbel(step_key, row_of(s0 + s), cls, C)
                                                          : 0.f;
         }
     };
-    grid_arrive(a.sync);
+    count_arrive(a.sync);
     noise_of(0, min(kTile, n_sample));
-    grid_wait(a.sync, ++barriers * gridDim.x);
+    count_wait(a.sync, ++barriers * gridDim.x);
     if constexpr (kStamps) st.mark(kBarrier2);
 
     for (int s0 = 0; s0 < n_sample; s0 += kTile) {
@@ -645,7 +464,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
       if (s0 > 0) noise_of(s0, cnt);
       // The cnt FC1 rows, staged once for all warps (16 bytes a thread).
       const int chunks = FK * 2 / 16;
-      for (int i = tid; i < cnt * chunks; i += kThreads)
+      for (int i = tid; i < cnt * chunks; i += kBlockThreads)
         *reinterpret_cast<uint4*>(hid_s + (size_t)(i / chunks) * hstride + (i % chunks) * 16) =
             __ldcg(reinterpret_cast<const uint4*>(a.hid_buf + (size_t)row_of(s0 + i / chunks) * FK) +
                    i % chunks);
@@ -658,8 +477,8 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) c[j][0][e] = c[j][1][e] = 0.f;
       const uint4* frag = fc2_s + (size_t)warp * fb_count * 64 + lane * 2;
-      const size_t frag_next = (size_t)kWarps * fb_count * 64;
-      const bool second = warp + kWarps < ct_count;
+      const size_t frag_next = (size_t)kBlockWarps * fb_count * 64;
+      const bool second = warp + kBlockWarps < ct_count;
       const unsigned char* hrow = hid_s + (size_t)g * hstride + q * 16;
       if (warp < ct_count)
         for (int fb0 = 0; fb0 < fb_count; fb0 += kLoads) {
@@ -667,11 +486,11 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
           for (int i = 0; i < kLoads; ++i) {
             const int fb = fb0 + i;
             if (fb < fb_count) {
-              const uint4 bv = g < cnt ? *reinterpret_cast<const uint4*>(hrow + fb * kKBlock)
+              const uint4 bv = g < cnt ? *reinterpret_cast<const uint4*>(hrow + fb * kKBytes)
                                        : make_uint4(0, 0, 0, 0);
-              mma_block<false>(c[0][0], c[0][1], frag[fb * 64], frag[fb * 64 + 1], bv);
+              mma_k32(c[0][0], c[0][1], frag[fb * 64], frag[fb * 64 + 1], bv);
               if (second)
-                mma_block<false>(c[1][0], c[1][1], frag[frag_next + fb * 64],
+                mma_k32(c[1][0], c[1][1], frag[frag_next + fb * 64],
                                  frag[frag_next + fb * 64 + 1], bv);
             }
           }
@@ -681,7 +500,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int cls = (warp + j * kWarps) * 16 + g + 8 * (e >> 1), s = 2 * q + (e & 1);
+          const int cls = (warp + j * kBlockWarps) * 16 + g + 8 * (e >> 1), s = 2 * q + (e & 1);
           if (cls >= C || s >= cnt) continue;
           // As the plain version: logits, then the noise added.
           float score = (c[j][0][e] + c[j][1][e]) + fc2b_s[cls];
@@ -712,7 +531,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
       if (tid < cnt) {
         float bv = red_v[tid];
         int bi = red_i[tid];
-        for (int w = 1; w < kWarps; ++w)
+        for (int w = 1; w < kBlockWarps; ++w)
           if (better(red_v[w * kTile + tid], red_i[w * kTile + tid], bv, bi)) {
             bv = red_v[w * kTile + tid];
             bi = red_i[w * kTile + tid];
@@ -726,7 +545,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
     if constexpr (kStamps) st.mark(kSample);
     if (!self_sample) {
       grid_sync();
-      for (int b = tid; b < B; b += kThreads)
+      for (int b = tid; b < B; b += kBlockThreads)
         prev_s[b] = min(max(__ldcg(a.out + (size_t)t * B + b), 0), C - 1);
       __syncthreads();
     }
@@ -740,7 +559,7 @@ __global__ void __launch_bounds__(kThreads, 1) ar_decode_kernel(DecodeArgs a) {
 
 struct Plan {
   int grid, units, fc_cols;
-  Layout layout;
+  DecodeLayout layout;
   const void* kernel;
 };
 
@@ -748,20 +567,13 @@ cudaError_t plan_launch(int batch, int hidden, int fc, int classes, int int8, bo
                         Plan* p) {
   if (batch < 1 || batch > kMaxBatch || hidden < 1 || fc < 1 || classes < 1)
     return cudaErrorInvalidValue;
-  int dev, sms, coop, max_smem;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int sms, max_smem;
+  const cudaError_t err = device_limits(&sms, &max_smem);
   if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  p->units = (hidden + sms - 1) / sms;
-  p->grid = (hidden + p->units - 1) / p->units;
-  p->fc_cols = (fc + p->grid - 1) / p->grid;
-  if (3 * p->units + p->fc_cols > 16 * kMaxMt || classes > 16 * 2 * kWarps)
+  p->units = cdiv(hidden, sms);
+  p->grid = cdiv(hidden, p->units);
+  p->fc_cols = cdiv(fc, p->grid);
+  if (3 * p->units + p->fc_cols > 16 * kMaxMt || classes > 16 * 2 * kBlockWarps)
     return cudaErrorInvalidValue;
   p->layout = make_layout(batch, hidden, fc, classes, p->units, p->fc_cols, int8 != 0);
   if (stamps)
@@ -771,15 +583,7 @@ cudaError_t plan_launch(int batch, int hidden, int fc, int classes, int int8, bo
     p->kernel = int8 ? (const void*)ar_decode_kernel<true, false>
                      : (const void*)ar_decode_kernel<false, false>;
   if (p->layout.total > (size_t)max_smem) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)p->layout.total);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p->kernel, kThreads,
-                                                      p->layout.total);
-  if (err != cudaSuccess) return err;
-  if (per_sm * sms < p->grid) return cudaErrorCooperativeLaunchTooLarge;
-  return cudaSuccess;
+  return ready_resident(p->kernel, p->layout.total, p->grid, sms, kBlockThreads);
 }
 
 }  // namespace
@@ -801,8 +605,8 @@ int vq_ar_decode_plan(int batch, int hidden, int fc, int classes, int int8, int*
 
 // The decode with ``stamps`` non-null: the kernel variant that records
 // per-phase clock64 counts of two blocks into ``stamps`` (int64, 2 x (4 +
-// n_steps x kPhases), zeroed by the caller; see Stamps). With ``stamps``
-// null, the plain kernel: vq_ar_decode_launch.
+// n_steps x kPhases), zeroed by the caller; grid_common.cuh PhaseStamps).
+// With ``stamps`` null, the plain kernel: vq_ar_decode_launch.
 int vq_ar_decode_stamped_launch(const void* cond, const void* embed, const void* wh,
                                 const void* bh, const void* fc1, const void* fc1_b,
                                 const void* fc2, const void* fc2_b, const void* prev0,
@@ -850,7 +654,7 @@ int vq_ar_decode_stamped_launch(const void* cond, const void* embed, const void*
   a.stamps = static_cast<long long*>(stamps);
   a.sync = static_cast<unsigned int*>(sync_buf);
   void* params[] = {&a};
-  cudaLaunchCooperativeKernel(p.kernel, dim3(p.grid), dim3(kThreads), params,
+  cudaLaunchCooperativeKernel(p.kernel, dim3(p.grid), dim3(kBlockThreads), params,
                               p.layout.total, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

@@ -26,13 +26,13 @@
 // split over the warps, the parts added in order). Above 64 rows (where
 // H/2 allows 16-byte loads) the launch takes the kPairs instantiation:
 // every warp takes all of K, so its sums are final, and warp w takes row
-// tiles w and w + 8 in one pass (tile_pass; the second empty where the
-// batch ends first), both tiles' rows in flight at once, each A fragment
-// read from shared memory once for both, its sums written from the
-// registers. Each tile's sums keep the order of a chunk_product task over
-// all of K (as at 57-64 rows), so the pass changes no bit of the result. A
-// kernel of its own keeps its code out of the smaller batches' kernel: in
-// one kernel, behind a branch, it slowed their steps by 3-8 % on an H100.
+// tiles w and w + 8 in one pass (decode_common.cuh's tile_pass, the AR
+// decode's too; the second tile empty where the batch ends first), its
+// sums written from the registers. Each tile's sums keep the order of a
+// chunk_product task over all of K (as at 57-64 rows), so the pass changes
+// no bit of the result. A kernel of its own keeps its code out of the
+// smaller batches' kernel: in one kernel, behind a branch, it slowed their
+// steps by 3-8 % on an H100.
 // A step:
 //   coarse gates                      -> bf16(y_c) to xc            barrier 1
 //   xc x [wh_c | o1]: hproj(t + 1) from the coarse half, and o1 -> hidc
@@ -64,12 +64,8 @@
 
 namespace {
 
-using namespace vq_grid;
-using vq_decode::better;
-using vq_decode::gumbel;
-using vq_decode::mix32;
+using namespace vq_decode;
 
-constexpr int kMaxBatch = 128;  // rows of one launch
 constexpr int kClassTile = 16;  // classes a head block scores: one mma M tile
 constexpr int kMaxTiles = 16;   // class tiles a softmax has: C <= 256
 constexpr int kDualMt = 2;      // A tiles a warp takes in one pass of the product
@@ -122,11 +118,6 @@ struct DualLayout {
   int kp, stride, tile_row_p, tile_row_h;
 };
 
-__host__ __device__ __forceinline__ int part_tile_row(int rows) {
-  const int tasks = max(kBlockWarps, cdiv(rows, kTile));
-  return tasks * kPartTile + (tasks % 2 == 0 ? 16 : 0);
-}
-
 // Dynamic shared memory of a block; the same on the host (size) and the
 // card. wc / wf: the two A operands (3 x 2U wh columns, then the o1 / o3
 // columns, one zero row) over K = H/2; o2 / o4: this block's 16 classes of
@@ -162,86 +153,6 @@ __host__ __device__ __forceinline__ DualLayout dual_layout(int B, int half, int 
 
 __device__ __forceinline__ float byte_in(int v) { return __fsub_rn(__fdiv_rn((float)v, 127.5f), 1.f); }
 
-// One warp's pass over all of K for two row tiles of ``src`` at once: tile
-// ``nt`` and the tile kBlockWarps further on. Both tiles' K blocks are
-// loaded kPairLoads at a time before their mma steps; each A fragment
-// (``w_s`` as in chunk_product) is read from shared memory once for both
-// tiles. Each tile's two chains add their K blocks in order, as
-// chunk_product's task over all of K does, so ``emit(row, A row, sum)``
-// gets the sum that chunk_product and part_at give. 16-byte loads only
-// (``src.vec``). The stamped variant marks ``load_phase`` once the first
-// loads are there.
-template <bool kStamps, int kPhases, class Emit>
-__device__ __forceinline__ void tile_pass(const unsigned char* w_s, int stride, int zrow, int mts,
-                                          const Rows& src, int nr, int nt,
-                                          PhaseStamps<kPhases>& st, int load_phase, Emit emit) {
-  constexpr int NT = 2, MT = kDualMt, LOADS = kPairLoads;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int kbs = cdiv(src.K, kKBlock);
-  int n[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) n[j] = (nt + j * kBlockWarps) * kTile + g;
-  for (int mt0 = 0; mt0 < mts; mt0 += MT) {
-    float c[NT][MT][2][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[j][mt][0][e] = c[j][mt][1][e] = 0.f;
-    for (int kb0 = 0; kb0 < kbs; kb0 += LOADS) {
-      uint4 bv[NT][LOADS];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < LOADS; ++i) {
-          const int k = (kb0 + i) * kKBlock + q * 8;
-          bv[j][i] = n[j] < nr && kb0 + i < kbs
-                         ? load_k8(src.bf + (size_t)n[j] * src.ld, k, src.K, true)
-                         : make_uint4(0, 0, 0, 0);
-        }
-      if constexpr (kStamps) {
-        if (mt0 == 0 && kb0 == 0) {
-          uint32_t all = 0;
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-#pragma unroll
-            for (int i = 0; i < LOADS; ++i) all ^= bv[j][i].x ^ bv[j][i].w;
-          settle(all);
-          st.mark(load_phase);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < LOADS; ++i) {
-        if (kb0 + i < kbs) {
-          const int off = (kb0 + i) * kKBlock * 2 + q * 16;
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            if (mt0 + mt < mts) {
-              const int r_lo = min((mt0 + mt) * 16 + g, zrow);
-              const int r_hi = min((mt0 + mt) * 16 + g + 8, zrow);
-              const uint4 lo = *reinterpret_cast<const uint4*>(w_s + (size_t)r_lo * stride + off);
-              const uint4 hi = *reinterpret_cast<const uint4*>(w_s + (size_t)r_hi * stride + off);
-#pragma unroll
-              for (int j = 0; j < NT; ++j) mma_k32(c[j][mt][0], c[j][mt][1], lo, hi, bv[j][i]);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {  // c[e]: A row g (+8 for e >= 2), batch row 2q (+1 for odd e)
-          const int m = (mt0 + mt) * 16 + g + 8 * (e >> 1);
-          const int b = (nt + j * kBlockWarps) * kTile + 2 * q + (e & 1);
-          if (mt0 + mt < mts && m < zrow && b < nr) emit(b, m, c[j][mt][0][e] + c[j][mt][1][e]);
-        }
-  }
-}
-
 template <bool kStamps, bool kPairs>
 __global__ void __launch_bounds__(kBlockThreads, 1) dual_decode_kernel(DualArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -252,7 +163,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) dual_decode_kernel(DualArgs 
     count_wait(a.sync, ++barriers * G);
   };
   const int H = a.hidden, half = H / 2, H3 = 3 * H, B = a.batch, C = a.classes;
-  const int tid = threadIdx.x, blk = blockIdx.x, U = a.units, ld = a.ld;
+  const int tid = threadIdx.x, q = tid & 3, blk = blockIdx.x, U = a.units, ld = a.ld;
   const int nuc = max(0, min(U, half - blk * U));  // units of each half this block owns
   const int nu = 2 * nuc, n3 = 3 * nu;
   int n_o = 0;
@@ -355,23 +266,30 @@ __global__ void __launch_bounds__(kBlockThreads, 1) dual_decode_kernel(DualArgs 
   // adds the parts.
   auto product = [&](const unsigned char* w_s, const __nv_bfloat16* xs, float* hp, bool first,
                      bool heads, const float* ob, __nv_bfloat16* hid, int load_phase) {
+    auto emit = [&](int b, int m, float v) {
+      if (m < n3)
+        hp[b * n3 + m] = first ? v : hp[b * n3 + m] + v;
+      else if (heads)
+        hid[(size_t)b * ld + blk + (m - n3) * G] = __float2bfloat16(fmaxf(v + ob[m - n3], 0.f));
+    };
+    if constexpr (kPairs) {
+      auto load = [&](int n, int kb) {
+        return load_k8(xs + (size_t)n * ld, kb * kKBlock + q * 8, half, true);
+      };
+      for (int nt = tid / 32; nt < cdiv(B, kTile); nt += 2 * kBlockWarps)
+        for (int mt0 = 0; mt0 < mts; mt0 += kDualMt)
+          emit_chains<false>(tile_pass<2, kDualMt, kPairLoads, false, kStamps>(
+                                 w_s, L.stride, m_rows, mt0, mts, nt, B, 0, cdiv(half, kKBlock),
+                                 load, st, load_phase),
+                             mt0, mts, nt, B, m_rows, emit);
+      __syncthreads();
+      return;
+    }
     Rows src{};
     src.bf = xs;
     src.ld = ld;
     src.K = half;
     src.vec = vec;
-    if constexpr (kPairs) {
-      auto emit = [&](int b, int m, float v) {
-        if (m < n3)
-          hp[b * n3 + m] = first ? v : hp[b * n3 + m] + v;
-        else if (heads)
-          hid[(size_t)b * ld + blk + (m - n3) * G] = __float2bfloat16(fmaxf(v + ob[m - n3], 0.f));
-      };
-      for (int nt = tid / 32; nt < cdiv(B, kTile); nt += 2 * kBlockWarps)
-        tile_pass<kStamps>(w_s, L.stride, m_rows, mts, src, B, nt, st, load_phase, emit);
-      __syncthreads();
-      return;
-    }
     chunk_product<kDualMt, kDualLoads, false, kStamps>(w_s, L.stride, m_rows, mts, src, B, 0,
                                                        half, part_s, L.tile_row_p, false, st,
                                                        load_phase);
@@ -379,12 +297,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) dual_decode_kernel(DualArgs 
     const int kparts = group_kparts(B);
     for (int i = tid; i < B * m_rows; i += kBlockThreads) {
       const int b = i / m_rows, m = i % m_rows;
-      if (m >= n3 && !heads) continue;
-      const float v = part_at(part_s, part_base(L.tile_row_p, kparts, b, m), kparts);
-      if (m < n3)
-        hp[b * n3 + m] = first ? v : hp[b * n3 + m] + v;
-      else
-        hid[(size_t)b * ld + blk + (m - n3) * G] = __float2bfloat16(fmaxf(v + ob[m - n3], 0.f));
+      if (m < n3 || heads) emit(b, m, part_at(part_s, part_base(L.tile_row_p, kparts, b, m), kparts));
     }
     __syncthreads();
   };

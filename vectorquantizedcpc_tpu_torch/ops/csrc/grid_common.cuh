@@ -1,6 +1,7 @@
 // Building blocks of the row-group scans over a cooperative grid (the GRU's
 // in gru_train.cu, the LSTM's in lstm_grid.cu), and the per-phase clock
-// stamps, the barrier count and the two-step mma that other kernels share.
+// stamps, the barrier count and the two-step mma that the decode kernels
+// (ar_decode.cu, dual_decode.cu, through decode_common.cuh) share with them.
 //
 // A row-group scan rests on the batch rows being independent sequences: row
 // b's step needs only row b's h. The grid is split into row groups, each of
@@ -64,6 +65,14 @@ __host__ __device__ __forceinline__ int a_stride(int row_bytes) {
   return row_bytes + (192 - row_bytes % 128) % 128;
 }
 
+// Floats between the partial sums of two A tiles of a product of ``rows``
+// rows: a kPartTile tile per task (a warp, or an N tile where there are
+// more of them than warps), plus 16 where that keeps A tiles 16 modulo 32.
+__host__ __device__ __forceinline__ int part_tile_row(int rows) {
+  const int tasks = max(kBlockWarps, cdiv(rows, kTile));
+  return tasks * kPartTile + (tasks % 2 == 0 ? 16 : 0);
+}
+
 struct Layout {
   size_t w, part, bias, state, total;
   int kp, stride, mts;
@@ -84,8 +93,7 @@ __host__ __device__ __forceinline__ Layout block_layout(int K, int m_rows, int k
   L.kp = round_up(min(K, kc), kKBlock);
   L.stride = a_stride(2 * L.kp);
   L.mts = cdiv(m_rows, 16);
-  const int tasks = max(kBlockWarps, cdiv(rows, kTile));
-  L.tile_row = tasks * kPartTile + (tasks % 2 == 0 ? 16 : 0);
+  L.tile_row = part_tile_row(rows);
   size_t off = 0;
   L.w = take(&off, (size_t)(m_rows + 1) * L.stride);
   L.part = take(&off, sizeof(float) * L.tile_row * L.mts);

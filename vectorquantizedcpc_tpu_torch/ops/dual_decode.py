@@ -28,7 +28,9 @@ import torch
 
 from ..dsp.pcm16 import SILENCE, byte_input, pcm16_to_float
 from ..models.vocoder import DUAL_CLASSES, Vocoder, build_conditioning_frames, is_dual16
+from ._build import expect_tensors
 from .ar_decode import _M32, gumbel_bits, gumbel_noise, project_cond_frames, segment_seed
+from .grid_plan import GRID_WARPS, TILE
 
 DUAL_DECODE_LAUNCHES = 0
 DUAL_DECODE_TWO_TILE_LAUNCHES = 0
@@ -38,10 +40,8 @@ DUAL_STAMP_PHASES = ("coarse gates", "barrier 1", "coarse load", "coarse product
                      "coarse head", "barrier 3", "coarse draw", "fine gates", "barrier 4",
                      "fine load", "fine product", "barrier 5", "fine head", "barrier 6",
                      "fine draw")
-MAX_BATCH = 128  # kMaxBatch in csrc/dual_decode.cu
+MAX_BATCH = 128  # kMaxBatch in csrc/decode_common.cuh
 CLASS_TILE = 16  # kClassTile: classes of one head block
-ROW_TILE = 8  # kTile in csrc/grid_common.cuh: batch rows of an mma N tile
-BLOCK_WARPS = 8  # kBlockWarps: warps of a block
 
 
 class DualDecodeWeights(NamedTuple):
@@ -214,13 +214,7 @@ def _check_kernel_inputs(cond_proj, state: DualDecodeState, w: DualDecodeWeights
         "o4_w": (w.o4_w, torch.bfloat16, (half, n_classes)),
         "o4_b": (w.o4_b, torch.float32, (n_classes,)),
     }
-    for name, (x, dtype, shape) in expect.items():
-        if x.device != cond_proj.device:
-            raise ValueError(f"{name} is on {x.device}, cond_proj on {cond_proj.device}")
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    expect_tensors(expect, cond_proj.device, "cond_proj")
     if h3 % 6 or not 1 <= b <= MAX_BATCH or tf < 1 or hop < 1:
         raise ValueError(f"unsupported dual decode shape: cond_proj {tuple(cond_proj.shape)}, "
                          f"hop {hop}; the kernel takes 1 to {MAX_BATCH} rows and an even H")
@@ -322,7 +316,7 @@ def two_tile_pass(batch: int, hidden: int) -> bool:
     ``two_tile_pass``): more row tiles than a block has warps, so each warp
     takes all of K and tiles w and w + 8, and H/2 a multiple of 8 (16-byte
     loads)."""
-    return -(-batch // ROW_TILE) > BLOCK_WARPS and (hidden // 2) % 8 == 0
+    return -(-batch // TILE) > GRID_WARPS and (hidden // 2) % 8 == 0
 
 
 def kernel_plan(batch: int, hidden: int, n_classes: int = DUAL_CLASSES) -> Tuple[int, int, int]:

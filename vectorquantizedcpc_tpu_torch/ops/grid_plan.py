@@ -16,20 +16,21 @@ import torch
 
 from ._build import fit_chunk
 
-# csrc/grid_common.cuh: kBlockWarps, kMaxPairs, kKBlock; SYNC_WORDS =
-# kMaxGroups x kSyncStride, the uint32 barrier counts a backward launch is given.
-GRID_WARPS, MAX_PAIRS, K_BLOCK = 8, 2, 32
+# csrc/grid_common.cuh: kBlockWarps, kTile (batch rows of an mma N tile),
+# kMaxPairs, kKBlock; SYNC_WORDS = kMaxGroups x kSyncStride, the uint32
+# barrier counts a backward launch is given.
+GRID_WARPS, TILE, MAX_PAIRS, K_BLOCK = 8, 8, 2, 32
 SYNC_WORDS = 256 * 32
 PART_TILE = 8 * 20 + 16  # kPartTile: floats of a 16 x 8 tile of partial sums
-SMS = 132  # the H100's SMs: the grid the plan mirror assumes
+SMS = 132  # the H100's SMs: the grid the plan mirrors assume
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can opt into (227 KB)
 
 
-def _cdiv(a: int, b: int) -> int:
+def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _align16(n: int) -> int:
+def align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
@@ -62,14 +63,14 @@ def layout_bytes(gates: int, bias: bool, rows: int, hidden: int, units: int, bac
     registers; past that, each pair's carry (backward: two carries) takes
     f32 in shared memory."""
     k, m_rows = (gates * hidden, units) if backward else (hidden, gates * units)
-    row_bytes = 2 * _cdiv(min(k, chunk or k), K_BLOCK) * K_BLOCK
+    row_bytes = 2 * cdiv(min(k, chunk or k), K_BLOCK) * K_BLOCK
     stride = row_bytes + (192 - row_bytes % 128) % 128
-    tasks = max(GRID_WARPS, _cdiv(rows, 8))
+    tasks = max(GRID_WARPS, cdiv(rows, TILE))
     tile_row = tasks * PART_TILE + (16 if tasks % 2 == 0 else 0)
     tail = max(0, rows * units - MAX_PAIRS * 32 * GRID_WARPS)
     n_bias = m_rows if bias and not backward else 0
-    return (_align16((m_rows + 1) * stride) + _align16(4 * tile_row * _cdiv(m_rows, 16))
-            + _align16(4 * n_bias) + _align16(4 * (2 if backward else 1) * tail))
+    return (align16((m_rows + 1) * stride) + align16(4 * tile_row * cdiv(m_rows, 16))
+            + align16(4 * n_bias) + align16(4 * (2 if backward else 1) * tail))
 
 
 def one_group_bytes(gates: int, bias: bool, batch: int, hidden: int, units: int,
@@ -77,7 +78,7 @@ def one_group_bytes(gates: int, bias: bool, batch: int, hidden: int, units: int,
     """A forward and a backward block's shared memory at ``units`` hidden
     units in one group of all ``batch`` rows (``layout_bytes``), each over
     K chunks of ``chunks`` (0: all of K)."""
-    rows = _cdiv(batch, 8) * 8
+    rows = cdiv(batch, TILE) * TILE
     return (layout_bytes(gates, bias, rows, hidden, units, False, chunks[0]),
             layout_bytes(gates, bias, rows, hidden, units, True, chunks[1]))
 
@@ -105,13 +106,13 @@ def group_plan(gates: int, bias: bool, batch: int, hidden: int, backward: bool =
     Raises ``ValueError`` where no grid fits."""
     k = gates * hidden if backward else hidden
     fewest = None
-    for rows in range(8, _cdiv(batch, 8) * 8 + 1, 8):
-        groups = _cdiv(batch, rows)
+    for rows in range(TILE, cdiv(batch, TILE) * TILE + 1, TILE):
+        groups = cdiv(batch, rows)
         if groups > min(sms, SYNC_WORDS // 32):
             continue
         share = sms // groups
-        u = units or _cdiv(hidden, share)
-        blocks = _cdiv(hidden, u)
+        u = units or cdiv(hidden, share)
+        blocks = cdiv(hidden, u)
         if blocks > share:
             continue
         smem = layout_bytes(gates, bias, rows, hidden, u, backward)

@@ -43,6 +43,7 @@ from typing import Tuple
 import torch
 
 from . import grid_plan as _grid
+from ._build import expect_tensors
 from ._build import launch as _launch
 from ._build import on_card as _on_card
 from .grid_plan import SMEM_LIMIT, SMS, GridPlan
@@ -234,16 +235,6 @@ def gru_scan_bwd_reference(acts, hns, h_prevs, dhs, wh, dh_t) -> Tensors3:
     return dgx, dgh, dh_carry
 
 
-def _check(tensors: dict, device: torch.device) -> None:
-    for name, (x, dtype, shape) in tensors.items():
-        if x.device != device:
-            raise ValueError(f"{name} is on {x.device}, not {device}")
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def check_scan_inputs(wh, bh, xproj, h0, valid=None, kernel: bool = False) -> None:
     """Raise ``ValueError`` on what the forward kernels do not take.
 
@@ -264,7 +255,7 @@ def check_scan_inputs(wh, bh, xproj, h0, valid=None, kernel: bool = False) -> No
     }
     if valid is not None:
         expect["valid"] = (valid, torch.int32, (t, b))
-    _check(expect, xproj.device)
+    expect_tensors(expect, xproj.device, "xproj")
     if t < 1 or b < 1 or hidden < 1:
         raise ValueError(f"empty GRU scan: xproj {tuple(xproj.shape)}")
     if kernel and hidden > BLOCK_MAX_HIDDEN:
@@ -284,14 +275,14 @@ def check_bwd_inputs(acts, hns, h_prevs, dhs, wh, dh_t) -> None:
     t, b = acts.shape[:2]
     hidden = wh.shape[0]
     bf = torch.bfloat16
-    _check({
+    expect_tensors({
         "acts": (acts, bf, (t, b, 3 * hidden)),
         "hns": (hns, bf, (t, b, hidden)),
         "h_prevs": (h_prevs, bf, (t, b, hidden)),
         "dhs": (dhs, bf, (t, b, hidden)),
         "wh": (wh, bf, (hidden, 3 * hidden)),
         "dh_t": (dh_t, torch.float32, (b, hidden)),
-    }, acts.device)
+    }, acts.device, "acts")
     if t < 1 or b < 1 or hidden < 1:
         raise ValueError(f"empty GRU scan backward: acts {tuple(acts.shape)}")
 

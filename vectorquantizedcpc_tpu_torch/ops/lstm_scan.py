@@ -50,6 +50,7 @@ from typing import Tuple
 import torch
 
 from . import grid_plan as _grid
+from ._build import expect_tensors
 from ._build import launch as _launch
 from ._build import on_card as _on_card
 from .grid_plan import SMEM_LIMIT, SMS, GridPlan
@@ -327,16 +328,6 @@ def lstm_scan_bwd_reference(acts, c_prev, dhs, wh, dh_t, dc_t) -> Tensors3:
     return dgates, dh, dc
 
 
-def _check(tensors: dict, device: torch.device) -> None:
-    for name, (x, dtype, shape) in tensors.items():
-        if x.device != device:
-            raise ValueError(f"{name} is on {x.device}, xproj on {device}")
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got {x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def check_scan_inputs(wh, xproj, h0, c0) -> None:
     """Raise ``ValueError`` on what the forward kernels do not take: wh
     (H, 4H) bf16, xproj (T, B, 4H) bf16, h0 and c0 (B, H) f32, all contiguous
@@ -346,12 +337,12 @@ def check_scan_inputs(wh, xproj, h0, c0) -> None:
                          f"{tuple(xproj.shape)}")
     hidden = wh.shape[0]
     t, b = xproj.shape[:2]
-    _check({
+    expect_tensors({
         "wh": (wh, torch.bfloat16, (hidden, 4 * hidden)),
         "xproj": (xproj, torch.bfloat16, (t, b, 4 * hidden)),
         "h0": (h0, torch.float32, (b, hidden)),
         "c0": (c0, torch.float32, (b, hidden)),
-    }, xproj.device)
+    }, xproj.device, "xproj")
     if t < 1 or b < 1 or hidden < 1:
         raise ValueError(f"empty LSTM scan: xproj {tuple(xproj.shape)}")
 
@@ -365,14 +356,14 @@ def check_bwd_inputs(acts, c_prev, dhs, wh, dh_t, dc_t) -> None:
                          f"{tuple(wh.shape)}")
     t, b = acts.shape[:2]
     hidden = wh.shape[0]
-    _check({
+    expect_tensors({
         "acts": (acts, torch.bfloat16, (t, b, 4 * hidden)),
         "c_prev": (c_prev, torch.float32, (t, b, hidden)),
         "dhs": (dhs, torch.bfloat16, (t, b, hidden)),
         "wh": (wh, torch.bfloat16, (hidden, 4 * hidden)),
         "dh_t": (dh_t, torch.float32, (b, hidden)),
         "dc_t": (dc_t, torch.float32, (b, hidden)),
-    }, acts.device)
+    }, acts.device, "acts")
     if t < 1 or b < 1 or hidden < 1:
         raise ValueError(f"empty LSTM scan backward: acts {tuple(acts.shape)}")
 
