@@ -36,6 +36,9 @@ indices, 10 launches and the stamped variants giving the same bits, the
 plan and the backward's workspace against their Python mirrors. The step
 graph (``training/step_graph.py``): both trainers' steps captured and
 replayed give the eager steps' bits, and a capture that fails raises.
+The server's planned drain at 128 slots, both heads: its waveforms,
+streamed to the host through the pinned slots while the drain decodes,
+against the launches' own samples, bit for bit.
 Skipped without a card. This file imports no JAX, so it also runs on a
 machine without it:
 
@@ -651,6 +654,57 @@ def test_server_refuses_more_slots_than_the_kernel_takes(cuda):
     vocoder = Vocoder(conf.training_vocoder.model.network)
     with pytest.raises(ValueError, match="at most 128 rows"):
         ContinuousBatcher(vocoder, slots=129, device=cuda)
+
+
+@pytest.mark.parametrize("output", ["mulaw", "dual16"])
+def test_streamed_drain_at_128_slots_equals_the_launches_output(cuda, monkeypatch, output):
+    """A bf16 drain over 128 slots at the default widths, of more segments
+    than three rounds of a shard's pinned slots (each slot reused at least
+    twice), every result() taken after the last launch is queued: each
+    waveform is the recorded launches' samples through the head, bit for
+    bit, and samples were expanded while the drain decoded."""
+    from vectorquantizedcpc_tpu_torch.configs import load_conf
+    from vectorquantizedcpc_tpu_torch.infer import serving
+    from vectorquantizedcpc_tpu_torch.models.vocoder import Vocoder
+    from vectorquantizedcpc_tpu_torch.ops.heads import decode_head
+
+    launches, schedules = [], []
+    for name in ("fused_ar_decode_segment", "fused_dual_decode_segment"):
+        real = getattr(serving, name)
+
+        def launch(*args, _real=real, **kwargs):
+            out, state = _real(*args, **kwargs)
+            launches.append(out.clone())
+            return out, state
+
+        monkeypatch.setattr(serving, name, launch)
+    schedule = serving.compute_drain_schedule
+    monkeypatch.setattr(serving, "compute_drain_schedule",
+                        lambda *a: schedules.append(schedule(*a)) or schedules[-1])
+
+    torch.manual_seed(0)
+    conf = load_conf([f"training_vocoder.model.network.rnnms.output={output}"])
+    vocoder = Vocoder(conf.training_vocoder.model.network)
+    server = serving.ContinuousBatcher(vocoder, slots=128, segment_frames=4, max_frames=128,
+                                       seed=5, device=cuda)
+    hop = vocoder.conf.rnnms.upsampling_t
+    rng = np.random.default_rng(3)
+    n_spk = conf.training_vocoder.model.n_speakers
+    reqs = [(rng.integers(0, conf.size_latent_codebook, int(rng.integers(5, 40))),
+             int(rng.integers(0, n_spk))) for _ in range(300)]
+    rids = [server.submit(z, s) for z, s in reqs]
+    server.run(materialize=False, wait=False)
+    waves = [server.result(rid) for rid in rids]
+    stats = server.stats
+    assert stats["steps"] == len(launches) >= 3 * serving.STAGING_SLOTS
+    assert 0 < stats["expanded_in_flight"] <= stats["samples_out"]
+    timeline = torch.stack(launches).cpu().numpy()  # (steps, slots, sf * hop)
+    _rows, _pos, _fresh, rid_sched, _pos0, _valid = schedules[-1]
+    to_wave = decode_head(vocoder.conf.rnnms, "bf16", cuda).to_wave
+    for rid, (z, _s), wave in zip(rids, reqs, waves):
+        slot, s0, nseg = rid_sched[rid]
+        want = to_wave(timeline[s0 : s0 + nseg, slot].reshape(-1)[: 2 * len(z) * hop])
+        np.testing.assert_array_equal(wave, want)
 
 
 def _lstm_case(rng, t, b, hidden, device):

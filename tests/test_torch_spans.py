@@ -194,8 +194,9 @@ def _requests(n, seed=0):
 @pytest.mark.parametrize("greedy", [False, True])
 def test_run_then_result_spans(vocoder, greedy):
     """A planned drain of 5 requests: one serving.launch per segment (the
-    stats' steps), one serving.fetch for the drain, one serving.expand per
-    request with its rid, and the conditioning passes."""
+    stats' steps); per segment, as the host takes its samples, one
+    serving.fetch and then one serving.expand with its segment, between
+    the launches; and the conditioning passes."""
     server = _server(vocoder, greedy)
     reqs = _requests(5)
     before, stats0 = profiling.totals(), server.stats
@@ -209,11 +210,14 @@ def test_run_then_result_spans(vocoder, greedy):
     launches = _named("serving.launch")
     assert [iv[5]["segment"] for iv in launches] == list(range(int(stats0["steps"]),
                                                                int(stats1["steps"])))
-    assert _delta(before, "serving.fetch")[0] == 1 and len(_named("serving.fetch")) == 1
-    expands = _named("serving.expand")
-    assert sorted(iv[5]["rid"] for iv in expands) == sorted(rids)
-    fetch = _named("serving.fetch")[0]
-    assert all(iv[2] <= fetch[1] or iv[1] >= fetch[2] for iv in expands)  # apart
+    segments = [iv[5]["segment"] for iv in launches]
+    fetches, expands = _named("serving.fetch"), _named("serving.expand")
+    assert _delta(before, "serving.fetch")[0] == len(fetches) == steps
+    assert _delta(before, "serving.expand")[0] == steps
+    assert [iv[5]["segment"] for iv in expands] == segments  # in launch order
+    for fetch, expand in zip(fetches, expands):
+        assert fetch[2] <= expand[1]  # each segment's wait, then its expansion
+    assert all(iv[4] is None for iv in fetches + expands)  # not inside a launch
     lengths = {len(z) for z, _s in reqs}
     assert _delta(before, "serving.condition")[0] == (len(lengths) if greedy else 1)
     assert {rid: len(w) for rid, w in waves.items()} == {

@@ -17,16 +17,21 @@ stream's samples: chaining segments reproduces a single-shot decode.
   longest request first into the slot that frees first). The conditioning
   of every queued request is built in one pass into staging rows; each
   schedule step then resets the fresh slots, gathers every slot's window
-  of conditioning and launches one segment. The decoded classes form a
-  (steps, slots, samples) timeline from which each request is reassembled.
+  of conditioning and launches one segment. Each segment's samples are
+  copied to the host as its launch ends, on a side stream into a small
+  ring of pinned slots (``STAGING_SLOTS``), and written into their
+  requests' waveforms between later launches, while the card decodes:
+  only the last segments are left for :meth:`~ContinuousBatcher.result`.
 - :meth:`ContinuousBatcher.step`, the incremental mode: admission into
   freed slots, one segment across all slots, retirement.
 
 Spans (``utils/profiling.py``): ``serving.condition`` (a conditioning
 pass), ``serving.launch`` (one segment's host pass, with its ``segment``),
 ``serving.admit`` (one admission of ``step()``, with its ``rid``),
-``serving.fetch`` (the classes' copy to the host) and ``serving.expand``
-(one request's waveform from its classes, with its ``rid``).
+``serving.fetch`` (the host's wait for samples on their way to it: a
+drain segment's copy, or a request of ``step()``) and ``serving.expand``
+(samples into waveforms: a drain segment's pieces, with its ``segment``,
+or a request of ``step()``, with its ``rid``).
 
 Sampling noise differs from segment to segment: the launch of global
 segment k gets the seed ``segment_seed(seed, k)``.
@@ -71,6 +76,12 @@ from ..ops.heads import Dual16Head, decode_head
 from ..utils.profiling import span
 
 __all__ = ["ContinuousBatcher", "compute_drain_schedule"]
+
+# Pinned host slots per shard that a drain's segments are copied into. A slot
+# is reused once the host has taken the segment in it, so the host queues at
+# most this many segments ahead of the last one it took: on the card, three
+# stay queued behind the one that runs while the host waits for a slot.
+STAGING_SLOTS = 4
 
 
 def compute_drain_schedule(s_count, sf, hop, slots_live, queued, rid_row):
@@ -138,43 +149,76 @@ def _to_host(classes: torch.Tensor) -> np.ndarray:
     return classes.cpu().numpy()
 
 
-class _Timeline:
-    """Classes (steps, slots, sf * hop) on the device, fetched to the host
-    once: the shards' (steps, slots of the shard, sf * hop) side by side
-    (one drain's), or one finished request's (1, 1, samples)."""
+@dataclass
+class _Drain:
+    """A planned drain's tables, for placing its segments' samples: the
+    conditioning row and frame position of every (step, slot), each row's
+    rid, the global index of its first segment, and ``last``, the events
+    after its last launch on each shard (None until that launch is queued;
+    each None on the CPU)."""
 
-    def __init__(self, classes: List[torch.Tensor]):
-        self._dev = classes
-        self._host: Optional[np.ndarray] = None
+    rows_t: np.ndarray
+    pos_t: np.ndarray
+    row_rid: Dict[int, int]
+    first_segment: int
+    last: Optional[list] = None
 
-    def fetch(self) -> None:
-        """Copy the classes to the host (waits for the device), once."""
-        if self._host is None:
-            with span("serving.fetch"):
-                self._host = np.concatenate([_to_host(c) for c in self._dev], axis=1)
+    def decoding(self) -> bool:
+        """Whether the last launch has not yet completed on the device."""
+        return self.last is None or not all(e is None or e.query() for e in self.last)
 
-    def request(self, slot, s0, nseg, n, prefix: Optional[torch.Tensor]) -> np.ndarray:
-        """A request's classes: ``n`` from segment ``s0`` of ``slot``, after
-        ``prefix`` (on the device: what it decoded before the drain)."""
-        out = self._host[s0 : s0 + nseg, slot].reshape(-1)[:n]
-        return out if prefix is None else np.concatenate([_to_host(prefix), out])
+
+@dataclass
+class _Landing:
+    """A shard's samples of one drain step (rows of the shard, sf * hop) on
+    the host (``host``), or on their way there: ``done`` is the copy's event
+    (None on the CPU: there at once), ``decoded`` the launch's output, held
+    until the copy is done."""
+
+    drain: _Drain
+    step: int
+    shard: "_Shard"
+    host: np.ndarray
+    done: Optional[torch.cuda.Event] = None
+    decoded: Optional[torch.Tensor] = None
+
+    def landed(self) -> bool:
+        return self.done is None or self.done.query()
 
 
 class _Shard:
     """One device's slots ``[first, first + n)``: its decode weights, pool of
-    conditioning rows, output buffer and decode state, and (on a card,
-    when there are several shards) its own stream."""
+    conditioning rows, output buffer and decode state, (on a card, when
+    there are several shards) its own stream, and (on a card) the side
+    stream and pinned slots that a drain's segments are copied through."""
 
     def __init__(self, index: int, device: torch.device, first: int, n: int,
-                 weights, max_frames: int, hop: int, head, own_stream: bool):
+                 weights, max_frames: int, hop: int, seg_samples: int, head,
+                 own_stream: bool):
         self.index, self.device, self.first, self.n = index, device, first, n
         self.weights = weights
         hidden, proj3h = weights.wh.shape
         self.pool = torch.zeros(n, max_frames, proj3h, dtype=torch.bfloat16, device=device)
         self.out_buf = torch.zeros(n, max_frames * hop, dtype=torch.int32, device=device)
         self.state = head.init_state(n, hidden, device)
-        self.stream = (torch.cuda.Stream(device) if own_stream and device.type == "cuda"
-                       else None)
+        on_card = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if own_stream and on_card else None
+        self.copies = torch.cuda.Stream(device) if on_card else None
+        # (sf * hop, rows): the kernels' own (steps, rows) order, so each
+        # copy is one contiguous transfer.
+        self.staging = [torch.empty(seg_samples, n, dtype=torch.int32, pin_memory=True)
+                        for _ in range(STAGING_SLOTS if on_card else 0)]
+        self.staged = 0  # copies queued: the next fills slot staged % STAGING_SLOTS
+        self.untaken = 0  # landings the host has not taken: each holds its slot
+
+    def mark(self) -> Optional[torch.cuda.Event]:
+        """An event after the launches queued so far (None on the CPU)."""
+        if self.copies is None:
+            return None
+        event = torch.cuda.Event()
+        event.record(self.stream if self.stream is not None
+                     else torch.cuda.current_stream(self.device))
+        return event
 
     @contextlib.contextmanager
     def launching(self):
@@ -270,11 +314,17 @@ class ContinuousBatcher:
             if d not in by_device:
                 by_device[d] = _weights_on(self._weights, d)
             self._shards.append(_Shard(j, d, j * per, per, by_device[d], self._max_frames,
-                                       self._hop, self._head, n_shards > 1))
+                                       self._hop, segment_frames * self._hop, self._head,
+                                       n_shards > 1))
         self._slot_meta = [_Slot() for _ in range(slots)]
         self._queue: Deque[tuple] = deque()
-        # rid -> (its timeline, where it lies there: request()'s arguments)
-        self._pending: Dict[int, tuple] = {}
+        # step()'s finished rids -> their classes on the device
+        self._pending: Dict[int, torch.Tensor] = {}
+        # A drain's segments not yet taken by the host, in launch order, and
+        # its unfinished rids -> [waveform (None until its first piece lands),
+        # pieces still to come, samples]
+        self._landings: Deque[_Landing] = deque()
+        self._streaming: Dict[int, list] = {}
         self._results: Dict[int, np.ndarray] = {}
         self._next_rid = 0
         self._submitted: Dict[int, float] = {}  # rid -> host clock at submit, until admitted
@@ -283,6 +333,7 @@ class ContinuousBatcher:
         self._dispatch_wall = 0.0
         self._admitted = 0
         self._queue_wait = 0.0
+        self._expanded_in_flight = 0
 
     # ------------------------------------------------------------------ API
 
@@ -341,37 +392,45 @@ class ContinuousBatcher:
             self._samples_out += min(slot.total_frames - slot.pos_frames, sf) * hop
             slot.pos_frames += sf
             if slot.pos_frames >= slot.total_frames:
-                n = slot.total_frames * hop
-                self._pending[slot.rid] = (
-                    _Timeline([shard.out_buf[row, :n].clone()[None, None]]),
-                    (0, 0, 1, n, None),
-                )
+                self._pending[slot.rid] = shard.out_buf[row, : slot.total_frames * hop].clone()
                 finished.append(slot.rid)
                 self._slot_meta[i] = _Slot()
         self._dispatch_wall += time.perf_counter() - start
         return finished
 
     def result(self, rid: int) -> np.ndarray:
-        """A finished stream's float32 waveform (waits for the device)."""
+        """A finished stream's float32 waveform (waits for the device).
+
+        A request of a drain whose last segments the host has not taken yet
+        takes them, in launch order, until the request is whole."""
         if rid in self._pending:
-            timeline, where = self._pending.pop(rid)
-            timeline.fetch()
+            with span("serving.fetch"):
+                classes = _to_host(self._pending.pop(rid))
             with span("serving.expand", rid=rid):
-                self._results[rid] = self._head.to_wave(timeline.request(*where))
+                self._results[rid] = self._head.to_wave(classes)
+        while rid in self._streaming:
+            self._take()
         return self._results[rid]
 
     def run(self, materialize: bool = True, wait: bool = True) -> Dict[int, np.ndarray]:
         """Drain the queue and every stream in flight (planned drain).
 
-        ``materialize=False`` leaves the classes on the device, fetched by
-        :meth:`result`; ``wait=False`` also skips the final synchronisation
-        with the card, so the call returns once every launch is queued.
+        The drain writes each segment's samples into their requests'
+        waveforms as its launches complete, but for the last segments.
+        ``materialize=False`` leaves those to :meth:`result` and returns
+        only the waveforms finished before the call; ``wait=False`` also
+        skips the final synchronisation with the card, so the call returns
+        once every launch is queued.
         """
+        returned = dict(self._results)
         if self._queue or any(s.rid is not None for s in self._slot_meta):
             self._drain_planned(wait)
-        if materialize:
-            for rid in list(self._pending):
-                self.result(rid)
+        if not materialize:
+            return returned
+        while self._landings:
+            self._take()
+        for rid in list(self._pending):
+            self.result(rid)
         return dict(self._results)
 
     @property
@@ -380,14 +439,17 @@ class ContinuousBatcher:
         snapshots subtract: ``steps`` (segments launched), ``samples_out``
         (requests' samples decoded), ``dispatch_wall_s`` (host seconds in
         ``step()`` and the planned drain), ``admitted`` (requests taken from
-        the queue: into a slot by ``step()``, into the plan by ``run()``)
-        and ``queue_wait_s`` (their host seconds from ``submit``)."""
+        the queue: into a slot by ``step()``, into the plan by ``run()``),
+        ``queue_wait_s`` (their host seconds from ``submit``) and
+        ``expanded_in_flight`` (drain samples written into their waveforms
+        before the drain's last launch had completed on the device)."""
         return {
             "samples_out": float(self._samples_out),
             "dispatch_wall_s": self._dispatch_wall,
             "steps": float(self._step_count),
             "admitted": float(self._admitted),
             "queue_wait_s": self._queue_wait,
+            "expanded_in_flight": float(self._expanded_in_flight),
         }
 
     # ------------------------------------------------------------ internals
@@ -410,6 +472,70 @@ class ContinuousBatcher:
         shard index folded in when there are several."""
         seed = segment_seed(self._seed, segment)
         return seed if len(self._shards) == 1 else segment_seed(seed, shard.index)
+
+    def _land(self, shard: _Shard, drain: _Drain, step: int, classes: torch.Tensor) -> None:
+        """Send a launch's samples (rows of the shard, sf * hop) to the host:
+        on a card, a copy into the shard's next pinned slot on its side
+        stream, after the launch, which the next launches do not wait for;
+        on the CPU they are there."""
+        shard.untaken += 1
+        if shard.copies is None:
+            self._landings.append(_Landing(drain, step, shard, classes.numpy()))
+            return
+        host = shard.staging[shard.staged % STAGING_SLOTS]
+        shard.staged += 1
+        shard.copies.wait_stream(torch.cuda.current_stream(shard.device))
+        with torch.cuda.stream(shard.copies):
+            host.copy_(classes.t(), non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(shard.copies)
+        self._landings.append(_Landing(drain, step, shard, host.numpy().T, done, classes))
+
+    def _free_slot(self, shard: _Shard) -> None:
+        """Take landings until the shard's next pinned slot is free (the host
+        takes each shard's in the order they were staged): the one wait on
+        the card while launches remain to queue."""
+        while shard.staging and shard.untaken >= STAGING_SLOTS:
+            self._take()
+
+    def _take_landed(self) -> None:
+        """Take the landings whose copies are done, in launch order."""
+        while self._landings and self._landings[0].landed():
+            self._take()
+
+    def _take(self) -> None:
+        """Take the oldest landing (waiting for its copy) and write each live
+        row's piece into its request's waveform, at its frame position; a
+        request whose last piece this is is finished."""
+        landing = self._landings.popleft()
+        with span("serving.fetch"):
+            if landing.done is not None:
+                landing.done.synchronize()
+        drain, shard, k = landing.drain, landing.shard, landing.step
+        seg_samples = landing.host.shape[1]
+        with span("serving.expand", segment=drain.first_segment + k):
+            decoding = drain.decoding()
+            cols = slice(shard.first, shard.first + shard.n)
+            expanded = 0
+            for row, (r, pos) in enumerate(zip(drain.rows_t[k, cols], drain.pos_t[k, cols])):
+                if r < 0:
+                    continue
+                rid = drain.row_rid[r]
+                entry = self._streaming[rid]
+                if entry[0] is None:  # here, while the card decodes: a job's thousands
+                    # of allocations in the plan would hold back its first launch
+                    entry[0] = np.empty(entry[2], np.float32)
+                wave, off = entry[0], pos * self._hop
+                piece = landing.host[row, : min(seg_samples, wave.shape[0] - off)]
+                wave[off : off + piece.shape[0]] = self._head.to_wave(piece)
+                expanded += piece.shape[0]
+                entry[1] -= 1
+                if not entry[1]:
+                    self._results[rid] = wave
+                    del self._streaming[rid]
+            if decoding:
+                self._expanded_in_flight += expanded
+        shard.untaken -= 1
 
     def _gather(self, rows, positions) -> torch.Tensor:
         """Every slot's (sf, 3H) window: rows[i] = (buffer, row), at positions[i]."""
@@ -532,8 +658,22 @@ class ContinuousBatcher:
                 copies[key] = buf.to(device)
             return copies[key]
 
-        outs: List[List[torch.Tensor]] = [[] for _ in self._shards]
+        drain = _Drain(rows_t, pos_t, {r: rid for rid, r in rid_row.items()}, self._step_count)
+        for rid, (slot, _s0, nseg) in rid_sched.items():
+            n, pos0, wave = rid_total[rid] * hop, rid_pos0[rid], None
+            if pos0 or not nseg:
+                wave = np.empty(n, np.float32)
+            if pos0:  # what the request decoded before the drain
+                shard, row = self._shard_of(slot)
+                wave[: pos0 * hop] = self._head.to_wave(_to_host(shard.out_buf[row, : pos0 * hop]))
+            if nseg:
+                self._streaming[rid] = [wave, nseg, n]
+            else:
+                self._results[rid] = wave
+
         for k in range(rows_t.shape[0]):
+            for shard in self._shards:
+                self._free_slot(shard)
             with span("serving.launch", segment=self._step_count + k):
                 for shard in self._shards:
                     cols = slice(shard.first, shard.first + shard.n)
@@ -549,19 +689,13 @@ class ContinuousBatcher:
                             shard.weights, seg, shard.state,
                             self._launch_seed(self._step_count + k, shard),
                         )
-                        outs[shard.index].append(classes)
+                        self._land(shard, drain, k, classes)
+            if k == rows_t.shape[0] - 1:
+                drain.last = [shard.mark() for shard in self._shards]
+            self._take_landed()
         for shard in self._shards:
             shard.join()
 
-        if rows_t.shape[0]:
-            timeline = _Timeline([torch.stack(o) for o in outs])
-            for rid, (slot, s0, nseg) in rid_sched.items():
-                pos0 = rid_pos0[rid]
-                shard, row = self._shard_of(slot)
-                prefix = shard.out_buf[row, : pos0 * hop].clone() if pos0 else None
-                self._pending[rid] = (
-                    timeline, (slot, s0, nseg, (rid_total[rid] - pos0) * hop, prefix)
-                )
         if wait:
             for d in {shard.device for shard in self._shards if shard.device.type == "cuda"}:
                 torch.cuda.synchronize(d)

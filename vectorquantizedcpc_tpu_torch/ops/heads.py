@@ -49,9 +49,11 @@ class MulawHead:
         return ar.DecodeState(*ar.init_decode_state(batch, hidden, self.n_classes, device))
 
     def reset_row(self, state: ar.DecodeState, row) -> None:
-        """A fresh stream in ``row``: zero h, mu-law silence as the class before."""
-        state.h[row] = 0.0
-        state.prev[row] = self.n_classes // 2
+        """A fresh stream in ``row``: zero h, mu-law silence as the class
+        before. Filled in place: a number assigned to one element of a
+        card's tensor is copied from the host, which waits for the stream."""
+        state.h[row].zero_()
+        state.prev[row].fill_(self.n_classes // 2)
 
     def to_wave(self, classes: np.ndarray) -> np.ndarray:
         return self._table[classes]
@@ -78,9 +80,11 @@ class Dual16Head:
         return dd.init_dual_state(batch, hidden, device)
 
     def reset_row(self, state: dd.DualDecodeState, row) -> None:
-        """A fresh stream in ``row``: zero h, 16-bit silence as the sample before."""
-        state.h[row] = 0.0
-        state.c_prev[row], state.f_prev[row] = SILENCE
+        """A fresh stream in ``row``: zero h, 16-bit silence as the sample
+        before, filled in place (as ``MulawHead.reset_row``)."""
+        state.h[row].zero_()
+        state.c_prev[row].fill_(SILENCE[0])
+        state.f_prev[row].fill_(SILENCE[1])
 
     def to_wave(self, samples: np.ndarray) -> np.ndarray:
         return pcm16_to_float(samples)
